@@ -1,0 +1,223 @@
+"""Public synthesis API (port of vallex_tpu/api.py: preload_models,
+generate_audio, _prepare_text, the prompt loaders and codes_to_wave).
+
+Runs on `cuda` unless the caller passes `device="cpu"`; with no GPU and no
+explicit CPU device it raises rather than falling back. Voice prompts use
+the reference's `.npz` format (`audio_tokens` (1, T, 8), `text_tokens`
+(1, S), `lang_code`), so the 41 shipped presets load unchanged.
+"""
+
+from __future__ import annotations
+
+import functools
+import os
+from dataclasses import dataclass, field
+from typing import Any, List, Optional
+
+import numpy as np
+import torch
+
+from .codec import vocos as VC
+from .config import (
+    ENCODEC_FRAME_RATE as FRAME_RATE,
+    NUM_QUANTIZERS,
+    EngineConfig,
+    ModelConfig,
+    code2lang,
+    lang2token,
+    langdropdown2token,
+    model_language_id,
+    token2lang,
+)
+from .convert import load_tree
+from .engine.pipeline import DTYPES, SynthesisPipeline, SynthesisResult
+from .frontend import PhonemeTokenizer, get_text_token_collater
+from .frontend.langid import classify
+from .models.vallex import VALLE, init_vallex
+
+_ASSET_DIR = os.path.join(os.path.dirname(__file__), "assets")
+
+# preset search paths, first hit wins (reference: generation.py:103-110)
+PROMPT_SEARCH_DIRS = ["./presets", "./customs", os.path.join(_ASSET_DIR, "presets")]
+if os.environ.get("VALLEX_PRESETS_DIR"):
+    PROMPT_SEARCH_DIRS.insert(0, os.environ["VALLEX_PRESETS_DIR"])
+
+
+@dataclass
+class ModelBundle:
+    model: VALLE
+    cfg: ModelConfig
+    ecfg: EngineConfig
+    pipeline: SynthesisPipeline
+    vocos: Optional[VC.Vocos]
+    device: torch.device
+    tokenizer: PhonemeTokenizer = field(default_factory=PhonemeTokenizer)
+    collater: Any = field(default_factory=get_text_token_collater)
+    last: Optional[SynthesisResult] = None  # the latest synthesis, with timings
+
+
+_bundle: Optional[ModelBundle] = None
+
+
+def resolve_device(device=None) -> torch.device:
+    """`cuda` unless told otherwise; a CUDA request without a GPU raises."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the port runs on the GPU; pass device='cpu' to"
+            " run the plain PyTorch path on the CPU")
+    return dev
+
+
+def preload_models(
+    checkpoint_dir: Optional[str] = None,
+    *,
+    random_weights: bool = False,
+    cfg: Optional[ModelConfig] = None,
+    ecfg: Optional[EngineConfig] = None,
+    seed: int = 0,
+    device=None,
+    params=None,
+    vocos_params=None,
+) -> ModelBundle:
+    """Build the model stack on `device`.
+
+    Weights: `params` / `vocos_params` — parameter trees in the JAX
+    package's layout (numpy or torch leaves, e.g. from
+    `jax.tree.map(np.asarray, params)`) — or, with random_weights=True, a
+    random init drawn from torch.Generator(seed) (Vocos from seed + 1).
+    Reading checkpoint files is not ported yet (ROADMAP.md §1 item 1)."""
+    global _bundle
+    cfg = cfg or ModelConfig()
+    ecfg = ecfg or EngineConfig()
+    dev = resolve_device(device)
+    if params is None:
+        if not random_weights:
+            raise NotImplementedError(
+                f"loading checkpoints (from {checkpoint_dir!r}) is not ported"
+                " yet (ROADMAP.md §1 item 1); pass random_weights=True or"
+                " params=<tree>")
+        params = init_vallex(cfg, torch.Generator().manual_seed(seed))
+        vocos_params = VC.init_vocos(torch.Generator().manual_seed(seed + 1))
+    model = load_tree(VALLE(cfg), params, dtype=DTYPES[ecfg.compute_dtype], device=dev)
+    vocos = (None if vocos_params is None
+             else load_tree(VC.Vocos(), vocos_params, dtype=torch.float32, device=dev))
+    _bundle = ModelBundle(
+        model=model, cfg=cfg, ecfg=ecfg,
+        pipeline=SynthesisPipeline(model, cfg, ecfg, vocos),
+        vocos=vocos, device=dev,
+    )
+    return _bundle
+
+
+def _require_bundle() -> ModelBundle:
+    if _bundle is None:
+        raise RuntimeError("call preload_models() first")
+    return _bundle
+
+
+def _find_prompt(prompt: str) -> str:
+    if os.path.exists(prompt):
+        return prompt
+    for d in PROMPT_SEARCH_DIRS:
+        p = os.path.join(d, prompt + ".npz")
+        if os.path.exists(p):
+            return p
+    raise ValueError(f"Cannot find prompt {prompt}")
+
+
+@functools.lru_cache(maxsize=256)
+def _read_prompt_npz(path: str, mtime: float):
+    """Disk read + parse, cached by (path, mtime)."""
+    data = np.load(path)
+    audio = np.asarray(data["audio_tokens"], np.int32).reshape(-1, NUM_QUANTIZERS)
+    text = np.asarray(data["text_tokens"], np.int32).reshape(-1)
+    lang_pr = code2lang[int(data["lang_code"])]
+    audio.setflags(write=False)
+    text.setflags(write=False)
+    return audio, text, lang_pr
+
+
+def _load_prompt(prompt: Optional[str]):
+    """→ (audio_tokens [T, 8] int32, text_tokens [S] int32, lang code)."""
+    if prompt is None:
+        return (np.zeros((0, NUM_QUANTIZERS), np.int32), np.zeros((0,), np.int32), None)
+    path = _find_prompt(prompt)
+    return _read_prompt_npz(path, os.path.getmtime(path))
+
+
+def _prepare_text(bundle: ModelBundle, text: str, text_prompt: np.ndarray,
+                  lang_pr: Optional[str], language: str = "auto",
+                  accent: str = "no-accent"):
+    """Text + prompt text → (text_ids [S], per-position lang_ids [S])
+    following the reference prologue (generation.py:96-138)."""
+    text = text.replace("\n", "").strip(" ")
+    if language == "auto":
+        language = classify(text)
+    lang_token = lang2token[language]
+    lang = token2lang[lang_token]
+    text = lang_token + text + lang_token
+    if lang_pr is None:
+        lang_pr = lang if lang != "mix" else "en"
+
+    phone_tokens, langs = bundle.tokenizer.tokenize(text=f"_{text}".strip())
+    text_ids, _ = bundle.collater([phone_tokens])
+    text_ids = np.concatenate([text_prompt[None], text_ids], axis=1)[0]
+    enroll = len(text_prompt)
+    if accent == "no-accent":
+        text_langs = [model_language_id[l] for l in langs]
+    else:
+        accent_lang = token2lang[langdropdown2token[accent]]
+        text_langs = [model_language_id[accent_lang]] * len(langs)
+    lang_ids = np.concatenate([
+        np.full(enroll, model_language_id[lang_pr], np.int32),
+        np.asarray(text_langs, np.int32),
+    ])
+    return text_ids.astype(np.int32), lang_ids
+
+
+@torch.inference_mode()
+def codes_to_wave(bundle: ModelBundle, codes: np.ndarray) -> np.ndarray:
+    """[T, 8] codes → waveform [T · 320] via Vocos."""
+    if bundle.vocos is None:
+        raise RuntimeError("Vocos weights unavailable")
+    c = torch.as_tensor(np.asarray(codes), device=bundle.device).long()[None]
+    wave = VC.vocos_decode(bundle.vocos, c, bandwidth_id=2, t_len=c.shape[1])
+    return wave[0].cpu().numpy()
+
+
+def generate_audio(
+    text: str,
+    prompt: Optional[str] = None,
+    language: str = "auto",
+    accent: str = "no-accent",
+    *,
+    best_of: Optional[int] = None,
+    temperature: Optional[float] = None,
+    top_k: Optional[int] = None,
+    top_p: Optional[float] = None,
+    seed: int = 0,
+    max_duration: Optional[float] = None,
+) -> np.ndarray:
+    """Synthesize one utterance → float waveform @ 24 kHz (reference:
+    generation.py:91-152). max_duration (seconds) caps the generated
+    length. The result with its phase timings stays on bundle.last."""
+    bundle = _require_bundle()
+    audio_prompt, text_prompt, lang_pr = _load_prompt(prompt)
+    text_ids, lang_ids = _prepare_text(bundle, text, text_prompt, lang_pr, language, accent)
+    res = bundle.pipeline.synthesize(
+        text_ids, lang_ids, audio_prompt if len(audio_prompt) else None,
+        best_of=best_of, temperature=temperature, top_k=top_k, top_p=top_p,
+        seed=seed, return_wave=bundle.vocos is not None,
+        max_gen_frames=(None if max_duration is None
+                        else max(1, int(max_duration * FRAME_RATE))),
+    )
+    bundle.last = res
+    if res.wave is None:
+        return codes_to_wave(bundle, res.codes)
+    return res.wave
+
+
+def generate_audio_batch(texts: List[str], *args, **kwargs):
+    raise NotImplementedError(
+        "batched requests are not ported yet: ROADMAP.md §1 item 8")

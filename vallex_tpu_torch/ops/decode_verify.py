@@ -1,0 +1,95 @@
+"""One decoder forward over M consecutive AR positions against the KV cache
+(port of vallex_tpu/ops/decode_verify.py::decode_verify).
+
+`decode_verify` is the bf16 verify pass of speculative decoding: the current
+token plus K-1 drafts at positions pos0..pos0+K-1, each attending the valid
+cache rows, the pass's earlier positions and itself; it returns the logits
+at every position and leaves the K KV columns in the caches. The draft
+steps of ops/decode_block.py run the same forward at M = 1.
+
+Every product goes through `gemm_small_m`, every attention through
+`masked_attention`; only the embedding gather, the PE add and the
+cache-column write are PyTorch glue. Caches are [NL, H, C, hd] (C with at
+least K slack rows) and are updated in place — the TPU kernel returned the
+columns for an XLA write instead. Each position's own column is read back
+from the cache (rounded to the cache dtype), where the TPU kernel folded
+it in unrounded.
+
+Masking contract (engine/ar.py layout): cache row c is valid for the
+position pos0 + i iff c < x_len or s_text <= c <= s_text + pos0 + i.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from ..kernels import gemm_small_m, masked_attention
+
+
+def forward_positions(
+    tokens: torch.Tensor,  # [M] tokens fed at positions pos0..pos0+M-1
+    lw: Dict,  # ops.decode_step.pack_layer_weights (optionally quantized)
+    cache_k: torch.Tensor,  # [NL, H, C, hd], updated in place
+    cache_v: torch.Tensor,
+    pe_table: torch.Tensor,  # [max_position, D] f32
+    *,
+    x_len: int,
+    audio_pos: int,  # pos0
+    s_text: int,
+    site: str,
+) -> torch.Tensor:
+    """→ logits [M, VP] f32 at every fed position."""
+    M = tokens.shape[0]
+    NL, H, _, hd = cache_k.shape
+    D = H * hd
+    h = lw["emb"][tokens.long()].float() + lw["alpha"] * pe_table[audio_pos: audio_pos + M]
+    slot = s_text + audio_pos
+
+    def sc(name, layer):
+        s = lw[name]
+        return None if s is None else s[layer]
+
+    for li in range(NL):
+        qkv = gemm_small_m(
+            h, lw["wqkv"][li], scale=sc("sqkv", li), bias=lw["bqkv"][li],
+            ln=(lw["ln1s"][li], lw["ln1b"][li]), site=site,
+        )
+        heads = qkv.view(M, 3, H, hd)
+        cache_k[li, :, slot: slot + M] = heads[:, 1].transpose(0, 1)
+        cache_v[li, :, slot: slot + M] = heads[:, 2].transpose(0, 1)
+        attn = torch.empty((M, D), dtype=torch.float32, device=h.device)
+        masked_attention(
+            heads[:, 0].transpose(0, 1)[None],
+            cache_k[li][None], cache_v[li][None],
+            x_len=x_len, s_text=s_text, audio_len=audio_pos + 1, q_off=1,
+            out=attn.view(M, H, hd).transpose(0, 1)[None], site=site,
+        )
+        h = gemm_small_m(attn, lw["wout"][li], scale=sc("sout", li),
+                         bias=lw["bout"][li], residual=h, site=site)
+        f = gemm_small_m(h, lw["w1"][li], scale=sc("s1", li), bias=lw["b1"][li],
+                         ln=(lw["ln2s"][li], lw["ln2b"][li]), relu=True, site=site)
+        h = gemm_small_m(f, lw["w2"][li], scale=sc("s2", li), bias=lw["b2"][li],
+                         residual=h, site=site)
+    return gemm_small_m(h, lw["wpred"], scale=lw["spred"],
+                        ln=(lw["fns"], lw["fnb"]), site=site)
+
+
+def decode_verify(
+    fed: torch.Tensor,  # [K]
+    lw: Dict,  # bf16 (not quantized) packed weights
+    cache_k: torch.Tensor,
+    cache_v: torch.Tensor,
+    pe_table: torch.Tensor,
+    *,
+    x_len: int,
+    audio_pos: int,
+    s_text: int,
+) -> torch.Tensor:
+    """One forward over the K fed positions → logits [K, VP] f32; the K
+    KV columns are written at s_text + audio_pos (in place)."""
+    return forward_positions(
+        fed, lw, cache_k, cache_v, pe_table, x_len=x_len,
+        audio_pos=audio_pos, s_text=s_text, site="decode_verify",
+    )
