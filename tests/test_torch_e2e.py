@@ -47,11 +47,11 @@ def _port(ref, **ecfg):
 
 
 @pytest.mark.parametrize("mode,speculative", [
-    ("auto", "auto"), ("kernels", "auto"), ("kernels", "off"),
-])
+    ("auto", "auto"), ("megakernel", "auto"), ("megakernel", "off"),
+], ids=["auto-auto", "kernels-auto", "kernels-off"])
 def test_generate_audio_greedy_matches_jax(jax_ref, mode, speculative):
-    """"auto" is the per-token path on the CPU; "kernels" runs the kernel
-    path's ops (speculative, or K-step blocks with speculation off)."""
+    """"auto" is the per-token path on the CPU; "megakernel" runs the
+    kernel path's ops (speculative, or K-step blocks with speculation off)."""
     bundle = _port(jax_ref, decode_mode=mode, speculative=speculative)
     audio, text_prompt, lang_pr = tapi._load_prompt(PROMPT)
     ids, langs = tapi._prepare_text(bundle, TEXT, text_prompt, lang_pr, "en")
@@ -63,11 +63,11 @@ def test_generate_audio_greedy_matches_jax(jax_ref, mode, speculative):
     np.testing.assert_array_equal(res.codes, jax_ref["codes"])
     assert wave.shape == jax_ref["wave"].shape == (len(res.codes) * 320,)
     np.testing.assert_allclose(wave, jax_ref["wave"], atol=1e-4, rtol=1e-4)
-    if mode == "kernels":  # K frames per pass or block, not one
+    if mode == "megakernel":  # K frames per pass or block, not one
         assert res.ar.iterations < len(res.codes)
 
 
-@pytest.mark.parametrize("mode", ["auto", "kernels"])
+@pytest.mark.parametrize("mode", ["auto", "megakernel"], ids=["auto", "kernels"])
 def test_generate_audio_sampled_runs(jax_ref, mode):
     """Default sampled mode (top_k=-100): speculative sampling on the
     kernel path, per-token categorical on the other; a finite waveform of

@@ -77,7 +77,7 @@ def test_speculative_greedy_matches_pallas_interpret(monkeypatch):
         model, CFG, text_pad, np.zeros(128, np.int64), S, prompt_pad, Tp,
         generator=torch.Generator(), top_k=1, temperature=1.0, gen_limit=None,
         s_text=128, p_audio=512, t_audio=512, dtype=torch.float32,
-        decode_mode="kernels", decode_steps=8, speculative=True,
+        decode_mode="megakernel", decode_steps=8, speculative=True,
         packed=packed, packed_draft=quantize_weights(packed))
     ours = res.tokens[Tp + 1: Tp + 1 + res.gen_len]
     np.testing.assert_array_equal(ours, gen)

@@ -8,14 +8,14 @@ plus K slack rows):
                                generated frames).
 
 Decode modes:
-  "kernels" — the TPU megakernel path: speculative decoding (int8 draft of
+  "megakernel" — the TPU megakernel path: speculative decoding (int8 draft of
       K-1 frames through ops/decode_block.py, one bf16 verify pass through
       ops/decode_verify.py, then greedy prefix matching or
       ops/sampling.py::speculative_accept), or K-step blocks when
       speculation is off. Runs on the hand-written kernels on the card.
   "xla" — the per-token loop (`body`) in plain PyTorch: the CPU path and
       the oracle for the kernel path.
-  "auto" — "kernels" on CUDA, "xla" on the CPU (the JAX package's rule).
+  "auto" — "megakernel" on CUDA, "xla" on the CPU (the JAX package's rule).
 
 Semantics kept from the reference: EOS forcing (a done sequence keeps
 emitting EOS), logprob accumulation only while alive, stop at EOS or at
@@ -120,7 +120,7 @@ def ar_generate(
     greedy = top_k == 1
     NL, H, hd = cfg.num_layers, cfg.num_heads, cfg.head_dim
     eos = cfg.eos_id
-    kernels = decode_mode == "kernels"
+    kernels = decode_mode == "megakernel"
     K = decode_steps if kernels else 0
     C = s_text + t_audio
 

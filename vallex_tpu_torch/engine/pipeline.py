@@ -14,6 +14,7 @@ from typing import Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from ..config import EngineConfig, ModelConfig
 from ..models import vallex as V
@@ -75,7 +76,9 @@ class SynthesisResult(NamedTuple):
 
 class SynthesisPipeline:
     """AR + NAR (+ Vocos) on one device. decode_mode "auto" runs the
-    hand-written kernels on CUDA and the per-token loop on the CPU."""
+    hand-written kernels on CUDA and the per-token loop on the CPU. Each
+    phase is a profiler span ("vallex.ar", "vallex.nar", "vallex.vocos")
+    that a torch.profiler trace reads its device-busy share from."""
 
     def __init__(self, model: V.VALLE, cfg: ModelConfig, ecfg: EngineConfig,
                  vocos=None):
@@ -86,9 +89,9 @@ class SynthesisPipeline:
         self.device = model.pe.device
         self.dtype = DTYPES[ecfg.compute_dtype]
         mode = ecfg.decode_mode
-        if mode in ("auto", "megakernel"):
-            mode = "kernels" if self.device.type == "cuda" else "xla"
-        if mode not in ("kernels", "xla"):
+        if mode == "auto":
+            mode = "megakernel" if self.device.type == "cuda" else "xla"
+        if mode not in ("megakernel", "xla"):
             raise NotImplementedError(
                 f"decode_mode={ecfg.decode_mode!r} is not ported: the port has"
                 " the kernel path and the per-token path (ROADMAP.md §2 item 4"
@@ -154,34 +157,36 @@ class SynthesisPipeline:
 
         greedy = top_k == 1
         speculative = e.speculative in ("auto", "on")
-        kernels = self.decode_mode == "kernels"
+        kernels = self.decode_mode == "megakernel"
         packed, draft = (self.packed_weights(speculative) if kernels else (None, None))
         generator = torch.Generator(device=dev)
         generator.manual_seed(int(seed) & 0x7FFFFFFF)
-        ar = ar_generate(
-            self.model, cfg, text_pad, lang_pad, S, prompt_pad, Tp,
-            generator=generator, top_k=top_k, temperature=temperature,
-            gen_limit=max_gen_frames, s_text=s_text, p_audio=p_audio,
-            t_audio=t_audio, dtype=self.dtype, decode_mode=self.decode_mode,
-            decode_steps=e.decode_steps, speculative=speculative and kernels,
-            packed=packed, packed_draft=draft,
-        )
-        self._sync()
+        with record_function("vallex.ar"):
+            ar = ar_generate(
+                self.model, cfg, text_pad, lang_pad, S, prompt_pad, Tp,
+                generator=generator, top_k=top_k, temperature=temperature,
+                gen_limit=max_gen_frames, s_text=s_text, p_audio=p_audio,
+                t_audio=t_audio, dtype=self.dtype, decode_mode=self.decode_mode,
+                decode_steps=e.decode_steps, speculative=speculative and kernels,
+                packed=packed, packed_draft=draft,
+            )
+            self._sync()
         seconds["ar"] = time.perf_counter() - t0
 
         t1 = time.perf_counter()
-        codes_pad = torch.zeros((1, t_audio, cfg.num_quantizers), dtype=torch.int64, device=dev)
-        codes_pad[0, :Tp] = torch.from_numpy(np.array(prompt, np.int64)).to(dev)
-        codes_in = assemble_nar_input(
-            torch.as_tensor(ar.tokens, device=dev), codes_pad, t_audio, cfg.eos_id)
         gl = ar.gen_len
-        codes = nar_generate(
-            self.model, cfg, torch.as_tensor(text_pad, device=dev)[None],
-            torch.as_tensor(lang_pad, device=dev)[None], S, codes_in, Tp + gl, Tp,
-            dtype=self.dtype,
-        )
-        gen_codes = shift_out_prompt(codes, Tp, gl)
-        self._sync()
+        with record_function("vallex.nar"):
+            codes_pad = torch.zeros((1, t_audio, cfg.num_quantizers), dtype=torch.int64, device=dev)
+            codes_pad[0, :Tp] = torch.from_numpy(np.array(prompt, np.int64)).to(dev)
+            codes_in = assemble_nar_input(
+                torch.as_tensor(ar.tokens, device=dev), codes_pad, t_audio, cfg.eos_id)
+            codes = nar_generate(
+                self.model, cfg, torch.as_tensor(text_pad, device=dev)[None],
+                torch.as_tensor(lang_pad, device=dev)[None], S, codes_in, Tp + gl, Tp,
+                dtype=self.dtype,
+            )
+            gen_codes = shift_out_prompt(codes, Tp, gl)
+            self._sync()
         seconds["nar"] = time.perf_counter() - t1
 
         wave = None
@@ -189,7 +194,8 @@ class SynthesisPipeline:
             from ..codec.vocos import HOP, vocos_decode
 
             t2 = time.perf_counter()
-            w = vocos_decode(self.vocos, gen_codes, bandwidth_id=2, t_len=gl)
-            wave = w[0, : gl * HOP].cpu().numpy()
+            with record_function("vallex.vocos"):
+                w = vocos_decode(self.vocos, gen_codes, bandwidth_id=2, t_len=gl)
+                wave = w[0, : gl * HOP].cpu().numpy()
             seconds["vocos"] = time.perf_counter() - t2
         return SynthesisResult(gen_codes[0, :gl].cpu().numpy(), wave, ar, seconds)
