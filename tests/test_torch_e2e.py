@@ -82,7 +82,7 @@ def test_generate_audio_sampled_runs(jax_ref, mode):
 
 
 @pytest.mark.parametrize("change", [
-    dict(best_of=2), dict(quantize="int8"), dict(decode_steps=1),
+    dict(best_of=2), dict(quantize="int8kv"), dict(decode_steps=1),
 ])
 def test_configs_outside_the_slice_raise(jax_ref, change):
     _port(jax_ref, **change)
@@ -95,7 +95,7 @@ def test_filtered_sampling_and_batches_raise(jax_ref):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tapi.generate_audio(TEXT, language="en", top_k=5)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tapi.generate_audio_batch([TEXT, TEXT])
+        tapi.generate_audio_batch([TEXT, TEXT], top_k=5)
 
 
 def test_cuda_default_without_gpu_raises(jax_ref, monkeypatch):

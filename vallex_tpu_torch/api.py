@@ -1,5 +1,6 @@
 """Public synthesis API (port of vallex_tpu/api.py: preload_models,
-generate_audio, _prepare_text, the prompt loaders and codes_to_wave).
+generate_audio, generate_audio_batch, _prepare_text, the prompt loaders and
+codes_to_wave).
 
 Runs on `cuda` unless the caller passes `device="cpu"`; with no GPU and no
 explicit CPU device it raises rather than falling back. Voice prompts use
@@ -12,7 +13,7 @@ from __future__ import annotations
 import functools
 import os
 from dataclasses import dataclass, field
-from typing import Any, List, Optional
+from typing import Any, List, Optional, Union
 
 import numpy as np
 import torch
@@ -30,7 +31,12 @@ from .config import (
     token2lang,
 )
 from .convert import load_tree
-from .engine.pipeline import DTYPES, SynthesisPipeline, SynthesisResult
+from .engine.pipeline import (
+    DTYPES,
+    BatchSynthesisResult,
+    SynthesisPipeline,
+    SynthesisResult,
+)
 from .frontend import PhonemeTokenizer, get_text_token_collater
 from .frontend.langid import classify
 from .models.vallex import VALLE, init_vallex
@@ -53,7 +59,8 @@ class ModelBundle:
     device: torch.device
     tokenizer: PhonemeTokenizer = field(default_factory=PhonemeTokenizer)
     collater: Any = field(default_factory=get_text_token_collater)
-    last: Optional[SynthesisResult] = None  # the latest synthesis, with timings
+    # the latest synthesis (generate_audio or generate_audio_batch), with timings
+    last: Optional[Union[SynthesisResult, BatchSynthesisResult]] = None
 
 
 _bundle: Optional[ModelBundle] = None
@@ -218,6 +225,47 @@ def generate_audio(
     return res.wave
 
 
-def generate_audio_batch(texts: List[str], *args, **kwargs):
+def generate_audio_batch(
+    texts: List[str],
+    prompts: Optional[List[Optional[str]]] = None,
+    language: str = "auto",
+    accent: str = "no-accent",
+    *,
+    best_of: Optional[int] = None,
+    temperature: Optional[float] = None,
+    top_k: Optional[int] = None,
+    top_p: Optional[float] = None,
+    seed: int = 0,
+) -> List[np.ndarray]:
+    """Synthesize several independent utterances in one batched pass on one
+    device: every AR decode step streams the weights once for all of them
+    (engine/ar.py::ar_generate_batch), then the NAR and Vocos run batched.
+    Requests may use different texts and voice prompts; language, accent
+    and the sampling settings apply to the whole batch. → list of float
+    waveforms @ 24 kHz, one per text. The result with its phase timings
+    stays on bundle.last."""
+    bundle = _require_bundle()
+    if not texts:
+        return []
+    if prompts is None:
+        prompts = [None] * len(texts)
+    if len(prompts) != len(texts):
+        raise ValueError("prompts must match texts (or be None)")
+    requests = []
+    for text, prompt in zip(texts, prompts):
+        audio_prompt, text_prompt, lang_pr = _load_prompt(prompt)
+        text_ids, lang_ids = _prepare_text(bundle, text, text_prompt, lang_pr, language, accent)
+        requests.append((text_ids, lang_ids, audio_prompt if len(audio_prompt) else None))
+    res = bundle.pipeline.synthesize_batch(
+        requests, best_of=best_of or bundle.ecfg.best_of, temperature=temperature,
+        top_k=top_k, top_p=top_p, seed=seed, return_wave=bundle.vocos is not None)
+    bundle.last = res
+    return [wave if wave is not None else codes_to_wave(bundle, codes)
+            for codes, wave in res.outputs]
+
+
+def stream_audio_from_long_text(text: str, *args, **kwargs):
+    """Long-text streaming (vallex_tpu.api.stream_audio_from_long_text) is
+    not ported yet: ROADMAP.md §1 item 7."""
     raise NotImplementedError(
-        "batched requests are not ported yet: ROADMAP.md §1 item 8")
+        "long-text streaming is not ported yet: ROADMAP.md §1 item 7")

@@ -13,7 +13,7 @@ Tensors are channels-last [B, T, C] as in the JAX code. Runs in f32.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Union
 
 import torch
 import torch.nn.functional as F
@@ -117,15 +117,25 @@ def _ln(x, scale, shift, eps=1e-6):
     return (x - mean) * torch.rsqrt(var + eps) * scale + shift
 
 
+TLen = Optional[Union[int, torch.Tensor]]  # valid frames: all rows, or [B]
+
+
+def _valid_frames(T: int, t_len, device) -> torch.Tensor:
+    """[B or 1, T] bool: frame j < t_len (of its row)."""
+    tl = t_len.reshape(-1, 1) if isinstance(t_len, torch.Tensor) else t_len
+    return torch.arange(T, device=device)[None, :] < tl
+
+
 def backbone_apply(v: Vocos, feats: torch.Tensor, bandwidth_id: int,
-                   t_len: Optional[int] = None) -> torch.Tensor:
-    """[B, T, 128] → [B, T, 512]. Rows ≥ t_len are re-zeroed after the
-    embed conv and after every block, so the conv windows at the boundary
-    see the zeros an exact-length run would see."""
+                   t_len: TLen = None) -> torch.Tensor:
+    """[B, T, 128] → [B, T, 512]. Rows ≥ t_len (per batch row when t_len
+    is a [B] tensor) are re-zeroed after the embed conv and after every
+    block, so the conv windows at the boundary see the zeros an
+    exact-length run would see."""
     if t_len is None:
         mask = lambda x: x  # noqa: E731
     else:
-        valid = torch.arange(feats.shape[1], device=feats.device)[None, :, None] < t_len
+        valid = _valid_frames(feats.shape[1], t_len, feats.device)[..., None]
         mask = lambda x: torch.where(valid, x, 0.0)  # noqa: E731
     bw = bandwidth_id
     x = _conv1d_same(feats, v.embed.w, v.embed.b)
@@ -184,15 +194,15 @@ def head_apply(v: Vocos, x: torch.Tensor, frame_valid=None) -> torch.Tensor:
 
 
 def vocos_decode(v: Vocos, codes: torch.Tensor, bandwidth_id: int = 2,
-                 t_len: Optional[int] = None) -> torch.Tensor:
-    """[B, T, 8] codes → [B, T·hop] waveform. t_len marks the valid frames:
-    features beyond it are zeroed before the conv stack (code 0 is a real
-    codebook vector, not silence) and their frames leave the ISTFT."""
+                 t_len: TLen = None) -> torch.Tensor:
+    """[B, T, 8] codes → [B, T·hop] waveform. t_len (an int, or [B] for a
+    batch of requests) marks the valid frames: features beyond it are
+    zeroed before the conv stack (code 0 is a real codebook vector, not
+    silence) and their frames leave the ISTFT."""
     feats = codes_to_features(v, codes)
     fv = None
     if t_len is not None:
-        rows = torch.arange(codes.shape[1], device=codes.device)[None, :]
-        fv = (rows < t_len).expand(codes.shape[0], -1)
+        fv = _valid_frames(codes.shape[1], t_len, codes.device).expand(codes.shape[0], -1)
         feats = torch.where(fv[..., None], feats, 0.0)
     x = backbone_apply(v, feats, bandwidth_id, t_len=t_len)
     return head_apply(v, x, frame_valid=fv)

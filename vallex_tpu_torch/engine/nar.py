@@ -1,13 +1,15 @@
 """NAR engine: codebooks 1..7 in 7 full-sequence passes (port of
-vallex_tpu/engine/nar.py::nar_generate, prefix_mode 1).
+vallex_tpu/engine/nar.py::nar_generate, prefix_mode 1), for one request or
+R batched requests with their own x_len, t_len and prompt_len.
 
 The prompt region's embeddings for codebooks 1..7 are summed into the
 running embedding once; stage s runs the AdaLN decoder conditioned on stage
 embedding s, argmax-decodes codebook s+1 and adds its embedding on the
 generated suffix. The mask is pure key padding (valid text columns and
 valid audio slots): from s_text + t_audio >= 1536 attention goes through
-the `masked_attention` kernel (the JAX package's Pallas flash attention),
-below that through the plain masked core, as in the JAX package.
+the `masked_attention` kernel (the JAX package's Pallas flash attention)
+with per-row bounds, below that through the plain masked core, as in the
+JAX package.
 """
 
 from __future__ import annotations
@@ -16,55 +18,66 @@ import torch
 
 from ..config import ModelConfig
 from ..kernels import masked_attention
+from ..kernels.masked_attention import IntOrRows, attention_bounds
 from ..models import vallex as V
 
 FLASH_MIN_LEN = 1536
 SITE = "flash_attention"
+SITE_BATCHED = "flash_attention_batched"
+
+
+def _col(v: IntOrRows):
+    """int → itself; [R] tensor → [R, 1] (broadcasts over positions)."""
+    return v.reshape(-1, 1) if isinstance(v, torch.Tensor) else v
 
 
 def nar_generate(
     model: V.VALLE,
     cfg: ModelConfig,
-    text_ids: torch.Tensor,  # [1, s_text] int64
-    lang_ids: torch.Tensor,  # [1, s_text]
-    x_len: int,
-    codes_in: torch.Tensor,  # [1, t_audio, 8]: prompt rows full, then AR cb0
-    t_len: int,  # valid audio frames (prompt + generated)
-    prompt_len: int,
+    text_ids: torch.Tensor,  # [R, s_text] int64
+    lang_ids: torch.Tensor,  # [R, s_text]
+    x_len: IntOrRows,
+    codes_in: torch.Tensor,  # [R, t_audio, 8]: prompt rows full, then AR cb0
+    t_len: IntOrRows,  # valid audio frames (prompt + generated)
+    prompt_len: IntOrRows,
     *,
     dtype: torch.dtype,
     add_lang: bool = True,
 ) -> torch.Tensor:
-    """→ codes [1, t_audio, 8] (valid region [prompt_len, t_len))."""
+    """→ codes [R, t_audio, 8] (valid region [prompt_len, t_len) per row)."""
+    R, t_audio = codes_in.shape[:2]
     s_text = text_ids.shape[1]
-    t_audio = codes_in.shape[1]
     dev = codes_in.device
     tables = model.nar_audio_embeddings.weight  # [8, 1025, D]
     x = V.text_input(model, text_ids, lang_ids, "nar", dtype, add_lang)
 
     rows = torch.arange(t_audio, device=dev)[None, :]
-    in_prompt = (rows < prompt_len)[..., None]  # [1, TA, 1]
-    in_suffix = ((rows >= prompt_len) & (rows < t_len))[..., None]
+    xl, tl, pl = _col(x_len), _col(t_len), _col(prompt_len)
+    in_prompt = (rows < pl)[..., None]  # [R, TA, 1]
+    in_suffix = ((rows >= pl) & (rows < tl))[..., None]
     y_emb = tables[0][codes_in[..., 0]].to(dtype)
     for j in range(1, cfg.num_quantizers):
         y_emb = y_emb + torch.where(in_prompt, tables[j][codes_in[..., j]].to(dtype), 0)
 
     mask, attention = None, None
     if s_text + t_audio >= FLASH_MIN_LEN:
+        bounds = attention_bounds(R, x_len=x_len, s_text=s_text, audio_len=t_len,
+                                  q_off=0, device=dev)
+        site = SITE if R == 1 else SITE_BATCHED
+
         def attention(q, k, v):
-            return masked_attention(q, k, v, x_len=x_len, s_text=s_text,
-                                    audio_len=t_len, q_off=0, site=SITE)
+            return masked_attention(q, k, v, bounds, site=site)
     else:
-        cols = torch.arange(s_text + t_audio, device=dev)
-        ok = torch.where(cols < s_text, cols < x_len, (cols - s_text) < t_len)
-        mask = torch.where(ok, 0.0, V.NEG_INF)[None, None, None, :]
+        cols = torch.arange(s_text + t_audio, device=dev)[None, :]
+        ok = torch.where(cols < s_text, cols < xl, (cols - s_text) < tl)  # [R or 1, C]
+        mask = torch.where(ok, 0.0, V.NEG_INF)[:, None, None, :]
 
     stage_codes = []
     for stage in range(cfg.num_quantizers - 1):
         y_pos = model.nar_audio_position(model.pe, y_emb)
         xy = torch.cat([x, y_pos], dim=1)
         h = V.nar_forward_stage(model, xy, stage, mask, attention)
-        logits = V.nar_logits(model, h[:, s_text:], stage)  # [1, TA, 1024]
+        logits = V.nar_logits(model, h[:, s_text:], stage)  # [R, TA, 1024]
         samples = torch.argmax(logits, dim=-1)
         y_emb = y_emb + torch.where(in_suffix, tables[stage + 1][samples].to(dtype), 0)
         stage_codes.append(samples)

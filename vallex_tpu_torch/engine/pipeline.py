@@ -1,16 +1,17 @@
-"""Synthesis pipeline: AR → NAR → Vocos for one utterance (port of
-vallex_tpu/engine/pipeline.py: _assemble_nar_input, _shift_out_prompt,
-_nar_tail and SynthesisPipeline.synthesize).
+"""Synthesis pipeline: AR → NAR → Vocos for one utterance or a batch of
+requests (port of vallex_tpu/engine/pipeline.py: _assemble_nar_input(_batch),
+_shift_out_prompt(_batch), _nar_tail(_batch), SynthesisPipeline.synthesize
+and synthesize_batch).
 
-Configurations outside the port's first slice raise NotImplementedError
-naming their ROADMAP.md item: beams, filtered top-k/top-p, quantized
-serving, single-step decode and batched requests.
+Configurations the port does not run yet raise NotImplementedError naming
+their ROADMAP.md item: beams (best_of > 1), filtered top-k/top-p, the int8
+KV cache and w8a8, and single-step decode.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Dict, NamedTuple, Optional
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -19,7 +20,15 @@ from torch.profiler import record_function
 from ..config import EngineConfig, ModelConfig
 from ..models import vallex as V
 from ..ops.decode_step import pack_layer_weights, quantize_weights
-from .ar import ARResult, ar_generate, bucket, validate_prompt_len
+from .ar import (
+    ARResult,
+    BatchARResult,
+    ar_generate,
+    ar_generate_batch,
+    bucket,
+    pad_batched_requests,
+    validate_prompt_len,
+)
 from .nar import nar_generate
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -36,10 +45,10 @@ def check_slice(ecfg: EngineConfig, *, best_of: int, top_k: int, top_p: float) -
         raise NotImplementedError(
             "filtered top-k/top-p sampling is not ported yet: ROADMAP.md §2"
             " item 1 (the filtered epilogue) and §1 item 3")
-    if ecfg.quantize != "none":
+    if ecfg.quantize not in ("none", "int8"):
         raise NotImplementedError(
             f"quantize={ecfg.quantize!r} is not ported yet: ROADMAP.md §2"
-            " item 1 (int8 serving weights, int8kv, w8a8)")
+            " item 1 (slice 5, the int8 KV cache; slice 6, w8a8)")
     if ecfg.decode_steps < 2:
         raise NotImplementedError(
             "decode_steps=1 (the single-step decode_step kernel) is not ported"
@@ -67,11 +76,44 @@ def shift_out_prompt(codes: torch.Tensor, prompt_len: int, gen_len: int) -> torc
     return torch.where(rows < gen_len, shifted, 0)
 
 
+def assemble_nar_input_batch(y_gen: torch.Tensor, prompt_codes_pad: torch.Tensor,
+                             prompt_lens: torch.Tensor, t_audio: int) -> torch.Tensor:
+    """Per-request NAR input [R, t_audio, 8]: audio position j carries the
+    prompt's codes for j < prompt_len[r] and the request's generated cb0
+    y_gen[r, j - prompt_len[r]] after (y_gen [R, t_gen + K], column 0 =
+    first generated frame)."""
+    rows = torch.arange(t_audio, device=y_gen.device)[None, :]
+    pl = prompt_lens.long()[:, None]
+    gen_idx = torch.clamp(rows - pl, 0, y_gen.shape[1] - 1)
+    cb0 = torch.where(rows < pl, prompt_codes_pad[..., 0],
+                      torch.gather(y_gen, 1, gen_idx.expand(y_gen.shape[0], -1)))
+    out = prompt_codes_pad.clone()
+    out[..., 0] = cb0
+    return out
+
+
+def shift_out_prompt_batch(codes: torch.Tensor, prompt_lens: torch.Tensor,
+                           gen_lens: torch.Tensor) -> torch.Tensor:
+    """Per-request prompt shift-out: row i ← row i + prompt_len[r], rows
+    at or beyond gen_len[r] zeroed (see shift_out_prompt)."""
+    TA = codes.shape[1]
+    rows = torch.arange(TA, device=codes.device)[None, :]
+    src = torch.clamp(rows + prompt_lens.long()[:, None], 0, TA - 1)
+    shifted = torch.gather(codes, 1, src[..., None].expand(-1, -1, codes.shape[2]))
+    return torch.where((rows < gen_lens.long()[:, None])[..., None], shifted, 0)
+
+
 class SynthesisResult(NamedTuple):
     codes: np.ndarray  # [T_gen, 8]
     wave: Optional[np.ndarray]  # [T_gen * 320] or None
     ar: ARResult
     seconds: Dict[str, float]  # host-clock phase times, device-synchronized
+
+
+class BatchSynthesisResult(NamedTuple):
+    outputs: List[Tuple[np.ndarray, Optional[np.ndarray]]]  # per request (codes, wave)
+    ar: Optional[BatchARResult]  # None when one request took synthesize
+    seconds: Dict[str, float]  # host-clock phase times of the whole batch
 
 
 class SynthesisPipeline:
@@ -107,6 +149,13 @@ class SynthesisPipeline:
         if need_draft and self._draft is None:
             self._draft = quantize_weights(self._packed)
         return self._packed, self._draft
+
+    def serving_weights(self) -> Dict:
+        """The decode weights of K-step blocks: bf16, or with
+        quantize="int8" the W8A16 dict (the same one the draft uses)."""
+        int8 = self.ecfg.quantize == "int8"
+        packed, draft = self.packed_weights(int8)
+        return draft if int8 else packed
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -156,9 +205,14 @@ class SynthesisPipeline:
         prompt_pad[:Tp] = prompt[:, 0]
 
         greedy = top_k == 1
-        speculative = e.speculative in ("auto", "on")
+        # speculation drafts with int8 and verifies with bf16: bf16 serving
+        # only (EngineConfig.speculative)
+        speculative = e.speculative in ("auto", "on") and e.quantize == "none"
         kernels = self.decode_mode == "megakernel"
-        packed, draft = (self.packed_weights(speculative) if kernels else (None, None))
+        packed, draft = None, None
+        if kernels:
+            packed, draft = (self.packed_weights(True) if speculative
+                             else (self.serving_weights(), None))
         generator = torch.Generator(device=dev)
         generator.manual_seed(int(seed) & 0x7FFFFFFF)
         with record_function("vallex.ar"):
@@ -199,3 +253,90 @@ class SynthesisPipeline:
                 wave = w[0, : gl * HOP].cpu().numpy()
             seconds["vocos"] = time.perf_counter() - t2
         return SynthesisResult(gen_codes[0, :gl].cpu().numpy(), wave, ar, seconds)
+
+    @torch.inference_mode()
+    def synthesize_batch(
+        self,
+        requests,  # list of (text_ids [S], lang_ids [S], prompt [Tp, 8] | None)
+        *,
+        best_of: int = 1,
+        top_k: Optional[int] = None,
+        top_p: Optional[float] = None,
+        temperature: Optional[float] = None,
+        seed: int = 0,
+        return_wave: bool = True,
+    ) -> BatchSynthesisResult:
+        """Batched synthesis on one device: the AR decode runs all requests
+        as rows of one batched decode (engine/ar.py::ar_generate_batch), so
+        each step streams the weights once for the batch; the NAR and Vocos
+        run at batch R with per-row lengths. One request takes `synthesize`.
+        The batched decode runs ops/decode_block.py whatever decode_mode
+        says (the JAX package's batched decode has only its kernel path):
+        the kernels on CUDA, their plain versions on the CPU."""
+        e, cfg, dev = self.ecfg, self.cfg, self.device
+        top_k = e.top_k if top_k is None else top_k
+        top_p = e.top_p if top_p is None else top_p
+        temperature = e.temperature if temperature is None else temperature
+        check_slice(e, best_of=best_of, top_k=top_k, top_p=top_p)
+        R = len(requests)
+        if R == 1:
+            t, lg, p = requests[0]
+            res = self.synthesize(t, lg, p, best_of=best_of, top_k=top_k, top_p=top_p,
+                                  temperature=temperature, seed=seed,
+                                  return_wave=return_wave)
+            return BatchSynthesisResult([(res.codes, res.wave)], None, res.seconds)
+        seconds = {}
+        t0 = time.perf_counter()
+        pb = pad_batched_requests(requests, cfg.eos_id, cfg.num_quantizers,
+                                  e.text_buckets, e.audio_buckets)
+        s_text, p_audio, t_gen = pb["s_text"], pb["p_audio"], pb["t_gen"]
+        prompts = pb["prompts"]
+        Tp_max = max(len(p) for p in prompts)
+        t_audio = bucket(min(Tp_max + 1 + 16 * int(max(pb["x_lens"])) + 1,
+                             e.audio_buckets[-1]), e.audio_buckets, granularity=512)
+        prompt_codes_pad = np.zeros((R, t_audio, cfg.num_quantizers), np.int64)
+        for r, pr in enumerate(prompts):
+            prompt_codes_pad[r, : len(pr)] = pr
+        generator = torch.Generator(device=dev)
+        generator.manual_seed(int(seed) & 0x7FFFFFFF)
+        with record_function("vallex.ar"):
+            ar = ar_generate_batch(
+                self.model, cfg, pb["text"], pb["lang"], pb["x_lens"], pb["prompt_pad"],
+                pb["prompt_lens"], pb["caps"], generator=generator, top_k=top_k,
+                temperature=temperature, s_text=s_text, p_audio=p_audio, t_gen=t_gen,
+                dtype=self.dtype, decode_steps=max(2, e.decode_steps),
+                packed=self.serving_weights(), beams=best_of)
+            self._sync()
+        seconds["ar"] = time.perf_counter() - t0
+
+        t1 = time.perf_counter()
+        lens = ar.gen_len.astype(np.int64)
+        with record_function("vallex.nar"):
+            plens = torch.as_tensor(pb["prompt_lens"].astype(np.int64), device=dev)
+            gl = torch.as_tensor(lens, device=dev)
+            codes_in = assemble_nar_input_batch(
+                torch.as_tensor(ar.y_gen, device=dev),
+                torch.as_tensor(prompt_codes_pad, device=dev), plens, t_audio)
+            codes = nar_generate(
+                self.model, cfg, torch.as_tensor(pb["text"], device=dev).long(),
+                torch.as_tensor(pb["lang"], device=dev).long(),
+                torch.as_tensor(pb["x_lens"], device=dev), codes_in, plens + gl, plens,
+                dtype=self.dtype)
+            gen_codes = shift_out_prompt_batch(codes, plens, gl)
+            self._sync()
+        seconds["nar"] = time.perf_counter() - t1
+
+        waves = None
+        if return_wave and self.vocos is not None:
+            from ..codec.vocos import HOP, vocos_decode
+
+            t2 = time.perf_counter()
+            with record_function("vallex.vocos"):
+                w = vocos_decode(self.vocos, gen_codes, bandwidth_id=2, t_len=gl)
+                waves = w.cpu().numpy()
+            seconds["vocos"] = time.perf_counter() - t2
+        codes_np = gen_codes.cpu().numpy()
+        outputs = [(codes_np[r, : lens[r]],
+                    None if waves is None else waves[r, : lens[r] * HOP])
+                   for r in range(R)]
+        return BatchSynthesisResult(outputs, ar, seconds)

@@ -2,7 +2,9 @@
 //
 // Replaces the matrix products inside two TPU kernels:
 //   vallex_tpu/ops/decode_block.py  decode_block_fused (_kernel: `mat`, `_ffn`,
-//                                   the fused head) -- the K-1 int8 draft steps;
+//                                   the fused head) -- the K-1 int8 draft steps,
+//                                   the int8 serving blocks, and batched
+//                                   requests at M = R <= 8;
 //   vallex_tpu/ops/decode_verify.py decode_verify (_kernel) -- the bf16 verify
 //                                   pass over K = 8 positions.
 // Each product there is LN -> matvec (QKV), matvec + residual (out-proj),
@@ -19,6 +21,12 @@
 // once per block into shared memory, as the TPU kernel casts the activations
 // to bf16 before its MXU product; accumulation is f32; int8 weights carry f32
 // per-output-channel scales applied after the sum (W8A16).
+//
+// Batched requests (M = R rows, one per request): each row's result does not
+// depend on M or on the other rows. Row m's LayerNorm runs in warp m alone,
+// and its sum runs over k in the same per-lane order and the same warp
+// reduction for any M, so it is bitwise the row's M = 1 product
+// (chip_smoke.py phase 3b checks this at M = 4 and 8).
 #include "common.cuh"
 
 #define GEMM_MAX_M 8

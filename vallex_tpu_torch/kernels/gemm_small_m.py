@@ -5,7 +5,8 @@ LayerNorm prologue and scale / bias / ReLU / residual epilogue. W is bf16,
 or int8 with f32 per-output-channel scales (W8A16); activations are
 rounded to bf16 before the product and the sum is f32, as in the TPU
 kernels. It carries QKV, out-proj, FFN1, FFN2 and the head of the draft
-(ops/decode_block.py) and verify (ops/decode_verify.py) passes.
+and batched-request steps (ops/decode_block.py, one row per request) and
+of the verify pass (ops/decode_verify.py).
 """
 
 from __future__ import annotations

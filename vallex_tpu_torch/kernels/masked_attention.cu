@@ -1,20 +1,30 @@
 // masked_attention: online-softmax attention of Tq queries per head over the
-// keys of a [text | audio] cache, for head_dim 64.
+// keys of a [text | audio] cache, for head_dim 64, with per-row key bounds.
 //
 // Replaces the attention inside three TPU kernels:
-//   vallex_tpu/ops/decode_block.py  decode_block_fused (_attention,
-//       _hbm_fold_single): one query per draft step over the valid cache rows;
+//   vallex_tpu/ops/decode_block.py  decode_block_fused (_attention with
+//       _hbm_fold_single, and _hbm_fold_batched for batched requests): one
+//       query per step over the valid cache rows;
 //   vallex_tpu/ops/decode_verify.py decode_verify: K = 8 queries, query k also
 //       seeing this pass's columns j <= k;
 //   vallex_tpu/models/layers.py attention_core_flash (the JAX library's Pallas
 //       flash attention, forward, non-causal, key-padding segments): the NAR's
-//       Tq = T queries at s_text + t_audio >= 1536.
-// Key c is valid for query qi iff
-//   c < x_len   or   s_text <= c < s_text + audio_len + q_off * qi,
-// the masking contract of engine/ar.py (decode: audio_len = pos0 + 1,
-// q_off = 1, with the new columns already written into the cache) and of
-// engine/nar.py (q_off = 0, audio_len = t_len). Padding keys are skipped, not
-// masked: the loop walks the valid keys only.
+//       Tq = T queries at s_text + t_audio >= 1536, one row per request.
+// Row b of the batch has its own bounds, read from `lens` ([3, B] int32 on
+// the device: x_len, a1_len, a2_len), so no bound travels through the host.
+// Key c is valid for row b and query qi iff
+//   c < x_len[b]
+//   or a1_lo <= c < a1_lo + a1_len[b]                 (range 1)
+//   or a2_lo <= c < a2_lo + a2_len[b] + q_off * qi    (range 2).
+// The single-request layout of engine/ar.py and engine/nar.py leaves range 1
+// empty and puts the audio rows in range 2 (decode: a2_len = pos0 + 1,
+// q_off = 1, with the new columns already written into the cache; NAR:
+// a2_len = t_len, q_off = 0). The batched layout of ar_generate_batch puts
+// each request's BOS + prompt rows in range 1 (a1_lo = s_text, a1_len =
+// prompt_len + 1) and the generated rows, shared by position, in range 2
+// (a2_lo = s_text + p_audio). Padding keys are skipped, not masked: the loop
+// walks the valid keys only. Each range is clamped into the cache [0, C), so
+// a wrong bound cannot read outside it.
 //
 // Bound on the H100: in decode, the K/V bytes of the valid rows (a memory
 // stream); in the NAR, the 4*T*T*hd operations per head. This first version
@@ -58,8 +68,9 @@ __global__ void __launch_bounds__(ATT_WARPS * 32)
 masked_attention_kernel(const TQ* __restrict__ q, long long q_sb, long long q_sh, long long q_st,
                         const __nv_bfloat16* __restrict__ k, const __nv_bfloat16* __restrict__ v,
                         long long kv_sb, long long kv_sh, long long kv_st, TO* __restrict__ o,
-                        long long o_sb, long long o_sh, long long o_st, int Tq, int x_len,
-                        int s_text, int audio_len, int q_off, float scale, int qb, int nsplit) {
+                        long long o_sb, long long o_sh, long long o_st, int B, int Tq, int C,
+                        const int* __restrict__ lens, int a1_lo, int a2_lo, int q_off,
+                        float scale, int qb, int nsplit) {
   __shared__ float st_m[ATT_WARPS];
   __shared__ float st_l[ATT_WARPS];
   __shared__ float st_acc[ATT_WARPS][ATT_HD];
@@ -81,12 +92,19 @@ masked_attention_kernel(const TQ* __restrict__ q, long long q_sb, long long q_sh
     for (int d = 0; d < ATT_HD; ++d) qf[d] = vx_to_f32<TQ>(qp[d]) * scale;
     const __nv_bfloat16* kb = k + b * kv_sb + h * kv_sh;
     const __nv_bfloat16* vb = v + b * kv_sb + h * kv_sh;
-    // virtual key index vk: [0, x_len) text rows, then audio rows s_text + ...
-    const int nkeys = x_len + audio_len + q_off * qi;
+    // virtual key index vk: [0, x_len) text rows, then range 1, then range 2
+    const int x_len = min(max(lens[b], 0), C);
+    const int a1_len = min(max(lens[B + b], 0), max(C - a1_lo, 0));
+    const int a2_len = min(max(lens[2 * B + b] + q_off * qi, 0), max(C - a2_lo, 0));
+    const int x_a1 = x_len + a1_len;
+    const int nkeys = x_a1 + a2_len;
     for (int t0 = split * 32; t0 < nkeys; t0 += nsplit * 32) {
       const int vk = t0 + lane;
       const bool valid = vk < nkeys;
-      const int c = !valid ? 0 : (vk < x_len ? vk : s_text + (vk - x_len));
+      const int c = !valid ? 0
+                    : vk < x_len ? vk
+                    : vk < x_a1 ? a1_lo + (vk - x_len)
+                                : a2_lo + (vk - x_a1);
       float s = VX_NEG_BIG;
       if (valid) {
         const uint4* kr = reinterpret_cast<const uint4*>(kb + (long long)c * kv_st);
@@ -154,7 +172,7 @@ masked_attention_kernel(const TQ* __restrict__ q, long long q_sb, long long q_sh
 template <typename TQ, typename TO>
 static cudaError_t launch(const void* q, const long long* qs, const void* k, const void* v,
                           const long long* kvs, void* o, const long long* os, int B, int H,
-                          int Tq, int x_len, int s_text, int audio_len, int q_off,
+                          int Tq, int C, const int* lens, int a1_lo, int a2_lo, int q_off,
                           float scale, cudaStream_t stream) {
   // decode (Tq <= 8): one query per block, its keys split over the 8 warps
   const int qb = Tq <= ATT_WARPS ? 1 : ATT_WARPS;
@@ -163,24 +181,26 @@ static cudaError_t launch(const void* q, const long long* qs, const void* k, con
   masked_attention_kernel<TQ, TO><<<grid, ATT_WARPS * 32, 0, stream>>>(
       reinterpret_cast<const TQ*>(q), qs[0], qs[1], qs[2],
       reinterpret_cast<const __nv_bfloat16*>(k), reinterpret_cast<const __nv_bfloat16*>(v),
-      kvs[0], kvs[1], kvs[2], reinterpret_cast<TO*>(o), os[0], os[1], os[2], Tq, x_len,
-      s_text, audio_len, q_off, scale, qb, nsplit);
+      kvs[0], kvs[1], kvs[2], reinterpret_cast<TO*>(o), os[0], os[1], os[2], B, Tq, C, lens,
+      a1_lo, a2_lo, q_off, scale, qb, nsplit);
   return cudaGetLastError();
 }
 
 // q: [B, H, Tq, 64] (f32 if io_bf16 == 0, else bf16); k, v: [B, H, C, 64]
 // bf16; o: [B, H, Tq, 64] of q's type. qs/kvs/os: the (b, h, t) strides in
-// elements, three int64 each.
+// elements, three int64 each. lens: device pointer to [3, B] int32
+// (x_len, a1_len, a2_len per row), contiguous.
 extern "C" int vx_masked_attention(const void* q, const long long* qs, const void* k,
                                    const void* v, const long long* kvs, void* o,
                                    const long long* os, int io_bf16, int B, int H, int Tq,
-                                   int x_len, int s_text, int audio_len, int q_off,
+                                   int C, const void* lens, int a1_lo, int a2_lo, int q_off,
                                    float scale, void* stream) {
-  if (Tq < 1) return (int)cudaErrorInvalidValue;
+  if (Tq < 1 || B < 1 || B > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const int* l = reinterpret_cast<const int*>(lens);
   if (io_bf16)
-    return (int)launch<__nv_bfloat16, __nv_bfloat16>(q, qs, k, v, kvs, o, os, B, H, Tq, x_len,
-                                                      s_text, audio_len, q_off, scale, s);
-  return (int)launch<float, float>(q, qs, k, v, kvs, o, os, B, H, Tq, x_len, s_text,
-                                   audio_len, q_off, scale, s);
+    return (int)launch<__nv_bfloat16, __nv_bfloat16>(q, qs, k, v, kvs, o, os, B, H, Tq, C, l,
+                                                      a1_lo, a2_lo, q_off, scale, s);
+  return (int)launch<float, float>(q, qs, k, v, kvs, o, os, B, H, Tq, C, l, a1_lo, a2_lo,
+                                   q_off, scale, s);
 }

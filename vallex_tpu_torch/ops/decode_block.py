@@ -1,15 +1,23 @@
 """K AR decode steps with sampling and bookkeeping (port of
-vallex_tpu/ops/decode_block.py::decode_block_fused at B = 1).
+vallex_tpu/ops/decode_block.py::decode_block_fused: one request, and
+`batched=True` for B requests).
 
-Each step k, as in the TPU kernel's header and its `_attention` prologue:
+Each step k, as in the TPU kernel's header and its `_attention` prologue,
+for every row:
   capped = k >= remaining; d0 = done | capped
   fed = EOS if d0 else cur_tok; sum_logprobs += cur_logp unless d0
   done = d0 | (fed == EOS); fed tokens are returned per step
-  one decoder forward of `fed` at position audio_pos + k (KV column written
-      at s_text + audio_pos + k) → logits [VP] (kept: the draft's q)
+  one decoder forward of `fed` (ops/decode_verify.py::decoder_forward)
+      → logits [VP] (kept: the draft's q)
   (cur_tok, cur_logp) = sample(logits): Gumbel-argmax of logits/T + g(u)
-      with u from the caller's torch.Generator, or argmax when greedy;
-      logprob from the temperature-scaled log-softmax.
+      with u [B, VP] from the caller's torch.Generator, or argmax when
+      greedy; logprob from the temperature-scaled log-softmax.
+One request: position audio_pos + k, KV column at s_text + audio_pos + k,
+cache [NL, H, C, hd]. Batched (the TPU kernel's `_hbm_fold_batched`
+contract): `audio_pos` is the count of generated frames before the block
+(pos0), generated frame t of every row lives at cache row s_text + p_audio
++ t, row r's audio position is prompt_len[r] + 1 + t, and x_len, prompt_len
+and remaining are [B] vectors; the cache is [NL, B, H, C, hd].
 The weights are the bf16 or int8 (W8A16) dict of ops/decode_step.py. The
 steps run as launches of the hand-written kernels (products, attention,
 sampling); the bookkeeping is a few tensor ops per step that stay on the
@@ -18,38 +26,40 @@ device, so the host never waits inside a block.
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional
+from typing import Dict, NamedTuple, Optional, Union
 
 import torch
 
 from ..kernels import sample_epilogue
-from .decode_verify import forward_positions
+from ..kernels.masked_attention import attention_bounds, step_bounds
+from .decode_verify import decoder_forward
 
 SITE = "decode_block_fused"
+SITE_BATCHED = "decode_block_fused_batched"
 
 
 class BlockResult(NamedTuple):
-    fed: torch.Tensor  # [K] token fed at each step
-    next_tok: torch.Tensor  # [1] token to feed after the block
-    next_logp: torch.Tensor  # [1] f32 its logprob
-    done: torch.Tensor  # [1] bool
-    sum_logprobs: torch.Tensor  # [1] f32
-    step_logits: torch.Tensor  # [K, VP] f32 pre-sampling logits per step
+    fed: torch.Tensor  # [K] (batched: [K, B]) token fed at each step
+    next_tok: torch.Tensor  # [B] token to feed after the block
+    next_logp: torch.Tensor  # [B] f32 its logprob
+    done: torch.Tensor  # [B] bool
+    sum_logprobs: torch.Tensor  # [B] f32
+    step_logits: torch.Tensor  # [K, VP] (batched: [K, B, VP]) f32 logits per step
 
 
 def decode_block_fused(
-    tokens: torch.Tensor,  # [1] int token to feed at step 0
-    logprobs: torch.Tensor,  # [1] f32 its logprob
-    done: torch.Tensor,  # [1] bool
-    sum_logprobs: torch.Tensor,  # [1] f32
+    tokens: torch.Tensor,  # [B] int token to feed at step 0
+    logprobs: torch.Tensor,  # [B] f32 its logprob
+    done: torch.Tensor,  # [B] bool
+    sum_logprobs: torch.Tensor,  # [B] f32
     lw: Dict,
-    cache_k: torch.Tensor,  # [NL, H, C, hd] with >= K slack rows; in place
+    cache_k: torch.Tensor,  # [NL, H, C, hd] (batched: [NL, B, H, C, hd]); in place
     cache_v: torch.Tensor,
     pe_table: torch.Tensor,
     *,
-    x_len: int,
-    audio_pos: int,
-    remaining: int,  # steps left before the length cap
+    x_len: Union[int, torch.Tensor],  # batched: [B]
+    audio_pos: int,  # position of step 0 (batched: generated frames before the block)
+    remaining: Union[int, torch.Tensor],  # steps left before the length cap (batched: [B])
     temperature: float,
     steps: int,
     s_text: int,
@@ -57,12 +67,29 @@ def decode_block_fused(
     eos: int,
     stochastic: bool,
     generator: Optional[torch.Generator] = None,
+    prompt_len: Optional[torch.Tensor] = None,  # batched: [B] valid prompt frames
+    batched: bool = False,
+    p_audio: int = 0,  # batched: BOS + prompt bucket rows
 ) -> BlockResult:
     dev = tokens.device
+    B = tokens.shape[0]
     cur_tok = tokens.to(torch.int32)
     cur_lp = logprobs.float()
     done = done.clone()
     sum_lp = sum_logprobs.float().clone()
+    if batched:
+        site, cache5 = SITE_BATCHED, (cache_k, cache_v)
+        s_gen = s_text + p_audio
+        # [K, B] audio position of each row at each step
+        pos = (prompt_len.long() + 1 + audio_pos)[None] + torch.arange(steps, device=dev)[:, None]
+        bounds = attention_bounds(B, x_len=x_len, s_text=s_text, audio_len=prompt_len + 1,
+                                  q_off=1, gen_lo=s_gen, gen_len=audio_pos + 1, device=dev)
+    else:
+        site, cache5 = SITE, (cache_k[:, None], cache_v[:, None])
+        s_gen = s_text
+        bounds = attention_bounds(1, x_len=x_len, s_text=s_text, audio_len=audio_pos + 1,
+                                  q_off=1, device=dev)
+    bounds = step_bounds(bounds, steps)
     fed_all, logits_all = [], []
     for k in range(steps):
         d0 = done | (k >= remaining)
@@ -70,9 +97,11 @@ def decode_block_fused(
         sum_lp = sum_lp + torch.where(d0, 0.0, cur_lp)
         done = d0 | (fed == eos)
         fed_all.append(fed)
-        logits = forward_positions(
-            fed, lw, cache_k, cache_v, pe_table, x_len=x_len,
-            audio_pos=audio_pos + k, s_text=s_text, site=SITE,
+        pe_rows = (pe_table.index_select(0, pos[k]) if batched
+                   else pe_table[audio_pos + k: audio_pos + k + 1])
+        logits = decoder_forward(
+            fed, lw, *cache5, pe_rows, slot=s_gen + audio_pos + k,
+            bounds=bounds[k], site=site,
         )
         logits_all.append(logits)
         u = None
@@ -80,9 +109,7 @@ def decode_block_fused(
             u = torch.rand(logits.shape, generator=generator, device=dev)
         cur_tok, cur_lp = sample_epilogue(
             logits, u, vocab=vocab, temperature=temperature,
-            greedy=not stochastic, site=SITE,
+            greedy=not stochastic, site=site,
         )
-    return BlockResult(
-        torch.cat(fed_all), cur_tok, cur_lp, done, sum_lp,
-        torch.cat(logits_all),
-    )
+    join = torch.stack if batched else torch.cat
+    return BlockResult(join(fed_all), cur_tok, cur_lp, done, sum_lp, join(logits_all))

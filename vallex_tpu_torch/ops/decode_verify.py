@@ -1,22 +1,25 @@
-"""One decoder forward over M consecutive AR positions against the KV cache
-(port of vallex_tpu/ops/decode_verify.py::decode_verify).
+"""One decoder forward over AR positions against the KV cache (port of
+vallex_tpu/ops/decode_verify.py::decode_verify, and of the per-step forward
+of ops/decode_block.py's batched mode).
 
 `decode_verify` is the bf16 verify pass of speculative decoding: the current
 token plus K-1 drafts at positions pos0..pos0+K-1, each attending the valid
 cache rows, the pass's earlier positions and itself; it returns the logits
 at every position and leaves the K KV columns in the caches. The draft
-steps of ops/decode_block.py run the same forward at M = 1.
+steps of ops/decode_block.py run the same forward at M = 1, and its batched
+mode runs it at M = B, one position per request.
 
 Every product goes through `gemm_small_m`, every attention through
 `masked_attention`; only the embedding gather, the PE add and the
-cache-column write are PyTorch glue. Caches are [NL, H, C, hd] (C with at
-least K slack rows) and are updated in place — the TPU kernel returned the
-columns for an XLA write instead. Each position's own column is read back
-from the cache (rounded to the cache dtype), where the TPU kernel folded
-it in unrounded.
+cache-column write are PyTorch glue. Caches are [NL, H, C, hd] for one
+request or [NL, B, H, C, hd] for B (C with at least K slack rows) and are
+updated in place — the TPU kernel returned the columns for an XLA write
+instead. Each position's own column is read back from the cache (rounded
+to the cache dtype), where the TPU kernel folded it in unrounded.
 
-Masking contract (engine/ar.py layout): cache row c is valid for the
-position pos0 + i iff c < x_len or s_text <= c <= s_text + pos0 + i.
+Masking contract (engine/ar.py layouts): for one request, cache row c is
+valid for the position pos0 + i iff c < x_len or s_text <= c <= s_text +
+pos0 + i; for batched requests see `decoder_forward`.
 """
 
 from __future__ import annotations
@@ -26,26 +29,34 @@ from typing import Dict
 import torch
 
 from ..kernels import gemm_small_m, masked_attention
+from ..kernels.masked_attention import Bounds, attention_bounds
 
 
-def forward_positions(
-    tokens: torch.Tensor,  # [M] tokens fed at positions pos0..pos0+M-1
+def decoder_forward(
+    tokens: torch.Tensor,  # [M] tokens, M = B·Tq (row-major: row b, query qi)
     lw: Dict,  # ops.decode_step.pack_layer_weights (optionally quantized)
-    cache_k: torch.Tensor,  # [NL, H, C, hd], updated in place
+    cache_k: torch.Tensor,  # [NL, B, H, C, hd], updated in place
     cache_v: torch.Tensor,
-    pe_table: torch.Tensor,  # [max_position, D] f32
+    pe_rows: torch.Tensor,  # [M, D] f32 PE row of every position
     *,
-    x_len: int,
-    audio_pos: int,  # pos0
-    s_text: int,
+    slot: int,  # cache row of query 0's column (query qi at slot + qi)
+    bounds: Bounds,
     site: str,
 ) -> torch.Tensor:
-    """→ logits [M, VP] f32 at every fed position."""
+    """→ logits [M, VP] f32. The layer order and the fused LN / bias /
+    ReLU / residual epilogues of the TPU kernels' `_attention` and `_ffn`.
+
+    One request (B = 1): Tq consecutive positions. Batched requests
+    (engine/ar.py::ar_generate_batch layout, Tq = 1): request b's audio
+    position drives its PE row; its new K/V column goes to the generated
+    row `slot` = s_text + p_audio + t shared by every request; `bounds`
+    (attention_bounds with gen_lo = s_text + p_audio, gen_len = t + 1) let
+    it see its own text, its own BOS + prompt rows and the generated rows
+    up to `slot`."""
     M = tokens.shape[0]
-    NL, H, _, hd = cache_k.shape
-    D = H * hd
-    h = lw["emb"][tokens.long()].float() + lw["alpha"] * pe_table[audio_pos: audio_pos + M]
-    slot = s_text + audio_pos
+    NL, B, H, _, hd = cache_k.shape
+    Tq, D = M // B, H * hd
+    h = lw["emb"][tokens.long()].float() + lw["alpha"] * pe_rows
 
     def sc(name, layer):
         s = lw[name]
@@ -56,15 +67,13 @@ def forward_positions(
             h, lw["wqkv"][li], scale=sc("sqkv", li), bias=lw["bqkv"][li],
             ln=(lw["ln1s"][li], lw["ln1b"][li]), site=site,
         )
-        heads = qkv.view(M, 3, H, hd)
-        cache_k[li, :, slot: slot + M] = heads[:, 1].transpose(0, 1)
-        cache_v[li, :, slot: slot + M] = heads[:, 2].transpose(0, 1)
+        heads = qkv.view(B, Tq, 3, H, hd)
+        cache_k[li, :, :, slot: slot + Tq] = heads[:, :, 1].transpose(1, 2)
+        cache_v[li, :, :, slot: slot + Tq] = heads[:, :, 2].transpose(1, 2)
         attn = torch.empty((M, D), dtype=torch.float32, device=h.device)
         masked_attention(
-            heads[:, 0].transpose(0, 1)[None],
-            cache_k[li][None], cache_v[li][None],
-            x_len=x_len, s_text=s_text, audio_len=audio_pos + 1, q_off=1,
-            out=attn.view(M, H, hd).transpose(0, 1)[None], site=site,
+            heads[:, :, 0].transpose(1, 2), cache_k[li], cache_v[li], bounds,
+            out=attn.view(B, Tq, H, hd).transpose(1, 2), site=site,
         )
         h = gemm_small_m(attn, lw["wout"][li], scale=sc("sout", li),
                          bias=lw["bout"][li], residual=h, site=site)
@@ -74,6 +83,29 @@ def forward_positions(
                          residual=h, site=site)
     return gemm_small_m(h, lw["wpred"], scale=lw["spred"],
                         ln=(lw["fns"], lw["fnb"]), site=site)
+
+
+def forward_positions(
+    tokens: torch.Tensor,  # [M] tokens fed at positions pos0..pos0+M-1
+    lw: Dict,
+    cache_k: torch.Tensor,  # [NL, H, C, hd], updated in place
+    cache_v: torch.Tensor,
+    pe_table: torch.Tensor,  # [max_position, D] f32
+    *,
+    x_len: int,
+    audio_pos: int,  # pos0
+    s_text: int,
+    site: str,
+) -> torch.Tensor:
+    """One request, M consecutive positions → logits [M, VP] f32."""
+    M = tokens.shape[0]
+    bounds = attention_bounds(1, x_len=x_len, s_text=s_text, audio_len=audio_pos + 1,
+                              q_off=1, device=tokens.device)
+    return decoder_forward(
+        tokens, lw, cache_k[:, None], cache_v[:, None],
+        pe_table[audio_pos: audio_pos + M], slot=s_text + audio_pos,
+        bounds=bounds, site=site,
+    )
 
 
 def decode_verify(
