@@ -311,10 +311,19 @@ def test_generate_audio_batch_matches_jax_per_request(jax_waves):
 @pytest.mark.parametrize("kwargs", [dict(best_of=2), dict(top_k=5), dict(top_p=0.9)],
                          ids=["best_of", "top_k", "top_p"])
 def test_batch_configs_outside_the_slice_raise(jax_waves, kwargs):
-    tapi.preload_models(params=jax_waves["params"], vocos_params=jax_waves["vocos"],
-                        device="cpu", cfg=CFG, ecfg=EngineConfig(**BUCKETS))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tapi.generate_audio_batch(TEXTS[:2], language="en", **kwargs)
+    """best_of, top_k and top_p now run on the batched path: one finite
+    waveform of frames · 320 samples per request, the same for the same
+    seed, and with best_of one score per sample of each request."""
+    bundle = tapi.preload_models(params=jax_waves["params"], vocos_params=jax_waves["vocos"],
+                                 device="cpu", cfg=CFG, ecfg=EngineConfig(**BUCKETS))
+    waves = tapi.generate_audio_batch(TEXTS[:2], language="en", seed=1, **kwargs)
+    res = bundle.last
+    assert res.ar.scores.shape == (2, kwargs.get("best_of", 1))
+    assert [len(w) for w in waves] == [len(c) * 320 for c, _ in res.outputs]
+    assert all(len(w) and np.isfinite(w).all() for w in waves)
+    again = tapi.generate_audio_batch(TEXTS[:2], language="en", seed=1, **kwargs)
+    for a, b in zip(waves, again):
+        np.testing.assert_array_equal(a, b)
 
 
 @pytest.mark.parametrize("quantize", ["int8kv", "w8a8"])
@@ -329,14 +338,21 @@ def test_batch_quantize_modes_outside_the_slice_raise(jax_waves, quantize):
 
 
 def test_beams_raise_in_ar_generate_batch(ref):
+    """beams=2 now runs in ar_generate_batch (the grouped layout): greedy
+    samples are copies, so each request keeps the first and emits the JAX
+    single-request engine's tokens, with two equal scores."""
     packed = pack_layer_weights(ref["model"], torch.float32)
     pb = _pad(ref["reqs"])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        TAR.ar_generate_batch(
-            ref["model"], CFG, pb["text"], pb["lang"], pb["x_lens"], pb["prompt_pad"],
-            pb["prompt_lens"], pb["caps"], generator=torch.Generator(), top_k=1,
-            temperature=1.0, s_text=pb["s_text"], p_audio=pb["p_audio"], t_gen=pb["t_gen"],
-            dtype=torch.float32, decode_steps=K, packed=packed, beams=2)
+    res = TAR.ar_generate_batch(
+        ref["model"], CFG, pb["text"], pb["lang"], pb["x_lens"], pb["prompt_pad"],
+        pb["prompt_lens"], pb["caps"], generator=torch.Generator(), top_k=1,
+        temperature=1.0, s_text=pb["s_text"], p_audio=pb["p_audio"], t_gen=pb["t_gen"],
+        dtype=torch.float32, decode_steps=K, packed=packed, beams=2)
+    assert res.scores.shape == (3, 2)
+    np.testing.assert_array_equal(res.scores[:, 0], res.scores[:, 1])
+    for r, single in enumerate(ref["single"]):
+        assert res.gen_len[r] == len(single)
+        np.testing.assert_array_equal(res.y_gen[r, : res.gen_len[r]], single)
 
 
 def test_kernel_c_signatures_match_ctypes():

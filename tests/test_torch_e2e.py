@@ -81,21 +81,43 @@ def test_generate_audio_sampled_runs(jax_ref, mode):
     np.testing.assert_array_equal(w1, w2)
 
 
-@pytest.mark.parametrize("change", [
-    dict(best_of=2), dict(quantize="int8kv"), dict(decode_steps=1),
-])
-def test_configs_outside_the_slice_raise(jax_ref, change):
-    _port(jax_ref, **change)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tapi.generate_audio(TEXT, language="en", top_k=1)
+@pytest.mark.parametrize("change,runs", [
+    (dict(best_of=2), True), (dict(quantize="int8kv"), False), (dict(decode_steps=1), False),
+], ids=["change0", "change1", "change2"])
+def test_configs_outside_the_slice_raise(jax_ref, change, runs):
+    """best_of=2 now runs (two greedy samples: JAX's greedy codes, the
+    first sample picked); the int8 KV cache and single-step decode still
+    raise, naming their ROADMAP item."""
+    bundle = _port(jax_ref, **change)
+    if not runs:
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            tapi.generate_audio(TEXT, language="en", top_k=1)
+        return
+    tapi.generate_audio(TEXT, prompt=PROMPT, language="en", top_k=1)
+    res = bundle.last
+    assert res.ar.beam_tokens.shape[0] == 2 and res.ar.best_beam == 0
+    np.testing.assert_array_equal(res.codes, jax_ref["codes"])
 
 
 def test_filtered_sampling_and_batches_raise(jax_ref):
-    _port(jax_ref)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tapi.generate_audio(TEXT, language="en", top_k=5)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tapi.generate_audio_batch([TEXT, TEXT], top_k=5)
+    """Filtered sampling now runs, for one request and for a batch: top_k=1
+    with top_p=0.5 picks the argmax, so it emits JAX's greedy codes (this
+    checks the routing, not the filter) and takes each logprob over the
+    kept set of one token, so the score is 0 where the unfiltered greedy
+    run's is negative; top_k=5 draws finite waveforms of frames · 320
+    samples, reproducible from the seed."""
+    bundle = _port(jax_ref)
+    tapi.generate_audio(TEXT, prompt=PROMPT, language="en", top_k=1, top_p=0.5)
+    np.testing.assert_array_equal(bundle.last.codes, jax_ref["codes"])
+    assert bundle.last.ar.scores.tolist() == [0.0]
+    tapi.generate_audio(TEXT, prompt=PROMPT, language="en", top_k=1)
+    assert bundle.last.ar.scores[0] < 0
+    w1 = tapi.generate_audio(TEXT, language="en", top_k=5, seed=2)
+    assert len(w1) == len(bundle.last.codes) * 320 > 0 and np.isfinite(w1).all()
+    np.testing.assert_array_equal(w1, tapi.generate_audio(TEXT, language="en", top_k=5, seed=2))
+    waves = tapi.generate_audio_batch([TEXT, TEXT], top_k=5, top_p=0.9, language="en")
+    assert [len(w) for w in waves] == [len(c) * 320 for c, _ in bundle.last.outputs]
+    assert all(len(w) and np.isfinite(w).all() for w in waves)
 
 
 def test_cuda_default_without_gpu_raises(jax_ref, monkeypatch):

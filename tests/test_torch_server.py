@@ -4,9 +4,11 @@ micro-batching + stdlib HTTP app.
 The non-slow cases of tests/test_server.py, run against the port's copy of
 the server with stub backends: grouping, routing, split groups,
 retry-singly, shutdown, parse validation, the WAV round trip, metrics,
-power-of-two padding and the best_of cap. Then the port's own routes: the
-long-text stub answers 501, and one HTTP round through the port's real
-api.generate_audio_batch at toy width on the CPU.
+power-of-two padding and the best_of cap. Then the port's own routes
+through its real api at toy width on the CPU: /synthesize-long streams
+sentence by sentence, a best_of=2 request and concurrent requests answer
+200, max_rows caps the coalesced rows as _group_cap says, and malformed
+top_k / top_p values answer 400.
 """
 
 import json
@@ -489,23 +491,109 @@ def test_parse_request_best_of():
         _parse_request(b'{"text": "hi", "best_of": "five"}')
 
 
-def test_http_synthesize_long_not_ported_answers_501():
-    """The default stream_fn is the port's stub: an error status, no hang."""
-    rec = []
-    bf, sf = _stub_backends(rec)
-    b = DynamicBatcher(bf, sf, max_batch=2, max_wait_ms=5)
+def _real_api(**engine):
+    """The port's api with a toy-width random model on the CPU."""
+    import torch
+
+    from vallex_tpu_torch import api
+    from vallex_tpu_torch.config import EngineConfig, ModelConfig
+
+    torch.set_num_threads(1)
+    return api.preload_models(
+        random_weights=True, device="cpu", seed=3,
+        cfg=ModelConfig(d_model=64, num_heads=4, num_layers=2, ffn_dim=128),
+        ecfg=EngineConfig(text_buckets=(64, 128), audio_buckets=(128, 256, 512),
+                          compute_dtype="float32", **engine))
+
+
+@pytest.fixture()
+def real_server():
+    """make_server with its defaults: the batcher and the streaming route
+    bound to the port's api."""
+    b = DynamicBatcher(max_batch=4, max_wait_ms=1000)  # room for a loaded test host
     srv = make_server("127.0.0.1", 0, batcher=b)
     threading.Thread(target=srv.serve_forever, daemon=True).start()
-    url = f"http://127.0.0.1:{srv.server_address[1]}/synthesize-long"
+    yield f"http://127.0.0.1:{srv.server_address[1]}", b
+    srv.shutdown()
+    b.shutdown()
+
+
+def test_http_synthesize_long_not_ported_answers_501(real_server):
+    """The default stream_fn is now the port's stream_audio_from_long_text:
+    POST /synthesize-long answers 200 and streams 24 kHz PCM whose length
+    is the sentences' frames · 320 (greedy, so it equals the batch API's
+    generate_audio_from_long_text)."""
+    from vallex_tpu_torch import api
+
+    _real_api(top_k=1)
+    url, _ = real_server
+    body = json.dumps({"text": "One. Two.", "language": "en", "mode": "sliding-window",
+                       "seed": 2}).encode()
+    with urllib.request.urlopen(urllib.request.Request(url + "/synthesize-long", data=body),
+                                timeout=120) as r:
+        assert r.status == 200 and r.headers["Content-Type"].startswith("audio/L16")
+        pcm = np.frombuffer(r.read(), "<i2")
+    sent = []
+    orig = api.codes_to_wave
+    api.codes_to_wave = lambda b, c: sent.append(len(c)) or orig(b, c)
     try:
-        req = urllib.request.Request(url, data=json.dumps({"text": "One. Two."}).encode())
+        api.generate_audio_from_long_text("One. Two.", language="en", seed=2)
+    finally:
+        api.codes_to_wave = orig
+    assert len(pcm) == sent[0] * 320 > 0
+
+
+def test_http_best_of_request_on_cpu(real_server):
+    """A best_of=2 request (sampled, then filtered) answers 200 with a
+    24 kHz WAV through the port's best_of decode."""
+    _real_api()
+    url, b = real_server
+    for extra in ({}, {"top_k": 5, "top_p": 0.9}):
+        body = json.dumps({"text": "Hi there.", "language": "en", "best_of": 2, **extra}).encode()
+        with urllib.request.urlopen(urllib.request.Request(url + "/synthesize", data=body),
+                                    timeout=120) as r:
+            assert r.status == 200
+            with wave_mod.open(io.BytesIO(r.read())) as f:
+                assert f.getframerate() == 24000 and f.getnframes() > 0
+    assert b.metrics.get("vallex_synth_errors_total") == 0
+
+
+@pytest.mark.parametrize("max_rows,best_of", [(4, 2), (6, 3), (5, 5)])
+def test_max_rows_caps_coalesced_rows(max_rows, best_of):
+    """Concurrent best_of requests coalesce into groups of at most
+    _group_cap(best_of) = max_rows // best_of requests (1: the single
+    path), so no batched call holds more than max_rows decode rows."""
+    rec = []
+    b = _batcher(rec, max_batch=8, max_rows=max_rows, max_wait_ms=200, delay=0.05)
+    cap = b._group_cap(best_of)
+    assert cap == max(1, min(8, max_rows // best_of))
+    b.submit(SynthesisRequest("warmup")).result(timeout=10)
+    futs = [b.submit(SynthesisRequest(f"r{i}", best_of=best_of)) for i in range(5)]
+    for f in futs:
+        f.result(timeout=10)
+    b.shutdown()
+    calls = [r for r in rec if r[1] != "warmup"]
+    for kind, payload, kw in calls:
+        n = len(payload) if kind == "batch" else 1
+        assert n <= cap and n * best_of <= max(max_rows, best_of), rec
+    assert sum(len(p) if k == "batch" else 1 for k, p, _ in calls) >= 5
+    if cap == 1:
+        assert all(k == "single" for k, _, _ in calls)
+
+
+def test_http_bad_top_k_top_p_answer_400(http_server):
+    """top_k must be an int and top_p a float: anything else is a 400 with
+    the field named, before any synthesis runs."""
+    url, rec = http_server
+    for field, value in (("top_k", "ten"), ("top_k", None), ("top_k", [5]),
+                         ("top_p", "high"), ("top_p", None), ("top_p", {"p": 1})):
+        req = urllib.request.Request(
+            url + "/synthesize", data=json.dumps({"text": "hi", field: value}).encode())
         with pytest.raises(urllib.error.HTTPError) as e:
             urllib.request.urlopen(req, timeout=10)
-        assert e.value.code == 501
-        assert "ROADMAP.md" in json.loads(e.value.read())["error"]
-    finally:
-        srv.shutdown()
-        b.shutdown()
+        assert e.value.code == 400
+        assert field in json.loads(e.value.read())["error"]
+    assert rec == []
 
 
 def test_http_real_batched_synthesis_on_cpu():
@@ -513,16 +601,7 @@ def test_http_real_batched_synthesis_on_cpu():
     bound to the port's api.generate_audio_batch (toy width, CPU, random
     weights): each answers 200 with a 24 kHz WAV, the requests coalesce
     into a batched call, and nothing is retried or fails."""
-    import torch
-
-    from vallex_tpu_torch import api
-    from vallex_tpu_torch.config import EngineConfig, ModelConfig
-
-    torch.set_num_threads(1)
-    api.preload_models(random_weights=True, device="cpu", seed=3,
-                       cfg=ModelConfig(d_model=64, num_heads=4, num_layers=2, ffn_dim=128),
-                       ecfg=EngineConfig(text_buckets=(64, 128), audio_buckets=(128, 256, 512),
-                                         compute_dtype="float32"))
+    _real_api()
     b = DynamicBatcher(max_batch=4, max_wait_ms=1000)  # room for a loaded test host
     srv = make_server("127.0.0.1", 0, batcher=b)
     threading.Thread(target=srv.serve_forever, daemon=True).start()

@@ -1,5 +1,6 @@
 """Public synthesis API (port of vallex_tpu/api.py: preload_models,
-generate_audio, generate_audio_batch, _prepare_text, the prompt loaders and
+generate_audio, generate_audio_batch, generate_audio_from_long_text,
+stream_audio_from_long_text, _prepare_text, the prompt loaders and
 codes_to_wave).
 
 Runs on `cuda` unless the caller passes `device="cpu"`; with no GPU and no
@@ -11,9 +12,10 @@ the reference's `.npz` format (`audio_tokens` (1, T, 8), `text_tokens`
 from __future__ import annotations
 
 import functools
+import logging
 import os
 from dataclasses import dataclass, field
-from typing import Any, List, Optional, Union
+from typing import Any, Iterator, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -37,9 +39,11 @@ from .engine.pipeline import (
     SynthesisPipeline,
     SynthesisResult,
 )
-from .frontend import PhonemeTokenizer, get_text_token_collater
+from .frontend import PhonemeTokenizer, get_text_token_collater, split_text_into_sentences
 from .frontend.langid import classify
 from .models.vallex import VALLE, init_vallex
+
+logger = logging.getLogger(__name__)
 
 _ASSET_DIR = os.path.join(os.path.dirname(__file__), "assets")
 
@@ -93,7 +97,7 @@ def preload_models(
     package's layout (numpy or torch leaves, e.g. from
     `jax.tree.map(np.asarray, params)`) — or, with random_weights=True, a
     random init drawn from torch.Generator(seed) (Vocos from seed + 1).
-    Reading checkpoint files is not ported yet (ROADMAP.md §1 item 1)."""
+    Reading checkpoint files is not ported yet (ROADMAP.md §1 item 4)."""
     global _bundle
     cfg = cfg or ModelConfig()
     ecfg = ecfg or EngineConfig()
@@ -102,8 +106,8 @@ def preload_models(
         if not random_weights:
             raise NotImplementedError(
                 f"loading checkpoints (from {checkpoint_dir!r}) is not ported"
-                " yet (ROADMAP.md §1 item 1); pass random_weights=True or"
-                " params=<tree>")
+                " yet (ROADMAP.md §1 item 4, slice 5); pass random_weights=True"
+                " or params=<tree>")
         params = init_vallex(cfg, torch.Generator().manual_seed(seed))
         vocos_params = VC.init_vocos(torch.Generator().manual_seed(seed + 1))
     model = load_tree(VALLE(cfg), params, dtype=DTYPES[ecfg.compute_dtype], device=dev)
@@ -264,8 +268,154 @@ def generate_audio_batch(
             for codes, wave in res.outputs]
 
 
-def stream_audio_from_long_text(text: str, *args, **kwargs):
-    """Long-text streaming (vallex_tpu.api.stream_audio_from_long_text) is
-    not ported yet: ROADMAP.md §1 item 7."""
-    raise NotImplementedError(
-        "long-text streaming is not ported yet: ROADMAP.md §1 item 7")
+Prompt = Tuple[np.ndarray, np.ndarray, Optional[str]]  # (audio [T, 8], text ids, lang)
+
+
+def _slid_prompt_triple(bundle: ModelBundle, sent: str, codes: np.ndarray,
+                        language: str) -> Prompt:
+    """Sliding-window prompt after one sentence (reference:
+    generation.py:264-269, the p < 0.5 branch): this sentence's text and
+    its last <= 225 generated frames. "mix" is a span marker, not a prompt
+    language: the prompt language falls back to "en"."""
+    lang = classify(sent) if language == "auto" else language
+    lang_token = lang2token[lang]
+    s_text = lang_token + sent.replace("\n", "").strip(" ") + lang_token
+    phone_tokens, _ = bundle.tokenizer.tokenize(f"_{s_text}".strip())
+    return (codes[-225:] if len(codes) > 225 else codes,
+            np.asarray(phone_tokens, np.int32), lang if lang != "mix" else "en")
+
+
+def _long_text_batch_size(ecfg: EngineConfig) -> int:
+    """Sentence-batch size of fixed-prompt long text: 8 with the int8 KV
+    cache, else 4 — the JAX package's choice, measured there on a TPU, not
+    on the GPU (PERF.md, open questions)."""
+    return 8 if ecfg.quantize == "int8kv" else 4
+
+
+def _synthesize_sentence(bundle: ModelBundle, sent: str, prompt: Prompt, language: str,
+                         accent: str, *, best_of: Optional[int], seed: int,
+                         return_wave: bool):
+    """One sentence through the single-request pipeline → (codes, wave)."""
+    audio, text_prompt, lang_pr = prompt
+    text_ids, lang_ids = _prepare_text(bundle, sent, text_prompt, lang_pr, language, accent)
+    res = bundle.pipeline.synthesize(
+        text_ids, lang_ids, audio if len(audio) else None, best_of=best_of, seed=seed,
+        return_wave=return_wave and bundle.vocos is not None)
+    bundle.last = res
+    return res.codes, res.wave
+
+
+def _fixed_prompt_batches(bundle: ModelBundle, sentences: List[str], prompt: Prompt,
+                          language: str, accent: str, *, seed: int,
+                          return_wave: bool, first_alone: bool):
+    """Fixed-prompt sentences through the batched path, in chunks of
+    _long_text_batch_size (vallex_tpu/api.py:518-548, :647-686); with
+    first_alone the first sentence runs by itself, so a stream's first
+    audio waits for one sentence only. Yields (codes, wave) per sentence."""
+    audio, text_prompt, lang_pr = prompt
+    requests = []
+    for sent in sentences:
+        text_ids, lang_ids = _prepare_text(bundle, sent, text_prompt, lang_pr, language, accent)
+        requests.append((text_ids, lang_ids, audio if len(audio) else None))
+    chunks, off = [], 0
+    if first_alone:
+        chunks, off = [(0, requests[:1])], 1
+    B = _long_text_batch_size(bundle.ecfg)
+    chunks += [(off + i, requests[off + i: off + i + B])
+               for i in range(0, len(requests) - off, B)]
+    for i, chunk in chunks:
+        if len(chunk) == 1:
+            t, lg, p = chunk[0]
+            res = bundle.pipeline.synthesize(t, lg, p, best_of=1, seed=seed + i,
+                                             return_wave=return_wave)
+            bundle.last = res
+            yield res.codes, res.wave
+        else:
+            res = bundle.pipeline.synthesize_batch(chunk, seed=seed + i,
+                                                   return_wave=return_wave)
+            bundle.last = res
+            yield from res.outputs
+
+
+def _long_text(text: str, prompt: Optional[str], language: str, accent: str, mode: str,
+               best_of: Optional[int], seed: int, *, stream: bool):
+    """The sentence loop shared by both long-text entry points: yields
+    (codes, wave) per sentence. Fixed-prompt sentences on the kernel path
+    go through the batched path; otherwise one sentence after the other,
+    with the sliding window's p = 0.5 coin pre-drawn from
+    np.random.RandomState(seed) as in the JAX package, so the prompts (and
+    the token streams) follow the same draws. The JAX package overlaps
+    sentence i + 1's dispatch with sentence i's fetch; this loop runs them
+    in turn, which gives the same tokens."""
+    bundle = _require_bundle()
+    if prompt is None:
+        mode = "sliding-window"
+    sentences = split_text_into_sentences(text)
+    fixed = _load_prompt(prompt)
+    if (mode == "fixed-prompt" and len(sentences) > 1
+            and (best_of or bundle.ecfg.best_of) == 1
+            and bundle.pipeline.decode_mode == "megakernel"):
+        yield from _fixed_prompt_batches(bundle, sentences, fixed, language, accent,
+                                         seed=seed, return_wave=stream,
+                                         first_alone=stream)
+        return
+    rng = np.random.RandomState(seed)
+    cur = fixed
+    for i, sent in enumerate(sentences):
+        logger.info("synthesize sentence %d/%d", i + 1, len(sentences))
+        codes, wave = _synthesize_sentence(bundle, sent, cur, language, accent,
+                                           best_of=best_of, seed=seed + i,
+                                           return_wave=stream)
+        coin = rng.rand() if mode == "sliding-window" else 1.0
+        yield codes, wave
+        if coin < 0.5:
+            cur = _slid_prompt_triple(bundle, sent, codes, language)
+        elif mode == "sliding-window":
+            cur = fixed
+
+
+def generate_audio_from_long_text(
+    text: str,
+    prompt: Optional[str] = None,
+    language: str = "auto",
+    accent: str = "no-accent",
+    mode: str = "sliding-window",
+    *,
+    best_of: Optional[int] = None,
+    seed: int = 0,
+) -> np.ndarray:
+    """Long-text synthesis by sentence (reference: generation.py:154-276).
+
+    mode='fixed-prompt': every sentence reuses the original prompt.
+    mode='sliding-window': with p = 0.5 per sentence, the prompt is replaced
+    by the previous sentence's generated codes + text
+    (generation.py:264-269). The sampling settings are the EngineConfig's.
+    → one waveform @ 24 kHz, vocoded over the concatenated codes."""
+    codes = [c for c, _ in _long_text(text, prompt, language, accent, mode, best_of,
+                                      seed, stream=False)]
+    return codes_to_wave(_require_bundle(), np.concatenate(codes, axis=0))
+
+
+def stream_audio_from_long_text(
+    text: str,
+    prompt: Optional[str] = None,
+    language: str = "auto",
+    accent: str = "no-accent",
+    mode: str = "sliding-window",
+    *,
+    best_of: Optional[int] = None,
+    seed: int = 0,
+) -> Iterator[np.ndarray]:
+    """Long-text synthesis as a generator: yields each sentence's waveform
+    as soon as it is ready, so the first audio waits for one sentence.
+    Token streams equal generate_audio_from_long_text's under the same seed
+    and mode (greedy always; sampled ones also in sliding-window mode — the
+    fixed-prompt batches are cut differently); only the vocoder runs per
+    sentence, so waveforms can differ within its receptive field at
+    sentence boundaries."""
+    bundle = _require_bundle()
+    if bundle.vocos is None:
+        raise RuntimeError("streaming synthesis needs the Vocos vocoder weights")
+    for codes, wave in _long_text(text, prompt, language, accent, mode, best_of, seed,
+                                  stream=True):
+        yield wave if wave is not None else codes_to_wave(bundle, codes)

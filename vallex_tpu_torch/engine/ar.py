@@ -1,5 +1,6 @@
-"""AR decode engine (port of vallex_tpu/engine/ar.py: ar_generate at B = 1,
-ar_generate_batch for batched requests, and their host-side helpers).
+"""AR decode engine (port of vallex_tpu/engine/ar.py: ar_generate for one
+request and its best_of samples, ar_generate_batch for batched requests and
+theirs, and their host-side helpers).
 
 Single-request buffer layout ("slot" = index into the cache of length
 C = s_text + t_audio plus K slack rows):
@@ -21,7 +22,18 @@ Decode modes:
 
 Semantics kept from the reference: EOS forcing (a done sequence keeps
 emitting EOS), logprob accumulation only while alive, stop at EOS or at
-max_gen = min(16·x_len, t_audio - prompt_len - 2, gen_limit).
+max_gen = min(16·x_len, t_audio - prompt_len - 2, gen_limit). Sampling is
+plain (top_k <= 0 or 1, top_p >= 1) or filtered (top-k then top-p,
+ops/sampling.py): filtered draws take the first token from topk_sampling and
+the later ones from the filtered epilogue, and speculate only when greedy
+(the filters keep the argmax).
+
+best_of = beams > 1 (reference models/vallex.py:525-527): the prefill runs
+once and is shared by the samples; each sample decodes on its own, and the
+pick is the best length-normalized logprob (`select_best`). On the kernel
+path the samples run as the grouped rows of the batched decode: the prefix
+K/V [NL, R, H, s_text + p_audio, hd] held once per request, the caches
+holding only each sample's generated rows.
 
 Batched layout (ar_generate_batch, as in the JAX package): text [0, s_text)
 | BOS + prompt bucket [s_text, s_text + p_audio) | generated frame t at
@@ -43,7 +55,7 @@ from ..kernels import sample_epilogue, sample_epilogue_plain
 from ..models import vallex as V
 from ..ops.decode_block import decode_block_fused
 from ..ops.decode_verify import decode_verify
-from ..ops.sampling import speculative_accept
+from ..ops.sampling import speculative_accept, topk_sampling
 
 logger = logging.getLogger(__name__)
 
@@ -51,10 +63,43 @@ ABLK = 512  # the batched prompt bucket is a multiple of this many rows
 
 
 class ARResult(NamedTuple):
-    tokens: np.ndarray  # [t_audio + slack] audio buffer: BOS + prompt + generated
-    gen_len: int  # frames generated (excluding EOS)
+    tokens: np.ndarray  # [t_audio + slack] best sample's buffer: BOS + prompt + generated
+    gen_len: int  # frames generated (excluding EOS) by the best sample
     iterations: int  # decode-loop iterations (speculative: verify passes)
     accepted_drafts: int  # draft tokens the verify passes accepted
+    best_beam: int = 0
+    beam_tokens: Optional[np.ndarray] = None  # [beams, t_audio + slack] every sample
+    scores: Optional[np.ndarray] = None  # [beams] length-normalized logprobs
+
+
+def is_plain(top_k: int, top_p: float) -> bool:
+    """No top-k / top-p filter: greedy (top_k == 1) or full categorical."""
+    return (top_k <= 0 or top_k == 1) and top_p >= 1.0
+
+
+def select_best(sum_logprobs: torch.Tensor, lengths: torch.Tensor,
+                length_penalty: float):
+    """The reference's pick among samples (vallex_tpu/engine/ar.py:824-832):
+    score = sum_logprobs / lengths**length_penalty over the last dim, best =
+    the first argmax. → (best, scores)."""
+    scores = sum_logprobs / torch.pow(lengths.float(), length_penalty)
+    return torch.argmax(scores, dim=-1), scores
+
+
+def first_token(logits0: torch.Tensor, generator, *, vocab: int, top_k: int,
+                top_p: float, temperature: float):
+    """The token after the prompt and its logprob, from the prefill logits
+    [B, VP] (lanes >= vocab at NEG_INF): the plain epilogue's pick, or
+    topk_sampling for filtered sampling (the JAX package draws it in XLA,
+    outside any kernel)."""
+    greedy = top_k == 1
+    if is_plain(top_k, top_p):
+        u0 = None if greedy else torch.rand(logits0.shape, generator=generator,
+                                            device=logits0.device)
+        return sample_epilogue(logits0, u0, vocab=vocab, temperature=temperature,
+                               greedy=greedy, site="ar_prefill")
+    tok, lp = topk_sampling(generator, logits0, top_k, top_p, temperature)
+    return tok.to(torch.int32), lp
 
 
 def bucket(n: int, buckets, granularity: int = 128) -> int:
@@ -221,15 +266,25 @@ def ar_generate(
     speculative: bool,
     packed: Optional[Dict] = None,
     packed_draft: Optional[Dict] = None,
+    top_p: float = 1.0,
+    beams: int = 1,
+    length_penalty: float = 1.0,
 ) -> ARResult:
+    """One request, `beams` samples of it. Kernel-path routing as in the
+    JAX package (vallex_tpu/engine/ar.py:373-392): speculation (the
+    caller's `speculative`) only for one sample of greedy or plain
+    sampled decoding; otherwise K-step blocks on `packed` — one request's
+    layout for one sample, the grouped rows for several."""
     dev = model.pe.device
     greedy = top_k == 1
-    eos = cfg.eos_id
+    eos, vocab = cfg.eos_id, cfg.num_audio_tokens + 1
     kernels = decode_mode == "megakernel"
     K = decode_steps if kernels else 0
     C = s_text + t_audio
+    grouped = kernels and beams > 1
+    P = s_text + p_audio
 
-    # ---- prefill over [text | BOS + prompt] ------------------------------
+    # ---- prefill over [text | BOS + prompt], once for all samples ---------
     y_init = torch.cat([
         torch.tensor([cfg.bos_id], device=dev),
         torch.as_tensor(prompt_audio, device=dev).long(),
@@ -237,80 +292,107 @@ def ar_generate(
     cache_k, cache_v, logits0 = prefill(
         model, cfg, torch.as_tensor(text_ids, device=dev)[None],
         torch.as_tensor(lang_ids, device=dev)[None], x_len, y_init[None], prompt_len,
-        s_text=s_text, p_audio=p_audio, C=C + K, dtype=dtype)
-    cache_k, cache_v = cache_k[:, 0], cache_v[:, 0]  # [NL, H, C + K, hd]
+        s_text=s_text, p_audio=p_audio, C=P if grouped else C + K, dtype=dtype)
 
-    y_buf = torch.full((t_audio + K,), eos, dtype=torch.int64, device=dev)
-    y_buf[:p_audio] = y_init
+    y_buf = torch.full((beams, t_audio + K), eos, dtype=torch.int64, device=dev)
+    y_buf[:, :p_audio] = y_init
     max_gen = min(16 * x_len, t_audio - 1 - prompt_len - 1)
     if gen_limit is not None:
         max_gen = min(max_gen, int(gen_limit))
 
     if not kernels:
-        step = _per_token_loop(model, cfg, logits0, cache_k, cache_v, y_buf,
-                               generator=generator, greedy=greedy,
-                               temperature=temperature, x_len=x_len,
-                               prompt_len=prompt_len, s_text=s_text,
-                               max_gen=max_gen, dtype=dtype)
+        cache_k, cache_v = (c.expand(-1, beams, -1, -1, -1).clone() for c in (cache_k, cache_v))
+        sum_lp, step = _per_token_loop(
+            model, cfg, logits0.expand(beams, -1), cache_k, cache_v, y_buf,
+            generator=generator, top_k=top_k, top_p=top_p, temperature=temperature,
+            x_len=x_len, prompt_len=prompt_len, s_text=s_text, max_gen=max_gen, dtype=dtype)
         iterations, accepted = step, 0
     else:
-        iterations, accepted = _kernel_loop(
-            cfg, logits0, packed, packed_draft, cache_k, cache_v, y_buf,
-            model.pe, generator=generator, greedy=greedy,
-            temperature=temperature, x_len=x_len, prompt_len=prompt_len,
-            s_text=s_text, max_gen=max_gen, K=K, speculative=speculative,
-        )
+        VP = packed["wpred"].shape[0]
+        logits0 = torch.cat(
+            [logits0, torch.full((1, VP - logits0.shape[-1]), V.NEG_INF, device=dev)], dim=-1)
+        cur_tok, cur_lp = first_token(logits0.repeat(beams, 1), generator, vocab=vocab,
+                                      top_k=top_k, top_p=top_p, temperature=temperature)
+        filt = {} if is_plain(top_k, top_p) else dict(top_k=top_k, top_p=top_p)
+        if grouped:
+            rows = lambda v: torch.full((beams,), v, dtype=torch.int32, device=dev)  # noqa: E731
+            NL, _, H, _, hd = cache_k.shape
+            gen = torch.zeros((NL, beams, H, t_audio + K, hd), dtype=dtype, device=dev)
+            y_gen, sum_lp, iterations = _block_loop(
+                cur_tok, cur_lp, packed, gen, gen.clone(), model.pe, (cache_k, cache_v),
+                x_lens=rows(x_len), plens=rows(prompt_len), max_gen=rows(max_gen),
+                beams=beams, s_text=s_text, p_audio=p_audio, t_gen=t_audio, K=K,
+                temperature=temperature, vocab=vocab, eos=eos, greedy=greedy,
+                generator=generator, filt=filt)
+            n = t_audio + K - (prompt_len + 1)
+            y_buf[:, prompt_len + 1:] = y_gen[:, :n]
+            accepted = 0
+        else:
+            sum_lp, iterations, accepted = _kernel_loop(
+                cfg, cur_tok, cur_lp, packed, packed_draft, cache_k[:, 0], cache_v[:, 0],
+                y_buf[0], model.pe, generator=generator, greedy=greedy,
+                temperature=temperature, x_len=x_len, prompt_len=prompt_len,
+                s_text=s_text, max_gen=max_gen, K=K,
+                speculative=speculative and (greedy or not filt), filt=filt)
+
+    # ---- best sample (vallex_tpu/engine/ar.py:824-832) --------------------
+    lengths = (y_buf != eos).sum(dim=1)
+    best, scores = select_best(sum_lp, lengths, length_penalty)
+    best = int(best)
     y = y_buf.cpu().numpy()
-    gen_len = int((y != eos).sum()) - (1 + prompt_len)
-    return ARResult(y, gen_len, iterations, accepted)
+    gen_len = int((y[best] != eos).sum()) - (1 + prompt_len)
+    return ARResult(y[best], gen_len, iterations, accepted, best, y,
+                    scores.cpu().numpy())
 
 
 def _per_token_loop(model, cfg, logits, cache_k, cache_v, y_buf, *,
-                    generator, greedy, temperature, x_len, prompt_len,
-                    s_text, max_gen, dtype) -> int:
-    """The JAX package's `body`: sample, bookkeeping, one decoder step per
-    token in plain PyTorch. Returns the number of steps run."""
+                    generator, top_k, top_p, temperature, x_len, prompt_len,
+                    s_text, max_gen, dtype):
+    """The JAX package's `body` for B samples: sample (plain, or
+    topk_sampling when filtered), bookkeeping, one decoder step per token
+    in plain PyTorch. → (sum_logprobs [B], steps run)."""
     eos = cfg.eos_id
     dev = y_buf.device
-    C = cache_k.shape[2]
-    done, step = False, 0
-    while not done and step < max_gen:
-        u = None if greedy else torch.rand(logits.shape, generator=generator, device=dev)
-        tok, _ = sample_epilogue_plain(
-            logits, u, vocab=logits.shape[-1], temperature=temperature,
-            greedy=greedy)
-        token = int(tok[0])
-        done = token == eos
+    B, C = y_buf.shape[0], cache_k.shape[3]
+    greedy, plain = top_k == 1, is_plain(top_k, top_p)
+    done = torch.zeros((B,), dtype=torch.bool, device=dev)
+    sum_lp = torch.zeros((B,), dtype=torch.float32, device=dev)
+    step = 0
+    while step < max_gen and not bool(done.all()):
+        if plain:
+            u = None if greedy else torch.rand(logits.shape, generator=generator, device=dev)
+            tok, lp = sample_epilogue_plain(
+                logits, u, vocab=logits.shape[-1], temperature=temperature,
+                greedy=greedy)
+        else:
+            tok, lp = topk_sampling(generator, logits, top_k, top_p, temperature)
+        # samples already done keep emitting EOS; logprob only while alive
+        tok = torch.where(done, eos, tok.long())
+        sum_lp = sum_lp + torch.where(done, 0.0, lp)
+        done = done | (tok == eos)
         audio_pos = prompt_len + 1 + step
-        y_buf[audio_pos] = token
-        hh = V.ar_audio_input(
-            model, torch.tensor([[token]], device=dev), audio_pos, dtype)
+        y_buf[:, audio_pos] = tok
+        hh = V.ar_audio_input(model, tok[:, None], audio_pos, dtype)
         kv_mask = audio_kv_mask(C, s_text, x_len, audio_pos, dev)
         for li, layer in enumerate(model.ar_decoder.layers):
-            hh = layer.decode_step(hh, cache_k[li][None], cache_v[li][None],
-                                   s_text + audio_pos, kv_mask)
+            hh = layer.decode_step(hh, cache_k[li], cache_v[li], s_text + audio_pos, kv_mask)
         hh = model.ar_decoder.norm(hh)
         logits = V.ar_logits(model, hh[:, 0])
         step += 1
-    return step
+    return sum_lp, step
 
 
-def _kernel_loop(cfg, logits0, packed, draft, cache_k, cache_v, y_buf, pe, *,
+def _kernel_loop(cfg, cur_tok, cur_lp, packed, draft, cache_k, cache_v, y_buf, pe, *,
                  generator, greedy, temperature, x_len, prompt_len, s_text,
-                 max_gen, K, speculative):
-    """The megakernel path: speculative iterations (draft K-1 + verify K)
-    or, with speculation off, K-step blocks. → (iterations, accepted
-    drafts). Two host reads per iteration: the accepted count (it sets the
-    commit) and the done flag."""
+                 max_gen, K, speculative, filt):
+    """The megakernel path for one sample: speculative iterations (draft
+    K-1 + verify K) or, with speculation off, K-step blocks (filtered
+    epilogue when `filt` holds top_k / top_p). → (sum_logprobs [1],
+    iterations, accepted drafts). Two host reads per iteration: the
+    accepted count (it sets the commit) and the done flag."""
     eos, vocab = cfg.eos_id, cfg.num_audio_tokens + 1
     dev = y_buf.device
     VP = packed["wpred"].shape[0]
-    logits0 = torch.cat(
-        [logits0, torch.full((1, VP - logits0.shape[-1]), V.NEG_INF, device=dev)], dim=-1)
-    u0 = None if greedy else torch.rand(logits0.shape, generator=generator, device=dev)
-    cur_tok, cur_lp = sample_epilogue(logits0, u0, vocab=vocab,
-                                      temperature=temperature, greedy=greedy,
-                                      site="ar_prefill")
     done = torch.zeros((1,), dtype=torch.bool, device=dev)
     sum_lp = torch.zeros((1,), dtype=torch.float32, device=dev)
     zeros_lp = torch.zeros((1,), dtype=torch.float32, device=dev)
@@ -325,7 +407,7 @@ def _kernel_loop(cfg, logits0, packed, draft, cache_k, cache_v, y_buf, pe, *,
                 cur_tok, cur_lp, done, sum_lp, packed, cache_k, cache_v, pe,
                 x_len=x_len, audio_pos=audio_pos, remaining=max_gen - step,
                 temperature=temperature, steps=K, s_text=s_text, vocab=vocab,
-                eos=eos, stochastic=not greedy, generator=generator)
+                eos=eos, stochastic=not greedy, generator=generator, **filt)
             y_buf[audio_pos: audio_pos + K] = r.fed.long()
             cur_tok, cur_lp, done, sum_lp = r.next_tok, r.next_logp, r.done, r.sum_logprobs
             step += K
@@ -373,13 +455,43 @@ def _kernel_loop(cfg, logits0, packed, draft, cache_k, cache_v, y_buf, pe, *,
         step += commit
         if bool(done):
             break
-    return iterations, accepted
+    return sum_lp, iterations, accepted
 
 
 class BatchARResult(NamedTuple):
-    y_gen: np.ndarray  # [R, t_gen + K] generated tokens, aligned at column 0
+    y_gen: np.ndarray  # [R, t_gen + K] generated tokens (best sample), aligned at column 0
     gen_len: np.ndarray  # [R] frames before each request's first EOS, capped
     iterations: int  # K-step blocks run
+    scores: Optional[np.ndarray] = None  # [R, beams] length-normalized logprobs
+
+
+def _block_loop(cur_tok, cur_lp, packed, cache_k, cache_v, pe, prefix, *, x_lens, plens,
+                max_gen, beams, s_text, p_audio, t_gen, K, temperature, vocab, eos,
+                greedy, generator, filt):
+    """K-step batched blocks over RB rows (R requests × beams samples,
+    request-major) until every row is done or the longest cap is reached;
+    one host read per block. `prefix` None: the batched layout; else the
+    grouped one (caches hold generated rows only). → (y_gen [RB, t_gen + K],
+    sum_logprobs [RB], blocks run)."""
+    RB, dev = cur_tok.shape[0], cur_tok.device
+    done = torch.zeros((RB,), dtype=torch.bool, device=dev)
+    sum_lp = torch.zeros((RB,), dtype=torch.float32, device=dev)
+    y_gen = torch.full((RB, t_gen + K), eos, dtype=torch.int64, device=dev)
+    step, iterations, last = 0, 0, int(max_gen.max())
+    while step < last:
+        iterations += 1
+        r = decode_block_fused(
+            cur_tok, cur_lp, done, sum_lp, packed, cache_k, cache_v, pe,
+            x_len=x_lens, audio_pos=step, remaining=max_gen - step,
+            temperature=temperature, steps=K, s_text=s_text, vocab=vocab, eos=eos,
+            stochastic=not greedy, generator=generator, prompt_len=plens,
+            batched=True, p_audio=p_audio, prefix=prefix, beams=beams, **filt)
+        y_gen[:, step: step + K] = r.fed.T.long()
+        cur_tok, cur_lp, done, sum_lp = r.next_tok, r.next_logp, r.done, r.sum_logprobs
+        step += K
+        if bool(done.all()):
+            break
+    return y_gen, sum_lp, iterations
 
 
 def ar_generate_batch(
@@ -400,28 +512,29 @@ def ar_generate_batch(
     t_gen: int,  # generated-frames capacity
     dtype: torch.dtype,
     decode_steps: int,
-    packed: Dict,  # bf16 or int8 (W8A16) decode weights
+    packed: Dict,  # bf16, int8 (W8A16) or f32 decode weights
     beams: int = 1,
+    top_p: float = 1.0,
+    length_penalty: float = 1.0,
 ) -> BatchARResult:
     """R independent requests decoded together: every K-step block runs the
     batched decode_block_fused, so each step streams the weights once for
-    all R rows. Prefill runs once with per-request masks; each request's
-    first token comes from its own prefill logits; each row keeps its own
-    EOS forcing, length cap max_gen = min(16·x_len, gen_cap, t_gen - 1) and
-    logprob sum. One host read per block (all rows done?)."""
-    if beams != 1:
-        raise NotImplementedError(
-            "best_of > 1 on the batched path (beams, the grouped shared-prefix"
-            " layout) is not ported yet: ROADMAP.md §2 item 1 (slices 3-4)")
+    all rows. Prefill runs once per request with per-request masks; each
+    row's first token comes from its request's prefill logits; each row
+    keeps its own EOS forcing, length cap max_gen = min(16·x_len, gen_cap,
+    t_gen - 1) and logprob sum. beams > 1: R × beams request-major rows
+    (row r·beams + b is request r's sample b) in the grouped layout, and
+    each request keeps its best sample (`select_best`, lengths counting
+    BOS + prompt + generated frames). One host read per block."""
     dev = model.pe.device
     R = text_ids.shape[0]
+    RB = R * beams
     K = decode_steps
     if K < 2:
         raise ValueError("the batched decode runs K-step blocks (decode_steps >= 2)")
     eos, vocab = cfg.eos_id, cfg.num_audio_tokens + 1
-    greedy = top_k == 1
-    s_gen = s_text + p_audio
-    C = s_gen + t_gen + K
+    grouped = beams > 1
+    P = s_text + p_audio
     x_lens_d = torch.as_tensor(np.asarray(x_lens, np.int32), device=dev)
     plens_d = torch.as_tensor(np.asarray(prompt_lens, np.int32), device=dev)
     y_init = torch.cat([
@@ -431,35 +544,35 @@ def ar_generate_batch(
     cache_k, cache_v, logits0 = prefill(
         model, cfg, torch.as_tensor(np.asarray(text_ids), device=dev),
         torch.as_tensor(np.asarray(lang_ids), device=dev), x_lens_d, y_init, plens_d,
-        s_text=s_text, p_audio=p_audio, C=C, dtype=dtype)
+        s_text=s_text, p_audio=p_audio, C=P if grouped else P + t_gen + K, dtype=dtype)
+    prefix = None
+    if grouped:
+        prefix = (cache_k, cache_v)
+        NL, _, H, _, hd = cache_k.shape
+        cache_k = torch.zeros((NL, RB, H, t_gen + K, hd), dtype=dtype, device=dev)
+        cache_v = torch.zeros_like(cache_k)
+    rep = (lambda t: t.repeat_interleave(beams, dim=0)) if grouped else (lambda t: t)
 
     max_gen_np = np.minimum(np.minimum(16 * np.asarray(x_lens, np.int64),
                                        np.asarray(gen_caps, np.int64)), t_gen - 1)
-    max_gen = torch.as_tensor(max_gen_np, device=dev)
+    max_gen = rep(torch.as_tensor(max_gen_np, device=dev))
     VP = packed["wpred"].shape[0]
     logits0 = torch.cat(
         [logits0, torch.full((R, VP - logits0.shape[-1]), V.NEG_INF, device=dev)], dim=-1)
-    u0 = None if greedy else torch.rand(logits0.shape, generator=generator, device=dev)
-    cur_tok, cur_lp = sample_epilogue(logits0, u0, vocab=vocab, temperature=temperature,
-                                      greedy=greedy, site="ar_prefill")
-    done = torch.zeros((R,), dtype=torch.bool, device=dev)
-    sum_lp = torch.zeros((R,), dtype=torch.float32, device=dev)
-    y_gen = torch.full((R, t_gen + K), eos, dtype=torch.int64, device=dev)
-    step, iterations, last = 0, 0, int(max_gen_np.max())
-    while step < last:
-        iterations += 1
-        r = decode_block_fused(
-            cur_tok, cur_lp, done, sum_lp, packed, cache_k, cache_v, model.pe,
-            x_len=x_lens_d, audio_pos=step, remaining=max_gen - step,
-            temperature=temperature, steps=K, s_text=s_text, vocab=vocab, eos=eos,
-            stochastic=not greedy, generator=generator, prompt_len=plens_d,
-            batched=True, p_audio=p_audio)
-        y_gen[:, step: step + K] = r.fed.T.long()
-        cur_tok, cur_lp, done, sum_lp = r.next_tok, r.next_logp, r.done, r.sum_logprobs
-        step += K
-        if bool(done.all()):
-            break
+    cur_tok, cur_lp = first_token(rep(logits0), generator, vocab=vocab, top_k=top_k,
+                                  top_p=top_p, temperature=temperature)
+    filt = {} if is_plain(top_k, top_p) else dict(top_k=top_k, top_p=top_p)
+    y_gen, sum_lp, iterations = _block_loop(
+        cur_tok, cur_lp, packed, cache_k, cache_v, model.pe, prefix,
+        x_lens=rep(x_lens_d), plens=rep(plens_d), max_gen=max_gen, beams=beams,
+        s_text=s_text, p_audio=p_audio, t_gen=t_gen, K=K, temperature=temperature,
+        vocab=vocab, eos=eos, greedy=top_k == 1, generator=generator, filt=filt)
     # frames before each row's first EOS, clipped to its length cap
     alive = torch.cumprod((y_gen[:, :t_gen] != eos).to(torch.int32), dim=1)
     gen_len = torch.minimum(alive.sum(dim=1), max_gen)
-    return BatchARResult(y_gen.cpu().numpy(), gen_len.cpu().numpy(), iterations)
+    # each request's best sample (lengths: BOS + prompt + generated frames)
+    best, scores = select_best(sum_lp.view(R, beams),
+                               (1 + rep(plens_d) + gen_len).view(R, beams), length_penalty)
+    rows = torch.arange(R, device=dev) * beams + best
+    return BatchARResult(y_gen[rows].cpu().numpy(), gen_len[rows].cpu().numpy(),
+                         iterations, scores.cpu().numpy())

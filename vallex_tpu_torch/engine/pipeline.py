@@ -3,9 +3,12 @@ requests (port of vallex_tpu/engine/pipeline.py: _assemble_nar_input(_batch),
 _shift_out_prompt(_batch), _nar_tail(_batch), SynthesisPipeline.synthesize
 and synthesize_batch).
 
-Configurations the port does not run yet raise NotImplementedError naming
-their ROADMAP.md item: beams (best_of > 1), filtered top-k/top-p, the int8
-KV cache and w8a8, and single-step decode.
+Every sampling knob of the reference runs: best_of > 1 (samples of one
+request, or of each batched request, and the best picked), filtered
+top-k / top-p, greedy and plain sampling, in bf16 or f32, with bf16 or int8
+serving weights. Configurations the port does not run yet raise
+NotImplementedError naming their ROADMAP.md item: the int8 KV cache and
+w8a8, single-step decode and decode_mode="pallas".
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from .ar import (
     ar_generate,
     ar_generate_batch,
     bucket,
+    is_plain,
     pad_batched_requests,
     validate_prompt_len,
 )
@@ -34,25 +38,23 @@ from .nar import nar_generate
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-def check_slice(ecfg: EngineConfig, *, best_of: int, top_k: int, top_p: float) -> None:
+QUANTIZE_ITEMS = {"int8kv": "§2 item 1c (the int8 KV cache)", "w8a8": "§2 item 1d (w8a8)"}
+
+
+def check_slice(ecfg: EngineConfig, *, best_of: int) -> None:
     """Raise for configurations the port does not run yet (CPU and GPU
     alike — there is no quiet fallback)."""
-    if best_of != 1:
-        raise NotImplementedError(
-            "best_of > 1 (beam search) is not ported yet: ROADMAP.md §2 item 1"
-            " (decode_block_fused beams) and §1 item 4")
-    if not ((top_k <= 0 or top_k == 1) and top_p >= 1.0):
-        raise NotImplementedError(
-            "filtered top-k/top-p sampling is not ported yet: ROADMAP.md §2"
-            " item 1 (the filtered epilogue) and §1 item 3")
+    if best_of < 1:
+        raise ValueError(f"best_of must be >= 1, got {best_of}")
     if ecfg.quantize not in ("none", "int8"):
+        item = QUANTIZE_ITEMS.get(ecfg.quantize, "§2 item 1")
         raise NotImplementedError(
-            f"quantize={ecfg.quantize!r} is not ported yet: ROADMAP.md §2"
-            " item 1 (slice 5, the int8 KV cache; slice 6, w8a8)")
+            f"quantize={ecfg.quantize!r} is not ported yet: ROADMAP.md {item},"
+            " slice 4")
     if ecfg.decode_steps < 2:
         raise NotImplementedError(
             "decode_steps=1 (the single-step decode_step kernel) is not ported"
-            " yet: ROADMAP.md §2 item 3")
+            " yet: ROADMAP.md §2 item 2, slice 4")
     if ecfg.compute_dtype not in DTYPES:
         raise ValueError(f"unknown compute_dtype {ecfg.compute_dtype!r}")
 
@@ -136,8 +138,8 @@ class SynthesisPipeline:
         if mode not in ("megakernel", "xla"):
             raise NotImplementedError(
                 f"decode_mode={ecfg.decode_mode!r} is not ported: the port has"
-                " the kernel path and the per-token path (ROADMAP.md §2 item 4"
-                " for decode_attention)")
+                " the kernel path and the per-token path (ROADMAP.md §2 item 3,"
+                " decode_attention, slice 4)")
         self.decode_mode = mode
         self._packed: Optional[Dict] = None
         self._draft: Optional[Dict] = None
@@ -181,7 +183,7 @@ class SynthesisPipeline:
         top_k = e.top_k if top_k is None else top_k
         top_p = e.top_p if top_p is None else top_p
         temperature = e.temperature if temperature is None else temperature
-        check_slice(e, best_of=best_of, top_k=top_k, top_p=top_p)
+        check_slice(e, best_of=best_of)
         seconds = {}
         t0 = time.perf_counter()
 
@@ -204,10 +206,11 @@ class SynthesisPipeline:
         prompt_pad = np.full((p_audio - 1,), cfg.eos_id, np.int64)
         prompt_pad[:Tp] = prompt[:, 0]
 
-        greedy = top_k == 1
-        # speculation drafts with int8 and verifies with bf16: bf16 serving
-        # only (EngineConfig.speculative)
-        speculative = e.speculative in ("auto", "on") and e.quantize == "none"
+        # speculation drafts with int8 and verifies with the serving dtype:
+        # unquantized serving, one sample, greedy or plain sampling
+        # (EngineConfig.speculative; vallex_tpu/engine/ar.py:373-392)
+        speculative = (e.speculative in ("auto", "on") and e.quantize == "none"
+                       and best_of == 1 and (top_k == 1 or is_plain(top_k, top_p)))
         kernels = self.decode_mode == "megakernel"
         packed, draft = None, None
         if kernels:
@@ -222,7 +225,8 @@ class SynthesisPipeline:
                 gen_limit=max_gen_frames, s_text=s_text, p_audio=p_audio,
                 t_audio=t_audio, dtype=self.dtype, decode_mode=self.decode_mode,
                 decode_steps=e.decode_steps, speculative=speculative and kernels,
-                packed=packed, packed_draft=draft,
+                packed=packed, packed_draft=draft, top_p=top_p, beams=best_of,
+                length_penalty=e.length_penalty,
             )
             self._sync()
         seconds["ar"] = time.perf_counter() - t0
@@ -267,9 +271,11 @@ class SynthesisPipeline:
         return_wave: bool = True,
     ) -> BatchSynthesisResult:
         """Batched synthesis on one device: the AR decode runs all requests
-        as rows of one batched decode (engine/ar.py::ar_generate_batch), so
-        each step streams the weights once for the batch; the NAR and Vocos
-        run at batch R with per-row lengths. One request takes `synthesize`.
+        (× best_of samples each) as rows of one batched decode
+        (engine/ar.py::ar_generate_batch), so each step streams the weights
+        once for the batch; the NAR and Vocos run on each request's best
+        sample at batch R with per-row lengths. One request takes
+        `synthesize`.
         The batched decode runs ops/decode_block.py whatever decode_mode
         says (the JAX package's batched decode has only its kernel path):
         the kernels on CUDA, their plain versions on the CPU."""
@@ -277,7 +283,7 @@ class SynthesisPipeline:
         top_k = e.top_k if top_k is None else top_k
         top_p = e.top_p if top_p is None else top_p
         temperature = e.temperature if temperature is None else temperature
-        check_slice(e, best_of=best_of, top_k=top_k, top_p=top_p)
+        check_slice(e, best_of=best_of)
         R = len(requests)
         if R == 1:
             t, lg, p = requests[0]
@@ -305,7 +311,8 @@ class SynthesisPipeline:
                 pb["prompt_lens"], pb["caps"], generator=generator, top_k=top_k,
                 temperature=temperature, s_text=s_text, p_audio=p_audio, t_gen=t_gen,
                 dtype=self.dtype, decode_steps=max(2, e.decode_steps),
-                packed=self.serving_weights(), beams=best_of)
+                packed=self.serving_weights(), beams=best_of, top_p=top_p,
+                length_penalty=e.length_penalty)
             self._sync()
         seconds["ar"] = time.perf_counter() - t0
 

@@ -29,7 +29,7 @@ def _try_nltk_split(text: str):
         out = nltk.tokenize.sent_tokenize(text)
         _nltk_ready = True
         return out
-    except LookupError:
+    except (ImportError, LookupError):  # no nltk, or no punkt data
         _nltk_ready = False
         return None
 

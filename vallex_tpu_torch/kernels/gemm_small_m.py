@@ -1,12 +1,14 @@
-"""`gemm_small_m`: the decode products, M <= 8 rows (kernel: gemm_small_m.cu).
+"""`gemm_small_m`: the decode products, a few rows (kernel: gemm_small_m.cu).
 
 Y[M, N] = epilogue(prologue(X)[M, K] · W[N, K]ᵀ) with an optional
 LayerNorm prologue and scale / bias / ReLU / residual epilogue. W is bf16,
-or int8 with f32 per-output-channel scales (W8A16); activations are
-rounded to bf16 before the product and the sum is f32, as in the TPU
-kernels. It carries QKV, out-proj, FFN1, FFN2 and the head of the draft
-and batched-request steps (ops/decode_block.py, one row per request) and
-of the verify pass (ops/decode_verify.py).
+int8 with f32 per-output-channel scales (W8A16), or f32; activations are
+rounded to bf16 before the product for bf16 and int8 weights and stay f32
+for f32 weights, and the sum is f32, as in the TPU kernels. It carries
+QKV, out-proj, FFN1, FFN2 and the head of the draft and batched-request
+steps (ops/decode_block.py, one row per request and sample) and of the
+verify pass (ops/decode_verify.py). Any M: the kernel takes the rows in
+groups of 8, and each row is bitwise its M = 1 product.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ import torch
 
 from .loader import check, launch_counts, library, stream_ptr
 
-MAX_M = 8
+W_KINDS = {torch.bfloat16: 0, torch.int8: 1, torch.float32: 2}  # the launcher's w_kind
 
 
 def gemm_small_m_plain(
@@ -79,10 +81,10 @@ def gemm_small_m(
     M, K = x.shape
     N = w.shape[0]
     f32 = (x, scale, bias, residual) + (ln if ln is not None else ())
-    if not 1 <= M <= MAX_M:
-        raise ValueError(f"gemm_small_m takes 1..{MAX_M} rows, got {M}")
-    if w.dtype not in (torch.bfloat16, torch.int8):
-        raise TypeError(f"gemm_small_m: weights must be bf16 or int8, got {w.dtype}")
+    if M < 1:
+        raise ValueError(f"gemm_small_m takes at least one row, got {M}")
+    if w.dtype not in W_KINDS:
+        raise TypeError(f"gemm_small_m: weights must be bf16, int8 or f32, got {w.dtype}")
     if w.dtype == torch.int8 and scale is None:
         raise ValueError("gemm_small_m: int8 weights need per-channel scales")
     if w.shape != (N, K) or not w.is_contiguous() or K % 16:
@@ -97,7 +99,7 @@ def gemm_small_m(
         raise ValueError("gemm_small_m: w and x on different devices")
     y = torch.empty((M, N), dtype=torch.float32, device=x.device)
     rc = library().vx_gemm_small_m(
-        x.data_ptr(), x.stride(0), w.data_ptr(), int(w.dtype == torch.int8),
+        x.data_ptr(), x.stride(0), w.data_ptr(), W_KINDS[w.dtype],
         _ptr(scale), _ptr(bias),
         _ptr(ln[0]) if ln is not None else None,
         _ptr(ln[1]) if ln is not None else None,

@@ -49,9 +49,10 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "vx_gemm_small_m": (_P, _I, _P, _I, _P, _P, _P, _P, _P, _I, _P, _I,
                         _I, _I, _I, _I, _F, _P),
-    "vx_masked_attention": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                            _I, _P, _I, _I, _I, _F, _P),
-    "vx_sample_epilogue": (_P, _I, _P, _I, _I, _I, _I, _F, _I, _P, _P, _P),
+    "vx_masked_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P,
+                            _I, _I, _I, _I, _I, _P, _I, _I, _I, _F, _P),
+    "vx_sample_epilogue": (_P, _I, _P, _I, _I, _I, _I, _F, _I, _I, _I, _F,
+                           _P, _P, _P, _I, _P),
 }
 
 

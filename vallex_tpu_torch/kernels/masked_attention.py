@@ -15,13 +15,20 @@ them from the engine's layouts:
   batched requests (engine/ar.py::ar_generate_batch): range 1 the BOS +
       prompt rows [s_text, s_text + audio_len), range 2 the generated rows
       [gen_lo, gen_lo + gen_len + q_off·qi).
+Grouped mode (best_of samples of R requests, B = R·beams request-major
+rows): `prefix` = (pk, pv) [R, H, P, hd] holds each request's text + BOS +
+prompt rows once; row b reads its text and range-1 keys from prefix row
+b // beams and its range-2 keys from its own cache row, where the generated
+rows start at gen_lo = 0. It equals the batched layout with the prefix
+repeated per sample in front of the generated rows (`with_prefix`), which
+is the plain version.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import List, NamedTuple, Optional, Union
+from typing import List, NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -80,17 +87,33 @@ def valid_keys(Tq: int, C: int, b: Bounds) -> torch.Tensor:
     return (c < xl) | r1 | r2
 
 
+Prefix = Tuple[torch.Tensor, torch.Tensor]  # grouped mode: (pk, pv) [R, H, P, hd]
+
+
+def with_prefix(k: torch.Tensor, v: torch.Tensor, bounds: Bounds, prefix: Prefix,
+                beams: int):
+    """The grouped layout as the batched one: each row's prefix rows
+    (repeated per sample) in front of its own rows, range 2 shifted by P."""
+    pk, pv = (p.repeat_interleave(beams, dim=0).to(k.dtype) for p in prefix)
+    P = pk.shape[2]
+    return (torch.cat([pk, k], dim=2), torch.cat([pv, v], dim=2),
+            bounds._replace(a2_lo=bounds.a2_lo + P))
+
+
 def masked_attention_plain(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-    bounds: Optional[Bounds] = None, **layout,
+    bounds: Optional[Bounds] = None, *, prefix: Optional[Prefix] = None,
+    beams: int = 1, **layout,
 ) -> torch.Tensor:
     """softmax(q·kᵀ/√hd over the valid keys)·v in f32; q [B, H, Tq, hd],
-    k/v [B, H, C, hd] → [B, H, Tq, hd] in q's dtype. Bounds, or the
-    keywords of `attention_bounds`."""
+    k/v [B, H, C, hd] (+ a grouped-mode prefix) → [B, H, Tq, hd] in q's
+    dtype. Bounds, or the keywords of `attention_bounds`."""
     B, _, Tq, hd = q.shape
-    C = k.shape[-2]
     if bounds is None:
         bounds = attention_bounds(B, device=q.device, **layout)
+    if prefix is not None:
+        k, v, bounds = with_prefix(k, v, bounds, prefix, beams)
+    C = k.shape[-2]
     ok = valid_keys(Tq, C, bounds)[:, None]  # [B, 1, Tq, C]
     s = (q.float() @ k.float().transpose(-1, -2)) * (1.0 / math.sqrt(hd))
     s = s.masked_fill(~ok, float("-inf"))
@@ -102,21 +125,31 @@ def _strides3(t: torch.Tensor):
     return (ctypes.c_longlong * 3)(t.stride(0), t.stride(1), t.stride(2))
 
 
+KINDS = {  # (q/out dtype, k/v dtype) → the launcher's `kinds`
+    (torch.float32, torch.bfloat16): 0,
+    (torch.bfloat16, torch.bfloat16): 1,
+    (torch.float32, torch.float32): 2,
+}
+
+
 def masked_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     bounds: Optional[Bounds] = None, *,
+    prefix: Optional[Prefix] = None, beams: int = 1,
     out: Optional[torch.Tensor] = None, site: str = "", **layout,
 ) -> torch.Tensor:
-    """q [B, H, Tq, 64] f32 or bf16; k/v [B, H, C, 64] bf16 (any strides
-    with a unit last stride) → [B, H, Tq, 64] in q's dtype, written into
+    """q [B, H, Tq, 64]; k/v [B, H, C, 64] (any strides with a unit last
+    stride): f32 q with bf16 k/v (decode), all bf16 (NAR) or all f32
+    (compute_dtype="float32") → [B, H, Tq, 64] in q's dtype, written into
     `out` when given (e.g. a strided view of a [Tq, H·64] buffer). Bounds,
-    or the keywords of `attention_bounds`. CPU tensors take the plain
-    version; CUDA tensors launch or raise."""
+    or the keywords of `attention_bounds`; `prefix` + `beams` for the
+    grouped mode. CPU tensors take the plain version; CUDA tensors launch
+    or raise."""
     B, H, Tq, hd = q.shape
     if bounds is None:
         bounds = attention_bounds(B, device=q.device, **layout)
     if q.device.type == "cpu":
-        o = masked_attention_plain(q, k, v, bounds)
+        o = masked_attention_plain(q, k, v, bounds, prefix=prefix, beams=beams)
         if out is None:
             return o
         out.copy_(o)
@@ -124,10 +157,10 @@ def masked_attention(
     C = k.shape[2]
     if hd != HEAD_DIM or k.shape != (B, H, C, hd) or v.shape != k.shape:
         raise ValueError(f"masked_attention: want q [B,H,Tq,{HEAD_DIM}], k/v [B,H,C,{HEAD_DIM}]; got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
-    if q.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"masked_attention: q must be f32 or bf16, got {q.dtype}")
-    if k.dtype != torch.bfloat16 or v.dtype != torch.bfloat16:
-        raise TypeError("masked_attention: k/v must be bf16")
+    kinds = KINDS.get((q.dtype, k.dtype))
+    if kinds is None or v.dtype != k.dtype:
+        raise TypeError(f"masked_attention: q/k/v dtypes {q.dtype}/{k.dtype}/{v.dtype} not taken"
+                        " (f32/bf16/bf16, bf16/bf16/bf16 or f32/f32/f32)")
     lens = bounds.lens
     if lens.shape != (3, B) or lens.dtype != torch.int32 or not lens.is_contiguous():
         raise ValueError(f"masked_attention: bounds must be a contiguous [3, {B}] int32 tensor")
@@ -135,16 +168,30 @@ def masked_attention(
         out = torch.empty((B, H, Tq, hd), dtype=q.dtype, device=q.device)
     if out.shape != q.shape or out.dtype != q.dtype:
         raise ValueError("masked_attention: out must match q's shape and dtype")
-    for t in (q, k, v, out, lens):
+    kv = (k, v) if prefix is None else (k, v, *prefix)
+    for t in (q, out, lens) + kv:
         if t.device != q.device or t.stride(-1) != 1:
             raise ValueError("masked_attention: tensors must share q's device and have a unit last stride")
-    if k.stride() != v.stride():
-        raise ValueError("masked_attention: k and v must share strides")
-    if k.stride(2) % 8 or k.stride(1) % 8 or k.stride(0) % 8:
-        raise ValueError("masked_attention: k/v rows must be 16-byte aligned")
+    align = 16 // k.element_size()
+    for a, b in zip(kv[::2], kv[1::2]):
+        if a.stride() != b.stride():
+            raise ValueError("masked_attention: k and v (and the prefix pair) must share strides")
+        if any(st % align for st in a.stride()[:3]):
+            raise ValueError("masked_attention: k/v rows must be 16-byte aligned")
+    P, pk, pv, ps = 0, None, None, None
+    if prefix is not None:
+        pk, pv = prefix
+        if pk.dtype != k.dtype or pv.dtype != k.dtype or pk.shape != pv.shape \
+                or pk.shape[0] * beams != B or pk.shape[1] != H or pk.shape[3] != hd:
+            raise ValueError(f"masked_attention: prefix must be [{B}/{beams}, {H}, P, {hd}] of"
+                             f" k's dtype, got {tuple(pk.shape)} {pk.dtype}")
+        P, ps = pk.shape[2], _strides3(pk)
+        pk, pv = pk.data_ptr(), pv.data_ptr()
+    elif beams != 1:
+        raise ValueError("masked_attention: beams > 1 needs the prefix")
     rc = library().vx_masked_attention(
         q.data_ptr(), _strides3(q), k.data_ptr(), v.data_ptr(), _strides3(k),
-        out.data_ptr(), _strides3(out), int(q.dtype == torch.bfloat16),
+        pk, pv, ps, P, beams, out.data_ptr(), _strides3(out), kinds,
         B, H, Tq, C, lens.data_ptr(), bounds.a1_lo, bounds.a2_lo, bounds.q_off,
         ctypes.c_float(1.0 / math.sqrt(hd)), stream_ptr(q),
     )

@@ -1,6 +1,7 @@
 """K AR decode steps with sampling and bookkeeping (port of
-vallex_tpu/ops/decode_block.py::decode_block_fused: one request, and
-`batched=True` for B requests).
+vallex_tpu/ops/decode_block.py::decode_block_fused: one request,
+`batched=True` for B requests, grouped best_of samples, and the filtered
+epilogue).
 
 Each step k, as in the TPU kernel's header and its `_attention` prologue,
 for every row:
@@ -11,14 +12,21 @@ for every row:
       → logits [VP] (kept: the draft's q)
   (cur_tok, cur_logp) = sample(logits): Gumbel-argmax of logits/T + g(u)
       with u [B, VP] from the caller's torch.Generator, or argmax when
-      greedy; logprob from the temperature-scaled log-softmax.
+      greedy; logprob from the temperature-scaled log-softmax. With top_k /
+      top_p (the TPU kernel's `filtered=True`), both the draw and the
+      logprob come from the top-k → top-p kept set.
 One request: position audio_pos + k, KV column at s_text + audio_pos + k,
 cache [NL, H, C, hd]. Batched (the TPU kernel's `_hbm_fold_batched`
 contract): `audio_pos` is the count of generated frames before the block
 (pos0), generated frame t of every row lives at cache row s_text + p_audio
 + t, row r's audio position is prompt_len[r] + 1 + t, and x_len, prompt_len
-and remaining are [B] vectors; the cache is [NL, B, H, C, hd].
-The weights are the bf16 or int8 (W8A16) dict of ops/decode_step.py. The
+and remaining are [B] vectors; the cache is [NL, B, H, C, hd]. Grouped
+(`prefix` given, the TPU kernel's `_hbm_fold_beams` for one request and
+`_hbm_fold_batched_grouped` for R): B = R·beams request-major rows, the
+prefix [NL, R, H, s_text + p_audio, hd] holds each request's text + BOS +
+prompt K/V once, and the cache holds only generated rows (frame t at row
+t).
+The weights are the bf16, f32 or int8 (W8A16) dict of ops/decode_step.py. The
 steps run as launches of the hand-written kernels (products, attention,
 sampling); the bookkeeping is a few tensor ops per step that stay on the
 device, so the host never waits inside a block.
@@ -26,7 +34,7 @@ device, so the host never waits inside a block.
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional, Union
+from typing import Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -36,6 +44,10 @@ from .decode_verify import decoder_forward
 
 SITE = "decode_block_fused"
 SITE_BATCHED = "decode_block_fused_batched"
+# the attention launches of grouped blocks: one request's samples, R requests'
+SITE_BEAMS = "decode_block_fused_beams"
+SITE_GROUPED = "decode_block_fused_grouped"
+SITE_FILTERED = "decode_block_fused_filtered"  # the epilogue in filtered mode
 
 
 class BlockResult(NamedTuple):
@@ -70,6 +82,10 @@ def decode_block_fused(
     prompt_len: Optional[torch.Tensor] = None,  # batched: [B] valid prompt frames
     batched: bool = False,
     p_audio: int = 0,  # batched: BOS + prompt bucket rows
+    prefix: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,  # grouped
+    beams: int = 1,
+    top_k: Optional[int] = None,  # filtered epilogue (<= 0: off)
+    top_p: Optional[float] = None,  # filtered epilogue (>= 1: off)
 ) -> BlockResult:
     dev = tokens.device
     B = tokens.shape[0]
@@ -77,9 +93,14 @@ def decode_block_fused(
     cur_lp = logprobs.float()
     done = done.clone()
     sum_lp = sum_logprobs.float().clone()
+    att_site = None
+    filtered = top_k is not None or top_p is not None
     if batched:
         site, cache5 = SITE_BATCHED, (cache_k, cache_v)
         s_gen = s_text + p_audio
+        if prefix is not None:  # generated rows only in the caches
+            s_gen = 0
+            att_site = SITE_BEAMS if B == beams else SITE_GROUPED
         # [K, B] audio position of each row at each step
         pos = (prompt_len.long() + 1 + audio_pos)[None] + torch.arange(steps, device=dev)[:, None]
         bounds = attention_bounds(B, x_len=x_len, s_text=s_text, audio_len=prompt_len + 1,
@@ -101,7 +122,8 @@ def decode_block_fused(
                    else pe_table[audio_pos + k: audio_pos + k + 1])
         logits = decoder_forward(
             fed, lw, *cache5, pe_rows, slot=s_gen + audio_pos + k,
-            bounds=bounds[k], site=site,
+            bounds=bounds[k], site=site, prefix=prefix, beams=beams,
+            attention_site=att_site,
         )
         logits_all.append(logits)
         u = None
@@ -109,7 +131,8 @@ def decode_block_fused(
             u = torch.rand(logits.shape, generator=generator, device=dev)
         cur_tok, cur_lp = sample_epilogue(
             logits, u, vocab=vocab, temperature=temperature,
-            greedy=not stochastic, site=site,
+            greedy=not stochastic, top_k=top_k, top_p=top_p,
+            site=SITE_FILTERED if filtered else site,
         )
     join = torch.stack if batched else torch.cat
     return BlockResult(join(fed_all), cur_tok, cur_lp, done, sum_lp, join(logits_all))

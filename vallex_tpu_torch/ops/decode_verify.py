@@ -19,12 +19,13 @@ to the cache dtype), where the TPU kernel folded it in unrounded.
 
 Masking contract (engine/ar.py layouts): for one request, cache row c is
 valid for the position pos0 + i iff c < x_len or s_text <= c <= s_text +
-pos0 + i; for batched requests see `decoder_forward`.
+pos0 + i; for batched requests and their best_of samples see
+`decoder_forward`.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -42,6 +43,9 @@ def decoder_forward(
     slot: int,  # cache row of query 0's column (query qi at slot + qi)
     bounds: Bounds,
     site: str,
+    prefix: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,  # [NL, R, H, P, hd]
+    beams: int = 1,
+    attention_site: Optional[str] = None,
 ) -> torch.Tensor:
     """→ logits [M, VP] f32. The layer order and the fused LN / bias /
     ReLU / residual epilogues of the TPU kernels' `_attention` and `_ffn`.
@@ -52,7 +56,11 @@ def decoder_forward(
     row `slot` = s_text + p_audio + t shared by every request; `bounds`
     (attention_bounds with gen_lo = s_text + p_audio, gen_len = t + 1) let
     it see its own text, its own BOS + prompt rows and the generated rows
-    up to `slot`."""
+    up to `slot`. Grouped best_of samples (B = R·beams request-major rows,
+    `prefix` = each request's prefilled text + BOS + prompt K/V): the
+    caches hold only generated rows (slot = t, gen_lo = 0), and the
+    attention reads row b's prefix from request b // beams. The attention
+    launches count under `attention_site` when given."""
     M = tokens.shape[0]
     NL, B, H, _, hd = cache_k.shape
     Tq, D = M // B, H * hd
@@ -73,7 +81,9 @@ def decoder_forward(
         attn = torch.empty((M, D), dtype=torch.float32, device=h.device)
         masked_attention(
             heads[:, :, 0].transpose(1, 2), cache_k[li], cache_v[li], bounds,
-            out=attn.view(B, Tq, H, hd).transpose(1, 2), site=site,
+            prefix=None if prefix is None else (prefix[0][li], prefix[1][li]),
+            beams=beams, out=attn.view(B, Tq, H, hd).transpose(1, 2),
+            site=attention_site or site,
         )
         h = gemm_small_m(attn, lw["wout"][li], scale=sc("sout", li),
                          bias=lw["bout"][li], residual=h, site=site)

@@ -16,10 +16,9 @@ surface:
     GET  /healthz      liveness + queue depth
     GET  /presets      bundled voice-prompt names
 
-Start it with ``serve_forever()`` from Python after
-``api.preload_models()``; the batcher and the streaming route default to
-this package's ``api`` functions. ``POST /synthesize-long`` answers 501
-until long-text streaming is ported (ROADMAP.md §1 item 7).
+Start it with ``python -m vallex_tpu_torch.cli serve --port 8000`` or
+``serve_forever()`` from Python after ``api.preload_models()``; the batcher
+and the streaming route default to this package's ``api`` functions.
 """
 
 from __future__ import annotations
@@ -149,9 +148,8 @@ class SynthesisRequest:
         shares across the batch is identical (api.generate_audio_batch
         applies language/accent/best_of/sampling/seed batch-wide; texts
         and prompts are per-request). best_of in the key means two
-        concurrent best_of=5 requests would coalesce into ONE decode of 10
-        samples (engine/ar.py::ar_generate_batch beams, not ported yet:
-        best_of > 1 raises NotImplementedError)."""
+        concurrent best_of=5 requests coalesce into ONE decode of 10
+        samples (engine/ar.py::ar_generate_batch beams)."""
         return (
             self.language, self.accent, self.best_of, self.top_k,
             self.top_p, self.temperature, self.seed,
@@ -595,14 +593,11 @@ def make_server(
                 )
                 return
             try:
+                stream = stream_fn(data["text"], **kwargs)
                 try:
-                    stream = stream_fn(data["text"], **kwargs)
                     first = next(stream)  # synthesize before committing 200
                 except StopIteration:
                     self._send_json(400, {"error": "no sentences in text"})
-                    return
-                except NotImplementedError as e:
-                    self._send_json(501, {"error": str(e)})
                     return
                 except Exception as e:  # noqa: BLE001 (surface as 500)
                     self._send_json(500, {"error": str(e)})
