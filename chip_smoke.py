@@ -21,8 +21,18 @@ Phases, one flushed line each with its own seconds and wall-clock limit:
      (bf16, K = 8) against the same ops on the CPU (the plain versions)
   4b the batched decode_block_fused (K = 8, B = 4, bf16 and int8) against
      each row run alone from the same prefilled caches
+  3d the same for the int8 KV cache, w8a8 and the single steps: the W8A8
+     products (M = 1, 4, 8, 16, 20; cast-prologue products bitwise equal
+     to the plain version), the int8 K/V attention in its own-column mode
+     (single, batched B = 4, grouped 4 x 5) and the own-column mode over a
+     bf16 cache (decode_attention, decode_step, decode_step_fused), the
+     written column bitwise the plain version's; the products and the
+     sampling of one decode_step
   4c the grouped decode_block_fused (4 requests x 5 samples, sampled)
      against the same 20 rows expanded at beams=1, fed the same uniforms
+  4d the int8kv and w8a8 decode_block_fused (K = 8), decode_step and
+     decode_step_fused (8 steps) and decode_attention (8 positions) against
+     the same ops on the CPU (the plain versions)
   5  generate_audio twice (default sampled mode; top_k=1)
   6  generate_audio with s_text + t_audio >= 1536 (the NAR attention kernel)
   5b generate_audio_batch of 4 requests: sampled, greedy, greedy int8; one
@@ -35,6 +45,14 @@ Phases, one flushed line each with its own seconds and wall-clock limit:
      16 against the batch of its first 4; long text in both modes; an f32
      greedy request through the kernels against the plain path on the CPU;
      POST /synthesize-long and a best_of=2 POST; the CLI in a subprocess
+  5e the int8 KV cache, w8a8, decode_steps=1 and decode_mode="pallas":
+     generate_audio in w8a8 and int8kv (greedy, sampled; int8kv best_of=5);
+     the batch of 4 in both modes, each greedy w8a8 row bitwise its request
+     alone in w8a8; fixed-prompt long text in int8kv as one batch of 8
+     sentences; a server with quantize="int8kv" answering 4 concurrent
+     POSTs; the CLI with --quantize w8a8; decode_steps=1 greedy, sampled
+     and filtered; decode_mode="pallas" greedy; f32 greedy requests with
+     decode_steps=1 and with "pallas" against the CPU plain path
   7  torch.profiler traces of one request and of one batch of 4: the
      device-busy share of their AR, NAR and Vocos spans, and the AR's
      device time by kernel
@@ -42,8 +60,9 @@ Phases, one flushed line each with its own seconds and wall-clock limit:
 Launch counts are zeroed just before phase 5 and read after phase 6 (the
 single-request path), zeroed again just before phase 5b and read after
 phase 5c (the batched path), and once more just before phase 5d and read
-after it (best_of and filtered sampling). Any failure exits non-zero before
-the result line. No JAX is imported.
+after it (best_of and filtered sampling), and once more just before phase
+5e and read after it (int8kv, w8a8, single steps, pallas). Any failure exits
+non-zero before the result line. No JAX is imported.
 """
 
 from __future__ import annotations
@@ -65,6 +84,7 @@ from contextlib import contextmanager
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 BF16_OPS_PER_S = 989e12  # dense bf16 tensor-core peak (data sheet)
 F32_OPS_PER_S = 67e12  # f32 outside the tensor cores (data sheet)
+INT8_OPS_PER_S = 1979e12  # dense int8 tensor-core peak (data sheet)
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 TPU = {  # TPU kernel each main-path site stands for (file:line of the function)
@@ -79,10 +99,18 @@ TPU = {  # TPU kernel each main-path site stands for (file:line of the function)
     # best_of: one request's samples (_hbm_fold_beams), R requests' (grouped)
     "decode_block_fused_beams": "vallex_tpu/ops/decode_block.py:638",
     "decode_block_fused_grouped": "vallex_tpu/ops/decode_block.py:1020",
+    # decode_block_fused(act_quant=True) and decode_block_fused(kv_scales=...)
+    "decode_block_fused_w8a8": "vallex_tpu/ops/decode_block.py:1329",
+    "decode_block_fused_int8kv": "vallex_tpu/ops/decode_block.py:1329",
+    "decode_step": "vallex_tpu/ops/decode_step.py:601",
+    "decode_step_fused": "vallex_tpu/ops/decode_step.py:637",
+    "decode_attention": "vallex_tpu/ops/decode_attention.py:181",
 }
 BATCHED_SITES = ("decode_block_fused_batched", "flash_attention_batched")
 SLICE3_SITES = ("decode_block_fused_filtered", "decode_block_fused_beams",
                 "decode_block_fused_grouped")
+SLICE4_SITES = ("decode_block_fused_w8a8", "decode_block_fused_int8kv", "decode_step",
+                "decode_step_fused", "decode_attention")
 
 
 def say(msg: str) -> None:
@@ -192,10 +220,13 @@ def main() -> None:
         gemm_small_m, gemm_small_m_plain, loader, masked_attention,
         masked_attention_plain, sample_epilogue, sample_epilogue_plain,
     )
-    from vallex_tpu_torch.kernels.masked_attention import attention_bounds, valid_keys, with_prefix
+    from vallex_tpu_torch.kernels.masked_attention import (
+        attention_bounds, valid_keys, with_prefix, write_column,
+    )
+    from vallex_tpu_torch.ops.decode_attention import decode_attention
     from vallex_tpu_torch.ops.decode_block import decode_block_fused
-    from vallex_tpu_torch.ops.decode_step import pack_layer_weights
-    from vallex_tpu_torch.ops.decode_verify import decode_verify
+    from vallex_tpu_torch.ops.decode_step import decode_step, decode_step_fused, pack_layer_weights
+    from vallex_tpu_torch.ops.decode_verify import decode_verify, embed
     from vallex_tpu_torch.ops.sampling import topk_keep_mask
     from vallex_tpu_torch.server import DynamicBatcher, make_server
 
@@ -282,19 +313,23 @@ def main() -> None:
             f"{'null' if library_ms is None else f'{library_ms:.4f} ms'}  ({unit})")
 
     # ---- kernel checks -------------------------------------------------------
-    def gemm_calls(lw, M):
+    def gemm_calls(lw, M, act_quant=False):
+        """The 49 products of one decode step at M rows; act_quant: the 48
+        layer products W8A8, the head W8A16 (as the TPU kernels)."""
         x_d = torch.randn((M, D), generator=g, device=dev)
         x_f = torch.relu(torch.randn((M, F), generator=g, device=dev))
+        aq = dict(act_quant=True) if act_quant else {}
         calls = []
         for li in range(NL):
             sc = (lambda n: None if lw[n] is None else lw[n][li])
             calls += [
                 (x_d, lw["wqkv"][li], dict(scale=sc("sqkv"), bias=lw["bqkv"][li],
-                                           ln=(lw["ln1s"][li], lw["ln1b"][li]))),
-                (x_d, lw["wout"][li], dict(scale=sc("sout"), bias=lw["bout"][li], residual=x_d)),
+                                           ln=(lw["ln1s"][li], lw["ln1b"][li]), **aq)),
+                (x_d, lw["wout"][li], dict(scale=sc("sout"), bias=lw["bout"][li], residual=x_d,
+                                           **aq)),
                 (x_d, lw["w1"][li], dict(scale=sc("s1"), bias=lw["b1"][li],
-                                         ln=(lw["ln2s"][li], lw["ln2b"][li]), relu=True)),
-                (x_f, lw["w2"][li], dict(scale=sc("s2"), bias=lw["b2"][li], residual=x_d)),
+                                         ln=(lw["ln2s"][li], lw["ln2b"][li]), relu=True, **aq)),
+                (x_f, lw["w2"][li], dict(scale=sc("s2"), bias=lw["b2"][li], residual=x_d, **aq)),
             ]
         calls.append((x_d, lw["wpred"], dict(scale=lw["spred"], ln=(lw["fns"], lw["fnb"]))))
         return calls
@@ -320,8 +355,24 @@ def main() -> None:
             return None
         return device_ms(lambda: [torch._weight_int8pack_mm(x, w, sc) for x, w, sc in xs])
 
-    def check_gemm(site, lw, M, unit, in_line=True):
-        calls = gemm_calls(lw, M)
+    def int_mm_library_ms(calls, M):
+        """torch._int_mm (int8 x int8 → int32, the integer product alone)
+        per W8A8 product, the rows padded to 17: on CUDA it refuses 16 rows
+        or fewer. None where this torch has no such kernel."""
+        rows = max(M, 17)
+        xs = [(torch.randint(-127, 128, (rows, w.shape[1]), generator=g, device=dev,
+                             dtype=torch.int8), w.t()) for _, w, kw in calls if kw.get("act_quant")]
+        try:
+            torch._int_mm(*xs[0])
+        except (AttributeError, NotImplementedError, RuntimeError) as exc:
+            say(f"  library: torch._int_mm unavailable on CUDA: {str(exc).splitlines()[0][:160]}")
+            return None
+        say(f"  library: torch._int_mm on {rows} rows (M={M} padded to at least 17), the int32"
+            f" products of the {len(xs)} W8A8 layer products only")
+        return device_ms(lambda: [torch._int_mm(a, b) for a, b in xs])
+
+    def check_gemm(site, lw, M, unit, in_line=True, act_quant=False):
+        calls = gemm_calls(lw, M, act_quant)
         f32 = lw["wqkv"].dtype == torch.float32
         err = 0.0
         for x, w, kw in calls:
@@ -330,11 +381,17 @@ def main() -> None:
             torch.cuda.synchronize()
             scale = max(1.0, float(yp.abs().max()))
             e = float((yk - yp).abs().max())
-            # activations are rounded to bf16 after an f32 LayerNorm on
-            # both sides; one rounding flip moves a sum by ~1e-3 of its scale.
-            # f32 weights: no rounding, only the order of the f32 sums
+            # activations are rounded to bf16 (int8 with act_quant) after an
+            # f32 LayerNorm on both sides; one rounding flip moves a sum by
+            # ~1e-3 of its scale. f32 weights: no rounding, only the order of
+            # the f32 sums
             if not e <= (1e-4 if f32 else 1e-2) * scale:
                 fail(f"gemm_small_m@{site}: err {e} at scale {scale} for w {tuple(w.shape)}")
+            if kw.get("act_quant") and "ln" not in kw and not torch.equal(yk, yp):
+                # a cast prologue: the same int8 codes, an exact integer sum
+                # and the same rounded epilogue on both sides
+                fail(f"gemm_small_m@{site}: W8A8 product with a cast prologue differs from"
+                     f" the plain version by {e} for w {tuple(w.shape)}")
             err = max(err, e)
             if M > 1:
                 # a request's output must not depend on its companions: each
@@ -350,29 +407,54 @@ def main() -> None:
             fail(f"gemm_small_m@{site}: head argmax disagrees")
         ms = device_ms(lambda: [gemm_small_m(x, w, site="check", **kw) for x, w, kw in calls])
         pms = device_ms(lambda: [gemm_small_m_plain(x, w, **kw) for x, w, kw in calls])
+        if act_quant and M == 1:
+            # where a W8A8 step's time goes: each product of layer 0 in W8A8
+            # and in W8A16 (the same int8 weights, bf16 activations)
+            parts = []
+            for name, (x, w, kw) in zip(("QKV (LN)", "out-proj (cast)", "FFN1 (LN)",
+                                          "FFN2 (cast)"), calls):
+                w16 = {k: v for k, v in kw.items() if k != "act_quant"}
+                parts.append(f"{name} {device_ms(lambda: gemm_small_m(x, w, site='check', **kw)):.4f}"
+                             f" / {device_ms(lambda: gemm_small_m(x, w, site='check', **w16)):.4f}")
+            say("  W8A8 / W8A16 ms per product of layer 0, M=1: " + ", ".join(parts))
         if lw["sqkv"] is None:  # bf16 or f32: one F.linear per product
             xs = [(x.to(w.dtype), w, kw.get("bias")) for x, w, kw in calls]
             lib_ms = device_ms(lambda: [Fn.linear(x, w, b if b is None else b.to(w.dtype)) for x, w, b in xs])
+        elif act_quant:  # W8A8: one _int_mm per layer product
+            lib_ms = int_mm_library_ms(calls, M)
         else:  # int8 W8A16: one _weight_int8pack_mm per product
             lib_ms = int8_library_ms(calls)
         nbytes = sum(w.numel() * w.element_size() + 4 * (M * (w.shape[0] + w.shape[1]))
                      + (0 if kw.get("scale") is None else 4 * w.shape[0]) for x, w, kw in calls)
-        ops = sum(2 * M * w.shape[0] * w.shape[1] for _, w, _ in calls)
-        wname = "int8" if lw["sqkv"] is not None else ("f32" if f32 else "bf16")
+        rate = F32_OPS_PER_S if f32 else BF16_OPS_PER_S
+        # the operations in bf16-rate units: W8A8 products run at the int8 rate
+        ops = sum(2 * M * w.shape[0] * w.shape[1] * (rate / INT8_OPS_PER_S if kw.get("act_quant")
+                                                     else 1.0) for _, w, kw in calls)
+        wname = ("w8a8 (head W8A16)" if act_quant else "int8" if lw["sqkv"] is not None
+                 else ("f32" if f32 else "bf16"))
         entry("gemm_small_m", site, err, ms, pms, nbytes, ops, lib_ms,
-              f"{unit}: {len(calls)} products, M={M}, {wname} weights", in_line,
-              F32_OPS_PER_S if f32 else BF16_OPS_PER_S)
+              f"{unit}: {len(calls)} products, M={M}, {wname} weights", in_line, rate)
 
     def check_attention(site, q, k, v, bounds, reps_layers, io, in_line=True, prefix=None,
-                        beams=1):
+                        beams=1, kv_scales=None, new_kv=None, slot=None):
         """The kernel against its plain version; with a prefix, the grouped
-        mode (row b reads the text and prompt keys of prefix b // beams)."""
+        mode (row b reads the text and prompt keys of prefix b // beams);
+        with kv_scales, int8 K/V; with new_kv and slot, the own-column mode,
+        whose written column must equal the plain version's bitwise."""
         B, _, Tq, _ = q.shape
-        gk = dict(prefix=prefix, beams=beams)
-        outk = masked_attention(q, k, v, bounds, site="check", **gk).float()
-        # the plain version in f32 on the same (bf16-valued) inputs
+        own = new_kv is not None
+        gk = dict(prefix=prefix, beams=beams, kv_scales=kv_scales, new_kv=new_kv, slot=slot)
+        k_run, v_run = (k.clone(), v.clone()) if own else (k, v)  # own: the kernel writes
+        outk = masked_attention(q, k_run, v_run, bounds, site="check", **gk).float()
+        # the plain version in f32 on the same (bf16- or int8-valued) inputs
         ref = masked_attention_plain(q.float(), k, v, bounds, **gk)
         torch.cuda.synchronize()
+        if own:
+            kp, vp = k.clone(), v.clone()
+            write_column(kp, vp, new_kv, slot, kv_scales)
+            if not (torch.equal(k_run, kp) and torch.equal(v_run, vp)):
+                fail(f"masked_attention@{site}: the written cache differs from the plain"
+                     f" version's (k equal {torch.equal(k_run, kp)}, v equal {torch.equal(v_run, vp)})")
         diff = (outk - ref).abs()
         err = float(diff.max())
         if io == "f32":
@@ -391,27 +473,42 @@ def main() -> None:
             fail(f"masked_attention@{site}: err {float(diff.flatten()[i])} > "
                  f"{float(tol.flatten()[i])} at |ref| {float(ref.abs().flatten()[i])}")
         # the same work in the batched layout: the prefix repeated per sample
-        kf, vf, bf = (k, v, bounds) if prefix is None else with_prefix(k, v, bounds, prefix, beams)
-        ok = valid_keys(Tq, kf.shape[2], bf)  # [B, Tq, C]
-        nkeys = int(ok.sum())
-        ms = device_ms(lambda: [masked_attention(q, k, v, bounds, site="check", **gk)
+        kf, vf, bf = (k_run, v_run, bounds) if prefix is None else \
+            with_prefix(k_run, v_run, bounds, prefix, beams)
+        C_all = kf.shape[2]
+        ok = valid_keys(Tq, C_all, bf)  # [B, Tq, C]
+        if own:  # the walk stops before the slot; the new column comes on top
+            cut = slot + C_all - k.shape[2]
+            ok = ok & (torch.arange(C_all, device=dev) < cut)
+        nkeys = int(ok.sum()) + (B * Tq if own else 0)
+        ms = device_ms(lambda: [masked_attention(q, k_run, v_run, bounds, site="check", **gk)
                                 for _ in range(reps_layers)])
-        pms = device_ms(lambda: [masked_attention_plain(q, k, v, bounds, **gk)
+        pms = device_ms(lambda: [masked_attention_plain(q, k_run, v_run, bounds, **gk)
                                  for _ in range(reps_layers)])
-        qb, mask = q.to(kf.dtype), ok[:, None]  # per-row boolean mask [B, 1, Tq, C]
-        lib_ms = device_ms(lambda: [Fn.scaled_dot_product_attention(qb, kf, vf, attn_mask=mask)
-                                    for _ in range(reps_layers)])
+        lib_ms = None  # int8 K/V: no one PyTorch call attends over int8 K/V with scales
+        if kv_scales is None:
+            # SDPA over the cache (own column: with the written column in its mask)
+            lib_mask = ok.clone()
+            if own:
+                lib_mask[..., cut] = True
+            qb, mask = q.to(kf.dtype), lib_mask[:, None]  # per-row boolean mask [B, 1, Tq, C]
+            lib_ms = device_ms(lambda: [Fn.scaled_dot_product_attention(qb, kf, vf, attn_mask=mask)
+                                        for _ in range(reps_layers)])
         # valid key rows read: the prefix's once per request, each row's own
         used = ok.any(1)  # [B, C]
         P = 0 if prefix is None else prefix[0].shape[2]
         rows = int(used[::beams, :P].sum() + used[:, P:].sum())
+        # own column: the new k/v read in f32 and written in the cache type
+        col = (2 * B * H * hd * (4 + kf.element_size())) if own else 0
         nbytes = reps_layers * (2 * rows * H * hd * kf.element_size()
-                                + 2 * B * Tq * H * hd * q.element_size())
+                                + 2 * B * Tq * H * hd * q.element_size() + col)
         ops = reps_layers * 4 * nkeys * hd * H
         entry("masked_attention", site, err, ms, pms, nbytes, ops, lib_ms,
               f"{reps_layers} launch(es): B={B}{f' = {B // beams} x {beams} samples' if prefix is not None else ''},"
-              f" Tq={Tq}, {rows} valid key rows read, {io} q/out, {kf.dtype} k/v".replace("torch.", ""),
-              in_line, F32_OPS_PER_S if kf.dtype == torch.float32 else BF16_OPS_PER_S)
+              f" Tq={Tq}, {rows} valid key rows read, {io} q/out, {kf.dtype} k/v"
+              f"{', own column' if own else ''}".replace("torch.", ""),
+              in_line, {torch.float32: F32_OPS_PER_S, torch.int8: INT8_OPS_PER_S}.get(
+                  kf.dtype, BF16_OPS_PER_S))
 
     def check_sample(site, rows, greedy):
         logits = torch.randn((rows, VP), generator=g, device=dev) * 3
@@ -582,6 +679,71 @@ def main() -> None:
                         cache_v[0][None].float(), one, NL, "f32", in_line=False)
         del pk1, pv1, kg1, vg1, pk4, pv4, kg4, vg4, packed32
 
+    # ---- phase 3d: the int8 KV cache, w8a8 and the single steps --------------
+    def decode_qkv(B):
+        """q and the new k/v as the decode forward hands them over: strided
+        [B, H, 1, hd] views of the QKV product [B, 3D]."""
+        qkv = torch.randn((B, 3 * D), generator=g, device=dev).view(B, 1, 3, H, hd)
+        return tuple(qkv[:, :, i].transpose(1, 2) for i in range(3))
+
+    def int8_pair(kc, vc):
+        """bf16 caches [B, H, C, hd] of one layer → int8 caches and their
+        (ks, vs) [H], with the batch-wide scales of the engine."""
+        k8, v8, (ks, vs) = AR.int8_caches(kc[None], vc[None])
+        return k8[0], v8[0], (ks[0].contiguous(), vs[0].contiguous())
+
+    with phase("3d kernels vs plain, int8kv / w8a8 / single steps", 300):
+        for M in (1, 4, 8, 16, 20):
+            check_gemm("decode_block_fused_w8a8", draft, M, "one w8a8 step", in_line=M == 1,
+                       act_quant=True)
+        # int8 K/V in the own-column mode, at the shapes of the int8kv blocks:
+        # one request ...
+        k8, v8, sc8 = int8_pair(cache_k[0][None], cache_v[0][None])
+        q, nk, nv = decode_qkv(1)
+        check_attention("decode_block_fused_int8kv", q, k8, v8, one, NL, "f32",
+                        kv_scales=sc8, new_kv=(nk, nv), slot=S_TEXT + POS0)
+        # ... a batch of 4 (the generated rows shared by position) ...
+        B = len(XL_B)
+        kb, vb = (torch.randn((B, H, C_B, hd), generator=g, device=dev).to(torch.bfloat16)
+                  for _ in range(2))
+        k8, v8, sc8 = int8_pair(kb, vb)
+        b8 = attention_bounds(B, x_len=rows_i32(XL_B), s_text=S_TEXT,
+                              audio_len=rows_i32(PL_B) + 1, q_off=1,
+                              gen_lo=S_TEXT + P_AUDIO, gen_len=601, device=dev)
+        q, nk, nv = decode_qkv(B)
+        check_attention("decode_block_fused_int8kv", q, k8, v8, b8, NL, "f32", in_line=False,
+                        kv_scales=sc8, new_kv=(nk, nv), slot=S_TEXT + P_AUDIO + 600)
+        # ... and 4 requests x 5 samples, the int8 prefix once per request
+        BEAMS = 5
+        pk, pv = (torch.randn((B, H, S_TEXT + P_AUDIO, hd), generator=g,
+                              device=dev).to(torch.bfloat16) for _ in range(2))
+        pk8, pv8, sc8 = int8_pair(pk, pv)
+        kg8 = torch.zeros((B * BEAMS, H, T_GEN + 8, hd), dtype=torch.int8, device=dev)
+        kg8[:, :, :600] = torch.randint(-127, 128, (B * BEAMS, H, 600, hd), generator=g,
+                                        device=dev, dtype=torch.int8)
+        vg8 = kg8.flip(0).contiguous()
+        rep = lambda t: t.repeat_interleave(BEAMS)  # noqa: E731
+        bg8 = attention_bounds(B * BEAMS, x_len=rep(rows_i32(XL_B)), s_text=S_TEXT,
+                               audio_len=rep(rows_i32(PL_B)) + 1, q_off=1, gen_lo=0,
+                               gen_len=601, device=dev)
+        q, nk, nv = decode_qkv(B * BEAMS)
+        check_attention("decode_block_fused_int8kv", q, kg8, vg8, bg8, NL, "f32", in_line=False,
+                        prefix=(pk8, pv8), beams=BEAMS, kv_scales=sc8, new_kv=(nk, nv), slot=600)
+        del kb, vb, k8, v8, pk, pv, pk8, pv8, kg8, vg8
+        # the own-column mode over the bf16 cache of one request: the step
+        # ops' and decode_attention's attention (the walk stops before the
+        # slot; the bounds as those ops build them)
+        step_b = attention_bounds(1, x_len=X_LEN, s_text=S_TEXT, audio_len=POS0, q_off=0,
+                                  device=dev)
+        for site in ("decode_attention", "decode_step", "decode_step_fused"):
+            q, nk, nv = decode_qkv(1)
+            check_attention(site, q, cache_k[0][None], cache_v[0][None], step_b,
+                            1 if site == "decode_attention" else NL, "f32",
+                            new_kv=(nk, nv), slot=S_TEXT + POS0)
+        check_gemm("decode_step", packed, 1, "one decode_step")
+        check_gemm("decode_step_fused", packed, 1, "one decode_step_fused")
+        check_sample("decode_step_fused", 1, False)
+
     # ---- phase 4: the decode ops against the plain (CPU) path -----------------
     with phase("4 decode ops vs plain", 240):
         cpu = lambda lw: {k: (None if t is None else t.cpu()) for k, t in lw.items()}  # noqa: E731
@@ -715,6 +877,84 @@ def main() -> None:
             f" expanded rows; {distinct} distinct token rows of {RB}")
         del ck_g, cv_g, ck_e, cv_e, pk, pv
 
+    # ---- phase 4d: the new decode ops against the plain (CPU) path ------------
+    with phase("4d int8kv / w8a8 blocks, single steps, decode_attention vs plain", 300):
+        pe = bundle.model.pe
+        tok0 = torch.tensor([17], device=dev)
+
+        def compare(name, tok_g, tok_c, lg, lc, extra=""):
+            if tok_g != tok_c:
+                fail(f"4d {name}: greedy tokens {tok_g} on the card vs {tok_c} on the CPU")
+            err = float((lg.cpu() - lc).abs().max())
+            scale = float(lc.abs().max())
+            if not err <= 1e-2 * max(1.0, scale):
+                fail(f"4d {name}: logits err {err} (scale {scale})")
+            say(f"  {name}: greedy tokens equal, logits max_abs_err {err:.3e} (scale {scale:.1f}){extra}")
+
+        # the K-step blocks, 8 steps: int8 caches, and W8A8 products
+        k5, v5, scales = AR.int8_caches(cache_k[:, None], cache_v[:, None])
+        for name, caches, quant in (
+                ("decode_block_fused int8kv (K=8)", (k5[:, 0], v5[:, 0]), dict(kv_scales=scales)),
+                ("decode_block_fused w8a8 (K=8)", (cache_k, cache_v), dict(act_quant=True))):
+            kw = dict(x_len=X_LEN, audio_pos=POS0, remaining=2 ** 30, temperature=1.0, steps=8,
+                      s_text=S_TEXT, vocab=vocab, eos=eos, stochastic=False)
+            z, nb = torch.zeros((1,), device=dev), torch.zeros((1,), dtype=torch.bool, device=dev)
+            ck, cv = (c.clone() for c in caches)
+            rg = decode_block_fused(tok0, z, nb, z, draft, ck, cv, pe, **kw, **quant)
+            ck_c, cv_c = (c.cpu() for c in caches)
+            quant_c = {k: (tuple(t.cpu() for t in v) if isinstance(v, tuple) else v)
+                       for k, v in quant.items()}
+            rc = decode_block_fused(tok0.cpu(), z.cpu(), nb.cpu(), z.cpu(), cpu(draft), ck_c, cv_c,
+                                    pe.cpu(), **kw, **quant_c)
+            col = slice(S_TEXT + POS0, S_TEXT + POS0 + 8)
+            kv_err = float((ck[:, :, col].cpu().float() - ck_c[:, :, col].float()).abs().max())
+            compare(name, rg.fed.tolist() + [int(rg.next_tok)], rc.fed.tolist() + [int(rc.next_tok)],
+                    rg.step_logits, rc.step_logits, f", written columns max_abs_err {kv_err:.3e}")
+            if not kv_err <= (1.0 if "int8kv" in name else 0.1):
+                fail(f"4d {name}: written columns differ by {kv_err}")
+        del k5, v5
+
+        # decode_step and decode_step_fused, 8 steps each
+        for fused in (False, True):
+            outs = []
+            for d in (dev, torch.device("cpu")):
+                lw = packed if d.type == "cuda" else cpu(packed)
+                ck, cv = cache_k[:, None].to(d, copy=True), cache_v[:, None].to(d, copy=True)
+                tok, toks, logits = tok0.to(d), [], []
+                for k in range(8):
+                    if fused:
+                        tok, lp = decode_step_fused(tok, lw, ck, cv, pe.to(d), x_len=X_LEN,
+                                                    audio_pos=POS0 + k, s_text=S_TEXT, vocab=vocab,
+                                                    temperature=1.0, greedy=True)
+                        logits.append(lp.float())
+                    else:
+                        lg = decode_step(embed(tok, lw, pe.to(d)[POS0 + k]), lw, ck, cv,
+                                         x_len=X_LEN, audio_pos=POS0 + k, s_text=S_TEXT)
+                        tok = lg[:, :vocab].argmax(-1)
+                        logits.append(lg)
+                    toks.append(int(tok))
+                outs.append((toks, torch.stack(logits).cpu()))
+            (tg, lg), (tc, lc) = outs
+            compare("decode_step_fused (8 steps, logprobs)" if fused else "decode_step (8 steps)",
+                    tg, tc, lg, lc)
+
+        # decode_attention, layer 0, 8 positions
+        errs = []
+        ck, cv = cache_k[0][None].clone(), cache_v[0][None].clone()
+        ck_c, cv_c = ck.cpu(), cv.cpu()
+        for k in range(8):
+            q, nk, nv = (t[:, :, 0].contiguous() for t in decode_qkv(1))
+            og = decode_attention(q, nk, nv, ck, cv, X_LEN, POS0 + k, s_text=S_TEXT)
+            oc = decode_attention(q.cpu(), nk.cpu(), nv.cpu(), ck_c, cv_c, X_LEN, POS0 + k,
+                                  s_text=S_TEXT)
+            errs.append(float((og.cpu() - oc).abs().max()))
+        if not (max(errs) <= 2e-5 and torch.equal(ck.cpu(), ck_c) and torch.equal(cv.cpu(), cv_c)):
+            fail(f"4d decode_attention: output errs {errs}, caches equal"
+                 f" {torch.equal(ck.cpu(), ck_c)}/{torch.equal(cv.cpu(), cv_c)}")
+        say(f"  decode_attention (8 positions): output max_abs_err {max(errs):.3e}, the 8 written"
+            " columns and the rest of the cache bitwise equal to the CPU's")
+        del ck, cv, ck_c, cv_c
+
     # ---- phases 5 and 6: the single-request path -----------------------------
     loader.reset_launch_counts()
     frames_total = 0
@@ -765,7 +1005,10 @@ def main() -> None:
     loader.reset_launch_counts()
     batch_frames = 0
 
-    def run_batch(label, single_codes=None, **kw):
+    def run_batch(label, single_codes=None, require_equal=False, **kw):
+        """One generate_audio_batch of the four requests; with single_codes,
+        the leading AR frames each row shares with its request alone (all of
+        them, or the run fails, with require_equal)."""
         nonlocal batch_frames
         t0 = time.perf_counter()
         waves = api.generate_audio_batch(texts, prompts, language="en", **kw)
@@ -788,6 +1031,8 @@ def main() -> None:
                 neq = np.nonzero(c[:n, 0] != s[:n, 0])[0]
                 lead.append(int(neq[0]) if len(neq) else n)
             line += f", leading AR frames equal to the request alone: {lead} of {frames}"
+            if require_equal and (lead != frames or frames != [len(c) for c in single_codes]):
+                fail(f"{label}: batched rows differ from the requests alone: {lead} of {frames}")
         say(line)
 
     def singles(label, **changes):
@@ -997,6 +1242,130 @@ def main() -> None:
         api._bundle = bundle
     counts_slice3 = dict(loader.launch_counts)
 
+    # ---- phase 5e: int8kv, w8a8, decode_steps=1, decode_mode="pallas" --------
+    def serve_four(label):
+        """4 concurrent POST /synthesize on a fresh server of the current
+        bundle: all answered, coalesced, with no retry and no failure."""
+        b = DynamicBatcher(max_batch=4, max_wait_ms=200)
+        srv = make_server("127.0.0.1", 0, batcher=b)
+        th = threading.Thread(target=srv.serve_forever, daemon=True)
+        th.start()
+        url = f"http://127.0.0.1:{srv.server_address[1]}/synthesize"
+        out, errors = {}, []
+
+        def post(i, text):
+            body = json.dumps({"text": text, "language": "en", "top_k": 1}).encode()
+            try:
+                with urllib.request.urlopen(urllib.request.Request(url, data=body),
+                                            timeout=240) as r:
+                    out[i] = (r.status, r.read())
+            except Exception as exc:  # noqa: BLE001 (reported below, then fail)
+                errors.append(f"request {i}: {exc!r}")
+
+        t0 = time.perf_counter()
+        try:
+            posts = [threading.Thread(target=post, args=(i, t)) for i, t in
+                     enumerate(["Hi.", "Go now.", "Yes, please.", "Thank you."])]
+            for t in posts:
+                t.start()
+            for t in posts:
+                t.join(260)
+            secs = time.perf_counter() - t0
+        finally:
+            srv.shutdown()
+            srv.server_close()
+            b.shutdown()
+            th.join(30)
+        m = {k: b.metrics.get(k) for k in ("vallex_batched_calls_total",
+                                           "vallex_batch_retries_total",
+                                           "vallex_synth_errors_total")}
+        if errors or sorted(out) != [0, 1, 2, 3] or any(st != 200 for st, _ in out.values()):
+            fail(f"5e {label}: answers {sorted(out)}, errors {errors}")
+        if not (m["vallex_batched_calls_total"] >= 1 and m["vallex_batch_retries_total"] == 0
+                and m["vallex_synth_errors_total"] == 0):
+            fail(f"5e {label}: not a clean batched call: {m}")
+        audio_s = 0.0
+        for status, body in out.values():
+            with wave_mod.open(io.BytesIO(body)) as f:
+                audio_s += f.getnframes() / 24000
+        say(f"  {label}: 4 concurrent POST /synthesize all 200, {audio_s:.2f} s audio in"
+            f" {secs:.2f} s (aggregate RTF {secs / audio_s:.4f}); metrics {json.dumps(m)}")
+
+    loader.reset_launch_counts()
+    with phase("5e int8kv / w8a8 / decode_steps=1 / pallas", 600):
+        hello = dict(text="Hello world.", prompt="paimon", language="en")
+        for q in ("w8a8", "int8kv"):
+            use(quantize=q)
+            run(f"{q}, greedy", top_k=1, **hello)
+            run(f"{q}, sampled", seed=0, **hello)
+        run("int8kv, best_of=5, sampled", best_of=5, seed=0, **hello)
+        if bundle.last.ar.beam_tokens.shape[0] != 5:
+            fail("int8kv best_of=5: not 5 samples")
+        w8a8_alone = singles("greedy w8a8", quantize="w8a8")
+        run_batch("batch of 4, greedy w8a8", w8a8_alone, require_equal=True, top_k=1)
+        use(quantize="int8kv")
+        run_batch("batch of 4, greedy int8kv", top_k=1)
+
+        eight = ("Hello there. The sun is up. We walk to town. The shop is open. We buy some"
+                 " bread. It is warm. We go home. The day is done.")
+        t0 = time.perf_counter()
+        w = api.generate_audio_from_long_text(eight, "paimon", language="en", mode="fixed-prompt",
+                                              seed=0)
+        secs = time.perf_counter() - t0
+        n_batch = len(getattr(bundle.last, "outputs", ()))
+        if n_batch != 8 or not (w.ndim == 1 and len(w) > 0 and np.isfinite(w).all()):
+            fail(f"5e long text int8kv: the last batch held {n_batch} sentences, wave {len(w)}")
+        say(f"  long text, fixed-prompt, int8kv, 8 sentences in one batch: {len(w) / 24000:.2f} s"
+            f" audio in {secs:.2f} s, RTF {secs / (len(w) / 24000):.4f}")
+        serve_four("server with quantize=int8kv")
+
+        with tempfile.TemporaryDirectory() as td:
+            out_wav = os.path.join(td, "cli.wav")
+            t0 = time.perf_counter()
+            cli = subprocess.run(
+                [sys.executable, "-m", "vallex_tpu_torch.cli", "synthesize", "Hi.",
+                 "--random-weights", "--top-k", "1", "--quantize", "w8a8", "-o", out_wav],
+                cwd=REPO, capture_output=True, text=True, timeout=300)
+            if cli.returncode != 0 or not os.path.exists(out_wav):
+                fail(f"5e CLI --quantize w8a8: rc {cli.returncode}: {cli.stderr[-1500:]}")
+            with wave_mod.open(out_wav) as f:
+                n = f.getnframes()
+            say(f"  python -m vallex_tpu_torch.cli synthesize --quantize w8a8: rc 0,"
+                f" {n / 24000:.2f} s WAV in {time.perf_counter() - t0:.2f} s")
+
+        use(decode_steps=1)
+        run("decode_steps=1, greedy", top_k=1, **hello)
+        run("decode_steps=1, sampled", seed=0, **hello)
+        run("decode_steps=1, top_k=50, top_p=0.9", top_k=50, top_p=0.9, seed=0, **hello)
+        use(decode_mode="pallas")
+        run('decode_mode="pallas", greedy', top_k=1, **hello)
+
+        # f32 greedy requests of 64 frames through the single steps and
+        # through "pallas", against the plain path on the CPU
+        req = dict(top_k=1, max_duration=0.86, **hello)
+        gpu32 = {}
+        for name, change in (("decode_steps=1", dict(decode_steps=1)),
+                             ('decode_mode="pallas"', dict(decode_mode="pallas"))):
+            e32 = dataclasses.replace(base_ecfg, compute_dtype="float32", **change)
+            api.preload_models(random_weights=True, seed=0, device=dev, ecfg=e32)
+            t0 = time.perf_counter()
+            api.generate_audio(**req)
+            gpu32[name] = (api._bundle.last, time.perf_counter() - t0)
+        api.preload_models(random_weights=True, seed=0, device="cpu",
+                           ecfg=dataclasses.replace(base_ecfg, compute_dtype="float32"))
+        api.generate_audio(**req)
+        cpu32 = api._bundle.last
+        for name, (res, t_gpu) in gpu32.items():
+            if not (len(res.codes) == 64 and np.array_equal(res.codes, cpu32.codes)):
+                fail(f"5e f32, {name}: codes {res.codes.shape} on the card vs"
+                     f" {cpu32.codes.shape} on the CPU")
+            say(f"  f32 greedy request (64 frames), {name}: codes on the card equal the CPU"
+                f" plain path's, all 8 codebooks; {t_gpu:.2f} s on the card,"
+                f" {res.ar.iterations} steps")
+        api._bundle = bundle
+        use()
+    counts_slice4 = dict(loader.launch_counts)
+
     with phase("7 trace", 300):
         def one_request():
             api.generate_audio("Hello world.", prompt="paimon", language="en", top_k=1,
@@ -1016,7 +1385,8 @@ def main() -> None:
         for e in entries:
             kernel, site = e["name"].split("@")
             counts = (counts_batched if site in BATCHED_SITES
-                      else counts_slice3 if site in SLICE3_SITES else counts_single)
+                      else counts_slice3 if site in SLICE3_SITES
+                      else counts_slice4 if site in SLICE4_SITES else counts_single)
             e["launches"] = counts.get((kernel, site), 0)
             if e["launches"] == 0:
                 fail(f"{e['name']}: no launch on the main path")
@@ -1025,6 +1395,7 @@ def main() -> None:
         say(f"  launches outside the TPU-kernel sites: {extra}; frames: single-request path"
             f" {frames_single}, batched path {batch_frames}")
         say(f"  phase 5d launches by site: {json.dumps({f'{k}@{s}': n for (k, s), n in sorted(counts_slice3.items())})}")
+        say(f"  phase 5e launches by site: {json.dumps({f'{k}@{s}': n for (k, s), n in sorted(counts_slice4.items())})}")
         say(json.dumps({"kernels": [{k: v for k, v in e.items() if k != "unit"} for e in entries]}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

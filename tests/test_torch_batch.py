@@ -328,13 +328,21 @@ def test_batch_configs_outside_the_slice_raise(jax_waves, kwargs):
 
 @pytest.mark.parametrize("quantize", ["int8kv", "w8a8"])
 def test_batch_quantize_modes_outside_the_slice_raise(jax_waves, quantize):
-    tapi.preload_models(params=jax_waves["params"], vocos_params=jax_waves["vocos"],
-                        device="cpu", cfg=CFG,
-                        ecfg=EngineConfig(**BUCKETS, quantize=quantize))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tapi.generate_audio_batch(TEXTS[:2], language="en", top_k=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tapi.generate_audio(TEXTS[0], language="en", top_k=1)
+    """int8kv and w8a8 now run: generate_audio_batch (the batched K-step
+    blocks: int8 caches with batch-wide scales, or W8A8 products) and
+    generate_audio on the kernel path, each a finite waveform of frames ·
+    320 samples per request."""
+    bundle = tapi.preload_models(params=jax_waves["params"], vocos_params=jax_waves["vocos"],
+                                 device="cpu", cfg=CFG,
+                                 ecfg=EngineConfig(**BUCKETS, quantize=quantize,
+                                                   decode_mode="megakernel"))
+    waves = tapi.generate_audio_batch(TEXTS[:2], language="en", top_k=1)
+    res = bundle.last
+    assert res.ar is not None
+    assert [len(w) for w in waves] == [len(c) * 320 for c, _ in res.outputs]
+    assert all(len(w) and np.isfinite(w).all() for w in waves)
+    wave = tapi.generate_audio(TEXTS[0], language="en", top_k=1)
+    assert len(wave) == len(bundle.last.codes) * 320 > 0 and np.isfinite(wave).all()
 
 
 def test_beams_raise_in_ar_generate_batch(ref):

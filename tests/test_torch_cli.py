@@ -1,8 +1,8 @@
 """The port's command line (vallex_tpu_torch/cli.py) on the CPU at toy width:
 list-presets prints the JAX package's CLI's names; synthesize and long-text
 write 24 kHz WAVs with --device cpu --random-weights --config <tiny>, with
-the sampling knobs; make-prompt and ui exit non-zero naming their ROADMAP
-item.
+the sampling knobs and --quantize (the JAX CLI's four values); make-prompt
+and ui exit non-zero naming their ROADMAP item.
 """
 
 import json
@@ -65,6 +65,41 @@ def test_synthesize_knobs(tiny, tmp_path, knobs):
     assert tcli.main(["synthesize", "Hi there.", "--prompt", "paimon", "--device", "cpu",
                       "--random-weights", "--config", tiny, "-o", str(out), *knobs]) == 0
     assert _frames(out) > 0 and _frames(out) % 320 == 0
+
+
+def _quantize_choices(main, argv, capsys):
+    with pytest.raises(SystemExit):
+        main([*argv, "--quantize", "bogus"])
+    err = capsys.readouterr().err
+    return err[err.index("choose from"):].split(")")[0]
+
+
+@pytest.mark.parametrize("cmd", ["synthesize", "long-text", "serve"])
+def test_quantize_choices_equal_jax_cli(capsys, cmd):
+    """--quantize takes the JAX CLI's four values (vallex_tpu/cli.py:134-136)
+    on synthesize, long-text and serve."""
+    want = _quantize_choices(jcli.main, ["serve"], capsys)
+    assert want == "choose from none, int8, w8a8, int8kv"
+    argv = [cmd] + (["Hi."] if cmd != "serve" else [])
+    assert _quantize_choices(tcli.main, argv, capsys) == want
+
+
+def test_synthesize_quantize_int8kv_on_cpu(tmp_path):
+    """synthesize --quantize int8kv on the kernel path's ops (plain versions
+    on the CPU): the engine runs int8 weights and an int8 KV cache in K-step
+    blocks and writes a 24 kHz WAV."""
+    from vallex_tpu_torch import api
+
+    cfg = tmp_path / "tiny_kernels.json"
+    cfg.write_text(json.dumps({"model": TINY["model"],
+                               "engine": {**TINY["engine"], "decode_mode": "megakernel"}}))
+    out = tmp_path / "q.wav"
+    assert tcli.main(["synthesize", "Hi.", "--device", "cpu", "--random-weights", "--config",
+                      str(cfg), "--top-k", "1", "--quantize", "int8kv", "-o", str(out)]) == 0
+    assert api._bundle.ecfg.quantize == "int8kv"
+    res = api._bundle.last
+    assert res.ar.iterations < len(res.codes)  # K frames per block
+    assert _frames(out) == len(res.codes) * 320 > 0
 
 
 def test_long_text_writes_a_wav(tiny, tmp_path):

@@ -596,12 +596,18 @@ def test_http_bad_top_k_top_p_answer_400(http_server):
     assert rec == []
 
 
-def test_http_real_batched_synthesis_on_cpu():
+@pytest.mark.parametrize("engine,texts", [
+    (dict(), ["Hi.", "Go now.", "Yes."]),
+    (dict(quantize="int8kv", decode_mode="megakernel"), ["Hi.", "Go now."]),
+], ids=["bf16", "int8kv"])
+def test_http_real_batched_synthesis_on_cpu(engine, texts):
     """Concurrent POST /synthesize requests through the default batcher,
     bound to the port's api.generate_audio_batch (toy width, CPU, random
-    weights): each answers 200 with a 24 kHz WAV, the requests coalesce
-    into a batched call, and nothing is retried or fails."""
-    _real_api()
+    weights; also a server whose EngineConfig serves int8kv: int8 weights
+    and batched int8 caches): each answers 200 with a 24 kHz WAV, the
+    requests coalesce into a batched call, and nothing is retried or
+    fails."""
+    _real_api(**engine)
     b = DynamicBatcher(max_batch=4, max_wait_ms=1000)  # room for a loaded test host
     srv = make_server("127.0.0.1", 0, batcher=b)
     threading.Thread(target=srv.serve_forever, daemon=True).start()
@@ -614,8 +620,7 @@ def test_http_real_batched_synthesis_on_cpu():
             out[i] = (r.status, r.read())
 
     try:
-        ts = [threading.Thread(target=go, args=(i, t))
-              for i, t in enumerate(["Hi.", "Go now.", "Yes."])]
+        ts = [threading.Thread(target=go, args=(i, t)) for i, t in enumerate(texts)]
         for t in ts:
             t.start()
         for t in ts:
@@ -623,7 +628,7 @@ def test_http_real_batched_synthesis_on_cpu():
     finally:
         srv.shutdown()
         b.shutdown()
-    assert sorted(out) == [0, 1, 2]
+    assert sorted(out) == list(range(len(texts)))
     for status, body in out.values():
         assert status == 200
         with wave_mod.open(io.BytesIO(body)) as f:

@@ -106,7 +106,7 @@ def preload_models(
         if not random_weights:
             raise NotImplementedError(
                 f"loading checkpoints (from {checkpoint_dir!r}) is not ported"
-                " yet (ROADMAP.md §1 item 4, slice 5); pass random_weights=True"
+                " yet (ROADMAP.md §1 item 4, slice 6); pass random_weights=True"
                 " or params=<tree>")
         params = init_vallex(cfg, torch.Generator().manual_seed(seed))
         vocos_params = VC.init_vocos(torch.Generator().manual_seed(seed + 1))

@@ -8,7 +8,7 @@ Usage:
       --config tiny.json --top-k 1 -o out.wav
   python -m vallex_tpu_torch.cli long-text "Para one. Para two." --mode fixed-prompt
   python -m vallex_tpu_torch.cli list-presets
-  python -m vallex_tpu_torch.cli serve --port 8000 --random-weights --quantize int8
+  python -m vallex_tpu_torch.cli serve --port 8000 --random-weights --quantize int8kv
 
 Runs on the GPU (`--device cuda`, the default) or, with `--device cpu`, on
 the CPU through the kernels' plain versions. Until checkpoint files can be
@@ -28,12 +28,15 @@ NOT_PORTED = {
 
 
 def _load(args, **engine):
-    """preload_models with the --config overrides (+ `engine` fields)."""
+    """preload_models with the --config overrides (+ `engine` fields, and
+    --quantize when given)."""
     import json
 
     from . import api
     from .config import EngineConfig, ModelConfig
 
+    if getattr(args, "quantize", None) is not None:
+        engine["quantize"] = args.quantize
     overrides = {}
     if args.config:
         with open(args.config) as f:
@@ -74,6 +77,15 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     )
 
 
+def _add_quantize(p: argparse.ArgumentParser) -> None:
+    p.add_argument(
+        "--quantize", default=None, choices=["none", "int8", "w8a8", "int8kv"],
+        help="serving quantization: bf16 (none), int8 weights (W8A16), int8"
+             " weights and activations (w8a8), or int8 weights with an int8"
+             " KV cache (int8kv); default: the --config's, else none",
+    )
+
+
 def main(argv=None) -> int:
     logging.basicConfig(
         format="%(asctime)s %(levelname)s [%(filename)s:%(lineno)d] %(message)s",
@@ -94,6 +106,7 @@ def main(argv=None) -> int:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("-o", "--output", default="out.wav")
     _add_common(p)
+    _add_quantize(p)
 
     p = sub.add_parser("long-text", help="paragraph → wav, sentence by sentence")
     p.add_argument("text")
@@ -106,6 +119,7 @@ def main(argv=None) -> int:
     )
     p.add_argument("-o", "--output", default="out.wav")
     _add_common(p)
+    _add_quantize(p)
 
     p = sub.add_parser("make-prompt", help="enrollment clip → .npz voice (not ported)")
     p.add_argument("name")
@@ -146,11 +160,8 @@ def main(argv=None) -> int:
         help="run the serving shapes (single + batched decode) once before"
         " accepting traffic",
     )
-    p.add_argument(
-        "--quantize", default="none", choices=["none", "int8"],
-        help="serving weights: bf16, or int8 (W8A16)",
-    )
     _add_common(p)
+    _add_quantize(p)
 
     args = parser.parse_args(argv)
 
@@ -197,7 +208,7 @@ def main(argv=None) -> int:
     if args.cmd == "serve":
         from .server import serve_forever, warmup
 
-        bundle = _load(args, quantize=args.quantize)
+        bundle = _load(args)
         max_batch = (args.max_batch if args.max_batch is not None
                      else api._long_text_batch_size(bundle.ecfg))
         if args.warmup:

@@ -14,11 +14,25 @@ Decode modes:
       K-1 frames through ops/decode_block.py, one bf16 verify pass through
       ops/decode_verify.py, then greedy prefix matching or
       ops/sampling.py::speculative_accept), or K-step blocks when
-      speculation is off (and with int8 serving weights, the JAX package's
-      `body_block`). Runs on the hand-written kernels on the card.
+      speculation is off (and with quantized serving weights, the JAX
+      package's `body_block`). With decode_steps=1 the single-step ops of
+      ops/decode_step.py: decode_step_fused (token in, token out) for plain
+      sampling (`body_fused`), decode_step + topk_sampling for filtered
+      sampling (`body`). Runs on the hand-written kernels on the card.
+  "pallas" — the per-token loop with the model's own products and
+      ops/decode_attention.py per layer (the JAX package's `body` with
+      decode_mode="pallas"; `quantize` has no effect, as there).
   "xla" — the per-token loop (`body`) in plain PyTorch: the CPU path and
       the oracle for the kernel path.
   "auto" — "megakernel" on CUDA, "xla" on the CPU (the JAX package's rule).
+
+Quantized serving (`quantize`, the weights come quantized in `packed`):
+"int8" W8A16 products; "w8a8" W8A8 products (head W8A16) in every kernel
+route; "int8kv" int8 weights plus an int8 KV cache with static
+per-(layer, head) scales (`kv_int8_scales`) on the K-step block routes:
+one request's blocks (single sample or grouped samples) and every batched
+decode; with decode_steps=1 it runs as "int8" (vallex_tpu/engine/ar.py:
+437-445, :985-1012).
 
 Semantics kept from the reference: EOS forcing (a done sequence keeps
 emitting EOS), logprob accumulation only while alive, stop at EOS or at
@@ -53,8 +67,10 @@ import torch
 from ..config import ModelConfig
 from ..kernels import sample_epilogue, sample_epilogue_plain
 from ..models import vallex as V
+from ..ops.decode_attention import decode_attention
 from ..ops.decode_block import decode_block_fused
-from ..ops.decode_verify import decode_verify
+from ..ops.decode_step import decode_step, decode_step_fused
+from ..ops.decode_verify import decode_verify, embed
 from ..ops.sampling import speculative_accept, topk_sampling
 
 logger = logging.getLogger(__name__)
@@ -86,20 +102,66 @@ def select_best(sum_logprobs: torch.Tensor, lengths: torch.Tensor,
     return torch.argmax(scores, dim=-1), scores
 
 
+def sampler(generator, *, vocab: int, top_k: int, top_p: float, temperature: float,
+            epilogue=sample_epilogue_plain):
+    """logits [B, V] (lanes >= vocab at NEG_INF) → (tokens [B] int32,
+    logprobs [B]): the plain epilogue (argmax when greedy, else
+    Gumbel-argmax with uniforms from `generator`), or topk_sampling for
+    filtered sampling (the JAX package's `sample`)."""
+    greedy = top_k == 1
+
+    def sample(logits):
+        if is_plain(top_k, top_p):
+            u = None if greedy else torch.rand(logits.shape, generator=generator,
+                                               device=logits.device)
+            return epilogue(logits, u, vocab=vocab, temperature=temperature, greedy=greedy)
+        tok, lp = topk_sampling(generator, logits, top_k, top_p, temperature)
+        return tok.to(torch.int32), lp
+    return sample
+
+
 def first_token(logits0: torch.Tensor, generator, *, vocab: int, top_k: int,
                 top_p: float, temperature: float):
     """The token after the prompt and its logprob, from the prefill logits
-    [B, VP] (lanes >= vocab at NEG_INF): the plain epilogue's pick, or
+    [B, VP] (lanes >= vocab at NEG_INF): the plain epilogue's kernel, or
     topk_sampling for filtered sampling (the JAX package draws it in XLA,
     outside any kernel)."""
-    greedy = top_k == 1
-    if is_plain(top_k, top_p):
-        u0 = None if greedy else torch.rand(logits0.shape, generator=generator,
-                                            device=logits0.device)
-        return sample_epilogue(logits0, u0, vocab=vocab, temperature=temperature,
-                               greedy=greedy, site="ar_prefill")
-    tok, lp = topk_sampling(generator, logits0, top_k, top_p, temperature)
-    return tok.to(torch.int32), lp
+    def epilogue(*a, **kw):
+        return sample_epilogue(*a, site="ar_prefill", **kw)
+    return sampler(generator, vocab=vocab, top_k=top_k, top_p=top_p,
+                   temperature=temperature, epilogue=epilogue)(logits0)
+
+
+def kv_int8_scales(cache: torch.Tensor, margin: float = 1.2) -> torch.Tensor:
+    """Static per-(layer, head) int8 scales of a KV cache [NL, B, H, C, hd]
+    → [NL, H] f32: max(max |x|, 1e-6) · margin / 127, the maximum taken
+    over every row, every lane and every one of the B rows of the batch
+    (vallex_tpu/engine/ar.py::_kv_int8_scales). So the scales are
+    batch-wide: a batch of requests (or the grouped prefix of all of them)
+    shares one scale per (layer, head), as in the JAX package; a
+    per-request maximum would give other codes. Taken from the prefilled
+    rows (padding rows included, as there); the margin leaves headroom
+    for generated rows, which the kernel clips to ±127."""
+    m = cache.abs().amax(dim=(1, 3, 4)).float()
+    return m.clamp_min(1e-6) * (margin / 127.0)
+
+
+def kv_int8_quantize(cache: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """clip(round_half_even(cache / scale), ±127) as int8, per (layer,
+    head) scale [NL, H] (vallex_tpu/engine/ar.py::_kv_int8_quantize); one
+    layer at a time, so the f32 temporary stays one layer's size."""
+    out = torch.empty(cache.shape, dtype=torch.int8, device=cache.device)
+    for li in range(cache.shape[0]):
+        q = torch.round(cache[li].float() / scales[li][None, :, None, None])
+        out[li] = torch.clamp(q, -127.0, 127.0)
+    return out
+
+
+def int8_caches(cache_k: torch.Tensor, cache_v: torch.Tensor):
+    """Quantize prefilled K/V caches → (cache_k, cache_v int8, (ks, vs)
+    [NL, H] f32 each)."""
+    ks, vs = kv_int8_scales(cache_k), kv_int8_scales(cache_v)
+    return kv_int8_quantize(cache_k, ks), kv_int8_quantize(cache_v, vs), (ks, vs)
 
 
 def bucket(n: int, buckets, granularity: int = 128) -> int:
@@ -269,19 +331,26 @@ def ar_generate(
     top_p: float = 1.0,
     beams: int = 1,
     length_penalty: float = 1.0,
+    quantize: str = "none",
 ) -> ARResult:
     """One request, `beams` samples of it. Kernel-path routing as in the
-    JAX package (vallex_tpu/engine/ar.py:373-392): speculation (the
-    caller's `speculative`) only for one sample of greedy or plain
-    sampled decoding; otherwise K-step blocks on `packed` — one request's
-    layout for one sample, the grouped rows for several."""
+    JAX package (vallex_tpu/engine/ar.py:373-392, :431-445, :808-822):
+    with decode_steps > 1, speculation (the caller's `speculative`) only
+    for one sample of greedy or plain sampled decoding, otherwise K-step
+    blocks on `packed` — one request's layout for one sample, the grouped
+    rows for several; with decode_steps = 1 the single-step ops, every
+    sample a row of its own cache. `quantize` names how `packed` was
+    prepared: "w8a8" runs its products as W8A8, "int8kv" adds the int8
+    KV cache to the K-step blocks."""
     dev = model.pe.device
     greedy = top_k == 1
     eos, vocab = cfg.eos_id, cfg.num_audio_tokens + 1
     kernels = decode_mode == "megakernel"
-    K = decode_steps if kernels else 0
+    K = decode_steps if kernels and decode_steps > 1 else 0  # K-step blocks
+    act_quant = kernels and quantize == "w8a8"
+    kv_int8 = K > 1 and quantize == "int8kv"
     C = s_text + t_audio
-    grouped = kernels and beams > 1
+    grouped = K > 1 and beams > 1
     P = s_text + p_audio
 
     # ---- prefill over [text | BOS + prompt], once for all samples ---------
@@ -293,37 +362,68 @@ def ar_generate(
         model, cfg, torch.as_tensor(text_ids, device=dev)[None],
         torch.as_tensor(lang_ids, device=dev)[None], x_len, y_init[None], prompt_len,
         s_text=s_text, p_audio=p_audio, C=P if grouped else C + K, dtype=dtype)
+    kv_scales = None
+    if kv_int8:  # the grouped prefix, or the single request's cache
+        cache_k, cache_v, kv_scales = int8_caches(cache_k, cache_v)
 
     y_buf = torch.full((beams, t_audio + K), eos, dtype=torch.int64, device=dev)
     y_buf[:, :p_audio] = y_init
     max_gen = min(16 * x_len, t_audio - 1 - prompt_len - 1)
     if gen_limit is not None:
         max_gen = min(max_gen, int(gen_limit))
+    filt = {} if is_plain(top_k, top_p) else dict(top_k=top_k, top_p=top_p)
+    samp = dict(vocab=vocab, top_k=top_k, top_p=top_p, temperature=temperature)
 
-    if not kernels:
+    if K == 0:
+        # ---- per-token routes: every sample a row of its own cache ---------
         cache_k, cache_v = (c.expand(-1, beams, -1, -1, -1).clone() for c in (cache_k, cache_v))
-        sum_lp, step = _per_token_loop(
-            model, cfg, logits0.expand(beams, -1), cache_k, cache_v, y_buf,
-            generator=generator, top_k=top_k, top_p=top_p, temperature=temperature,
-            x_len=x_len, prompt_len=prompt_len, s_text=s_text, max_gen=max_gen, dtype=dtype)
-        iterations, accepted = step, 0
+        step_kw = dict(x_len=x_len, s_text=s_text)
+        if not kernels:
+            sample = sampler(generator, **samp)
+            forward = _pallas_forward if decode_mode == "pallas" else _xla_forward
+
+            def advance(tok, audio_pos):
+                return sample(forward(model, tok, audio_pos, cache_k, cache_v,
+                                      dtype=dtype, **step_kw))
+        elif not filt:
+            # plain sampling: decode_step_fused (`body_fused`)
+            def advance(tok, audio_pos):
+                return decode_step_fused(
+                    tok, packed, cache_k, cache_v, model.pe, audio_pos=audio_pos,
+                    vocab=vocab, temperature=temperature, greedy=greedy,
+                    generator=generator, act_quant=act_quant, **step_kw)
+        else:
+            # filtered sampling: decode_step's logits, then topk_sampling
+            sample = sampler(generator, **samp)
+            lanes = torch.arange(packed["wpred"].shape[0], device=dev)
+
+            def advance(tok, audio_pos):
+                logits = decode_step(embed(tok, packed, model.pe[audio_pos]), packed, cache_k,
+                                     cache_v, audio_pos=audio_pos, act_quant=act_quant,
+                                     **step_kw)
+                return sample(torch.where(lanes < vocab, logits, V.NEG_INF))
+        if kernels:
+            logits0 = _pad_logits(logits0, packed["wpred"].shape[0])
+            cur_tok, cur_lp = first_token(logits0.repeat(beams, 1), generator, **samp)
+        else:
+            cur_tok, cur_lp = sampler(generator, **samp)(logits0.expand(beams, -1))
+        sum_lp, iterations = _token_loop(cur_tok, cur_lp, advance, y_buf, eos=eos,
+                                         prompt_len=prompt_len, max_gen=max_gen)
+        accepted = 0
     else:
-        VP = packed["wpred"].shape[0]
-        logits0 = torch.cat(
-            [logits0, torch.full((1, VP - logits0.shape[-1]), V.NEG_INF, device=dev)], dim=-1)
-        cur_tok, cur_lp = first_token(logits0.repeat(beams, 1), generator, vocab=vocab,
-                                      top_k=top_k, top_p=top_p, temperature=temperature)
-        filt = {} if is_plain(top_k, top_p) else dict(top_k=top_k, top_p=top_p)
+        logits0 = _pad_logits(logits0, packed["wpred"].shape[0])
+        cur_tok, cur_lp = first_token(logits0.repeat(beams, 1), generator, **samp)
+        quant = dict(act_quant=act_quant, kv_scales=kv_scales)
         if grouped:
             rows = lambda v: torch.full((beams,), v, dtype=torch.int32, device=dev)  # noqa: E731
             NL, _, H, _, hd = cache_k.shape
-            gen = torch.zeros((NL, beams, H, t_audio + K, hd), dtype=dtype, device=dev)
+            gen = torch.zeros((NL, beams, H, t_audio + K, hd), dtype=cache_k.dtype, device=dev)
             y_gen, sum_lp, iterations = _block_loop(
                 cur_tok, cur_lp, packed, gen, gen.clone(), model.pe, (cache_k, cache_v),
                 x_lens=rows(x_len), plens=rows(prompt_len), max_gen=rows(max_gen),
                 beams=beams, s_text=s_text, p_audio=p_audio, t_gen=t_audio, K=K,
                 temperature=temperature, vocab=vocab, eos=eos, greedy=greedy,
-                generator=generator, filt=filt)
+                generator=generator, filt=filt, quant=quant)
             n = t_audio + K - (prompt_len + 1)
             y_buf[:, prompt_len + 1:] = y_gen[:, :n]
             accepted = 0
@@ -333,7 +433,7 @@ def ar_generate(
                 y_buf[0], model.pe, generator=generator, greedy=greedy,
                 temperature=temperature, x_len=x_len, prompt_len=prompt_len,
                 s_text=s_text, max_gen=max_gen, K=K,
-                speculative=speculative and (greedy or not filt), filt=filt)
+                speculative=speculative and (greedy or not filt), filt=filt, quant=quant)
 
     # ---- best sample (vallex_tpu/engine/ar.py:824-832) --------------------
     lengths = (y_buf != eos).sum(dim=1)
@@ -345,51 +445,67 @@ def ar_generate(
                     scores.cpu().numpy())
 
 
-def _per_token_loop(model, cfg, logits, cache_k, cache_v, y_buf, *,
-                    generator, top_k, top_p, temperature, x_len, prompt_len,
-                    s_text, max_gen, dtype):
-    """The JAX package's `body` for B samples: sample (plain, or
-    topk_sampling when filtered), bookkeeping, one decoder step per token
-    in plain PyTorch. → (sum_logprobs [B], steps run)."""
-    eos = cfg.eos_id
-    dev = y_buf.device
-    B, C = y_buf.shape[0], cache_k.shape[3]
-    greedy, plain = top_k == 1, is_plain(top_k, top_p)
+def _pad_logits(logits: torch.Tensor, VP: int) -> torch.Tensor:
+    """[B, V] prefill logits → [B, VP], the head's padded lanes at NEG_INF."""
+    pad = torch.full((logits.shape[0], VP - logits.shape[-1]), V.NEG_INF, device=logits.device)
+    return torch.cat([logits, pad], dim=-1)
+
+
+def _token_loop(cur_tok, cur_lp, advance, y_buf, *, eos, prompt_len, max_gen):
+    """The JAX package's per-token loops (`body`, `body_fused`) for B
+    samples: bookkeeping (samples already done keep emitting EOS; logprob
+    only while alive), then `advance(fed [B], audio_pos)` → the next
+    (tokens, logprobs), until every sample is done or max_gen steps ran.
+    One host read per step. → (sum_logprobs [B], steps run)."""
+    B, dev = y_buf.shape[0], y_buf.device
     done = torch.zeros((B,), dtype=torch.bool, device=dev)
     sum_lp = torch.zeros((B,), dtype=torch.float32, device=dev)
     step = 0
     while step < max_gen and not bool(done.all()):
-        if plain:
-            u = None if greedy else torch.rand(logits.shape, generator=generator, device=dev)
-            tok, lp = sample_epilogue_plain(
-                logits, u, vocab=logits.shape[-1], temperature=temperature,
-                greedy=greedy)
-        else:
-            tok, lp = topk_sampling(generator, logits, top_k, top_p, temperature)
-        # samples already done keep emitting EOS; logprob only while alive
-        tok = torch.where(done, eos, tok.long())
-        sum_lp = sum_lp + torch.where(done, 0.0, lp)
+        tok = torch.where(done, eos, cur_tok.long())
+        sum_lp = sum_lp + torch.where(done, 0.0, cur_lp)
         done = done | (tok == eos)
         audio_pos = prompt_len + 1 + step
         y_buf[:, audio_pos] = tok
-        hh = V.ar_audio_input(model, tok[:, None], audio_pos, dtype)
-        kv_mask = audio_kv_mask(C, s_text, x_len, audio_pos, dev)
-        for li, layer in enumerate(model.ar_decoder.layers):
-            hh = layer.decode_step(hh, cache_k[li], cache_v[li], s_text + audio_pos, kv_mask)
-        hh = model.ar_decoder.norm(hh)
-        logits = V.ar_logits(model, hh[:, 0])
+        cur_tok, cur_lp = advance(tok, audio_pos)
         step += 1
     return sum_lp, step
 
 
+def _xla_forward(model, tok, audio_pos, cache_k, cache_v, *, x_len, s_text, dtype):
+    """One decoder step of `tok` [B] in plain PyTorch (the JAX package's
+    XLA `body`): the column written into the caches [NL, B, H, C, hd] at
+    s_text + audio_pos, attention over the masked cache → logits [B, 1025]."""
+    hh = V.ar_audio_input(model, tok[:, None], audio_pos, dtype)
+    kv_mask = audio_kv_mask(cache_k.shape[3], s_text, x_len, audio_pos, tok.device)
+    for li, layer in enumerate(model.ar_decoder.layers):
+        hh = layer.decode_step(hh, cache_k[li], cache_v[li], s_text + audio_pos, kv_mask)
+    return V.ar_logits(model, model.ar_decoder.norm(hh)[:, 0])
+
+
+def _pallas_forward(model, tok, audio_pos, cache_k, cache_v, *, x_len, s_text, dtype):
+    """One decoder step with decode_attention per layer (the JAX package's
+    `body` with decode_mode="pallas", vallex_tpu/engine/ar.py:765-785): the
+    products in PyTorch, the attention and the column write in the kernel
+    → logits [B, 1025]."""
+    h = V.ar_audio_input(model, tok[:, None], audio_pos, dtype)
+    for li, layer in enumerate(model.ar_decoder.layers):
+        q, k, v = layer.self_attn.qkv(layer.norm1(h))  # [B, H, 1, hd]
+        a = decode_attention(q[:, :, 0], k[:, :, 0], v[:, :, 0], cache_k[li], cache_v[li],
+                             x_len, audio_pos, s_text=s_text)
+        h = layer.ffn(h + layer.self_attn.out(a[:, :, None]))
+    return V.ar_logits(model, model.ar_decoder.norm(h)[:, 0])
+
+
 def _kernel_loop(cfg, cur_tok, cur_lp, packed, draft, cache_k, cache_v, y_buf, pe, *,
                  generator, greedy, temperature, x_len, prompt_len, s_text,
-                 max_gen, K, speculative, filt):
+                 max_gen, K, speculative, filt, quant):
     """The megakernel path for one sample: speculative iterations (draft
     K-1 + verify K) or, with speculation off, K-step blocks (filtered
-    epilogue when `filt` holds top_k / top_p). → (sum_logprobs [1],
-    iterations, accepted drafts). Two host reads per iteration: the
-    accepted count (it sets the commit) and the done flag."""
+    epilogue when `filt` holds top_k / top_p; `quant` the blocks'
+    act_quant / kv_scales). → (sum_logprobs [1], iterations, accepted
+    drafts). Two host reads per iteration: the accepted count (it sets the
+    commit) and the done flag."""
     eos, vocab = cfg.eos_id, cfg.num_audio_tokens + 1
     dev = y_buf.device
     VP = packed["wpred"].shape[0]
@@ -407,7 +523,7 @@ def _kernel_loop(cfg, cur_tok, cur_lp, packed, draft, cache_k, cache_v, y_buf, p
                 cur_tok, cur_lp, done, sum_lp, packed, cache_k, cache_v, pe,
                 x_len=x_len, audio_pos=audio_pos, remaining=max_gen - step,
                 temperature=temperature, steps=K, s_text=s_text, vocab=vocab,
-                eos=eos, stochastic=not greedy, generator=generator, **filt)
+                eos=eos, stochastic=not greedy, generator=generator, **filt, **quant)
             y_buf[audio_pos: audio_pos + K] = r.fed.long()
             cur_tok, cur_lp, done, sum_lp = r.next_tok, r.next_logp, r.done, r.sum_logprobs
             step += K
@@ -467,12 +583,13 @@ class BatchARResult(NamedTuple):
 
 def _block_loop(cur_tok, cur_lp, packed, cache_k, cache_v, pe, prefix, *, x_lens, plens,
                 max_gen, beams, s_text, p_audio, t_gen, K, temperature, vocab, eos,
-                greedy, generator, filt):
+                greedy, generator, filt, quant):
     """K-step batched blocks over RB rows (R requests × beams samples,
     request-major) until every row is done or the longest cap is reached;
     one host read per block. `prefix` None: the batched layout; else the
-    grouped one (caches hold generated rows only). → (y_gen [RB, t_gen + K],
-    sum_logprobs [RB], blocks run)."""
+    grouped one (caches hold generated rows only). `quant`: the blocks'
+    act_quant / kv_scales. → (y_gen [RB, t_gen + K], sum_logprobs [RB],
+    blocks run)."""
     RB, dev = cur_tok.shape[0], cur_tok.device
     done = torch.zeros((RB,), dtype=torch.bool, device=dev)
     sum_lp = torch.zeros((RB,), dtype=torch.float32, device=dev)
@@ -485,7 +602,7 @@ def _block_loop(cur_tok, cur_lp, packed, cache_k, cache_v, pe, prefix, *, x_lens
             x_len=x_lens, audio_pos=step, remaining=max_gen - step,
             temperature=temperature, steps=K, s_text=s_text, vocab=vocab, eos=eos,
             stochastic=not greedy, generator=generator, prompt_len=plens,
-            batched=True, p_audio=p_audio, prefix=prefix, beams=beams, **filt)
+            batched=True, p_audio=p_audio, prefix=prefix, beams=beams, **filt, **quant)
         y_gen[:, step: step + K] = r.fed.T.long()
         cur_tok, cur_lp, done, sum_lp = r.next_tok, r.next_logp, r.done, r.sum_logprobs
         step += K
@@ -516,6 +633,7 @@ def ar_generate_batch(
     beams: int = 1,
     top_p: float = 1.0,
     length_penalty: float = 1.0,
+    quantize: str = "none",
 ) -> BatchARResult:
     """R independent requests decoded together: every K-step block runs the
     batched decode_block_fused, so each step streams the weights once for
@@ -525,7 +643,10 @@ def ar_generate_batch(
     t_gen - 1) and logprob sum. beams > 1: R × beams request-major rows
     (row r·beams + b is request r's sample b) in the grouped layout, and
     each request keeps its best sample (`select_best`, lengths counting
-    BOS + prompt + generated frames). One host read per block."""
+    BOS + prompt + generated frames). One host read per block. `quantize`
+    names how `packed` was prepared: "w8a8" runs its products as W8A8;
+    "int8kv" quantizes the prefilled caches (grouped: the prefix) with
+    scales taken over every request of the batch (`kv_int8_scales`)."""
     dev = model.pe.device
     R = text_ids.shape[0]
     RB = R * beams
@@ -545,20 +666,21 @@ def ar_generate_batch(
         model, cfg, torch.as_tensor(np.asarray(text_ids), device=dev),
         torch.as_tensor(np.asarray(lang_ids), device=dev), x_lens_d, y_init, plens_d,
         s_text=s_text, p_audio=p_audio, C=P if grouped else P + t_gen + K, dtype=dtype)
+    kv_scales = None
+    if quantize == "int8kv":  # the batch's caches, or the grouped prefix
+        cache_k, cache_v, kv_scales = int8_caches(cache_k, cache_v)
     prefix = None
     if grouped:
         prefix = (cache_k, cache_v)
         NL, _, H, _, hd = cache_k.shape
-        cache_k = torch.zeros((NL, RB, H, t_gen + K, hd), dtype=dtype, device=dev)
+        cache_k = torch.zeros((NL, RB, H, t_gen + K, hd), dtype=cache_k.dtype, device=dev)
         cache_v = torch.zeros_like(cache_k)
     rep = (lambda t: t.repeat_interleave(beams, dim=0)) if grouped else (lambda t: t)
 
     max_gen_np = np.minimum(np.minimum(16 * np.asarray(x_lens, np.int64),
                                        np.asarray(gen_caps, np.int64)), t_gen - 1)
     max_gen = rep(torch.as_tensor(max_gen_np, device=dev))
-    VP = packed["wpred"].shape[0]
-    logits0 = torch.cat(
-        [logits0, torch.full((R, VP - logits0.shape[-1]), V.NEG_INF, device=dev)], dim=-1)
+    logits0 = _pad_logits(logits0, packed["wpred"].shape[0])
     cur_tok, cur_lp = first_token(rep(logits0), generator, vocab=vocab, top_k=top_k,
                                   top_p=top_p, temperature=temperature)
     filt = {} if is_plain(top_k, top_p) else dict(top_k=top_k, top_p=top_p)
@@ -566,7 +688,8 @@ def ar_generate_batch(
         cur_tok, cur_lp, packed, cache_k, cache_v, model.pe, prefix,
         x_lens=rep(x_lens_d), plens=rep(plens_d), max_gen=max_gen, beams=beams,
         s_text=s_text, p_audio=p_audio, t_gen=t_gen, K=K, temperature=temperature,
-        vocab=vocab, eos=eos, greedy=top_k == 1, generator=generator, filt=filt)
+        vocab=vocab, eos=eos, greedy=top_k == 1, generator=generator, filt=filt,
+        quant=dict(act_quant=quantize == "w8a8", kv_scales=kv_scales))
     # frames before each row's first EOS, clipped to its length cap
     alive = torch.cumprod((y_gen[:, :t_gen] != eos).to(torch.int32), dim=1)
     gen_len = torch.minimum(alive.sum(dim=1), max_gen)

@@ -5,10 +5,9 @@ and synthesize_batch).
 
 Every sampling knob of the reference runs: best_of > 1 (samples of one
 request, or of each batched request, and the best picked), filtered
-top-k / top-p, greedy and plain sampling, in bf16 or f32, with bf16 or int8
-serving weights. Configurations the port does not run yet raise
-NotImplementedError naming their ROADMAP.md item: the int8 KV cache and
-w8a8, single-step decode and decode_mode="pallas".
+top-k / top-p, greedy and plain sampling, in bf16 or f32, with every
+serving quantization (bf16, int8, w8a8, int8kv), every decode_steps and
+every decode_mode.
 """
 
 from __future__ import annotations
@@ -38,23 +37,19 @@ from .nar import nar_generate
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-QUANTIZE_ITEMS = {"int8kv": "§2 item 1c (the int8 KV cache)", "w8a8": "§2 item 1d (w8a8)"}
+QUANTIZE = ("none", "int8", "w8a8", "int8kv")  # EngineConfig.quantize
+DECODE_MODES = ("auto", "megakernel", "pallas", "xla")  # EngineConfig.decode_mode
 
 
-def check_slice(ecfg: EngineConfig, *, best_of: int) -> None:
-    """Raise for configurations the port does not run yet (CPU and GPU
+def check_config(ecfg: EngineConfig, *, best_of: int) -> None:
+    """Raise ValueError for values the engine does not know (CPU and GPU
     alike — there is no quiet fallback)."""
     if best_of < 1:
         raise ValueError(f"best_of must be >= 1, got {best_of}")
-    if ecfg.quantize not in ("none", "int8"):
-        item = QUANTIZE_ITEMS.get(ecfg.quantize, "§2 item 1")
-        raise NotImplementedError(
-            f"quantize={ecfg.quantize!r} is not ported yet: ROADMAP.md {item},"
-            " slice 4")
-    if ecfg.decode_steps < 2:
-        raise NotImplementedError(
-            "decode_steps=1 (the single-step decode_step kernel) is not ported"
-            " yet: ROADMAP.md §2 item 2, slice 4")
+    if ecfg.quantize not in QUANTIZE:
+        raise ValueError(f"unknown quantize {ecfg.quantize!r}; one of {QUANTIZE}")
+    if ecfg.decode_steps < 1:
+        raise ValueError(f"decode_steps must be >= 1, got {ecfg.decode_steps}")
     if ecfg.compute_dtype not in DTYPES:
         raise ValueError(f"unknown compute_dtype {ecfg.compute_dtype!r}")
 
@@ -133,13 +128,10 @@ class SynthesisPipeline:
         self.device = model.pe.device
         self.dtype = DTYPES[ecfg.compute_dtype]
         mode = ecfg.decode_mode
+        if mode not in DECODE_MODES:
+            raise ValueError(f"unknown decode_mode {mode!r}; one of {DECODE_MODES}")
         if mode == "auto":
             mode = "megakernel" if self.device.type == "cuda" else "xla"
-        if mode not in ("megakernel", "xla"):
-            raise NotImplementedError(
-                f"decode_mode={ecfg.decode_mode!r} is not ported: the port has"
-                " the kernel path and the per-token path (ROADMAP.md §2 item 3,"
-                " decode_attention, slice 4)")
         self.decode_mode = mode
         self._packed: Optional[Dict] = None
         self._draft: Optional[Dict] = None
@@ -153,9 +145,10 @@ class SynthesisPipeline:
         return self._packed, self._draft
 
     def serving_weights(self) -> Dict:
-        """The decode weights of K-step blocks: bf16, or with
-        quantize="int8" the W8A16 dict (the same one the draft uses)."""
-        int8 = self.ecfg.quantize == "int8"
+        """The decode weights without speculation: bf16 (or f32), or with
+        quantize "int8", "w8a8" or "int8kv" the int8 dict (the same one the
+        draft uses; w8a8 is a mode of the products, int8kv of the cache)."""
+        int8 = self.ecfg.quantize != "none"
         packed, draft = self.packed_weights(int8)
         return draft if int8 else packed
 
@@ -183,7 +176,7 @@ class SynthesisPipeline:
         top_k = e.top_k if top_k is None else top_k
         top_p = e.top_p if top_p is None else top_p
         temperature = e.temperature if temperature is None else temperature
-        check_slice(e, best_of=best_of)
+        check_config(e, best_of=best_of)
         seconds = {}
         t0 = time.perf_counter()
 
@@ -207,10 +200,11 @@ class SynthesisPipeline:
         prompt_pad[:Tp] = prompt[:, 0]
 
         # speculation drafts with int8 and verifies with the serving dtype:
-        # unquantized serving, one sample, greedy or plain sampling
+        # unquantized K-step serving, one sample, greedy or plain sampling
         # (EngineConfig.speculative; vallex_tpu/engine/ar.py:373-392)
         speculative = (e.speculative in ("auto", "on") and e.quantize == "none"
-                       and best_of == 1 and (top_k == 1 or is_plain(top_k, top_p)))
+                       and e.decode_steps > 1 and best_of == 1
+                       and (top_k == 1 or is_plain(top_k, top_p)))
         kernels = self.decode_mode == "megakernel"
         packed, draft = None, None
         if kernels:
@@ -226,7 +220,7 @@ class SynthesisPipeline:
                 t_audio=t_audio, dtype=self.dtype, decode_mode=self.decode_mode,
                 decode_steps=e.decode_steps, speculative=speculative and kernels,
                 packed=packed, packed_draft=draft, top_p=top_p, beams=best_of,
-                length_penalty=e.length_penalty,
+                length_penalty=e.length_penalty, quantize=e.quantize,
             )
             self._sync()
         seconds["ar"] = time.perf_counter() - t0
@@ -277,13 +271,14 @@ class SynthesisPipeline:
         sample at batch R with per-row lengths. One request takes
         `synthesize`.
         The batched decode runs ops/decode_block.py whatever decode_mode
-        says (the JAX package's batched decode has only its kernel path):
-        the kernels on CUDA, their plain versions on the CPU."""
+        and decode_steps say (the JAX package's batched decode has only its
+        kernel path, at K = max(2, decode_steps)): the kernels on CUDA,
+        their plain versions on the CPU."""
         e, cfg, dev = self.ecfg, self.cfg, self.device
         top_k = e.top_k if top_k is None else top_k
         top_p = e.top_p if top_p is None else top_p
         temperature = e.temperature if temperature is None else temperature
-        check_slice(e, best_of=best_of)
+        check_config(e, best_of=best_of)
         R = len(requests)
         if R == 1:
             t, lg, p = requests[0]
@@ -312,7 +307,7 @@ class SynthesisPipeline:
                 temperature=temperature, s_text=s_text, p_audio=p_audio, t_gen=t_gen,
                 dtype=self.dtype, decode_steps=max(2, e.decode_steps),
                 packed=self.serving_weights(), beams=best_of, top_p=top_p,
-                length_penalty=e.length_penalty)
+                length_penalty=e.length_penalty, quantize=e.quantize)
             self._sync()
         seconds["ar"] = time.perf_counter() - t0
 

@@ -11,7 +11,10 @@
 //                                   pass over K = 8 positions.
 // Each product there is LN -> matvec (QKV), matvec + residual (out-proj),
 // LN -> matvec + bias -> ReLU (FFN1), matvec + bias + residual (FFN2) or
-// LN -> matvec (head) on M rows of f32 hidden state.
+// LN -> matvec (head) on M rows of f32 hidden state. The W8A8 kind carries
+// the same products of decode_block_fused(act_quant=True) and
+// decode_step(act_quant=True) (the TPU kernels' `qmat`,
+// vallex_tpu/ops/decode_block.py:160-165, decode_step.py:124-132).
 //
 // Bound on the H100: weight bytes. At M <= 8 every weight byte is used for at
 // most 8 multiply-adds, far below the ~295 operations per byte where the
@@ -33,6 +36,19 @@
 // one warp alone, and its sum runs over k in the same per-lane order and the
 // same warp reduction for any M and any group, so it is bitwise the row's
 // M = 1 product (chip_smoke.py checks this at M = 4, 8, 16 and 20).
+//
+// W8A8 (w_kind 3): int8 weights with f32 per-output-channel scales, and
+// int8 activations with a dynamic scale per row, as the TPU kernels' `qmat`:
+//   sx = max(max_k |x[m, k]|, 1e-6) * (1/127)
+//   xq = clip(round_half_even(x / sx), -127, 127)     (IEEE division)
+//   y  = float(sum_k xq * w) * (sx * srow)            (int32 sum, exact)
+// then bias, ReLU and residual. The warp that writes row m's activations
+// also takes its max |x|, so the prologue reads x twice (the LayerNorm is
+// recomputed with the same rounded operations, not stored in f32). The main
+// loop keeps the 16-byte weight loads and multiplies 4 int8 pairs per
+// `__dp4a` into an int32 sum; an integer sum is exact in any order. The
+// epilogue rounds each operation on its own (no fused multiply-add), so a
+// product whose prologue is a plain cast is bitwise the plain version's.
 #include "common.cuh"
 
 #define GEMM_ROWS 8  // rows per block (one row group)
@@ -42,6 +58,7 @@
 #define W_BF16 0
 #define W_INT8 1
 #define W_F32 2
+#define W_W8A8 3
 
 template <int WK>
 struct Act {  // activation type in shared memory: bf16, or f32 with f32 weights
@@ -51,6 +68,17 @@ template <>
 struct Act<W_F32> {
   typedef float T;
 };
+template <>
+struct Act<W_W8A8> {
+  typedef int8_t T;
+};
+
+// one LayerNorm output, each operation rounded on its own, so the W8A8
+// prologue's two passes (max, then quantize) compute the same value
+__device__ __forceinline__ float vx_ln_at(const float* xr, int k, float mean, float rstd,
+                                          const float* ln_s, const float* ln_b) {
+  return __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(xr[k], mean), rstd), ln_s[k]), ln_b[k]);
+}
 
 __device__ __forceinline__ void vx_store_act(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 __device__ __forceinline__ void vx_store_act(float* p, float v) { *p = v; }
@@ -75,24 +103,43 @@ gemm_small_m_kernel(const float* __restrict__ x, int ldx, const void* __restrict
   if (resid != nullptr) resid += (size_t)m0 * ldr;
   M = min(GEMM_ROWS, M - m0);
 
+  __shared__ float sx_row[GEMM_ROWS];  // W8A8: each row's activation scale
+
   // ---- prologue: warp m prepares activation row m -------------------------
   for (int m = warp; m < M; m += GEMM_WARPS) {
     const float* xr = x + (size_t)m * ldx;
     TA* xo = xs + (size_t)m * K;
+    float mean = 0.f, rstd = 0.f;
     if (ln_s != nullptr) {
       float s = 0.f;
       for (int k = lane; k < K; k += 32) s += xr[k];
-      const float mean = vx_warp_sum(s) / (float)K;
+      mean = vx_warp_sum(s) / (float)K;
       float v = 0.f;
       for (int k = lane; k < K; k += 32) {
         const float d = xr[k] - mean;
         v += d * d;
       }
-      const float rstd = rsqrtf(vx_warp_sum(v) / (float)K + eps);
+      rstd = rsqrtf(vx_warp_sum(v) / (float)K + eps);
+    }
+    if constexpr (WK == W_W8A8) {
+      float amax = 0.f;
       for (int k = lane; k < K; k += 32)
-        vx_store_act(xo + k, (xr[k] - mean) * rstd * ln_s[k] + ln_b[k]);
+        amax = fmaxf(amax, fabsf(ln_s != nullptr ? vx_ln_at(xr, k, mean, rstd, ln_s, ln_b)
+                                                  : xr[k]));
+      const float sx = fmaxf(vx_warp_max(amax), 1e-6f) * (1.0f / 127.0f);
+      for (int k = lane; k < K; k += 32) {
+        const float a = ln_s != nullptr ? vx_ln_at(xr, k, mean, rstd, ln_s, ln_b) : xr[k];
+        const float q = fminf(fmaxf(rintf(__fdiv_rn(a, sx)), -127.f), 127.f);
+        xo[k] = (int8_t)__float2int_rn(q);
+      }
+      if (lane == 0) sx_row[m] = sx;
     } else {
-      for (int k = lane; k < K; k += 32) vx_store_act(xo + k, xr[k]);
+      if (ln_s != nullptr) {
+        for (int k = lane; k < K; k += 32)
+          vx_store_act(xo + k, (xr[k] - mean) * rstd * ln_s[k] + ln_b[k]);
+      } else {
+        for (int k = lane; k < K; k += 32) vx_store_act(xo + k, xr[k]);
+      }
     }
   }
   __syncthreads();
@@ -147,6 +194,53 @@ gemm_small_m_kernel(const float* __restrict__ x, int ldx, const void* __restrict
         }
       }
     }
+  } else if constexpr (WK == W_W8A8) {
+    // int8 x int8: 4 pairs per __dp4a into an exact int32 sum
+    const int8_t* wr = reinterpret_cast<const int8_t*>(w) + (size_t)n * K;
+    const int8_t* xq = reinterpret_cast<const int8_t*>(xs);
+    int iacc[GEMM_ROWS];
+#pragma unroll
+    for (int m = 0; m < GEMM_ROWS; ++m) iacc[m] = 0;
+#pragma unroll 2
+    for (int k0 = lane * 16; k0 < K; k0 += 32 * 16) {
+      const int4 wv = __ldg(reinterpret_cast<const int4*>(wr + k0));
+#pragma unroll
+      for (int m = 0; m < GEMM_ROWS; ++m) {
+        if (m < M) {
+          const int4 xv = *reinterpret_cast<const int4*>(xq + (size_t)m * K + k0);
+          int a = iacc[m];
+          a = __dp4a(xv.x, wv.x, a);
+          a = __dp4a(xv.y, wv.y, a);
+          a = __dp4a(xv.z, wv.z, a);
+          a = __dp4a(xv.w, wv.w, a);
+          iacc[m] = a;
+        }
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < GEMM_ROWS; ++m) {
+      int a = iacc[m];
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) a += __shfl_xor_sync(VX_FULL_MASK, a, o);
+      iacc[m] = a;
+    }
+    if (lane == 0) {
+      const float srow = wscale[n];
+      const float b = bias != nullptr ? bias[n] : 0.f;
+#pragma unroll
+      for (int m = 0; m < GEMM_ROWS; ++m) {
+        if (m < M) {
+          // float(acc) * (sx * srow), then + bias, ReLU, + residual, each
+          // rounded on its own (as the plain version)
+          float v = __fmul_rn(__int2float_rn(iacc[m]), __fmul_rn(sx_row[m], srow));
+          if (bias != nullptr) v = __fadd_rn(v, b);
+          if (relu) v = fmaxf(v, 0.f);
+          if (resid != nullptr) v = __fadd_rn(v, resid[(size_t)m * ldr + n]);
+          y[(size_t)m * ldy + n] = v;
+        }
+      }
+    }
+    return;
   } else {  // W_F32
     const float* wr = reinterpret_cast<const float*>(w) + (size_t)n * K;
     const float* xf32 = reinterpret_cast<const float*>(xs);
@@ -203,7 +297,8 @@ static cudaError_t launch(const float* x, int ldx, const void* w, const float* w
   return cudaGetLastError();
 }
 
-// w_kind: 0 = bf16 w, 1 = int8 w with wscale [N] required, 2 = f32 w. w is
+// w_kind: 0 = bf16 w, 1 = int8 w with wscale [N] required (W8A16), 2 = f32
+// w, 3 = int8 w with wscale [N] required and int8 activations (W8A8). w is
 // [N, K]. wscale, bias, ln_s/ln_b, resid may be null. Requires M >= 1,
 // K % 16 == 0, 16-byte aligned rows; the Python wrapper checks these.
 extern "C" int vx_gemm_small_m(const float* x, int ldx, const void* w, int w_kind,
@@ -223,6 +318,9 @@ extern "C" int vx_gemm_small_m(const float* x, int ldx, const void* w, int w_kin
     case W_F32:
       return (int)launch<W_F32>(x, ldx, w, wscale, bias, ln_s, ln_b, resid, ldr, y, ldy, M,
                                 N, K, relu, eps, s);
+    case W_W8A8:
+      return (int)launch<W_W8A8>(x, ldx, w, wscale, bias, ln_s, ln_b, resid, ldr, y, ldy, M,
+                                 N, K, relu, eps, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

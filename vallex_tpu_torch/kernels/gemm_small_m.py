@@ -4,11 +4,15 @@ Y[M, N] = epilogue(prologue(X)[M, K] · W[N, K]ᵀ) with an optional
 LayerNorm prologue and scale / bias / ReLU / residual epilogue. W is bf16,
 int8 with f32 per-output-channel scales (W8A16), or f32; activations are
 rounded to bf16 before the product for bf16 and int8 weights and stay f32
-for f32 weights, and the sum is f32, as in the TPU kernels. It carries
-QKV, out-proj, FFN1, FFN2 and the head of the draft and batched-request
-steps (ops/decode_block.py, one row per request and sample) and of the
-verify pass (ops/decode_verify.py). Any M: the kernel takes the rows in
-groups of 8, and each row is bitwise its M = 1 product.
+for f32 weights, and the sum is f32, as in the TPU kernels. With
+`act_quant` (W8A8, the TPU kernels' `qmat`) the int8 weights meet int8
+activations with a dynamic scale per row, sx = max(max|x|, 1e-6) / 127,
+and the int32 sum is scaled by sx · srow. It carries QKV, out-proj, FFN1,
+FFN2 and the head of the draft and batched-request steps
+(ops/decode_block.py, one row per request and sample), of the verify pass
+(ops/decode_verify.py) and of the single steps (ops/decode_step.py). Any
+M: the kernel takes the rows in groups of 8, and each row is bitwise its
+M = 1 product.
 """
 
 from __future__ import annotations
@@ -21,6 +25,15 @@ import torch
 from .loader import check, launch_counts, library, stream_ptr
 
 W_KINDS = {torch.bfloat16: 0, torch.int8: 1, torch.float32: 2}  # the launcher's w_kind
+W_W8A8 = 3  # int8 weights with int8 activations (act_quant)
+
+
+def quantize_rows(x: torch.Tensor):
+    """The W8A8 activations: per-row scale sx = max(max|x|, 1e-6) · (1/127)
+    and xq = clip(round_half_even(x / sx), ±127) as f32 values (the TPU
+    kernels' `qmat`, vallex_tpu/ops/decode_block.py:160-165) → (xq, sx [M, 1])."""
+    sx = x.abs().amax(-1, keepdim=True).clamp_min(1e-6) * (1.0 / 127.0)
+    return torch.clamp(torch.round(x / sx), -127.0, 127.0), sx
 
 
 def gemm_small_m_plain(
@@ -33,19 +46,29 @@ def gemm_small_m_plain(
     relu: bool = False,
     residual: Optional[torch.Tensor] = None,
     eps: float = 1e-5,
+    act_quant: bool = False,
 ) -> torch.Tensor:
     """The kernel's arithmetic in PyTorch ops (any device, any float W).
     Activations are rounded to bf16 for bf16/int8 weights and kept in the
-    weight's dtype otherwise (the fp32 CPU path)."""
+    weight's dtype otherwise (the fp32 CPU path). act_quant: int8
+    activations (`quantize_rows`); the integer sum is taken in float64,
+    which holds it exactly (|sum| <= 127·127·K < 2^53; an f32 sum would
+    round past 2^24), and rounded to f32 once, as the kernel's int32 sum."""
     xf = x.float()
     if ln is not None:
         mean = xf.mean(-1, keepdim=True)
         var = (xf - mean).square().mean(-1, keepdim=True)
         xf = (xf - mean) * torch.rsqrt(var + eps) * ln[0].float() + ln[1].float()
-    act = torch.bfloat16 if w.dtype in (torch.int8, torch.bfloat16) else w.dtype
-    y = xf.to(act).float() @ w.float().t()
-    if scale is not None:
-        y = y * scale.float()
+    if act_quant:
+        if w.dtype != torch.int8 or scale is None:
+            raise ValueError("gemm_small_m: act_quant needs int8 weights with scales")
+        xq, sx = quantize_rows(xf)
+        y = (xq.double() @ w.double().t()).float() * (sx * scale.float())
+    else:
+        act = torch.bfloat16 if w.dtype in (torch.int8, torch.bfloat16) else w.dtype
+        y = xf.to(act).float() @ w.float().t()
+        if scale is not None:
+            y = y * scale.float()
     if bias is not None:
         y = y + bias.float()
     if relu:
@@ -69,14 +92,16 @@ def gemm_small_m(
     relu: bool = False,
     residual: Optional[torch.Tensor] = None,
     eps: float = 1e-5,
+    act_quant: bool = False,
     site: str = "",
 ) -> torch.Tensor:
-    """x [M, K] f32, w [N, K] → y [M, N] f32. CPU tensors take the plain
-    version; CUDA tensors launch the kernel or raise."""
+    """x [M, K] f32, w [N, K] → y [M, N] f32 (act_quant: W8A8, int8 w).
+    CPU tensors take the plain version; CUDA tensors launch the kernel or
+    raise."""
     if x.device.type == "cpu":
         return gemm_small_m_plain(
             x, w, scale=scale, bias=bias, ln=ln, relu=relu,
-            residual=residual, eps=eps,
+            residual=residual, eps=eps, act_quant=act_quant,
         )
     M, K = x.shape
     N = w.shape[0]
@@ -87,6 +112,8 @@ def gemm_small_m(
         raise TypeError(f"gemm_small_m: weights must be bf16, int8 or f32, got {w.dtype}")
     if w.dtype == torch.int8 and scale is None:
         raise ValueError("gemm_small_m: int8 weights need per-channel scales")
+    if act_quant and w.dtype != torch.int8:
+        raise TypeError(f"gemm_small_m: act_quant (W8A8) needs int8 weights, got {w.dtype}")
     if w.shape != (N, K) or not w.is_contiguous() or K % 16:
         raise ValueError(f"gemm_small_m: w must be contiguous [N, K], K % 16 == 0; got {tuple(w.shape)}")
     for t in f32:
@@ -99,7 +126,7 @@ def gemm_small_m(
         raise ValueError("gemm_small_m: w and x on different devices")
     y = torch.empty((M, N), dtype=torch.float32, device=x.device)
     rc = library().vx_gemm_small_m(
-        x.data_ptr(), x.stride(0), w.data_ptr(), W_KINDS[w.dtype],
+        x.data_ptr(), x.stride(0), w.data_ptr(), W_W8A8 if act_quant else W_KINDS[w.dtype],
         _ptr(scale), _ptr(bias),
         _ptr(ln[0]) if ln is not None else None,
         _ptr(ln[1]) if ln is not None else None,

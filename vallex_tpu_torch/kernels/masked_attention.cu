@@ -38,6 +38,25 @@
 // reads the prefix bytes once per request instead of once per sample (the
 // reason for the TPU's grouped layout).
 //
+// int8 K/V (kinds 3): the int8 KV cache of decode_block_fused(kv_scales=...)
+// (vallex_tpu/ops/decode_block.py:249-266, :528-544). K/V hold
+// clip(round(x / scale)) with one static f32 scale per (layer, head) for
+// each of K and V (`ks`, `vs`: [H] for this layer). The k-scale folds into
+// the query (q * ks), the v-scale into the output (out * vs), so the walk
+// runs on the int8 values as they are, in "cache units". The grouped
+// prefix is int8 too, with the same scales.
+//
+// Own-column mode (`nk` non-null, Tq = 1): the decode steps of
+// decode_step / decode_step_fused (vallex_tpu/ops/decode_step.py:553),
+// decode_attention (vallex_tpu/ops/decode_attention.py:207) and the int8kv
+// blocks. The kernel takes this step's new k/v in f32 ([B, H, 1, 64],
+// strides `ns`), walks the cache only up to the `slot` row (range 2 is cut
+// there), then folds the new column in unrounded, as the TPU kernels do
+// (int8 K/V: divided by the scale into cache units, unrounded). Warps 0-1 of
+// the block of (row, head) write the column into the cache row `slot`:
+// rounded to the cache type, or for int8 K/V quantized as clip(rint(x / s),
+// -127, 127). No block reads that row, so the write needs no ordering.
+//
 // Bound on the H100: in decode, the K/V bytes of the valid rows (a memory
 // stream); in the NAR, the 4*T*T*hd operations per head. This first version
 // runs the dot products on the CUDA cores: one warp owns one query, lane j
@@ -61,6 +80,19 @@ __device__ __forceinline__ float vx_to_f32<float>(float v) { return v; }
 template <>
 __device__ __forceinline__ float vx_to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
   return __bfloat162float(v);
+}
+
+template <>
+__device__ __forceinline__ float vx_to_f32<int8_t>(int8_t v) { return (float)v; }
+
+// one value of this step's column in the cache's type (int8: quantized
+// with the head's scale `s`)
+__device__ __forceinline__ void vx_store_col(float* p, float v, float) { *p = v; }
+__device__ __forceinline__ void vx_store_col(__nv_bfloat16* p, float v, float) {
+  *p = __float2bfloat16_rn(v);
+}
+__device__ __forceinline__ void vx_store_col(int8_t* p, float v, float s) {
+  *p = (int8_t)__float2int_rn(fminf(fmaxf(rintf(__fdiv_rn(v, s)), -127.f), 127.f));
 }
 
 template <typename T>
@@ -102,6 +134,23 @@ __device__ __forceinline__ float vx_dot64(const float* qf, const float* kr) {
   return dot;
 }
 
+__device__ __forceinline__ float vx_dot64(const float* qf, const int8_t* kr) {
+  const int4* p = reinterpret_cast<const int4*>(kr);
+  float dot = 0.f;
+#pragma unroll
+  for (int j = 0; j < ATT_HD / 16; ++j) {
+    const int4 raw = __ldg(p + j);
+    const int8_t* kb = reinterpret_cast<const int8_t*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 16; ++i) dot = fmaf(qf[16 * j + i], (float)kb[i], dot);
+  }
+  return dot;
+}
+
+__device__ __forceinline__ float2 vx_load2(const int8_t* p) {
+  const char2 c = *reinterpret_cast<const char2*>(p);
+  return make_float2((float)c.x, (float)c.y);
+}
 __device__ __forceinline__ float2 vx_load2(const __nv_bfloat16* p) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
@@ -109,8 +158,10 @@ __device__ __forceinline__ float2 vx_load2(const float* p) {
   return *reinterpret_cast<const float2*>(p);
 }
 
-// Strides are in elements; the head dim has stride 1 for q, k, v, the prefix
-// and o. pk/pv null: no prefix (every key from k/v).
+// Strides are in elements; the head dim has stride 1 for q, k, v, the prefix,
+// the new column and o. pk/pv null: no prefix (every key from k/v). ks/vs
+// null: no K/V scales. nk/nv null: no own column (kw/vw, n_sb/n_sh and slot
+// unused).
 template <typename TQ, typename TKV, typename TO>
 __global__ void __launch_bounds__(ATT_WARPS * 32)
 masked_attention_kernel(const TQ* __restrict__ q, long long q_sb, long long q_sh, long long q_st,
@@ -120,7 +171,10 @@ masked_attention_kernel(const TQ* __restrict__ q, long long q_sb, long long q_sh
                         long long p_sb, long long p_sh, long long p_st, int P, int beams,
                         TO* __restrict__ o, long long o_sb, long long o_sh, long long o_st,
                         int B, int Tq, int C, const int* __restrict__ lens, int a1_lo,
-                        int a2_lo, int q_off, float scale, int qb, int nsplit) {
+                        int a2_lo, int q_off, float scale, int qb, int nsplit,
+                        const float* __restrict__ ks, const float* __restrict__ vs,
+                        const float* __restrict__ nk, const float* __restrict__ nv,
+                        long long n_sb, long long n_sh, int slot, TKV* kw, TKV* vw) {
   __shared__ float st_m[ATT_WARPS];
   __shared__ float st_l[ATT_WARPS];
   __shared__ float st_acc[ATT_WARPS][ATT_HD];
@@ -134,12 +188,44 @@ masked_attention_kernel(const TQ* __restrict__ q, long long q_sb, long long q_sh
   const int qi = blockIdx.x * qb + qi_local;
   const bool active = split < nsplit && qi < Tq;
 
+  const bool own = nk != nullptr;
+  const long long n_off = b * n_sb + h * n_sh;
+  if (own && threadIdx.x < 2 * ATT_HD) {
+    // this step's column into the cache row `slot` (k by warp 0, v by warp 1)
+    const int d = threadIdx.x & (ATT_HD - 1);
+    const long long c_off = b * kv_sb + h * kv_sh + (long long)slot * kv_st + d;
+    if (threadIdx.x < ATT_HD)
+      vx_store_col(kw + c_off, nk[n_off + d], ks != nullptr ? ks[h] : 1.f);
+    else
+      vx_store_col(vw + c_off, nv[n_off + d], vs != nullptr ? vs[h] : 1.f);
+  }
+
   float m = VX_NEG_BIG, l = 0.f, acc0 = 0.f, acc1 = 0.f;
+  float s_own = VX_NEG_BIG, ov0 = 0.f, ov1 = 0.f;  // own column: score, v
   if (active) {
     const TQ* qp = q + b * q_sb + h * q_sh + (long long)qi * q_st;
+    // int8 K/V: the k-scale folds into the query (q * ks), so the scores
+    // come out of the int8 rows as they are
+    const float qscale = ks != nullptr ? ks[h] : 1.f;
     float qf[ATT_HD];
 #pragma unroll
-    for (int d = 0; d < ATT_HD; ++d) qf[d] = vx_to_f32<TQ>(qp[d]) * scale;
+    for (int d = 0; d < ATT_HD; ++d) qf[d] = vx_to_f32<TQ>(qp[d]) * qscale * scale;
+    if (own && split == 0) {
+      // the new key in cache units (int8 K/V: k / ks, unrounded); every lane
+      // takes the whole dot, lane j keeps v dims 2j, 2j + 1
+      const float* kn = nk + n_off;
+      float dot = 0.f;
+#pragma unroll
+      for (int d = 0; d < ATT_HD; ++d)
+        dot = fmaf(qf[d], ks != nullptr ? __fdiv_rn(kn[d], ks[h]) : kn[d], dot);
+      s_own = dot;
+      ov0 = nv[n_off + 2 * lane];
+      ov1 = nv[n_off + 2 * lane + 1];
+      if (vs != nullptr) {
+        ov0 = __fdiv_rn(ov0, vs[h]);
+        ov1 = __fdiv_rn(ov1, vs[h]);
+      }
+    }
     const TKV* kb = k + b * kv_sb + h * kv_sh;
     const TKV* vb = v + b * kv_sb + h * kv_sh;
     // the text and range-1 keys: the prefix row of this row's request, or
@@ -150,7 +236,9 @@ masked_attention_kernel(const TQ* __restrict__ q, long long q_sb, long long q_sh
     // virtual key index vk: [0, x_len) text rows, then range 1, then range 2
     const int x_len = min(max(lens[b], 0), C1);
     const int a1_len = min(max(lens[B + b], 0), max(C1 - a1_lo, 0));
-    const int a2_len = min(max(lens[2 * B + b] + q_off * qi, 0), max(C - a2_lo, 0));
+    // own column: the walk stops before the slot, whatever the bounds say
+    const int a2_end = own ? min(C, slot) : C;
+    const int a2_len = min(max(lens[2 * B + b] + q_off * qi, 0), max(a2_end - a2_lo, 0));
     const int x_a1 = x_len + a1_len;
     const TKV* kp = grouped ? pk + pr : kb;
     const TKV* vp = grouped ? pv + pr : vb;
@@ -199,11 +287,13 @@ masked_attention_kernel(const TQ* __restrict__ q, long long q_sb, long long q_sh
       }
     }
   }
-  if (nsplit == 1) {
+  // int8 K/V: the v-scale folds into the output
+  const float oscale = vs != nullptr ? vs[h] : 1.f;
+  if (nsplit == 1) {  // (no own column: Tq > 8)
     if (active) {
       const float inv = l > 0.f ? 1.f / l : 0.f;
       TO* op = o + b * o_sb + h * o_sh + (long long)qi * o_st;
-      vx_store2<TO>(op + 2 * lane, acc0 * inv, acc1 * inv);
+      vx_store2<TO>(op + 2 * lane, acc0 * inv * oscale, acc1 * inv * oscale);
     }
     return;
   }
@@ -218,6 +308,7 @@ masked_attention_kernel(const TQ* __restrict__ q, long long q_sb, long long q_sh
   if (split == 0 && qi < Tq) {
     float mm = VX_NEG_BIG;
     for (int s = 0; s < nsplit; ++s) mm = fmaxf(mm, st_m[qi_local + s * qb]);
+    if (own) mm = fmaxf(mm, s_own);
     float ll = 0.f, a0 = 0.f, a1 = 0.f;
     for (int s = 0; s < nsplit; ++s) {
       const int w2 = qi_local + s * qb;
@@ -226,9 +317,15 @@ masked_attention_kernel(const TQ* __restrict__ q, long long q_sb, long long q_sh
       a0 += st_acc[w2][2 * lane] * f;
       a1 += st_acc[w2][2 * lane + 1] * f;
     }
+    if (own) {  // the new column, after the cache rows
+      const float p = __expf(s_own - mm);
+      ll += p;
+      a0 = fmaf(p, ov0, a0);
+      a1 = fmaf(p, ov1, a1);
+    }
     const float inv = ll > 0.f ? 1.f / ll : 0.f;
     TO* op = o + b * o_sb + h * o_sh + (long long)qi * o_st;
-    vx_store2<TO>(op + 2 * lane, a0 * inv, a1 * inv);
+    vx_store2<TO>(op + 2 * lane, a0 * inv * oscale, a1 * inv * oscale);
   }
 }
 
@@ -237,7 +334,9 @@ static cudaError_t launch(const void* q, const long long* qs, const void* k, con
                           const long long* kvs, const void* pk, const void* pv,
                           const long long* ps, int P, int beams, void* o, const long long* os,
                           int B, int H, int Tq, int C, const int* lens, int a1_lo, int a2_lo,
-                          int q_off, float scale, cudaStream_t stream) {
+                          int q_off, float scale, const float* ks, const float* vs,
+                          const float* nk, const float* nv, const long long* ns, int slot,
+                          cudaStream_t stream) {
   // decode (Tq <= 8): one query per block, its keys split over the 8 warps
   const int qb = Tq <= ATT_WARPS ? 1 : ATT_WARPS;
   const int nsplit = ATT_WARPS / qb;
@@ -248,37 +347,57 @@ static cudaError_t launch(const void* q, const long long* qs, const void* k, con
       reinterpret_cast<const TKV*>(pk), reinterpret_cast<const TKV*>(pv),
       pk != nullptr ? ps[0] : 0, pk != nullptr ? ps[1] : 0, pk != nullptr ? ps[2] : 0, P,
       beams, reinterpret_cast<TO*>(o), os[0], os[1], os[2], B, Tq, C, lens, a1_lo, a2_lo,
-      q_off, scale, qb, nsplit);
+      q_off, scale, qb, nsplit, ks, vs, nk, nv, nk != nullptr ? ns[0] : 0,
+      nk != nullptr ? ns[1] : 0, slot, reinterpret_cast<TKV*>(const_cast<void*>(k)),
+      reinterpret_cast<TKV*>(const_cast<void*>(v)));
   return cudaGetLastError();
 }
 
 // q: [B, H, Tq, 64]; k, v: [B, H, C, 64]; o: [B, H, Tq, 64] of q's type.
 // kinds: 0 = f32 q/o with bf16 k/v (decode), 1 = bf16 q/o/k/v (NAR),
-// 2 = f32 q/o/k/v (compute_dtype="float32"). qs/kvs/os: the (b, h, t)
-// strides in elements, three int64 each. lens: device pointer to [3, B]
-// int32 (x_len, a1_len, a2_len per row), contiguous. pk/pv: null, or the
-// grouped mode's prefix [B / beams, H, P, 64] of the k/v type with strides ps.
+// 2 = f32 q/o/k/v (compute_dtype="float32"), 3 = f32 q/o with int8 k/v and
+// the scales ks/vs [H] (int8 KV cache). qs/kvs/os: the (b, h, t) strides in
+// elements, three int64 each. lens: device pointer to [3, B] int32 (x_len,
+// a1_len, a2_len per row), contiguous. pk/pv: null, or the grouped mode's
+// prefix [B / beams, H, P, 64] of the k/v type with strides ps. nk/nv:
+// null, or the own-column mode's new k/v [B, H, 1, 64] f32 with (b, h, t)
+// strides ns, written into row `slot` of k/v (Tq must be 1).
 extern "C" int vx_masked_attention(const void* q, const long long* qs, const void* k,
                                    const void* v, const long long* kvs, const void* pk,
                                    const void* pv, const long long* ps, int P, int beams,
                                    void* o, const long long* os, int kinds, int B, int H,
                                    int Tq, int C, const void* lens, int a1_lo, int a2_lo,
-                                   int q_off, float scale, void* stream) {
+                                   int q_off, float scale, const void* ks, const void* vs,
+                                   const void* nk, const void* nv, const long long* ns,
+                                   int slot, void* stream) {
   if (Tq < 1 || B < 1 || B > 65535 || beams < 1 || B % beams) return (int)cudaErrorInvalidValue;
+  if ((kinds == 3) != (ks != nullptr && vs != nullptr)) return (int)cudaErrorInvalidValue;
+  if (nk != nullptr && (Tq != 1 || nv == nullptr || slot < 0 || slot >= C || kinds == 1))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const int* l = reinterpret_cast<const int*>(lens);
+  const float* fks = reinterpret_cast<const float*>(ks);
+  const float* fvs = reinterpret_cast<const float*>(vs);
+  const float* fnk = reinterpret_cast<const float*>(nk);
+  const float* fnv = reinterpret_cast<const float*>(nv);
   switch (kinds) {
     case 0:
       return (int)launch<float, __nv_bfloat16, float>(q, qs, k, v, kvs, pk, pv, ps, P, beams,
                                                       o, os, B, H, Tq, C, l, a1_lo, a2_lo,
-                                                      q_off, scale, s);
+                                                      q_off, scale, fks, fvs, fnk, fnv, ns,
+                                                      slot, s);
     case 1:
       return (int)launch<__nv_bfloat16, __nv_bfloat16, __nv_bfloat16>(
           q, qs, k, v, kvs, pk, pv, ps, P, beams, o, os, B, H, Tq, C, l, a1_lo, a2_lo, q_off,
-          scale, s);
+          scale, fks, fvs, fnk, fnv, ns, slot, s);
     case 2:
       return (int)launch<float, float, float>(q, qs, k, v, kvs, pk, pv, ps, P, beams, o, os, B,
-                                              H, Tq, C, l, a1_lo, a2_lo, q_off, scale, s);
+                                              H, Tq, C, l, a1_lo, a2_lo, q_off, scale, fks, fvs,
+                                              fnk, fnv, ns, slot, s);
+    case 3:
+      return (int)launch<float, int8_t, float>(q, qs, k, v, kvs, pk, pv, ps, P, beams, o, os,
+                                               B, H, Tq, C, l, a1_lo, a2_lo, q_off, scale, fks,
+                                               fvs, fnk, fnv, ns, slot, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -22,6 +22,17 @@ b // beams and its range-2 keys from its own cache row, where the generated
 rows start at gen_lo = 0. It equals the batched layout with the prefix
 repeated per sample in front of the generated rows (`with_prefix`), which
 is the plain version.
+
+int8 K/V (the int8 KV cache): `kv_scales` = (ks, vs), one f32 per head of
+this layer; k/v hold clip(round(x / s)). The k-scale multiplies the query
+and the v-scale the output, so the attention runs on the int8 values.
+Own-column mode (`new_kv` = this step's (k, v) [B, H, 1, hd] f32, `slot`,
+Tq = 1): the walk stops before cache row `slot` (range 2 ends there), the
+new column is folded in unrounded (int8: k / ks and v / vs, unrounded), and
+the column is written into row `slot` of k/v, rounded to the cache type or
+quantized (`write_column`). The TPU decode kernels fold their own column
+this way (vallex_tpu/ops/decode_step.py, decode_attention.py, and
+decode_block.py with kv_scales).
 """
 
 from __future__ import annotations
@@ -100,25 +111,72 @@ def with_prefix(k: torch.Tensor, v: torch.Tensor, bounds: Bounds, prefix: Prefix
             bounds._replace(a2_lo=bounds.a2_lo + P))
 
 
+Scales = Tuple[torch.Tensor, torch.Tensor]  # int8 K/V: (ks, vs) [H] f32
+NewKV = Tuple[torch.Tensor, torch.Tensor]  # own column: (k, v) [B, H, 1, hd] f32
+
+
+def _column(x: torch.Tensor, dtype: torch.dtype,
+            scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """This step's k or v [B, H, 1, hd] as the cache stores it: rounded to
+    `dtype`, or for int8 clip(round_half_even(x / scale), ±127) with the
+    head's scale [H]."""
+    if dtype != torch.int8:
+        return x.to(dtype)
+    q = torch.round(x.float() / scale.float()[None, :, None, None])
+    return torch.clamp(q, -127.0, 127.0).to(torch.int8)
+
+
 def masked_attention_plain(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     bounds: Optional[Bounds] = None, *, prefix: Optional[Prefix] = None,
-    beams: int = 1, **layout,
+    beams: int = 1, kv_scales: Optional[Scales] = None,
+    new_kv: Optional[NewKV] = None, slot: Optional[int] = None, **layout,
 ) -> torch.Tensor:
     """softmax(q·kᵀ/√hd over the valid keys)·v in f32; q [B, H, Tq, hd],
     k/v [B, H, C, hd] (+ a grouped-mode prefix) → [B, H, Tq, hd] in q's
-    dtype. Bounds, or the keywords of `attention_bounds`."""
-    B, _, Tq, hd = q.shape
+    dtype. Bounds, or the keywords of `attention_bounds`. With
+    `kv_scales` the int8 k/v are dequantized through q·ks and out·vs; with
+    `new_kv` the keys stop before `slot` and the new column is folded in
+    (module docstring). Reads k/v only; the column write is the caller's
+    (`write_column`)."""
+    B, H, Tq, hd = q.shape
     if bounds is None:
         bounds = attention_bounds(B, device=q.device, **layout)
     if prefix is not None:
         k, v, bounds = with_prefix(k, v, bounds, prefix, beams)
+        if new_kv is not None:
+            slot += prefix[0].shape[2]
     C = k.shape[-2]
     ok = valid_keys(Tq, C, bounds)[:, None]  # [B, 1, Tq, C]
-    s = (q.float() @ k.float().transpose(-1, -2)) * (1.0 / math.sqrt(hd))
+    qf, kf, vf = q.float(), k.float(), v.float()
+    if kv_scales is not None:
+        ks, vs = (s.float()[None, :, None, None] for s in kv_scales)
+        qf = qf * ks
+    if new_kv is not None:
+        if Tq != 1:
+            raise ValueError("masked_attention: the own-column mode takes one query")
+        ok = ok & (torch.arange(C, device=ok.device) < slot)
+        nk, nv = (t.float() for t in new_kv)
+        if kv_scales is not None:  # cache units, unrounded
+            nk, nv = nk / ks, nv / vs
+        kf, vf = torch.cat([kf, nk], dim=2), torch.cat([vf, nv], dim=2)
+        ok = torch.cat([ok, ok.new_ones(ok.shape[:-1] + (1,))], dim=-1)
+    s = (qf @ kf.transpose(-1, -2)) * (1.0 / math.sqrt(hd))
     s = s.masked_fill(~ok, float("-inf"))
     p = torch.softmax(s, dim=-1)
-    return (p @ v.float()).to(q.dtype)
+    o = p @ vf
+    if kv_scales is not None:
+        o = o * vs
+    return o.to(q.dtype)
+
+
+def write_column(k: torch.Tensor, v: torch.Tensor, new_kv: NewKV, slot: int,
+                 kv_scales: Optional[Scales] = None) -> None:
+    """The own-column mode's cache write, in PyTorch: row `slot` of k/v
+    [B, H, C, hd] ← the new k/v as the cache stores them (in place)."""
+    ks, vs = kv_scales if kv_scales is not None else (None, None)
+    k[:, :, slot: slot + 1] = _column(new_kv[0], k.dtype, ks)
+    v[:, :, slot: slot + 1] = _column(new_kv[1], v.dtype, vs)
 
 
 def _strides3(t: torch.Tensor):
@@ -129,6 +187,7 @@ KINDS = {  # (q/out dtype, k/v dtype) → the launcher's `kinds`
     (torch.float32, torch.bfloat16): 0,
     (torch.bfloat16, torch.bfloat16): 1,
     (torch.float32, torch.float32): 2,
+    (torch.float32, torch.int8): 3,  # with kv_scales
 }
 
 
@@ -136,20 +195,31 @@ def masked_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     bounds: Optional[Bounds] = None, *,
     prefix: Optional[Prefix] = None, beams: int = 1,
+    kv_scales: Optional[Scales] = None, new_kv: Optional[NewKV] = None,
+    slot: Optional[int] = None,
     out: Optional[torch.Tensor] = None, site: str = "", **layout,
 ) -> torch.Tensor:
     """q [B, H, Tq, 64]; k/v [B, H, C, 64] (any strides with a unit last
-    stride): f32 q with bf16 k/v (decode), all bf16 (NAR) or all f32
-    (compute_dtype="float32") → [B, H, Tq, 64] in q's dtype, written into
-    `out` when given (e.g. a strided view of a [Tq, H·64] buffer). Bounds,
-    or the keywords of `attention_bounds`; `prefix` + `beams` for the
-    grouped mode. CPU tensors take the plain version; CUDA tensors launch
-    or raise."""
+    stride): f32 q with bf16 k/v (decode), all bf16 (NAR), all f32
+    (compute_dtype="float32") or f32 q with int8 k/v and `kv_scales` (the
+    int8 KV cache) → [B, H, Tq, 64] in q's dtype, written into `out` when
+    given (e.g. a strided view of a [Tq, H·64] buffer). Bounds, or the
+    keywords of `attention_bounds`; `prefix` + `beams` for the grouped
+    mode; `new_kv` + `slot` for the own-column mode, which also writes the
+    column into k/v. CPU tensors take the plain version; CUDA tensors
+    launch or raise."""
     B, H, Tq, hd = q.shape
     if bounds is None:
         bounds = attention_bounds(B, device=q.device, **layout)
+    if (k.dtype == torch.int8) != (kv_scales is not None):
+        raise TypeError("masked_attention: int8 k/v go with kv_scales, and only they")
+    if (new_kv is None) != (slot is None):
+        raise ValueError("masked_attention: the own-column mode needs new_kv and slot")
     if q.device.type == "cpu":
-        o = masked_attention_plain(q, k, v, bounds, prefix=prefix, beams=beams)
+        o = masked_attention_plain(q, k, v, bounds, prefix=prefix, beams=beams,
+                                   kv_scales=kv_scales, new_kv=new_kv, slot=slot)
+        if new_kv is not None:
+            write_column(k, v, new_kv, slot, kv_scales)
         if out is None:
             return o
         out.copy_(o)
@@ -160,7 +230,27 @@ def masked_attention(
     kinds = KINDS.get((q.dtype, k.dtype))
     if kinds is None or v.dtype != k.dtype:
         raise TypeError(f"masked_attention: q/k/v dtypes {q.dtype}/{k.dtype}/{v.dtype} not taken"
-                        " (f32/bf16/bf16, bf16/bf16/bf16 or f32/f32/f32)")
+                        " (f32/bf16/bf16, bf16/bf16/bf16, f32/f32/f32 or f32/int8/int8)")
+    ks = vs = nk = nv = ns = None
+    if kv_scales is not None:
+        ks, vs = kv_scales
+        for t in kv_scales:
+            if t.shape != (H,) or t.dtype != torch.float32 or not t.is_contiguous() \
+                    or t.device != q.device:
+                raise ValueError(f"masked_attention: kv_scales must be contiguous [{H}] f32 on q's device")
+        ks, vs = ks.data_ptr(), vs.data_ptr()
+    if new_kv is not None:
+        nk, nv = new_kv
+        if Tq != 1 or kinds == 1 or not 0 <= slot < C:
+            raise ValueError(f"masked_attention: the own-column mode takes Tq = 1, f32 q and"
+                             f" 0 <= slot < {C}; got Tq {Tq}, {q.dtype}, slot {slot}")
+        if nk.shape != (B, H, 1, hd) or nv.shape != nk.shape or nk.stride() != nv.stride() \
+                or nk.dtype != torch.float32 or nv.dtype != torch.float32 \
+                or nk.device != q.device or nv.device != q.device or nk.stride(-1) != 1:
+            raise ValueError(f"masked_attention: new_kv must be two f32 [{B}, {H}, 1, {hd}]"
+                             " tensors with the same strides on q's device")
+        ns = _strides3(nk)
+        nk, nv = nk.data_ptr(), nv.data_ptr()
     lens = bounds.lens
     if lens.shape != (3, B) or lens.dtype != torch.int32 or not lens.is_contiguous():
         raise ValueError(f"masked_attention: bounds must be a contiguous [3, {B}] int32 tensor")
@@ -193,7 +283,8 @@ def masked_attention(
         q.data_ptr(), _strides3(q), k.data_ptr(), v.data_ptr(), _strides3(k),
         pk, pv, ps, P, beams, out.data_ptr(), _strides3(out), kinds,
         B, H, Tq, C, lens.data_ptr(), bounds.a1_lo, bounds.a2_lo, bounds.q_off,
-        ctypes.c_float(1.0 / math.sqrt(hd)), stream_ptr(q),
+        ctypes.c_float(1.0 / math.sqrt(hd)), ks, vs, nk, nv, ns,
+        0 if slot is None else slot, stream_ptr(q),
     )
     check(rc, "masked_attention")
     launch_counts[("masked_attention", site)] += 1

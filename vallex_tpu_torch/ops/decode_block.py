@@ -26,7 +26,13 @@ and remaining are [B] vectors; the cache is [NL, B, H, C, hd]. Grouped
 prefix [NL, R, H, s_text + p_audio, hd] holds each request's text + BOS +
 prompt K/V once, and the cache holds only generated rows (frame t at row
 t).
-The weights are the bf16, f32 or int8 (W8A16) dict of ops/decode_step.py. The
+The weights are the bf16, f32 or int8 (W8A16) dict of ops/decode_step.py;
+`act_quant` runs the int8 products as W8A8 (the TPU kernel's `qmat`, head
+W8A16), and `kv_scales` ([NL, H] f32 each for K and V) marks int8 caches
+(and prefix): the k-scale folds into q, the v-scale into the attention
+output, each step's own column is folded in unrounded in cache units and
+quantized into the cache by the attention kernel (the TPU kernel's
+`kv_quant`, vallex_tpu/ops/decode_block.py:249-266, :528-544). The
 steps run as launches of the hand-written kernels (products, attention,
 sampling); the bookkeeping is a few tensor ops per step that stay on the
 device, so the host never waits inside a block.
@@ -48,6 +54,8 @@ SITE_BATCHED = "decode_block_fused_batched"
 SITE_BEAMS = "decode_block_fused_beams"
 SITE_GROUPED = "decode_block_fused_grouped"
 SITE_FILTERED = "decode_block_fused_filtered"  # the epilogue in filtered mode
+SITE_W8A8 = "decode_block_fused_w8a8"  # the products of act_quant blocks
+SITE_INT8KV = "decode_block_fused_int8kv"  # the attention over int8 caches
 
 
 class BlockResult(NamedTuple):
@@ -86,6 +94,8 @@ def decode_block_fused(
     beams: int = 1,
     top_k: Optional[int] = None,  # filtered epilogue (<= 0: off)
     top_p: Optional[float] = None,  # filtered epilogue (>= 1: off)
+    act_quant: bool = False,  # W8A8 products (int8 weights)
+    kv_scales: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,  # int8 caches
 ) -> BlockResult:
     dev = tokens.device
     B = tokens.shape[0]
@@ -111,6 +121,10 @@ def decode_block_fused(
         bounds = attention_bounds(1, x_len=x_len, s_text=s_text, audio_len=audio_pos + 1,
                                   q_off=1, device=dev)
     bounds = step_bounds(bounds, steps)
+    # launches count per site: the products of W8A8 blocks and the
+    # attention over int8 caches under their own
+    att_site = SITE_INT8KV if kv_scales is not None else att_site or site
+    prod_site = SITE_W8A8 if act_quant else site
     fed_all, logits_all = [], []
     for k in range(steps):
         d0 = done | (k >= remaining)
@@ -122,8 +136,8 @@ def decode_block_fused(
                    else pe_table[audio_pos + k: audio_pos + k + 1])
         logits = decoder_forward(
             fed, lw, *cache5, pe_rows, slot=s_gen + audio_pos + k,
-            bounds=bounds[k], site=site, prefix=prefix, beams=beams,
-            attention_site=att_site,
+            bounds=bounds[k], site=prod_site, prefix=prefix, beams=beams,
+            attention_site=att_site, act_quant=act_quant, kv_scales=kv_scales,
         )
         logits_all.append(logits)
         u = None
