@@ -53,6 +53,16 @@ Phases, one flushed line each with its own seconds and wall-clock limit:
      POSTs; the CLI with --quantize w8a8; decode_steps=1 greedy, sampled
      and filtered; decode_mode="pallas" greedy; f32 greedy requests with
      decode_steps=1 and with "pallas" against the CPU plain path
+  3e the training attention (kernels/flash_attention.cu): the forward, dQ
+     and dK/dV kernels against their plain versions at B = 4, H = 16,
+     T = 1152 (text 128 + audio 1024), bf16 and f32, one padded segment
+     per row and four packed ones, prefix T / 0 / 128; two backward runs
+     bitwise equal
+  5f training at the shipped width: train_step with AdamW on a fixed batch
+     of four utterances for 10 steps (the loss falls), the kernel route
+     against the mask route on that batch (loss, gradient cosine per
+     leaf), a packed batch, two stage-1 ScaledAdam steps (the NAR
+     parameters stay bitwise), one use_flash="auto" step, a profiled step
   7  torch.profiler traces of one request and of one batch of 4: the
      device-busy share of their AR, NAR and Vocos spans, and the AR's
      device time by kernel
@@ -61,7 +71,8 @@ Launch counts are zeroed just before phase 5 and read after phase 6 (the
 single-request path), zeroed again just before phase 5b and read after
 phase 5c (the batched path), and once more just before phase 5d and read
 after it (best_of and filtered sampling), and once more just before phase
-5e and read after it (int8kv, w8a8, single steps, pallas). Any failure exits
+5e and read after it (int8kv, w8a8, single steps, pallas), and once more
+just before phase 5f and read after it (training). Any failure exits
 non-zero before the result line. No JAX is imported.
 """
 
@@ -105,12 +116,21 @@ TPU = {  # TPU kernel each main-path site stands for (file:line of the function)
     "decode_step": "vallex_tpu/ops/decode_step.py:601",
     "decode_step_fused": "vallex_tpu/ops/decode_step.py:637",
     "decode_attention": "vallex_tpu/ops/decode_attention.py:181",
+    # training: attention_core_flash_prefix (the AR's prefix-causal mask),
+    # attention_core_flash with segment ids (the NAR, packed rows) and the
+    # JAX library's flash backward (_flash_attention_bwd_dq / _dkv)
+    "flash_attention_prefix": "vallex_tpu/models/layers.py:259",
+    "flash_attention_train": "vallex_tpu/models/layers.py:205",
+    "flash_attention_bwd": "vallex_tpu/models/layers.py:205",
 }
 BATCHED_SITES = ("decode_block_fused_batched", "flash_attention_batched")
 SLICE3_SITES = ("decode_block_fused_filtered", "decode_block_fused_beams",
                 "decode_block_fused_grouped")
 SLICE4_SITES = ("decode_block_fused_w8a8", "decode_block_fused_int8kv", "decode_step",
                 "decode_step_fused", "decode_attention")
+SLICE5_SITES = ("flash_attention_prefix", "flash_attention_train", "flash_attention_bwd")
+KERNEL_FILE = {"flash_attention_fwd": "flash_attention", "flash_attention_bwd_dq": "flash_attention",
+               "flash_attention_bwd_dkv": "flash_attention"}
 
 
 def say(msg: str) -> None:
@@ -153,6 +173,16 @@ def busy_ms(intervals, lo, hi):
     return total / 1e3
 
 
+def trace_events(prof):
+    """The events of a finished torch.profiler run, from its chrome trace."""
+    with tempfile.TemporaryDirectory() as td:
+        path = os.path.join(td, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            trace = json.load(f)
+    return trace["traceEvents"] if isinstance(trace, dict) else trace
+
+
 def trace_run(label: str, run) -> None:
     """run() does one synthesis and returns (phase seconds, frames). Run it
     plainly (twice) and under torch.profiler, and report for each pipeline
@@ -169,12 +199,7 @@ def trace_run(label: str, run) -> None:
             plain_s[k] = min(v, plain_s.get(k, v))
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         _, frames = run()
-    with tempfile.TemporaryDirectory() as td:
-        path = os.path.join(td, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            trace = json.load(f)
-    events = trace["traceEvents"] if isinstance(trace, dict) else trace
+    events = trace_events(prof)
     spans = {e["name"][len("vallex."):]: (float(e["ts"]), float(e["ts"]) + float(e["dur"]))
              for e in events
              if e.get("cat") == "user_annotation" and str(e.get("name", "")).startswith("vallex.")}
@@ -202,6 +227,306 @@ def trace_run(label: str, run) -> None:
     out["ar_device_ms_by_kernel"] = {n[:80]: round(t, 3) for n, t in
                                      sorted(by_name.items(), key=lambda kv: -kv[1])[:8]}
     say("trace " + json.dumps(out))
+
+
+# ---------------------------------------------------------------------------
+# Training (phases 3e and 5f): module-level so each phase reads only what it
+# is handed.
+# ---------------------------------------------------------------------------
+
+TRAIN_TEXT, TRAIN_AUDIO = [60, 90, 110, 128], [400, 650, 800, 1000]
+
+
+def train_segments(layout: str, B: int, T: int, s_text: int, dev):
+    """[B, T] int32 segment ids over a [text (s_text) | audio] row: "padded"
+    holds one utterance per row (text TRAIN_TEXT[b], audio TRAIN_AUDIO[b]
+    + 1 with the BOS, as ar_loss lays them out), "packed" four utterances
+    per row back to back in each region."""
+    import torch
+
+    seg = torch.zeros((B, T), dtype=torch.int32)
+    for b in range(B):
+        if layout == "padded":
+            seg[b, :TRAIN_TEXT[b % 4]] = 1
+            seg[b, s_text: s_text + TRAIN_AUDIO[b % 4] + 1] = 1
+        else:
+            t_cut = [0, 30 + b, 60, 95 - b, s_text]
+            a_cut = [s_text, s_text + 250 + 10 * b, s_text + 500, s_text + 760 - 5 * b,
+                     s_text + 1000]
+            for u in range(4):
+                seg[b, t_cut[u]: t_cut[u + 1]] = u + 1
+                seg[b, a_cut[u]: a_cut[u + 1]] = u + 1
+    return seg.to(dev)
+
+
+def train_kernel_checks(dev, entry, device_ms, g) -> None:
+    """Phase 3e: the flash forward, dQ and dK/dV kernels against their plain
+    versions at the training shapes (B = 4, H = 16, T = 1152 = text 128 +
+    audio 1024, hd 64), bf16 and f32, one padded segment per row and four
+    packed ones, prefix P = T (key padding, the NAR), 0 (causal) and 128
+    (the AR's prefix-causal mask); two backward runs bitwise equal."""
+    import torch
+    import torch.nn.functional as Fn
+
+    from vallex_tpu_torch.kernels.flash_attention import (
+        flash_attention_bwd, flash_attention_bwd_dkv, flash_attention_bwd_dkv_plain,
+        flash_attention_bwd_dq, flash_attention_bwd_dq_plain, flash_attention_bwd_plain,
+        flash_attention_fwd, flash_attention_plain, valid_pairs,
+    )
+
+    B, H, T, S, hd = 4, 16, 1152, 128, 64
+    for dt in (torch.bfloat16, torch.float32):
+        bf = dt == torch.bfloat16
+        for layout in ("padded", "packed"):
+            seg = train_segments(layout, B, T, S, dev)
+            for P in (T, 0, S):
+                q, k, v, do = (torch.randn((B, H, T, hd), generator=g, device=dev).to(dt)
+                               for _ in range(4))
+                o, lse = flash_attention_fwd(q, k, v, seg, seg, P, site="check")
+                op, lp = flash_attention_plain(q, k, v, seg, seg, P)
+                grads = flash_attention_bwd(q, k, v, seg, seg, P, o, lse, do)
+                again = flash_attention_bwd(q, k, v, seg, seg, P, o, lse, do)
+                ref = flash_attention_bwd_plain(q, k, v, seg, seg, P, o, lse, do)
+                torch.cuda.synchronize()
+                case = f"{str(dt)[6:]} {layout} P={P}"
+                err_o = float((o.float() - op.float()).abs().max())
+                scale_o = float(op.float().abs().max())
+                err_l = float((lse - lp).abs().max())
+                if not (err_o <= (1e-2 if bf else 2e-5) * scale_o and err_l <= 1e-3):
+                    fail(f"flash_attention_fwd {case}: out err {err_o} of scale {scale_o},"
+                         f" lse err {err_l}")
+                rel, err = [], []
+                for name, a, r in zip(("dq", "dk", "dv"), grads, ref):
+                    e, sc = float((a.float() - r.float()).abs().max()), float(r.float().abs().max())
+                    rel.append(e / sc)
+                    err.append(e)
+                    if not e <= (2e-2 if bf else 1e-4) * sc:
+                        fail(f"flash_attention_bwd {case}: {name} err {e} of scale {sc}")
+                if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+                    fail(f"flash_attention_bwd {case}: two runs differ")
+                say(f"  flash_attention {case}: out err {err_o:.3e} (scale {scale_o:.3f}), lse err"
+                    f" {err_l:.3e}, dq/dk/dv err {rel[0]:.2e}/{rel[1]:.2e}/{rel[2]:.2e} of their"
+                    f" scale, two backward runs bitwise equal")
+                # timed: the padded layout at the main path's prefixes (P = T:
+                # the NAR's key padding; P = 128: the AR's prefix-causal
+                # attention and its backward), the packed one at P = 128
+                if not (P == S or (P == T and layout == "padded")):
+                    continue
+                pairs = int(valid_pairs(seg, seg, P).sum()) * H
+                es, n = q.element_size(), B * H * T * hd
+                seg_bytes, row_bytes = 2 * B * T * 4, B * H * T * 4
+                rate = BF16_OPS_PER_S if bf else F32_OPS_PER_S
+                in_line = bf and layout == "padded"
+                what = (f"B={B}, H={H}, T={T}, {str(dt)[6:]}, {layout}, prefix {P},"
+                        f" {pairs} valid pairs")
+                mask = valid_pairs(seg, seg, P)[:, None]
+                lib_fwd = device_ms(lambda: Fn.scaled_dot_product_attention(q, k, v, attn_mask=mask))
+                entry("flash_attention_fwd",
+                      "flash_attention_prefix" if P == S else "flash_attention_train", err_o,
+                      device_ms(lambda: flash_attention_fwd(q, k, v, seg, seg, P)),
+                      device_ms(lambda: flash_attention_plain(q, k, v, seg, seg, P)),
+                      4 * n * es + row_bytes + seg_bytes, 4 * hd * pairs, lib_fwd,
+                      f"1 launch: {what}", in_line, rate)
+                if P != S:
+                    continue
+                qr, kr, vr = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+                lib_bwd = device_ms(lambda: torch.autograd.grad(
+                    Fn.scaled_dot_product_attention(qr, kr, vr, attn_mask=mask), (qr, kr, vr),
+                    do)) - lib_fwd
+                dq, di = flash_attention_bwd_dq(q, k, v, seg, seg, P, o, lse, do)
+                entry("flash_attention_bwd_dq", "flash_attention_bwd", err[0],
+                      device_ms(lambda: flash_attention_bwd_dq(q, k, v, seg, seg, P, o, lse, do)),
+                      device_ms(lambda: flash_attention_bwd_dq_plain(q, k, v, seg, seg, P, o, lse,
+                                                                     do)),
+                      6 * n * es + 2 * row_bytes + seg_bytes, 6 * hd * pairs, lib_bwd,
+                      f"1 launch: dq and di, {what}; library: SDPA's whole backward", in_line,
+                      rate)
+                entry("flash_attention_bwd_dkv", "flash_attention_bwd", max(err[1:]),
+                      device_ms(lambda: flash_attention_bwd_dkv(q, k, v, seg, seg, P, do, lse,
+                                                                di)),
+                      device_ms(lambda: flash_attention_bwd_dkv_plain(q, k, v, seg, seg, P, o,
+                                                                      lse, do)),
+                      6 * n * es + 2 * row_bytes + seg_bytes, 8 * hd * pairs, lib_bwd,
+                      f"1 launch: dk and dv, {what}; library: SDPA's whole backward", in_line,
+                      rate)
+                del qr, kr, vr, mask
+
+
+def train_path(dev, cfg) -> None:
+    """Phase 5f: the training slice at the shipped width (random weights
+    from seed 0, f32 parameters, bf16 compute, remat): train_step with
+    AdamW on a fixed batch of four utterances, the kernel route against the
+    mask route on the same batch, a packed batch, two stage-1 ScaledAdam
+    steps, and one use_flash="auto" step; a profile of one step."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from vallex_tpu_torch.convert import load_tree
+    from vallex_tpu_torch.data.dataset import collate, collate_packed
+    from vallex_tpu_torch.kernels import loader
+    from vallex_tpu_torch.models.vallex import VALLE, init_vallex, stage_param_labels
+    from vallex_tpu_torch.train import loss as TLoss
+    from vallex_tpu_torch.train import step as TStep
+    from vallex_tpu_torch.train.scaled_adam import eden_schedule, scaled_adam
+    from vallex_tpu_torch.train.trainer import to_device
+
+    def utterances(seed, lens_t, lens_a):
+        r = np.random.RandomState(seed)
+        return [dict(utt_id=f"u{i}", text_tokens=r.randint(5, 99, (t,)), text_tokens_lens=t,
+                     language=0, audio_features=r.randint(0, 1024, (8, a)),
+                     audio_features_lens=a)
+                for i, (t, a) in enumerate(zip(lens_t, lens_a))]
+
+    model = load_tree(VALLE(cfg), init_vallex(cfg, torch.Generator().manual_seed(0)),
+                      dtype=torch.float32, device=dev)
+    batch = to_device(collate(utterances(0, TRAIN_TEXT, TRAIN_AUDIO)), dev)
+    frames = sum(TRAIN_AUDIO)
+    opt = TStep.make_optimizer(base_lr=1e-4)
+    state = TStep.init_train_state(model, opt)
+    torch.cuda.reset_peak_memory_stats()
+
+    def step(st, b, optimizer, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, met = TStep.train_step(st, b, torch.Generator().manual_seed(42), cfg=cfg,
+                                   optimizer=optimizer, dtype="bfloat16", **kw)
+        out = {k: float(v) for k, v in met.items()}
+        return st, out, time.perf_counter() - t0
+
+    losses, secs = [], []
+    for _ in range(10):
+        state, met, s = step(state, batch, opt, use_flash=True)
+        losses.append(met["loss"])
+        secs.append(s)
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        fail(f"5f train_step AdamW: losses {losses}")
+    sps = statistics.median(secs[1:])
+    say(f"  train_step AdamW (base_lr 1e-4, flash), batch of 4 (text {TRAIN_TEXT}, audio"
+        f" {TRAIN_AUDIO} frames; S=128, T=1024): loss {losses[0]:.4f} -> {losses[-1]:.4f} in 10"
+        f" steps; {sps:.4f} s/step (median of steps 1-9; step 0 {secs[0]:.2f} s),"
+        f" {frames / sps:.1f} audio frames/s, grad_norm {met['grad_norm']:.3f},"
+        f" max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    # the kernel route against the mask route: same batch, same draws. The
+    # gradients are held in f32 compute; in bf16 the two routes round at
+    # different places (the mask route's autograd rounds dP, the kernels
+    # round p and ds, as the JAX library's kernels do), so there each is
+    # printed against the f32 kernel route's gradients.
+    leaves = state.leaves
+
+    def loss_and_grads(use_flash, dtype):
+        model.zero_grad(set_to_none=True)
+        loss, _ = TLoss.total_loss(model, cfg, batch, torch.Generator().manual_seed(7), dtype,
+                                   1, use_flash)
+        loss.backward()
+        return float(loss.detach()), [
+            torch.cat([p.grad.float().flatten() for p in leaf.params]) for leaf in leaves]
+
+    def cosines(ga, gb):
+        out = []
+        for a, b in zip(ga, gb):
+            na, nb = float(a.norm()), float(b.norm())
+            out.append(1.0 if na == nb == 0 else float(a @ b) / max(na * nb, 1e-30))
+        return out
+
+    res = {(fl, dt): loss_and_grads(fl, dt) for fl in (True, False)
+           for dt in (torch.float32, torch.bfloat16)}
+    (l32, g32), (lm32, gm32) = res[(True, torch.float32)], res[(False, torch.float32)]
+    (lbf, gbf), (lmbf, gmbf) = res[(True, torch.bfloat16)], res[(False, torch.bfloat16)]
+    cos = cosines(g32, gm32)
+    worst = int(np.argmin(cos))
+    if not (abs(l32 - lm32) <= 1e-2 * abs(lm32) and abs(lbf - lmbf) <= 1e-2 * abs(lmbf)
+            and min(cos) >= 0.999):
+        fail(f"5f kernels vs mask route: f32 loss {l32} vs {lm32}, bf16 loss {lbf} vs {lmbf},"
+             f" worst f32 gradient cosine {cos[worst]} ({leaves[worst].name})")
+    say(f"  total_loss through the kernels vs the mask route, f32: loss {l32:.5f} vs"
+        f" {lm32:.5f}, gradient cosine >= {min(cos):.6f} over {len(cos)} leaves (lowest:"
+        f" {leaves[worst].name})")
+    for name, g_ in (("kernel route", gbf), ("mask route", gmbf)):
+        c = cosines(g_, g32)
+        w = int(np.argmin(c))
+        say(f"    bf16 {name} against the f32 kernel route's gradients: cosine >= {c[w]:.6f}"
+            f" ({leaves[w].name}), median {statistics.median(c):.6f}")
+    c = cosines(gbf, gmbf)
+    w = int(np.argmin(c))
+    say(f"    bf16: loss {lbf:.5f} (kernels) vs {lmbf:.5f} (mask), gradient cosine between the two"
+        f" routes >= {c[w]:.6f} ({leaves[w].name})")
+    del res, g32, gm32, gbf, gmbf
+    model.zero_grad(set_to_none=True)
+
+    # a packed batch: 8 utterances, 2 per row
+    p_audio = [150, 300, 420, 500, 250, 350, 480, 200]
+    pb = to_device(collate_packed(utterances(1, [20, 35, 50, 64, 30, 45, 60, 40], p_audio),
+                                  pack=2), dev)
+    pl = []
+    for _ in range(3):
+        state, met, s = step(state, pb, opt, packed=True)
+        pl.append(met["loss"])
+    if not np.isfinite(pl).all():
+        fail(f"5f packed: losses {pl}")
+    say(f"  packed batch (8 utterances, pack=2, rows {tuple(pb['p_audio_in'].shape)}): losses"
+        f" {[round(x, 4) for x in pl]}, {s:.4f} s/step, {sum(p_audio) / s:.1f} audio frames/s")
+
+    # stage 1 with ScaledAdam: the NAR parameters must not move
+    labels = stage_param_labels(model, 1)
+    by_id = {id(p): labels[n] for n, p in model.named_parameters()}
+    sa = TStep.Masked(scaled_adam(eden_schedule(0.05)),
+                      [by_id[id(leaf.params[0])] for leaf in leaves])
+    st1 = TStep.TrainState(model, leaves, sa.init(leaves), 0)
+    nar = {n: p.detach().clone() for n, p in model.named_parameters() if not labels[n]}
+    ar0 = model.ar_text_embedding.weight.detach().clone()
+    for _ in range(2):
+        st1, met, s = step(st1, batch, sa, use_flash=True)
+    moved = [n for n, p in model.named_parameters() if n in nar and not torch.equal(p, nar[n])]
+    if moved or torch.equal(ar0, model.ar_text_embedding.weight) or not np.isfinite(met["loss"]):
+        fail(f"5f stage 1 ScaledAdam: NAR parameters moved {moved[:3]}, loss {met['loss']}")
+    say(f"  --train-stage 1 ScaledAdam, 2 steps: loss {met['loss']:.4f}, {len(nar)} NAR"
+        f" parameters bitwise unchanged, the AR ones moved")
+    del nar, st1, sa
+
+    # use_flash="auto" on a batch of >= 800 frames takes the kernels
+    before = sum(n for (kname, _), n in loader.launch_counts.items()
+                 if kname.startswith("flash_attention"))
+    state, met, s = step(state, batch, opt, use_flash="auto")
+    after = sum(n for (kname, _), n in loader.launch_counts.items()
+                if kname.startswith("flash_attention"))
+    if after <= before:
+        fail("5f use_flash='auto' at T=1024: no flash kernel launched")
+    say(f"  use_flash='auto', T=1024 frames: the kernels ({after - before} launches in the step:"
+        f" forward, its re-run under remat, dQ and dK/dV for 2 x {cfg.num_layers} layers),"
+        f" loss {met['loss']:.4f}, {s:.4f} s")
+
+    # one profiled step: device time by kernel and the device-busy share
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        state, met, s = step(state, batch, opt, use_flash=True)
+    events = trace_events(prof)
+    device = [(float(e["ts"]), float(e["ts"]) + float(e["dur"]), e["name"]) for e in events
+              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e]
+    if device:
+        lo, hi = min(a for a, _, _ in device), max(b for _, b, _ in device)
+        by_name = {}
+        for a, b, name in device:
+            by_name[name] = by_name.get(name, 0.0) + (b - a) / 1e3
+        top = {n[:80]: round(t, 3) for n, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]}
+        by_class = {}
+        for name, t in by_name.items():
+            low = name.lower()
+            cls = ("flash_attention" if low.startswith(("void flash_", "flash_")) else
+                   "matmul" if any(w in low for w in ("gemm", "nvjet", "xmma", "cutlass")) else
+                   "other")
+            by_class[cls] = round(by_class.get(cls, 0.0) + t, 3)
+        say("trace " + json.dumps({
+            "request": "train_step, batch of 4 (T=1024), flash, bf16, AdamW",
+            "wall_ms_traced": round(s * 1e3, 3),
+            "device_busy_ms": round(busy_ms([(a, b) for a, b, _ in device], lo, hi), 3),
+            "device_window_ms": round((hi - lo) / 1e3, 3), "device_ops": len(device),
+            "device_ms_by_class": by_class, "device_ms_by_kernel": top}))
+    else:
+        say("  trace of one train_step: not measured (no device events)")
+    del state, model, opt, batch, pb
+    torch.cuda.empty_cache()
 
 
 def main() -> None:
@@ -303,7 +628,8 @@ def main() -> None:
         if in_line:
             entries.append(dict(
                 name=f"{kernel}@{site}", route="cuda",
-                source=f"vallex_tpu_torch/kernels/{kernel}.cu", replaces=TPU[site],
+                source=f"vallex_tpu_torch/kernels/{KERNEL_FILE.get(kernel, kernel)}.cu",
+                replaces=TPU[site],
                 launches=0, max_abs_err=float(err), ms=ms, plain_ms=plain_ms,
                 bound_ms=max(bound_b, bound_o),
                 bound_by="bytes" if bound_b >= bound_o else "operations",
@@ -743,6 +1069,10 @@ def main() -> None:
         check_gemm("decode_step", packed, 1, "one decode_step")
         check_gemm("decode_step_fused", packed, 1, "one decode_step_fused")
         check_sample("decode_step_fused", 1, False)
+
+    # ---- phase 3e: the training attention, forward and backward --------------
+    with phase("3e training attention vs plain", 300):
+        train_kernel_checks(dev, entry, device_ms, g)
 
     # ---- phase 4: the decode ops against the plain (CPU) path -----------------
     with phase("4 decode ops vs plain", 240):
@@ -1366,6 +1696,12 @@ def main() -> None:
         use()
     counts_slice4 = dict(loader.launch_counts)
 
+    # ---- phase 5f: training --------------------------------------------------
+    loader.reset_launch_counts()
+    with phase("5f training", 300):
+        train_path(dev, cfg)
+    counts_slice5 = dict(loader.launch_counts)
+
     with phase("7 trace", 300):
         def one_request():
             api.generate_audio("Hello world.", prompt="paimon", language="en", top_k=1,
@@ -1386,7 +1722,8 @@ def main() -> None:
             kernel, site = e["name"].split("@")
             counts = (counts_batched if site in BATCHED_SITES
                       else counts_slice3 if site in SLICE3_SITES
-                      else counts_slice4 if site in SLICE4_SITES else counts_single)
+                      else counts_slice4 if site in SLICE4_SITES
+                      else counts_slice5 if site in SLICE5_SITES else counts_single)
             e["launches"] = counts.get((kernel, site), 0)
             if e["launches"] == 0:
                 fail(f"{e['name']}: no launch on the main path")
@@ -1396,6 +1733,7 @@ def main() -> None:
             f" {frames_single}, batched path {batch_frames}")
         say(f"  phase 5d launches by site: {json.dumps({f'{k}@{s}': n for (k, s), n in sorted(counts_slice3.items())})}")
         say(f"  phase 5e launches by site: {json.dumps({f'{k}@{s}': n for (k, s), n in sorted(counts_slice4.items())})}")
+        say(f"  phase 5f launches by site: {json.dumps({f'{k}@{s}': n for (k, s), n in sorted(counts_slice5.items())})}")
         say(json.dumps({"kernels": [{k: v for k, v in e.items() if k != "unit"} for e in entries]}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

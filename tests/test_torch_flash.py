@@ -1,0 +1,150 @@
+"""The port's training attention (kernels/flash_attention.py, the plain
+versions that CPU tensors take) against the JAX package's
+attention_core_flash / attention_core_flash_prefix, whose Pallas kernels
+(the JAX library's flash attention and its backward) run in interpret mode,
+at B = 2, H = 2, T = 256, hd = 64 in f32.
+
+Tolerances: outputs at 1e-5 and dq / dk / dv at 1e-4 (f32 on both sides;
+the kernels fold blocks in another order and keep (max, sum) where the port
+keeps the log-sum-exp); the port's own backward formula against autograd
+at 1e-5; the single-mask rule against the two-call composition at 1e-6.
+"""
+
+import jax
+import jax.experimental.pallas as pl
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from vallex_tpu.models import layers as JL
+from vallex_tpu_torch.kernels.flash_attention import (
+    flash_attention, flash_attention_bwd_dkv_plain, flash_attention_bwd_dq_plain,
+    flash_attention_bwd_plain, flash_attention_plain, valid_pairs,
+)
+from vallex_tpu_torch.models import layers as TL
+
+torch.set_num_threads(2)
+
+B, H, T, HD = 2, 2, 256, 64
+
+
+def _segments(layout: str, t: int = T) -> np.ndarray:
+    pos = np.arange(t)
+    if layout == "padded":  # one utterance, then padding
+        row = (pos < t - 56).astype(np.int32)
+        return np.stack([row, (pos < t - 100).astype(np.int32)])
+    if layout == "packed":  # two utterances back to back, then padding
+        row = np.where(pos < 100, 1, np.where(pos < 220, 2, 0)).astype(np.int32)
+        return np.stack([row, np.where(pos < 60, 1, np.where(pos < 190, 2, 0)).astype(np.int32)])
+    return np.ones((2, t), np.int32)  # all valid
+
+
+def _inputs(seed: int, t: int = T):
+    rng = np.random.RandomState(seed)
+    q, k, v, w = (rng.standard_normal((B, H, t, HD)).astype(np.float32) for _ in range(4))
+    return q, k, v, w
+
+
+@pytest.fixture
+def interpret(monkeypatch):
+    orig = pl.pallas_call
+    monkeypatch.setattr(pl, "pallas_call",
+                        lambda *a, **k: orig(*a, **{**k, "interpret": True}))
+
+
+def _jax_out_and_grads(fn, q, k, v, w):
+    out, vjp = jax.vjp(fn, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    return np.asarray(out), [np.asarray(g) for g in vjp(jnp.asarray(w))]
+
+
+def _port_out_and_grads(fn, q, k, v, w):
+    qt, kt, vt = (torch.from_numpy(a).requires_grad_(True) for a in (q, k, v))
+    out = fn(qt, kt, vt)
+    grads = torch.autograd.grad((out * torch.from_numpy(w)).sum(), (qt, kt, vt))
+    return out.detach().numpy(), [g.numpy() for g in grads]
+
+
+def _compare(jax_res, port_res):
+    np.testing.assert_allclose(port_res[0], jax_res[0], atol=1e-5, rtol=1e-5)
+    for name, gp, gj in zip("qkv", port_res[1], jax_res[1]):
+        np.testing.assert_allclose(gp, gj, atol=1e-4, rtol=1e-4, err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("layout", ["padded", "packed", "all_valid"])
+def test_attention_core_flash_matches_pallas_interpret(interpret, layout, causal):
+    q, k, v, w = _inputs(1)
+    seg = _segments(layout)
+    jseg = jnp.asarray(seg)
+    tseg = torch.from_numpy(seg)
+    want = _jax_out_and_grads(
+        lambda a, b, c: JL.attention_core_flash(a, b, c, jseg, jseg, causal=causal), q, k, v, w)
+    got = _port_out_and_grads(
+        lambda a, b, c: TL.attention_core_flash(a, b, c, tseg, tseg, causal=causal), q, k, v, w)
+    _compare(want, got)
+
+
+@pytest.mark.parametrize("layout", ["padded", "packed", "all_valid"])
+def test_attention_core_flash_prefix_matches_pallas_interpret(interpret, layout):
+    q, k, v, w = _inputs(2)
+    seg = _segments(layout)
+    jseg = jnp.asarray(seg)
+    tseg = torch.from_numpy(seg)
+    want = _jax_out_and_grads(
+        lambda a, b, c: JL.attention_core_flash_prefix(a, b, c, jseg, jseg, 128), q, k, v, w)
+    got = _port_out_and_grads(
+        lambda a, b, c: TL.attention_core_flash_prefix(a, b, c, tseg, tseg, 128), q, k, v, w)
+    _compare(want, got)
+
+
+@pytest.mark.parametrize("prefix", [0, 37, 150])
+def test_backward_formula_matches_autograd(prefix):
+    """flash_attention_bwd_plain (the formula the kernels run) against
+    autograd through flash_attention_plain, at T = 150 (not a multiple of
+    the kernels' 64-row tiles)."""
+    t = 150
+    q, k, v, w = _inputs(3, t)
+    seg = torch.from_numpy(_segments("packed", t))
+    qt, kt, vt = (torch.from_numpy(a).requires_grad_(True) for a in (q, k, v))
+    out, lse = flash_attention_plain(qt, kt, vt, seg, seg, prefix)
+    want = torch.autograd.grad((out * torch.from_numpy(w)).sum(), (qt, kt, vt))
+    got = flash_attention_bwd_plain(qt.detach(), kt.detach(), vt.detach(), seg, seg, prefix,
+                                    out.detach(), lse.detach(), torch.from_numpy(w))
+    for name, g, r in zip("qkv", got, want):
+        np.testing.assert_allclose(g.numpy(), r.numpy(), atol=1e-5, rtol=1e-5,
+                                   err_msg=f"d{name}")
+    # the two kernels' halves (dQ with di; dK/dV) give the same gradients
+    args = (qt.detach(), kt.detach(), vt.detach(), seg, seg, prefix, out.detach(),
+            lse.detach(), torch.from_numpy(w))
+    dq, di = flash_attention_bwd_dq_plain(*args)
+    dk, dv = flash_attention_bwd_dkv_plain(*args)
+    for g, r in zip((dq, dk, dv), got):
+        assert torch.equal(g, r)
+    np.testing.assert_allclose(di.numpy(), (out * torch.from_numpy(w)).sum(-1).detach().numpy(),
+                               rtol=1e-6, atol=1e-6)
+    # and the autograd.Function routes its backward through that formula
+    fn_grads = torch.autograd.grad(
+        (flash_attention(qt, kt, vt, seg, seg, prefix) * torch.from_numpy(w)).sum(),
+        (qt, kt, vt))
+    for g, r in zip(fn_grads, got):
+        assert torch.equal(g, r)
+
+
+@pytest.mark.parametrize("layout", ["padded", "packed", "all_valid"])
+def test_single_mask_equals_two_call_composition(layout):
+    """The kernel's rule j <= max(i, P - 1) with P = text_len equals
+    vallex_tpu/models/layers.py:278-289: a causal pass over the whole
+    sequence whose text rows are replaced by a non-causal pass over the
+    text block alone — on every row, in f32."""
+    P = 128
+    q, k, v, _ = (torch.from_numpy(a) for a in _inputs(4))
+    seg = torch.from_numpy(_segments(layout))
+    one, _ = flash_attention_plain(q, k, v, seg, seg, P)
+    causal, _ = flash_attention_plain(q, k, v, seg, seg, 0)
+    text, _ = flash_attention_plain(q[:, :, :P], k[:, :, :P], v[:, :, :P], seg[:, :P],
+                                    seg[:, :P], P)
+    two = torch.cat([text, causal[:, :, P:]], dim=2)
+    np.testing.assert_allclose(one.numpy(), two.numpy(), atol=1e-6, rtol=1e-6)
+    # the diagonal is always valid under (seg, seg): no row is left empty
+    assert valid_pairs(seg, seg, P).any(-1).all()

@@ -6,6 +6,10 @@ launches per (kernel, TPU-kernel site).
 """
 
 from .loader import launch_counts, reset_launch_counts
+from .flash_attention import (
+    flash_attention, flash_attention_bwd, flash_attention_bwd_plain,
+    flash_attention_fwd, flash_attention_plain,
+)
 from .gemm_small_m import gemm_small_m, gemm_small_m_plain
 from .masked_attention import masked_attention, masked_attention_plain
 from .sample_epilogue import sample_epilogue, sample_epilogue_plain
@@ -13,6 +17,11 @@ from .sample_epilogue import sample_epilogue, sample_epilogue_plain
 __all__ = [
     "launch_counts",
     "reset_launch_counts",
+    "flash_attention",
+    "flash_attention_bwd",
+    "flash_attention_bwd_plain",
+    "flash_attention_fwd",
+    "flash_attention_plain",
     "gemm_small_m",
     "gemm_small_m_plain",
     "masked_attention",

@@ -24,7 +24,8 @@ from pathlib import Path
 
 SRC_DIR = Path(__file__).resolve().parent
 BUILD_DIR = SRC_DIR / "_build"
-SOURCES = ("gemm_small_m.cu", "masked_attention.cu", "sample_epilogue.cu")
+SOURCES = ("gemm_small_m.cu", "masked_attention.cu", "sample_epilogue.cu",
+           "flash_attention.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = (
     "-O3", "-std=c++17", "-Xcompiler", "-fPIC",
@@ -54,6 +55,12 @@ _SIGNATURES = {
                             _P, _P, _P, _P, _P, _I, _P),
     "vx_sample_epilogue": (_P, _I, _P, _I, _I, _I, _I, _F, _I, _I, _I, _F,
                            _P, _P, _P, _I, _P),
+    "vx_flash_attention_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                               _I, _I, _I, _I, _I, _F, _P),
+    "vx_flash_attention_bwd_dq": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                  _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
+    "vx_flash_attention_bwd_dkv": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                   _P, _P, _I, _I, _I, _I, _I, _F, _P),
 }
 
 

@@ -8,6 +8,15 @@ Numerical conventions follow the JAX package so the two agree in fp32:
 - AdaptiveLayerNorm: (W·e) ⊙ LN(x) + (b·e) for a stage embedding e;
 - FFN is Linear → ReLU → Linear.
 Attention inputs and outputs keep the [B, H, T, hd] layout of the JAX code.
+
+Training (the JAX package's `segments` / `prefix_flash` / `remat`
+arguments): `segments` = (q_seg, kv_seg) [B, T] int32 routes self-attention
+through the flash kernel with segment ids (`attention_core_flash`), and
+`prefix_flash` = <text length> through its prefix-causal form
+(`attention_core_flash_prefix`); `remat` re-runs each layer's forward in
+the backward pass (torch.utils.checkpoint, non-reentrant) instead of saving
+its intermediates. Parameters are built frozen (requires_grad=False); a
+trainer unfreezes them.
 """
 
 from __future__ import annotations
@@ -17,6 +26,9 @@ from typing import Callable, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+from ..kernels.flash_attention import flash_attention
 
 # attention_fn(q, k, v) -> [B, H, Tq, hd]; replaces the masked core (the
 # NAR's kernel route) when given
@@ -71,7 +83,10 @@ class AdaptiveLayerNorm(nn.Module):
         self.bias = _param(dim)
 
     def forward(self, x: torch.Tensor, stage_emb: torch.Tensor) -> torch.Tensor:
-        wb = stage_emb @ self.w + self.b
+        # the projection in the wider of the two types, as JAX promotes
+        # (bf16 stage embedding, f32 training parameters)
+        dt = torch.promote_types(stage_emb.dtype, self.w.dtype)
+        wb = stage_emb.to(dt) @ self.w.to(dt) + self.b.to(dt)
         dim = x.shape[-1]
         weight, bias = wb[..., :dim], wb[..., dim:]
         normed = layer_norm(x, self.scale, self.bias)
@@ -128,6 +143,22 @@ def attention_core(q, k, v, mask: Optional[torch.Tensor]) -> torch.Tensor:
     return out.to(q.dtype)
 
 
+def attention_core_flash(q, k, v, q_seg, kv_seg, causal: bool = False) -> torch.Tensor:
+    """Flash attention with segment ids (vallex_tpu/models/layers.py:205):
+    query i attends key j iff q_seg[:, i] == kv_seg[:, j] (and j <= i when
+    causal). q, k, v [B, H, T, hd]; q_seg, kv_seg [B, T] int32."""
+    prefix = 0 if causal else q.shape[-2]
+    return flash_attention(q, k, v, q_seg, kv_seg, prefix, site="flash_attention_train")
+
+
+def attention_core_flash_prefix(q, k, v, q_seg, kv_seg, text_len: int) -> torch.Tensor:
+    """Prefix-causal flash attention (vallex_tpu/models/layers.py:259): a
+    bidirectional text block of `text_len` rows, then a causal audio block
+    that also sees the whole text; within matching segments. One launch of
+    the kernel with prefix = text_len (kernels/flash_attention.py)."""
+    return flash_attention(q, k, v, q_seg, kv_seg, text_len, site="flash_attention_prefix")
+
+
 class MultiheadAttention(nn.Module):
     """Fused-QKV self-attention (reference: modules/activation.py:142-167)."""
 
@@ -149,9 +180,19 @@ class MultiheadAttention(nn.Module):
         y = merge_heads(attn)
         return y @ self.out_w.to(y.dtype) + self.out_b.to(y.dtype)
 
-    def forward(self, x, mask=None, attention: Optional[AttentionFn] = None):
+    def forward(self, x, mask=None, attention: Optional[AttentionFn] = None,
+                segments=None, prefix_flash: Optional[int] = None):
+        """mha_apply."""
         q, k, v = self.qkv(x)
-        a = attention(q, k, v) if attention is not None else attention_core(q, k, v, mask)
+        if segments is not None:
+            if prefix_flash is not None:
+                a = attention_core_flash_prefix(q, k, v, *segments, prefix_flash)
+            else:
+                a = attention_core_flash(q, k, v, *segments)
+        elif attention is not None:
+            a = attention(q, k, v)
+        else:
+            a = attention_core(q, k, v, mask)
         return self.out(a)
 
 
@@ -173,10 +214,11 @@ class EncoderLayer(nn.Module):
         return x + self.linear2(torch.relu(self.linear1(h)))
 
     def forward(self, x, mask=None, stage_emb=None,
-                attention: Optional[AttentionFn] = None) -> torch.Tensor:
+                attention: Optional[AttentionFn] = None, segments=None,
+                prefix_flash: Optional[int] = None) -> torch.Tensor:
         """encoder_layer_apply."""
         h = self.norm1(x, stage_emb)
-        x = x + self.self_attn(h, mask, attention)
+        x = x + self.self_attn(h, mask, attention, segments, prefix_flash)
         return self.ffn(x, stage_emb)
 
     def prefill(self, x, mask) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -210,7 +252,12 @@ class EncoderStack(nn.Module):
         self.norm = AdaptiveLayerNorm(dim) if adaptive else LayerNorm(dim)
 
     def forward(self, x, mask=None, stage_emb=None,
-                attention: Optional[AttentionFn] = None) -> torch.Tensor:
+                attention: Optional[AttentionFn] = None, segments=None,
+                remat: bool = False, prefix_flash: Optional[int] = None) -> torch.Tensor:
+        """encoder_stack_apply; with `remat` under autograd each layer's
+        forward runs again in the backward pass."""
+        remat = remat and torch.is_grad_enabled()
         for layer in self.layers:
-            x = layer(x, mask, stage_emb, attention)
+            args = (x, mask, stage_emb, attention, segments, prefix_flash)
+            x = checkpoint(layer, *args, use_reentrant=False) if remat else layer(*args)
         return self.norm(x, stage_emb)

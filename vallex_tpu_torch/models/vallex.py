@@ -173,11 +173,43 @@ def ar_logits(m: VALLE, h: torch.Tensor) -> torch.Tensor:
 
 
 def nar_forward_stage(m: VALLE, xy, stage_idx: int, mask=None,
-                      attention: Optional[L.AttentionFn] = None) -> torch.Tensor:
+                      attention: Optional[L.AttentionFn] = None, segments=None,
+                      remat: bool = False) -> torch.Tensor:
+    """One NAR pass conditioned on stage embedding `stage_idx` (0..6);
+    `segments` runs attention through the flash kernel (key padding)."""
     stage_emb = m.nar_stage_embeddings.weight[stage_idx].to(xy.dtype)
-    return m.nar_decoder(xy, mask, stage_emb, attention)
+    return m.nar_decoder(xy, mask, stage_emb, attention, segments, remat)
 
 
 def nar_logits(m: VALLE, h: torch.Tensor, stage_idx: int) -> torch.Tensor:
     w = m.nar_predict_layers.w[stage_idx].to(h.dtype)
     return h.float() @ w.float()
+
+
+def ar_forward(m: VALLE, xy, mask, remat: bool = True, segments=None,
+               prefix_flash: Optional[int] = None) -> torch.Tensor:
+    """Full-sequence AR decoder pass → hidden states [B, S, D]; with
+    `segments` and `prefix_flash` = <text length> the attention runs
+    through the prefix-causal flash kernel instead of the additive mask."""
+    return m.ar_decoder(xy, mask, segments=segments, remat=remat,
+                        prefix_flash=prefix_flash)
+
+
+# ---------------------------------------------------------------------------
+# Two-stage training parameter selection (reference: models/vallex.py:266-292)
+# ---------------------------------------------------------------------------
+
+def stage_param_labels(m: VALLE, stage: int) -> Dict[str, bool]:
+    """{parameter name: trained in `stage`} (1 = ar_*, 2 = nar_*)."""
+    if stage not in (1, 2):
+        raise ValueError(f"stage must be 1 (AR) or 2 (NAR), got {stage}")
+    prefix = "ar_" if stage == 1 else "nar_"
+    return {name: name.startswith(prefix) for name, _ in m.named_parameters()}
+
+
+def stage_parameters(m: VALLE, stage: int):
+    """Iterator over the parameters trained in `stage` (1 = AR, 2 = NAR)."""
+    labels = stage_param_labels(m, stage)
+    for name, p in m.named_parameters():
+        if labels[name]:
+            yield p
