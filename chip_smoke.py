@@ -7,8 +7,12 @@ weights from a seed) and shows that each path went through the kernels.
 
 Phases, one flushed line each with its own seconds and wall-clock limit:
   1  card name and power limit (nvidia-smi)
-  2  kernel build (nvcc, from the sources in the checkout)
+  2  kernel build (nvcc, from the sources in the checkout); the bf16 flash
+     forward's registers, shared memory and spills (ptxas) and its tensor-core
+     instructions (HGMMA in the SASS, cuobjdump)
   3  each kernel against its plain version, at each single-request site
+     (the NAR attention: the flash forward with the NAR's segments (ok, ok)
+     at T = 2304); masked_attention refuses Tq = 16 on the card
   3b the same at the batched sites: decode attention with per-row bounds
      (B = 4), the NAR attention at B = 4, the products of one batched step
      at M = 4 and 8 (bf16 and int8, each row equal to its M = 1 product),
@@ -34,7 +38,8 @@ Phases, one flushed line each with its own seconds and wall-clock limit:
      decode_step_fused (8 steps) and decode_attention (8 positions) against
      the same ops on the CPU (the plain versions)
   5  generate_audio twice (default sampled mode; top_k=1)
-  6  generate_audio with s_text + t_audio >= 1536 (the NAR attention kernel)
+  6  generate_audio with s_text + t_audio >= 1536 (the NAR through the flash
+     forward)
   5b generate_audio_batch of 4 requests: sampled, greedy, greedy int8; one
      single-request int8 generate_audio; greedy rows against single runs
   5c the HTTP server: 4 concurrent POST /synthesize coalesced by the
@@ -72,8 +77,10 @@ single-request path), zeroed again just before phase 5b and read after
 phase 5c (the batched path), and once more just before phase 5d and read
 after it (best_of and filtered sampling), and once more just before phase
 5e and read after it (int8kv, w8a8, single steps, pallas), and once more
-just before phase 5f and read after it (training). Any failure exits
-non-zero before the result line. No JAX is imported.
+just before phase 5f and read after it (training). The NAR at C >= 1536
+must launch the flash forward at its sites and masked_attention never
+there. Any failure exits non-zero before the result line. No JAX is
+imported.
 """
 
 from __future__ import annotations
@@ -82,6 +89,8 @@ import dataclasses
 import io
 import json
 import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -227,6 +236,33 @@ def trace_run(label: str, run) -> None:
     out["ar_device_ms_by_kernel"] = {n[:80]: round(t, 3) for n, t in
                                      sorted(by_name.items(), key=lambda kv: -kv[1])[:8]}
     say("trace " + json.dumps(out))
+
+
+def running_max_rounding(q, k, v, seg, prefix):
+    """The bf16 flash forward's rounding order in plain PyTorch, f32: key
+    tiles of 64 in order, each p rounded to bf16 at the running row max (as
+    the kernel and the JAX library's kernel round it), where the plain
+    version rounds at the final max. A diagnostic of the NAR check."""
+    import torch
+
+    from vallex_tpu_torch.kernels.flash_attention import valid_pairs
+
+    B, H, T, hd = q.shape
+    ok = valid_pairs(seg, seg, prefix)[:, None]
+    qf = q.float() * (hd ** -0.5 * 1.4426950408889634)  # scores in log2 units
+    m = torch.full((B, H, T, 1), float("-inf"), device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((B, H, T, hd), device=q.device)
+    for k0 in range(0, T, 64):
+        s = (qf @ k[:, :, k0:k0 + 64].float().transpose(-1, -2))
+        s = s.masked_fill(~ok[..., k0:k0 + 64], float("-inf"))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        base = torch.where(m_new == float("-inf"), torch.zeros_like(m_new), m_new)
+        alpha, p = torch.exp2(m - base), torch.exp2(s - base)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + p.to(torch.bfloat16).float() @ v[:, :, k0:k0 + 64].float()
+        m = m_new
+    return acc / torch.where(l > 0, l, torch.ones_like(l))
 
 
 # ---------------------------------------------------------------------------
@@ -545,6 +581,9 @@ def main() -> None:
         gemm_small_m, gemm_small_m_plain, loader, masked_attention,
         masked_attention_plain, sample_epilogue, sample_epilogue_plain,
     )
+    from vallex_tpu_torch.kernels.flash_attention import (
+        flash_attention_fwd, flash_attention_plain, valid_pairs,
+    )
     from vallex_tpu_torch.kernels.masked_attention import (
         attention_bounds, valid_keys, with_prefix, write_column,
     )
@@ -572,9 +611,39 @@ def main() -> None:
         say(f"built {os.path.relpath(lib, REPO)} in {time.perf_counter() - t0:.2f} s")
         report = lib.parent / ("ptxas_" + lib.name.split("_")[-1].split(".")[0] + ".txt")
         if report.exists():
-            for line in report.read_text().splitlines():
+            text = report.read_text()
+            for line in text.splitlines():
                 if "Used" in line and "registers" in line:
                     say("  ptxas: " + line.split("ptxas info    :")[-1].strip())
+            # the bf16 flash forward: registers, shared memory, spills, and
+            # any serialized wgmma ptxas reports
+            for blk in text.split("Compiling entry function")[1:]:
+                if "flash_fwd_tc_kernel" in blk.split("\n")[0]:
+                    said = [ln.split(":", 1)[-1].strip() for ln in blk.splitlines()[1:]
+                            if any(w in ln for w in ("stack frame", "Used", "wgmma", "smem"))]
+                    say("  ptxas flash_fwd_tc_kernel: " + "; ".join(said))
+        say("  flash_fwd_tc_kernel dynamic shared memory per block at T = 2304:"
+            f" {loader.library().vx_flash_attention_fwd_smem(2304)} bytes")
+        cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+        if os.path.exists(cuobjdump):
+            sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True,
+                                  timeout=120, check=True).stdout
+            per_fn, fn = {}, None
+            for line in sass.splitlines():
+                m = re.search(r"Function : (\S+)", line)
+                if m:
+                    fn = m.group(1)
+                    per_fn[fn] = [0, 0]
+                elif fn is not None:
+                    per_fn[fn][0] += "HGMMA" in line
+                    per_fn[fn][1] += bool(re.search(r"\bHMMA", line))
+            tc = [c for f, c in per_fn.items() if "flash_fwd_tc_kernel" in f]
+            if not tc or tc[0][0] == 0:
+                fail(f"flash_fwd_tc_kernel: no HGMMA instruction in its SASS ({tc})")
+            say(f"  SASS (cuobjdump -sass): flash_fwd_tc_kernel holds {tc[0][0]} HGMMA and"
+                f" {tc[0][1]} HMMA instructions")
+        else:
+            say("  SASS: no cuobjdump in this toolkit; tensor-core instructions not counted")
         loader.library()
 
     # ---- shared full-width state --------------------------------------------
@@ -761,7 +830,7 @@ def main() -> None:
         entry("gemm_small_m", site, err, ms, pms, nbytes, ops, lib_ms,
               f"{unit}: {len(calls)} products, M={M}, {wname} weights", in_line, rate)
 
-    def check_attention(site, q, k, v, bounds, reps_layers, io, in_line=True, prefix=None,
+    def check_attention(site, q, k, v, bounds, reps_layers, in_line=True, prefix=None,
                         beams=1, kv_scales=None, new_kv=None, slot=None):
         """The kernel against its plain version; with a prefix, the grouped
         mode (row b reads the text and prompt keys of prefix b // beams);
@@ -783,17 +852,7 @@ def main() -> None:
                      f" version's (k equal {torch.equal(k_run, kp)}, v equal {torch.equal(v_run, vp)})")
         diff = (outk - ref).abs()
         err = float(diff.max())
-        if io == "f32":
-            # f32 softmax and sums on both sides, in another order
-            tol = torch.full_like(ref, 2e-5)
-        else:
-            # bf16 output: the kernel rounds its f32 result once, so each
-            # element lies within one bf16 ulp of the f32 reference, plus
-            # 1e-5 of max|ref| for elements near zero, where the f32 sums'
-            # order and the fast exp show. One key taken or missed moves
-            # elements by ~|v|/n_keys, several ulps at this scale.
-            ulp = torch.exp2(torch.floor(torch.log2(ref.abs().clamp_min(2.0 ** -100))) - 7)
-            tol = ulp + 1e-5 * float(ref.abs().max())
+        tol = torch.full_like(ref, 2e-5)  # f32 softmax and sums on both sides, in another order
         if not bool((diff <= tol).all()):
             i = int((diff - tol).argmax())
             fail(f"masked_attention@{site}: err {float(diff.flatten()[i])} > "
@@ -831,10 +890,61 @@ def main() -> None:
         ops = reps_layers * 4 * nkeys * hd * H
         entry("masked_attention", site, err, ms, pms, nbytes, ops, lib_ms,
               f"{reps_layers} launch(es): B={B}{f' = {B // beams} x {beams} samples' if prefix is not None else ''},"
-              f" Tq={Tq}, {rows} valid key rows read, {io} q/out, {kf.dtype} k/v"
+              f" Tq={Tq}, {rows} valid key rows read, f32 q/out, {kf.dtype} k/v"
               f"{', own column' if own else ''}".replace("torch.", ""),
               in_line, {torch.float32: F32_OPS_PER_S, torch.int8: INT8_OPS_PER_S}.get(
                   kf.dtype, BF16_OPS_PER_S))
+
+    def check_flash_nar(site, x_len, audio_len, s_text, T):
+        """The flash forward at the NAR's shapes against its plain version:
+        q/k/v as the NAR hands them (views of the fused QKV product), its
+        key-padding rule as segments (ok, ok), prefix T. On the valid rows
+        (the NAR discards the others) each output element must lie within
+        one bf16 ulp + 1e-5 of max|ref| of the plain version's f32 output,
+        plus 2^-8 of sum(p |v|) / l: both round each p to bf16 once (at most
+        2^-9 of p each way), the kernel at the running row max of its key
+        tiles (as the JAX library's kernel does), the plain version at the
+        final one. lse within 1e-3."""
+        B = len(x_len)
+        cols = torch.arange(T, device=dev)[None, :]
+        seg = torch.where(cols < s_text, cols < rows_i32(x_len)[:, None],
+                          (cols - s_text) < rows_i32(audio_len)[:, None]).to(torch.int32)
+        qkv = torch.randn((B, T, 3 * D), generator=g, device=dev).to(torch.bfloat16)
+        q, k, v = (qkv[..., i * D:(i + 1) * D].view(B, T, H, hd).transpose(1, 2)
+                   for i in range(3))
+        o, lse = flash_attention_fwd(q, k, v, seg, seg, T, site="check")
+        ref, lref = flash_attention_plain(q.float(), k, v, seg, seg, T)  # f32 out
+        spread = flash_attention_plain(q.float(), k, v.abs(), seg, seg, T)[0]
+        torch.cuda.synchronize()
+        rows = seg.bool()[:, None, :, None].expand_as(ref)  # the valid query rows
+        diff = (o.float() - ref).abs()[rows]
+        ulp = torch.exp2(torch.floor(torch.log2(ref.abs().clamp_min(2.0 ** -100))) - 7)[rows]
+        one_ulp = ulp + 1e-5 * float(ref.abs().max())
+        tol = one_ulp + 2.0 ** -8 * spread[rows]
+        err, err_l = float(diff.max()), float((lse - lref).abs()[rows[..., 0]].max())
+        if not (bool((diff <= tol).all()) and err_l <= 1e-3):
+            i = int((diff - tol).argmax())
+            fail(f"flash_attention_fwd@{site}: err {float(diff[i])} > {float(tol[i])}, lse err"
+                 f" {err_l}")
+        beyond = int((diff > one_ulp).sum())
+        own = running_max_rounding(q, k, v, seg, T)
+        beyond_own = int(((o.float() - own).abs()[rows] > one_ulp).sum())
+        say(f"  flash_attention_fwd@{site}: valid rows within one bf16 ulp + 1e-5 of max for"
+            f" {diff.numel() - beyond} of {diff.numel()} elements, the rest within the p-rounding"
+            f" term (worst {float((diff / tol).max()):.3f} of its bound); lse err {err_l:.3e};"
+            f" against the kernel's rounding order in plain PyTorch {beyond_own} beyond one ulp")
+        ok = valid_pairs(seg, seg, T)
+        pairs = int(ok.sum()) * H
+        mask = ok[:, None]
+        lib_ms = device_ms(lambda: Fn.scaled_dot_product_attention(q, k, v, attn_mask=mask))
+        n = B * H * T * hd
+        entry("flash_attention_fwd", site, err,
+              device_ms(lambda: flash_attention_fwd(q, k, v, seg, seg, T, site="check")),
+              device_ms(lambda: flash_attention_plain(q, k, v, seg, seg, T)),
+              4 * n * 2 + B * H * T * 4 + 2 * B * T * 4, 4 * hd * pairs, lib_ms,
+              f"1 launch: NAR, B={B}, H={H}, T={T}, bf16, segments (ok, ok), prefix T;"
+              f" {int(seg.sum())} valid rows, {pairs} valid pairs")
+        del qkv, q, k, v, o, ref, spread, own, mask, ok
 
     def check_sample(site, rows, greedy):
         logits = torch.randn((rows, VP), generator=g, device=dev) * 3
@@ -923,15 +1033,18 @@ def main() -> None:
         one = attention_bounds(1, x_len=X_LEN, s_text=S_TEXT, audio_len=POS0 + 1, q_off=1,
                                device=dev)
         check_attention("decode_block_fused", decode_q(1, 1), cache_k[0][None], cache_v[0][None],
-                        one, NL, "f32")
+                        one, NL)
         check_attention("decode_verify", decode_q(1, 8), cache_k[0][None], cache_v[0][None],
-                        one, NL, "f32")
+                        one, NL)
         T_NAR, S_NAR = 2304, 256
-        qn, kn, vn = (torch.randn((1, H, T_NAR, hd), generator=g, device=dev).to(torch.bfloat16)
-                      for _ in range(3))
-        check_attention("flash_attention", qn, kn, vn,
-                        attention_bounds(1, x_len=150, s_text=S_NAR, audio_len=1058, q_off=0,
-                                         device=dev), 1, "bf16")
+        check_flash_nar("flash_attention", [150], [1058], S_NAR, T_NAR)
+        try:  # the NAR mode is gone: more than 8 queries are refused on the card
+            masked_attention(torch.zeros((1, H, 16, hd), device=dev), cache_k[0][None],
+                             cache_v[0][None], one, site="check")
+        except ValueError as exc:
+            say(f"  masked_attention with Tq = 16 on the card: refused ({exc})")
+        else:
+            fail("masked_attention took Tq = 16 on the card")
         check_sample("decode_block_fused", 1, False)
         check_sample("decode_verify", 8, True)
 
@@ -944,13 +1057,9 @@ def main() -> None:
         bb = attention_bounds(B, x_len=rows_i32(XL_B), s_text=S_TEXT,
                               audio_len=rows_i32(PL_B) + 1, q_off=1,
                               gen_lo=S_TEXT + P_AUDIO, gen_len=rows_i32(gen) + 1, device=dev)
-        check_attention("decode_block_fused_batched", decode_q(B, 1), kb, vb, bb, NL, "f32")
-        qn, kn, vn = (torch.randn((B, H, T_NAR, hd), generator=g, device=dev).to(torch.bfloat16)
-                      for _ in range(3))
-        check_attention("flash_attention_batched", qn, kn, vn,
-                        attention_bounds(B, x_len=rows_i32([20, 52, 150, 256]), s_text=S_NAR,
-                                         audio_len=rows_i32([832, 892, 1158, 2046]), q_off=0,
-                                         device=dev), 1, "bf16")
+        check_attention("decode_block_fused_batched", decode_q(B, 1), kb, vb, bb, NL)
+        check_flash_nar("flash_attention_batched", [20, 52, 150, 256], [832, 892, 1158, 2046],
+                        S_NAR, T_NAR)
         check_gemm("decode_block_fused_batched", packed, 4, "one batched step")
         check_gemm("decode_block_fused_batched", packed, 8, "one batched step", in_line=False)
         check_gemm("decode_block_fused_batched", draft, 4, "one batched step", in_line=False)
@@ -976,7 +1085,7 @@ def main() -> None:
                                 device=dev).to(torch.bfloat16) for _ in range(2))
         b1 = attention_bounds(BEAMS, x_len=X_LEN, s_text=S_TEXT, audio_len=pl1 + 1, q_off=1,
                               gen_lo=0, gen_len=rows_i32([POS0 + 1] * BEAMS), device=dev)
-        check_attention("decode_block_fused_beams", decode_q(BEAMS, 1), kg1, vg1, b1, NL, "f32",
+        check_attention("decode_block_fused_beams", decode_q(BEAMS, 1), kg1, vg1, b1, NL,
                         prefix=(pk1, pv1), beams=BEAMS)
         # 4 requests x 5 samples: the batch of phase 5b with best_of=5
         rep = lambda t: t.repeat_interleave(BEAMS)  # noqa: E731
@@ -989,7 +1098,7 @@ def main() -> None:
                               audio_len=rep(rows_i32(PL_B)) + 1, q_off=1, gen_lo=0,
                               gen_len=rep(rows_i32([600, 350, 1200, 90])) + 1, device=dev)
         check_attention("decode_block_fused_grouped", decode_q(4 * BEAMS, 1), kg4, vg4, b4, NL,
-                        "f32", prefix=(pk4, pv4), beams=BEAMS)
+                        prefix=(pk4, pv4), beams=BEAMS)
         # more than 8 rows: the batch of 16 and the 4 x 5 samples (bitwise rows)
         check_gemm("decode_block_fused_batched", packed, 16, "one batched step", in_line=False)
         check_gemm("decode_block_fused_batched", packed, 20, "one batched step", in_line=False)
@@ -997,12 +1106,12 @@ def main() -> None:
         packed32 = pack_layer_weights(bundle.model, torch.float32)
         check_gemm("decode_block_fused", packed32, 1, "one f32 step", in_line=False)
         check_attention("decode_block_fused", decode_q(1, 1), cache_k[0][None].float(),
-                        cache_v[0][None].float(), one, NL, "f32", in_line=False)
+                        cache_v[0][None].float(), one, NL, in_line=False)
         # ... and its verify pass (speculative="auto" drafts with int8 and
         # verifies 8 positions with the f32 weights over the f32 cache)
         check_gemm("decode_verify", packed32, 8, "one f32 verify pass", in_line=False)
         check_attention("decode_verify", decode_q(1, 8), cache_k[0][None].float(),
-                        cache_v[0][None].float(), one, NL, "f32", in_line=False)
+                        cache_v[0][None].float(), one, NL, in_line=False)
         del pk1, pv1, kg1, vg1, pk4, pv4, kg4, vg4, packed32
 
     # ---- phase 3d: the int8 KV cache, w8a8 and the single steps --------------
@@ -1026,7 +1135,7 @@ def main() -> None:
         # one request ...
         k8, v8, sc8 = int8_pair(cache_k[0][None], cache_v[0][None])
         q, nk, nv = decode_qkv(1)
-        check_attention("decode_block_fused_int8kv", q, k8, v8, one, NL, "f32",
+        check_attention("decode_block_fused_int8kv", q, k8, v8, one, NL,
                         kv_scales=sc8, new_kv=(nk, nv), slot=S_TEXT + POS0)
         # ... a batch of 4 (the generated rows shared by position) ...
         B = len(XL_B)
@@ -1037,7 +1146,7 @@ def main() -> None:
                               audio_len=rows_i32(PL_B) + 1, q_off=1,
                               gen_lo=S_TEXT + P_AUDIO, gen_len=601, device=dev)
         q, nk, nv = decode_qkv(B)
-        check_attention("decode_block_fused_int8kv", q, k8, v8, b8, NL, "f32", in_line=False,
+        check_attention("decode_block_fused_int8kv", q, k8, v8, b8, NL, in_line=False,
                         kv_scales=sc8, new_kv=(nk, nv), slot=S_TEXT + P_AUDIO + 600)
         # ... and 4 requests x 5 samples, the int8 prefix once per request
         BEAMS = 5
@@ -1053,7 +1162,7 @@ def main() -> None:
                                audio_len=rep(rows_i32(PL_B)) + 1, q_off=1, gen_lo=0,
                                gen_len=601, device=dev)
         q, nk, nv = decode_qkv(B * BEAMS)
-        check_attention("decode_block_fused_int8kv", q, kg8, vg8, bg8, NL, "f32", in_line=False,
+        check_attention("decode_block_fused_int8kv", q, kg8, vg8, bg8, NL, in_line=False,
                         prefix=(pk8, pv8), beams=BEAMS, kv_scales=sc8, new_kv=(nk, nv), slot=600)
         del kb, vb, k8, v8, pk, pv, pk8, pv8, kg8, vg8
         # the own-column mode over the bf16 cache of one request: the step
@@ -1064,8 +1173,8 @@ def main() -> None:
         for site in ("decode_attention", "decode_step", "decode_step_fused"):
             q, nk, nv = decode_qkv(1)
             check_attention(site, q, cache_k[0][None], cache_v[0][None], step_b,
-                            1 if site == "decode_attention" else NL, "f32",
-                            new_kv=(nk, nv), slot=S_TEXT + POS0)
+                            1 if site == "decode_attention" else NL, new_kv=(nk, nv),
+                            slot=S_TEXT + POS0)
         check_gemm("decode_step", packed, 1, "one decode_step")
         check_gemm("decode_step_fused", packed, 1, "one decode_step_fused")
         check_sample("decode_step_fused", 1, False)
@@ -1718,6 +1827,10 @@ def main() -> None:
         trace_run(f"generate_audio_batch {short}, no prompt, top_k=1", one_batch)
 
     with phase("8 kernels line", 30):
+        for site, counts in (("flash_attention", counts_single),
+                             ("flash_attention_batched", counts_batched)):
+            if counts.get(("masked_attention", site), 0):
+                fail(f"masked_attention launched at the NAR's site {site}")
         for e in entries:
             kernel, site = e["name"].split("@")
             counts = (counts_batched if site in BATCHED_SITES

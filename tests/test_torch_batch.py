@@ -236,7 +236,8 @@ def test_masked_attention_per_row_bounds(Tq, q_off):
 def test_nar_batch_codes_equal_jax(ref, t_audio):
     """The NAR at batch R with per-row x_len / t_len / prompt_len ([R]
     tensors) emits the JAX package's batched nar_generate codes exactly
-    (t_audio 1536 routes attention through masked_attention's wrapper)."""
+    (t_audio 1536 routes attention through flash_attention_fwd's wrapper,
+    segments (ok, ok) and prefix C)."""
     params = JV.init_vallex(jax.random.PRNGKey(11), JCFG)
     model = ref["model"]
     rng = np.random.RandomState(t_audio)

@@ -4,6 +4,9 @@ attention_core_flash / attention_core_flash_prefix, whose Pallas kernels
 (the JAX library's flash attention and its backward) run in interpret mode,
 at B = 2, H = 2, T = 256, hd = 64 in f32.
 
+The NAR's attention (engine/nar.py at C >= 1536) is held the same way
+against attention_core_flash with the JAX package's NAR segments.
+
 Tolerances: outputs at 1e-5 and dq / dk / dv at 1e-4 (f32 on both sides;
 the kernels fold blocks in another order and keep (max, sum) where the port
 keeps the log-sum-exp); the port's own backward formula against autograd
@@ -18,6 +21,7 @@ import pytest
 import torch
 
 from vallex_tpu.models import layers as JL
+from vallex_tpu_torch.engine import nar as TNAR
 from vallex_tpu_torch.kernels.flash_attention import (
     flash_attention, flash_attention_bwd_dkv_plain, flash_attention_bwd_dq_plain,
     flash_attention_bwd_plain, flash_attention_plain, valid_pairs,
@@ -148,3 +152,29 @@ def test_single_mask_equals_two_call_composition(layout):
     np.testing.assert_allclose(one.numpy(), two.numpy(), atol=1e-6, rtol=1e-6)
     # the diagonal is always valid under (seg, seg): no row is left empty
     assert valid_pairs(seg, seg, P).any(-1).all()
+
+
+@pytest.mark.parametrize("rows", [1, 2])
+def test_nar_attention_matches_pallas_interpret(interpret, rows):
+    """The port's NAR attention (engine/nar.py: the flash forward with the
+    key-padding rule as segments (ok, ok), prefix C) against
+    attention_core_flash(q, k, v, seg, seg) with the segments the JAX
+    package's NAR builds (vallex_tpu/engine/nar.py:97-102), at a NAR layout
+    of T = 256: text padding in the middle (x_len < s_text) and audio
+    padding at the end (t_len < t_audio). One request (int bounds) or two
+    (per-row bounds); outputs on the valid rows at 1e-5, as _compare."""
+    s_text, t_audio = 64, 192
+    xl, tl = np.array([40, 64][:rows]), np.array([150, 101][:rows])
+    q, k, v, _ = (a[:rows] for a in _inputs(5, s_text + t_audio))
+    cols = np.arange(s_text + t_audio)[None, :]
+    ok = np.where(cols < s_text, cols < xl[:, None], (cols - s_text) < tl[:, None])
+    seg = jnp.asarray(ok.astype(np.int32))
+    want = np.asarray(JL.attention_core_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                              seg, seg))
+    bounds = (int(xl[0]), int(tl[0])) if rows == 1 else (torch.from_numpy(xl),
+                                                         torch.from_numpy(tl))
+    port_ok = TNAR.key_padding(s_text, t_audio, *bounds)
+    assert np.array_equal(port_ok.expand(rows, -1).numpy(), ok)
+    got = TNAR.flash_attention_fn(port_ok, rows)(*(torch.from_numpy(a) for a in (q, k, v)))
+    valid = ok[:, None, :, None].repeat(H, 1).repeat(HD, 3)
+    np.testing.assert_allclose(got.numpy()[valid], want[valid], atol=1e-5, rtol=1e-5)

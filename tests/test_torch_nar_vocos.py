@@ -3,11 +3,13 @@ on the CPU.
 
 NAR codes are compared exactly on the valid region, at a small bucket
 (plain masked attention) and at s_text + t_audio >= 1536, where the port
-routes attention through the masked_attention kernel's wrapper (its plain
-version on the CPU) and the JAX package through its masked path on the
-CPU. Waveforms: atol = rtol = 1e-4 (the port's irfft against the JAX
+routes attention through the flash forward's wrapper (flash_attention_fwd
+with segments (ok, ok) and prefix C; its plain version on the CPU) and the
+JAX package through its masked path on the CPU. Waveforms: atol = rtol = 1e-4 (the port's irfft against the JAX
 package's DFT matmul, both f32) on the valid samples.
 """
+
+import importlib
 
 import jax
 import jax.numpy as jnp
@@ -23,7 +25,11 @@ from vallex_tpu_torch.codec import vocos as TVC
 from vallex_tpu_torch.config import ModelConfig
 from vallex_tpu_torch.convert import params_from_jax
 from vallex_tpu_torch.engine import nar as TNAR
+from vallex_tpu_torch import kernels
 from vallex_tpu_torch.kernels import loader
+
+# the module (the package's name `masked_attention` is the function)
+MA = importlib.import_module("vallex_tpu_torch.kernels.masked_attention")
 
 torch.set_num_threads(1)
 
@@ -60,6 +66,50 @@ def test_nar_generate_codes_equal(both, t_audio):
     np.testing.assert_array_equal(t[0, :t_len].numpy(), np.asarray(j)[0, :t_len])
     # CPU tensors take the plain versions: no kernel launch is counted
     assert sum(loader.launch_counts.values()) == 0
+
+
+@pytest.mark.parametrize("rows", [1, 2])
+def test_nar_routes_through_flash_forward(both, monkeypatch, rows):
+    """At s_text + t_audio >= 1536, nar_generate runs each layer's attention
+    through flash_attention_fwd with segments (ok, ok) — ok the key-padding
+    rule, 1 on the valid text columns and audio slots — and prefix C, at the
+    site of one request or of a batch, and never through masked_attention."""
+    _, model = both
+    calls = []
+    real = TNAR.flash_attention_fwd
+
+    def spy(q, k, v, q_seg, kv_seg, prefix, *, site=""):
+        calls.append((q_seg.clone(), kv_seg.clone(), prefix, site))
+        return real(q, k, v, q_seg, kv_seg, prefix, site=site)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the NAR called masked_attention")
+
+    monkeypatch.setattr(TNAR, "flash_attention_fwd", spy)
+    for mod in (MA, kernels):
+        monkeypatch.setattr(mod, "masked_attention", refuse)
+        monkeypatch.setattr(mod, "masked_attention_plain", refuse)
+    rng = np.random.RandomState(5)
+    s_text, t_audio = 16, 1536
+    xl, pl, tl = np.array([12, 5][:rows]), np.array([9, 0][:rows]), np.array([29, 17][:rows])
+    codes = np.zeros((rows, t_audio, 8), np.int64)
+    for r in range(rows):
+        codes[r, : pl[r]] = rng.randint(0, 1024, (pl[r], 8))
+        codes[r, pl[r]: tl[r], 0] = rng.randint(0, 1024, tl[r] - pl[r])
+    bounds = [int(a[0]) for a in (xl, tl, pl)] if rows == 1 else \
+        [torch.from_numpy(a) for a in (xl, tl, pl)]
+    TNAR.nar_generate(model, CFG, torch.from_numpy(rng.randint(5, 500, (rows, s_text))),
+                      torch.zeros((rows, s_text), dtype=torch.long), bounds[0],
+                      torch.from_numpy(codes), bounds[1], bounds[2], dtype=torch.float32)
+    C = s_text + t_audio
+    cols = np.arange(C)[None, :]
+    ok = np.where(cols < s_text, cols < xl[:, None], (cols - s_text) < tl[:, None])
+    assert len(calls) == (CFG.num_quantizers - 1) * NL
+    for q_seg, kv_seg, prefix, site in calls:
+        assert q_seg.dtype == torch.int32 and np.array_equal(q_seg.numpy(), ok.astype(np.int32))
+        assert torch.equal(kv_seg, q_seg)
+        assert prefix == C
+        assert site == (TNAR.SITE if rows == 1 else TNAR.SITE_BATCHED)
 
 
 def test_vocos_waveform_close():

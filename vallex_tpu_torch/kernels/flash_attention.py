@@ -1,5 +1,6 @@
-"""`flash_attention`: the training attention, forward and backward, with
-segment ids and a prefix-causal bound (kernel: flash_attention.cu).
+"""`flash_attention`: full-sequence attention with segment ids and a
+prefix-causal bound, forward and backward (kernel: flash_attention.cu) —
+the NAR's key-padded attention when serving, and the training attention.
 
 Key j is valid for query i of batch row b iff
 
@@ -11,21 +12,27 @@ Key j is valid for query i of batch row b iff
 i < prefix sees the text keys j < prefix, an audio row sees every key
 j <= i. That is the JAX package's two-call composition (a causal pass over
 the whole sequence whose text rows are replaced by a non-causal pass over
-the text block alone) in one launch.
+the text block alone) in one launch. The NAR (engine/nar.py) passes its
+key-padding rule as segments (ok, ok) with prefix T, as the JAX package's
+NAR does: valid rows see exactly the valid keys.
 
 q, k, v are [B, H, T, 64] in bf16 or f32 (any strides with a unit last
 stride), segment ids [B, T] int32. The forward returns the output in q's
 dtype and the row log-sum-exp [B, H, T] f32; the backward takes both and
 dO and returns dq, dk, dv in the inputs' dtype. Rows without a valid key
-(the callers' (seg, seg) always keeps the diagonal, so none occur) give a
-zero output, lse 0 and zero gradients.
+give a zero output, lse 0 and zero gradients.
 
-`FlashAttention` is the autograd.Function; CPU tensors take the plain
-versions, CUDA tensors launch the kernels or raise. Launch counts: the
-forward at its caller's site (`flash_attention_prefix` for the AR training
-mask, `flash_attention_train` for the NAR and packed key-padding calls),
-both backward kernels at `flash_attention_bwd`. A forward re-run by
-activation checkpointing counts again.
+On the card the forward picks its kernel by dtype: bf16 runs on the tensor
+cores (its q/k/v are read by TMA, so their base addresses and strides must
+be multiples of 16 bytes; the wrapper raises otherwise), f32 on the CUDA
+cores. `FlashAttention` is the autograd.Function; CPU tensors take the
+plain versions, CUDA tensors launch the kernels or raise. Launch counts:
+the forward at its caller's site (`flash_attention_prefix` for the AR
+training mask, `flash_attention_train` for the NAR's and packed
+key-padding calls in training, `flash_attention` / `flash_attention_batched`
+for the serving NAR of one request / a batch), both backward kernels at
+`flash_attention_bwd`. A forward re-run by activation checkpointing counts
+again.
 """
 
 from __future__ import annotations
@@ -141,12 +148,26 @@ def _check(q, k, v, q_seg, kv_seg, prefix: int, name: str) -> int:
     return kind
 
 
+def _check_tma(*ts) -> None:
+    """The tensor-core forward reads q/k/v by TMA: each base address and
+    each stride of a dim longer than 1 must be a multiple of 16 bytes (the
+    views of the fused QKV product are)."""
+    for t in ts:
+        es = t.element_size()
+        if t.data_ptr() % 16 or any(st * es % 16 for st, n in zip(t.stride(), t.shape)
+                                    if n > 1 and st != 1):
+            raise ValueError("flash_attention: bf16 q/k/v need 16-byte aligned base addresses"
+                             f" and strides, got strides {t.stride()} at {t.data_ptr():#x}")
+
+
 def flash_attention_fwd(q, k, v, q_seg, kv_seg, prefix: int, *, site: str = ""
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(out, lse): the plain version on the CPU, the kernel on the card."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, q_seg, kv_seg, prefix)
     kind = _check(q, k, v, q_seg, kv_seg, prefix, "flash_attention")
+    if q.dtype == torch.bfloat16:
+        _check_tma(q, k, v)
     B, H, T, hd = q.shape
     out = torch.empty((B, H, T, hd), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)

@@ -1,26 +1,24 @@
 // masked_attention: online-softmax attention of Tq queries per head over the
 // keys of a [text | audio] cache, for head_dim 64, with per-row key bounds.
 //
-// Replaces the attention inside three TPU kernels:
+// Replaces the decode attention inside the TPU kernels (at most 8 queries;
+// the NAR's full-sequence attention is flash_attention.cu's):
 //   vallex_tpu/ops/decode_block.py  decode_block_fused (_attention with
 //       _hbm_fold_single; _hbm_fold_batched for batched requests;
 //       _hbm_fold_beams and _hbm_fold_batched_grouped for best_of samples,
 //       the grouped mode below): one query per step over the valid cache rows;
 //   vallex_tpu/ops/decode_verify.py decode_verify: K = 8 queries, query k also
 //       seeing this pass's columns j <= k;
-//   vallex_tpu/models/layers.py attention_core_flash (the JAX library's Pallas
-//       flash attention, forward, non-causal, key-padding segments): the NAR's
-//       Tq = T queries at s_text + t_audio >= 1536, one row per request.
+//   and the single steps of the own-column mode below.
 // Row b of the batch has its own bounds, read from `lens` ([3, B] int32 on
 // the device: x_len, a1_len, a2_len), so no bound travels through the host.
 // Key c is valid for row b and query qi iff
 //   c < x_len[b]
 //   or a1_lo <= c < a1_lo + a1_len[b]                 (range 1)
 //   or a2_lo <= c < a2_lo + a2_len[b] + q_off * qi    (range 2).
-// The single-request layout of engine/ar.py and engine/nar.py leaves range 1
-// empty and puts the audio rows in range 2 (decode: a2_len = pos0 + 1,
-// q_off = 1, with the new columns already written into the cache; NAR:
-// a2_len = t_len, q_off = 0). The batched layout of ar_generate_batch puts
+// The single-request layout of engine/ar.py leaves range 1 empty and puts
+// the audio rows in range 2 (a2_len = pos0 + 1, q_off = 1, with the new
+// columns already written into the cache). The batched layout of ar_generate_batch puts
 // each request's BOS + prompt rows in range 1 (a1_lo = s_text, a1_len =
 // prompt_len + 1) and the generated rows, shared by position, in range 2
 // (a2_lo = s_text + p_audio). Padding keys are skipped, not masked: the loop
@@ -57,33 +55,18 @@
 // rounded to the cache type, or for int8 K/V quantized as clip(rint(x / s),
 // -127, 127). No block reads that row, so the write needs no ordering.
 //
-// Bound on the H100: in decode, the K/V bytes of the valid rows (a memory
-// stream); in the NAR, the 4*T*T*hd operations per head. This first version
-// runs the dot products on the CUDA cores: one warp owns one query, lane j
-// scores key j of a 32-key tile against the whole query held in registers,
-// then the tile's probabilities are broadcast by shuffles into a per-lane
-// 2-dim slice of the f32 accumulator. With at most 8 queries (decode) each
-// block takes one query and its 8 warps split the keys, merging their
-// (max, sum, acc) states through shared memory at the end; with more (the
-// NAR) each of the 8 warps of a block owns one query. Softmax state is f32;
-// K/V are bf16, or f32 with compute_dtype="float32"; Q and the output are
-// f32 (decode) or the K/V type (NAR).
+// Bound on the H100: the K/V bytes of the valid rows (a memory stream). The
+// dot products run on the CUDA cores: a warp scores one query, lane j key j
+// of a 32-key tile against the whole query held in registers, then the
+// tile's probabilities are broadcast by shuffles into a per-lane 2-dim slice
+// of the f32 accumulator. Each block takes one query and its 8 warps split
+// the keys, merging their (max, sum, acc) states through shared memory at
+// the end. Softmax state is f32; K/V are bf16, int8, or f32 with
+// compute_dtype="float32"; Q and the output are f32.
 #include "common.cuh"
 
 #define ATT_WARPS 8
 #define ATT_HD 64
-
-template <typename T>
-__device__ __forceinline__ float vx_to_f32(T v);
-template <>
-__device__ __forceinline__ float vx_to_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ float vx_to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <>
-__device__ __forceinline__ float vx_to_f32<int8_t>(int8_t v) { return (float)v; }
 
 // one value of this step's column in the cache's type (int8: quantized
 // with the head's scale `s`)
@@ -93,18 +76,6 @@ __device__ __forceinline__ void vx_store_col(__nv_bfloat16* p, float v, float) {
 }
 __device__ __forceinline__ void vx_store_col(int8_t* p, float v, float s) {
   *p = (int8_t)__float2int_rn(fminf(fmaxf(rintf(__fdiv_rn(v, s)), -127.f), 127.f));
-}
-
-template <typename T>
-__device__ __forceinline__ void vx_store2(T* p, float a, float b);
-template <>
-__device__ __forceinline__ void vx_store2<float>(float* p, float a, float b) {
-  p[0] = a;
-  p[1] = b;
-}
-template <>
-__device__ __forceinline__ void vx_store2<__nv_bfloat16>(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
 // q . k for one key row of 64 values, 16-byte loads
@@ -162,16 +133,16 @@ __device__ __forceinline__ float2 vx_load2(const float* p) {
 // the new column and o. pk/pv null: no prefix (every key from k/v). ks/vs
 // null: no K/V scales. nk/nv null: no own column (kw/vw, n_sb/n_sh and slot
 // unused).
-template <typename TQ, typename TKV, typename TO>
+template <typename TKV>
 __global__ void __launch_bounds__(ATT_WARPS * 32)
-masked_attention_kernel(const TQ* __restrict__ q, long long q_sb, long long q_sh, long long q_st,
+masked_attention_kernel(const float* __restrict__ q, long long q_sb, long long q_sh, long long q_st,
                         const TKV* __restrict__ k, const TKV* __restrict__ v,
                         long long kv_sb, long long kv_sh, long long kv_st,
                         const TKV* __restrict__ pk, const TKV* __restrict__ pv,
                         long long p_sb, long long p_sh, long long p_st, int P, int beams,
-                        TO* __restrict__ o, long long o_sb, long long o_sh, long long o_st,
+                        float* __restrict__ o, long long o_sb, long long o_sh, long long o_st,
                         int B, int Tq, int C, const int* __restrict__ lens, int a1_lo,
-                        int a2_lo, int q_off, float scale, int qb, int nsplit,
+                        int a2_lo, int q_off, float scale,
                         const float* __restrict__ ks, const float* __restrict__ vs,
                         const float* __restrict__ nk, const float* __restrict__ nv,
                         long long n_sb, long long n_sh, int slot, TKV* kw, TKV* vw) {
@@ -183,10 +154,9 @@ masked_attention_kernel(const TQ* __restrict__ q, long long q_sb, long long q_sh
   const int lane = threadIdx.x & 31;
   const int b = blockIdx.z;
   const int h = blockIdx.y;
-  const int qi_local = warp % qb;
-  const int split = warp / qb;
-  const int qi = blockIdx.x * qb + qi_local;
-  const bool active = split < nsplit && qi < Tq;
+  const int qi = blockIdx.x;  // one query per block, its keys split over the warps
+  const int split = warp;
+  const int nsplit = ATT_WARPS;
 
   const bool own = nk != nullptr;
   const long long n_off = b * n_sb + h * n_sh;
@@ -202,14 +172,14 @@ masked_attention_kernel(const TQ* __restrict__ q, long long q_sb, long long q_sh
 
   float m = VX_NEG_BIG, l = 0.f, acc0 = 0.f, acc1 = 0.f;
   float s_own = VX_NEG_BIG, ov0 = 0.f, ov1 = 0.f;  // own column: score, v
-  if (active) {
-    const TQ* qp = q + b * q_sb + h * q_sh + (long long)qi * q_st;
+  {
+    const float* qp = q + b * q_sb + h * q_sh + (long long)qi * q_st;
     // int8 K/V: the k-scale folds into the query (q * ks), so the scores
     // come out of the int8 rows as they are
     const float qscale = ks != nullptr ? ks[h] : 1.f;
     float qf[ATT_HD];
 #pragma unroll
-    for (int d = 0; d < ATT_HD; ++d) qf[d] = vx_to_f32<TQ>(qp[d]) * qscale * scale;
+    for (int d = 0; d < ATT_HD; ++d) qf[d] = qp[d] * qscale * scale;
     if (own && split == 0) {
       // the new key in cache units (int8 K/V: k / ks, unrounded); every lane
       // takes the whole dot, lane j keeps v dims 2j, 2j + 1
@@ -289,15 +259,7 @@ masked_attention_kernel(const TQ* __restrict__ q, long long q_sb, long long q_sh
   }
   // int8 K/V: the v-scale folds into the output
   const float oscale = vs != nullptr ? vs[h] : 1.f;
-  if (nsplit == 1) {  // (no own column: Tq > 8)
-    if (active) {
-      const float inv = l > 0.f ? 1.f / l : 0.f;
-      TO* op = o + b * o_sb + h * o_sh + (long long)qi * o_st;
-      vx_store2<TO>(op + 2 * lane, acc0 * inv * oscale, acc1 * inv * oscale);
-    }
-    return;
-  }
-  // merge the key splits of each query (warps qi_local + s * qb)
+  // merge the key splits of the query (one per warp)
   if (lane == 0) {
     st_m[warp] = m;
     st_l[warp] = l;
@@ -305,13 +267,13 @@ masked_attention_kernel(const TQ* __restrict__ q, long long q_sb, long long q_sh
   st_acc[warp][2 * lane] = acc0;
   st_acc[warp][2 * lane + 1] = acc1;
   __syncthreads();
-  if (split == 0 && qi < Tq) {
+  if (split == 0) {
     float mm = VX_NEG_BIG;
-    for (int s = 0; s < nsplit; ++s) mm = fmaxf(mm, st_m[qi_local + s * qb]);
+    for (int s = 0; s < nsplit; ++s) mm = fmaxf(mm, st_m[s]);
     if (own) mm = fmaxf(mm, s_own);
     float ll = 0.f, a0 = 0.f, a1 = 0.f;
     for (int s = 0; s < nsplit; ++s) {
-      const int w2 = qi_local + s * qb;
+      const int w2 = s;
       const float f = __expf(st_m[w2] - mm);
       ll += st_l[w2] * f;
       a0 += st_acc[w2][2 * lane] * f;
@@ -324,12 +286,13 @@ masked_attention_kernel(const TQ* __restrict__ q, long long q_sb, long long q_sh
       a1 = fmaf(p, ov1, a1);
     }
     const float inv = ll > 0.f ? 1.f / ll : 0.f;
-    TO* op = o + b * o_sb + h * o_sh + (long long)qi * o_st;
-    vx_store2<TO>(op + 2 * lane, a0 * inv * oscale, a1 * inv * oscale);
+    float* op = o + b * o_sb + h * o_sh + (long long)qi * o_st;
+    op[2 * lane] = a0 * inv * oscale;
+    op[2 * lane + 1] = a1 * inv * oscale;
   }
 }
 
-template <typename TQ, typename TKV, typename TO>
+template <typename TKV>
 static cudaError_t launch(const void* q, const long long* qs, const void* k, const void* v,
                           const long long* kvs, const void* pk, const void* pv,
                           const long long* ps, int P, int beams, void* o, const long long* os,
@@ -337,27 +300,24 @@ static cudaError_t launch(const void* q, const long long* qs, const void* k, con
                           int q_off, float scale, const float* ks, const float* vs,
                           const float* nk, const float* nv, const long long* ns, int slot,
                           cudaStream_t stream) {
-  // decode (Tq <= 8): one query per block, its keys split over the 8 warps
-  const int qb = Tq <= ATT_WARPS ? 1 : ATT_WARPS;
-  const int nsplit = ATT_WARPS / qb;
-  const dim3 grid((Tq + qb - 1) / qb, H, B);
-  masked_attention_kernel<TQ, TKV, TO><<<grid, ATT_WARPS * 32, 0, stream>>>(
-      reinterpret_cast<const TQ*>(q), qs[0], qs[1], qs[2], reinterpret_cast<const TKV*>(k),
+  // one query per block (Tq <= 8), its keys split over the 8 warps
+  const dim3 grid(Tq, H, B);
+  masked_attention_kernel<TKV><<<grid, ATT_WARPS * 32, 0, stream>>>(
+      reinterpret_cast<const float*>(q), qs[0], qs[1], qs[2], reinterpret_cast<const TKV*>(k),
       reinterpret_cast<const TKV*>(v), kvs[0], kvs[1], kvs[2],
       reinterpret_cast<const TKV*>(pk), reinterpret_cast<const TKV*>(pv),
       pk != nullptr ? ps[0] : 0, pk != nullptr ? ps[1] : 0, pk != nullptr ? ps[2] : 0, P,
-      beams, reinterpret_cast<TO*>(o), os[0], os[1], os[2], B, Tq, C, lens, a1_lo, a2_lo,
-      q_off, scale, qb, nsplit, ks, vs, nk, nv, nk != nullptr ? ns[0] : 0,
+      beams, reinterpret_cast<float*>(o), os[0], os[1], os[2], B, Tq, C, lens, a1_lo, a2_lo,
+      q_off, scale, ks, vs, nk, nv, nk != nullptr ? ns[0] : 0,
       nk != nullptr ? ns[1] : 0, slot, reinterpret_cast<TKV*>(const_cast<void*>(k)),
       reinterpret_cast<TKV*>(const_cast<void*>(v)));
   return cudaGetLastError();
 }
 
-// q: [B, H, Tq, 64]; k, v: [B, H, C, 64]; o: [B, H, Tq, 64] of q's type.
-// kinds: 0 = f32 q/o with bf16 k/v (decode), 1 = bf16 q/o/k/v (NAR),
-// 2 = f32 q/o/k/v (compute_dtype="float32"), 3 = f32 q/o with int8 k/v and
-// the scales ks/vs [H] (int8 KV cache). qs/kvs/os: the (b, h, t) strides in
-// elements, three int64 each. lens: device pointer to [3, B] int32 (x_len,
+// q: [B, H, Tq, 64] with Tq <= 8; k, v: [B, H, C, 64]; o: [B, H, Tq, 64] f32.
+// kinds: 0 = f32 q/o with bf16 k/v, 2 = f32 q/o/k/v (compute_dtype=
+// "float32"), 3 = f32 q/o with int8 k/v and the scales ks/vs [H] (int8 KV
+// cache). qs/kvs/os: the (b, h, t) strides in elements, three int64 each. lens: device pointer to [3, B] int32 (x_len,
 // a1_len, a2_len per row), contiguous. pk/pv: null, or the grouped mode's
 // prefix [B / beams, H, P, 64] of the k/v type with strides ps. nk/nv:
 // null, or the own-column mode's new k/v [B, H, 1, 64] f32 with (b, h, t)
@@ -370,9 +330,10 @@ extern "C" int vx_masked_attention(const void* q, const long long* qs, const voi
                                    int q_off, float scale, const void* ks, const void* vs,
                                    const void* nk, const void* nv, const long long* ns,
                                    int slot, void* stream) {
-  if (Tq < 1 || B < 1 || B > 65535 || beams < 1 || B % beams) return (int)cudaErrorInvalidValue;
+  if (Tq < 1 || Tq > ATT_WARPS || B < 1 || B > 65535 || beams < 1 || B % beams)
+    return (int)cudaErrorInvalidValue;
   if ((kinds == 3) != (ks != nullptr && vs != nullptr)) return (int)cudaErrorInvalidValue;
-  if (nk != nullptr && (Tq != 1 || nv == nullptr || slot < 0 || slot >= C || kinds == 1))
+  if (nk != nullptr && (Tq != 1 || nv == nullptr || slot < 0 || slot >= C))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const int* l = reinterpret_cast<const int*>(lens);
@@ -382,22 +343,15 @@ extern "C" int vx_masked_attention(const void* q, const long long* qs, const voi
   const float* fnv = reinterpret_cast<const float*>(nv);
   switch (kinds) {
     case 0:
-      return (int)launch<float, __nv_bfloat16, float>(q, qs, k, v, kvs, pk, pv, ps, P, beams,
-                                                      o, os, B, H, Tq, C, l, a1_lo, a2_lo,
-                                                      q_off, scale, fks, fvs, fnk, fnv, ns,
-                                                      slot, s);
-    case 1:
-      return (int)launch<__nv_bfloat16, __nv_bfloat16, __nv_bfloat16>(
-          q, qs, k, v, kvs, pk, pv, ps, P, beams, o, os, B, H, Tq, C, l, a1_lo, a2_lo, q_off,
-          scale, fks, fvs, fnk, fnv, ns, slot, s);
+      return (int)launch<__nv_bfloat16>(q, qs, k, v, kvs, pk, pv, ps, P, beams, o, os, B, H, Tq,
+                                        C, l, a1_lo, a2_lo, q_off, scale, fks, fvs, fnk, fnv, ns,
+                                        slot, s);
     case 2:
-      return (int)launch<float, float, float>(q, qs, k, v, kvs, pk, pv, ps, P, beams, o, os, B,
-                                              H, Tq, C, l, a1_lo, a2_lo, q_off, scale, fks, fvs,
-                                              fnk, fnv, ns, slot, s);
+      return (int)launch<float>(q, qs, k, v, kvs, pk, pv, ps, P, beams, o, os, B, H, Tq, C, l,
+                                a1_lo, a2_lo, q_off, scale, fks, fvs, fnk, fnv, ns, slot, s);
     case 3:
-      return (int)launch<float, int8_t, float>(q, qs, k, v, kvs, pk, pv, ps, P, beams, o, os,
-                                               B, H, Tq, C, l, a1_lo, a2_lo, q_off, scale, fks,
-                                               fvs, fnk, fnv, ns, slot, s);
+      return (int)launch<int8_t>(q, qs, k, v, kvs, pk, pv, ps, P, beams, o, os, B, H, Tq, C, l,
+                                 a1_lo, a2_lo, q_off, scale, fks, fvs, fnk, fnv, ns, slot, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

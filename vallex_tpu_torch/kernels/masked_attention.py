@@ -1,5 +1,7 @@
-"""`masked_attention`: attention over the valid keys of a [text | audio]
-sequence, with bounds per batch row (kernel: masked_attention.cu).
+"""`masked_attention`: the decode attention — at most 8 queries over the
+valid keys of a [text | audio] cache, with bounds per batch row (kernel:
+masked_attention.cu). The NAR's full-sequence attention is
+`flash_attention`'s; the plain version takes any number of queries.
 
 Key c is valid for row b and query qi iff
     c < x_len[b]
@@ -10,8 +12,7 @@ The bounds travel as one [3, B] int32 tensor on the queries' device
 them from the engine's layouts:
   single request (gen_len None): range 1 empty, range 2 the audio rows
       [s_text, s_text + audio_len + q_off·qi) — with q_off = 1 and the new
-      columns already in the cache the draft/verify decode attention, with
-      q_off = 0 and Tq = T the NAR's key-padding flash attention;
+      columns already in the cache the draft/verify decode attention;
   batched requests (engine/ar.py::ar_generate_batch): range 1 the BOS +
       prompt rows [s_text, s_text + audio_len), range 2 the generated rows
       [gen_lo, gen_lo + gen_len + q_off·qi).
@@ -183,9 +184,9 @@ def _strides3(t: torch.Tensor):
     return (ctypes.c_longlong * 3)(t.stride(0), t.stride(1), t.stride(2))
 
 
+MAX_QUERIES = 8  # the kernel's queries per head (one block each)
 KINDS = {  # (q/out dtype, k/v dtype) → the launcher's `kinds`
     (torch.float32, torch.bfloat16): 0,
-    (torch.bfloat16, torch.bfloat16): 1,
     (torch.float32, torch.float32): 2,
     (torch.float32, torch.int8): 3,  # with kv_scales
 }
@@ -200,9 +201,9 @@ def masked_attention(
     out: Optional[torch.Tensor] = None, site: str = "", **layout,
 ) -> torch.Tensor:
     """q [B, H, Tq, 64]; k/v [B, H, C, 64] (any strides with a unit last
-    stride): f32 q with bf16 k/v (decode), all bf16 (NAR), all f32
-    (compute_dtype="float32") or f32 q with int8 k/v and `kv_scales` (the
-    int8 KV cache) → [B, H, Tq, 64] in q's dtype, written into `out` when
+    stride): f32 q with bf16 k/v, all f32 (compute_dtype="float32") or f32
+    q with int8 k/v and `kv_scales` (the int8 KV cache); on the card
+    Tq <= 8 → [B, H, Tq, 64] in q's dtype, written into `out` when
     given (e.g. a strided view of a [Tq, H·64] buffer). Bounds, or the
     keywords of `attention_bounds`; `prefix` + `beams` for the grouped
     mode; `new_kv` + `slot` for the own-column mode, which also writes the
@@ -225,12 +226,15 @@ def masked_attention(
         out.copy_(o)
         return out
     C = k.shape[2]
+    if Tq > MAX_QUERIES:
+        raise ValueError(f"masked_attention: the kernel takes at most {MAX_QUERIES} queries,"
+                         f" got Tq = {Tq} (full-sequence attention is flash_attention's)")
     if hd != HEAD_DIM or k.shape != (B, H, C, hd) or v.shape != k.shape:
         raise ValueError(f"masked_attention: want q [B,H,Tq,{HEAD_DIM}], k/v [B,H,C,{HEAD_DIM}]; got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     kinds = KINDS.get((q.dtype, k.dtype))
     if kinds is None or v.dtype != k.dtype:
         raise TypeError(f"masked_attention: q/k/v dtypes {q.dtype}/{k.dtype}/{v.dtype} not taken"
-                        " (f32/bf16/bf16, bf16/bf16/bf16, f32/f32/f32 or f32/int8/int8)")
+                        " (f32/bf16/bf16, f32/f32/f32 or f32/int8/int8)")
     ks = vs = nk = nv = ns = None
     if kv_scales is not None:
         ks, vs = kv_scales
@@ -241,9 +245,9 @@ def masked_attention(
         ks, vs = ks.data_ptr(), vs.data_ptr()
     if new_kv is not None:
         nk, nv = new_kv
-        if Tq != 1 or kinds == 1 or not 0 <= slot < C:
-            raise ValueError(f"masked_attention: the own-column mode takes Tq = 1, f32 q and"
-                             f" 0 <= slot < {C}; got Tq {Tq}, {q.dtype}, slot {slot}")
+        if Tq != 1 or not 0 <= slot < C:
+            raise ValueError(f"masked_attention: the own-column mode takes Tq = 1 and"
+                             f" 0 <= slot < {C}; got Tq {Tq}, slot {slot}")
         if nk.shape != (B, H, 1, hd) or nv.shape != nk.shape or nk.stride() != nv.stride() \
                 or nk.dtype != torch.float32 or nv.dtype != torch.float32 \
                 or nk.device != q.device or nv.device != q.device or nk.stride(-1) != 1:
