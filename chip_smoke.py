@@ -8,8 +8,9 @@ weights from a seed) and shows that each path went through the kernels.
 Phases, one flushed line each with its own seconds and wall-clock limit:
   1  card name and power limit (nvidia-smi)
   2  kernel build (nvcc, from the sources in the checkout); the bf16 flash
-     forward's registers, shared memory and spills (ptxas) and its tensor-core
-     instructions (HGMMA in the SASS, cuobjdump)
+     kernels' (forward, dQ, dK/dV) registers, shared memory and spills
+     (ptxas; a spill fails) and their tensor-core instructions (HGMMA in the
+     SASS, cuobjdump; none fails)
   3  each kernel against its plain version, at each single-request site
      (the NAR attention: the flash forward with the NAR's segments (ok, ok)
      at T = 2304); masked_attention refuses Tq = 16 on the card
@@ -61,13 +62,16 @@ Phases, one flushed line each with its own seconds and wall-clock limit:
   3e the training attention (kernels/flash_attention.cu): the forward, dQ
      and dK/dV kernels against their plain versions at B = 4, H = 16,
      T = 1152 (text 128 + audio 1024), bf16 and f32, one padded segment
-     per row and four packed ones, prefix T / 0 / 128; two backward runs
-     bitwise equal
+     per row and four packed ones, prefix T / 0 / 128; a ragged T = 1100
+     (bf16 and f32, the same prefixes); bf16 q/k/v as views of a fused QKV
+     with a transposed dO; two backward runs bitwise equal; the backward
+     timed at prefix 128 and T
   5f training at the shipped width: train_step with AdamW on a fixed batch
      of four utterances for 10 steps (the loss falls), the kernel route
      against the mask route on that batch (loss, gradient cosine per
      leaf), a packed batch, two stage-1 ScaledAdam steps (the NAR
      parameters stay bitwise), one use_flash="auto" step, a profiled step
+     (its bf16 backward must run on the tensor-core kernels alone)
   7  torch.profiler traces of one request and of one batch of 4: the
      device-busy share of their AR, NAR and Vocos spans, and the AR's
      device time by kernel
@@ -265,6 +269,60 @@ def running_max_rounding(q, k, v, seg, prefix):
     return acc / torch.where(l > 0, l, torch.ones_like(l))
 
 
+TC_KERNELS = ("flash_fwd_tc_kernel", "flash_bwd_dq_tc_kernel", "flash_bwd_dkv_tc_kernel")
+
+
+def tc_kernel_report(lib) -> None:
+    """Phase 2's report on the build: each kernel's ptxas line; for the bf16
+    flash kernels (tensor cores) their registers, shared memory, spills and
+    any serialized wgmma ptxas reports, their dynamic shared memory per
+    block, and their HGMMA count in the SASS (cuobjdump). Fails if one of
+    them has no HGMMA instruction or ptxas reports a spill."""
+    from vallex_tpu_torch.kernels import loader
+
+    report = lib.parent / ("ptxas_" + lib.name.split("_")[-1].split(".")[0] + ".txt")
+    if report.exists():
+        text = report.read_text()
+        for line in text.splitlines():
+            if "Used" in line and "registers" in line:
+                say("  ptxas: " + line.split("ptxas info    :")[-1].strip())
+        for blk in text.split("Compiling entry function")[1:]:
+            name = [k for k in TC_KERNELS if k in blk.split("\n")[0]]
+            if name:
+                said = [ln.split(":", 1)[-1].strip() for ln in blk.splitlines()[1:]
+                        if any(w in ln for w in ("stack frame", "Used", "wgmma", "smem"))]
+                say(f"  ptxas {name[0]}: " + "; ".join(said))
+                spills = re.findall(r"(\d+) bytes spill (?:stores|loads)", blk)
+                if any(int(x) for x in spills):
+                    fail(f"{name[0]}: ptxas reports spills: {'; '.join(said)}")
+    lib_ = loader.library()
+    say("  dynamic shared memory per block at T = 2304: flash_fwd_tc_kernel"
+        f" {lib_.vx_flash_attention_fwd_smem(2304)}, flash_bwd_dq_tc_kernel"
+        f" {lib_.vx_flash_attention_bwd_smem(2304, 0)}, flash_bwd_dkv_tc_kernel"
+        f" {lib_.vx_flash_attention_bwd_smem(2304, 1)} bytes")
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(cuobjdump):
+        say("  SASS: no cuobjdump in this toolkit; tensor-core instructions not counted")
+        return
+    sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True,
+                          timeout=120, check=True).stdout
+    per_fn, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            per_fn[fn] = [0, 0]
+        elif fn is not None:
+            per_fn[fn][0] += "HGMMA" in line
+            per_fn[fn][1] += bool(re.search(r"\bHMMA", line))
+    for kernel in TC_KERNELS:
+        tc = [c for f, c in per_fn.items() if kernel in f]
+        if not tc or tc[0][0] == 0:
+            fail(f"{kernel}: no HGMMA instruction in its SASS ({tc})")
+        say(f"  SASS (cuobjdump -sass): {kernel} holds {tc[0][0]} HGMMA and {tc[0][1]} HMMA"
+            " instructions")
+
+
 # ---------------------------------------------------------------------------
 # Training (phases 3e and 5f): module-level so each phase reads only what it
 # is handed.
@@ -276,8 +334,8 @@ TRAIN_TEXT, TRAIN_AUDIO = [60, 90, 110, 128], [400, 650, 800, 1000]
 def train_segments(layout: str, B: int, T: int, s_text: int, dev):
     """[B, T] int32 segment ids over a [text (s_text) | audio] row: "padded"
     holds one utterance per row (text TRAIN_TEXT[b], audio TRAIN_AUDIO[b]
-    + 1 with the BOS, as ar_loss lays them out), "packed" four utterances
-    per row back to back in each region."""
+    + 1 with the BOS, as ar_loss lays them out; cut at T), "packed" four
+    utterances per row back to back in each region."""
     import torch
 
     seg = torch.zeros((B, T), dtype=torch.int32)
@@ -300,7 +358,12 @@ def train_kernel_checks(dev, entry, device_ms, g) -> None:
     versions at the training shapes (B = 4, H = 16, T = 1152 = text 128 +
     audio 1024, hd 64), bf16 and f32, one padded segment per row and four
     packed ones, prefix P = T (key padding, the NAR), 0 (causal) and 128
-    (the AR's prefix-causal mask); two backward runs bitwise equal."""
+    (the AR's prefix-causal mask); a ragged T = 1100 (text 128 + audio 972,
+    not a multiple of the kernels' 64-row tiles) at the same prefixes; bf16
+    q/k/v as the strided views of a fused [B, T, 3 H 64] QKV product (as the
+    training layers pass them) with dO a transposed view; two backward runs
+    bitwise equal in every case. Times the backward at P = 128 (rows y, z)
+    and at P = T (rows yT, zT) against SDPA's whole backward."""
     import torch
     import torch.nn.functional as Fn
 
@@ -310,82 +373,100 @@ def train_kernel_checks(dev, entry, device_ms, g) -> None:
         flash_attention_fwd, flash_attention_plain, valid_pairs,
     )
 
-    B, H, T, S, hd = 4, 16, 1152, 128, 64
-    for dt in (torch.bfloat16, torch.float32):
+    B, H, S, hd = 4, 16, 128, 64
+
+    def inputs(dt, T, fused):
+        """q, k, v, dO [B, H, T, hd]: contiguous, or (fused) q/k/v as views
+        of one [B, T, 3 H hd] product and dO the transpose of [B, T, H, hd]."""
+        if not fused:
+            return [torch.randn((B, H, T, hd), generator=g, device=dev).to(dt) for _ in range(4)]
+        qkv = torch.randn((B, T, 3 * H * hd), generator=g, device=dev).to(dt)
+        q, k, v = (t.view(B, T, H, hd).transpose(1, 2) for t in qkv.chunk(3, dim=-1))
+        do = torch.randn((B, T, H, hd), generator=g, device=dev).to(dt).transpose(1, 2)
+        return q, k, v, do
+
+    cases = [(dt, layout, 1152, P, False) for dt in (torch.bfloat16, torch.float32)
+             for layout in ("padded", "packed") for P in (1152, 0, S)]
+    cases += [(dt, "padded", 1100, P, False) for dt in (torch.bfloat16, torch.float32)
+              for P in (1100, 0, S)]
+    cases += [(torch.bfloat16, "padded", T, P, True) for T in (1152, 1100) for P in (T, S)]
+    for dt, layout, T, P, fused in cases:
         bf = dt == torch.bfloat16
-        for layout in ("padded", "packed"):
-            seg = train_segments(layout, B, T, S, dev)
-            for P in (T, 0, S):
-                q, k, v, do = (torch.randn((B, H, T, hd), generator=g, device=dev).to(dt)
-                               for _ in range(4))
-                o, lse = flash_attention_fwd(q, k, v, seg, seg, P, site="check")
-                op, lp = flash_attention_plain(q, k, v, seg, seg, P)
-                grads = flash_attention_bwd(q, k, v, seg, seg, P, o, lse, do)
-                again = flash_attention_bwd(q, k, v, seg, seg, P, o, lse, do)
-                ref = flash_attention_bwd_plain(q, k, v, seg, seg, P, o, lse, do)
-                torch.cuda.synchronize()
-                case = f"{str(dt)[6:]} {layout} P={P}"
-                err_o = float((o.float() - op.float()).abs().max())
-                scale_o = float(op.float().abs().max())
-                err_l = float((lse - lp).abs().max())
-                if not (err_o <= (1e-2 if bf else 2e-5) * scale_o and err_l <= 1e-3):
-                    fail(f"flash_attention_fwd {case}: out err {err_o} of scale {scale_o},"
-                         f" lse err {err_l}")
-                rel, err = [], []
-                for name, a, r in zip(("dq", "dk", "dv"), grads, ref):
-                    e, sc = float((a.float() - r.float()).abs().max()), float(r.float().abs().max())
-                    rel.append(e / sc)
-                    err.append(e)
-                    if not e <= (2e-2 if bf else 1e-4) * sc:
-                        fail(f"flash_attention_bwd {case}: {name} err {e} of scale {sc}")
-                if not all(torch.equal(a, b) for a, b in zip(grads, again)):
-                    fail(f"flash_attention_bwd {case}: two runs differ")
-                say(f"  flash_attention {case}: out err {err_o:.3e} (scale {scale_o:.3f}), lse err"
-                    f" {err_l:.3e}, dq/dk/dv err {rel[0]:.2e}/{rel[1]:.2e}/{rel[2]:.2e} of their"
-                    f" scale, two backward runs bitwise equal")
-                # timed: the padded layout at the main path's prefixes (P = T:
-                # the NAR's key padding; P = 128: the AR's prefix-causal
-                # attention and its backward), the packed one at P = 128
-                if not (P == S or (P == T and layout == "padded")):
-                    continue
-                pairs = int(valid_pairs(seg, seg, P).sum()) * H
-                es, n = q.element_size(), B * H * T * hd
-                seg_bytes, row_bytes = 2 * B * T * 4, B * H * T * 4
-                rate = BF16_OPS_PER_S if bf else F32_OPS_PER_S
-                in_line = bf and layout == "padded"
-                what = (f"B={B}, H={H}, T={T}, {str(dt)[6:]}, {layout}, prefix {P},"
-                        f" {pairs} valid pairs")
-                mask = valid_pairs(seg, seg, P)[:, None]
-                lib_fwd = device_ms(lambda: Fn.scaled_dot_product_attention(q, k, v, attn_mask=mask))
-                entry("flash_attention_fwd",
-                      "flash_attention_prefix" if P == S else "flash_attention_train", err_o,
-                      device_ms(lambda: flash_attention_fwd(q, k, v, seg, seg, P)),
-                      device_ms(lambda: flash_attention_plain(q, k, v, seg, seg, P)),
-                      4 * n * es + row_bytes + seg_bytes, 4 * hd * pairs, lib_fwd,
-                      f"1 launch: {what}", in_line, rate)
-                if P != S:
-                    continue
-                qr, kr, vr = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
-                lib_bwd = device_ms(lambda: torch.autograd.grad(
-                    Fn.scaled_dot_product_attention(qr, kr, vr, attn_mask=mask), (qr, kr, vr),
-                    do)) - lib_fwd
-                dq, di = flash_attention_bwd_dq(q, k, v, seg, seg, P, o, lse, do)
-                entry("flash_attention_bwd_dq", "flash_attention_bwd", err[0],
-                      device_ms(lambda: flash_attention_bwd_dq(q, k, v, seg, seg, P, o, lse, do)),
-                      device_ms(lambda: flash_attention_bwd_dq_plain(q, k, v, seg, seg, P, o, lse,
-                                                                     do)),
-                      6 * n * es + 2 * row_bytes + seg_bytes, 6 * hd * pairs, lib_bwd,
-                      f"1 launch: dq and di, {what}; library: SDPA's whole backward", in_line,
-                      rate)
-                entry("flash_attention_bwd_dkv", "flash_attention_bwd", max(err[1:]),
-                      device_ms(lambda: flash_attention_bwd_dkv(q, k, v, seg, seg, P, do, lse,
-                                                                di)),
-                      device_ms(lambda: flash_attention_bwd_dkv_plain(q, k, v, seg, seg, P, o,
-                                                                      lse, do)),
-                      6 * n * es + 2 * row_bytes + seg_bytes, 8 * hd * pairs, lib_bwd,
-                      f"1 launch: dk and dv, {what}; library: SDPA's whole backward", in_line,
-                      rate)
-                del qr, kr, vr, mask
+        seg = train_segments(layout, B, T, S, dev)
+        q, k, v, do = inputs(dt, T, fused)
+        o, lse = flash_attention_fwd(q, k, v, seg, seg, P, site="check")
+        op, lp = flash_attention_plain(q, k, v, seg, seg, P)
+        grads = flash_attention_bwd(q, k, v, seg, seg, P, o, lse, do)
+        again = flash_attention_bwd(q, k, v, seg, seg, P, o, lse, do)
+        ref = flash_attention_bwd_plain(q, k, v, seg, seg, P, o, lse, do)
+        torch.cuda.synchronize()
+        case = (f"{str(dt)[6:]} {layout} T={T} P={P}"
+                + (" fused-QKV views, transposed dO" if fused else ""))
+        err_o = float((o.float() - op.float()).abs().max())
+        scale_o = float(op.float().abs().max())
+        err_l = float((lse - lp).abs().max())
+        if not (err_o <= (1e-2 if bf else 2e-5) * scale_o and err_l <= 1e-3):
+            fail(f"flash_attention_fwd {case}: out err {err_o} of scale {scale_o},"
+                 f" lse err {err_l}")
+        rel, err = [], []
+        for name, a, r in zip(("dq", "dk", "dv"), grads, ref):
+            e, sc = float((a.float() - r.float()).abs().max()), float(r.float().abs().max())
+            rel.append(e / sc)
+            err.append(e)
+            if not e <= (2e-2 if bf else 1e-4) * sc:
+                fail(f"flash_attention_bwd {case}: {name} err {e} of scale {sc}")
+        if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+            fail(f"flash_attention_bwd {case}: two runs differ")
+        say(f"  flash_attention {case}: out err {err_o:.3e} (scale {scale_o:.3f}), lse err"
+            f" {err_l:.3e}, dq/dk/dv err {rel[0]:.2e}/{rel[1]:.2e}/{rel[2]:.2e} of their"
+            f" scale, two backward runs bitwise equal")
+        # timed: the padded layout at the main path's prefixes (P = T: the
+        # NAR's key padding, forward and backward; P = 128: the AR's
+        # prefix-causal attention and its backward), the packed one at P = 128
+        if fused or T != 1152 or not (P == S or (P == T and layout == "padded")):
+            continue
+        pairs = int(valid_pairs(seg, seg, P).sum()) * H
+        es, n = q.element_size(), B * H * T * hd
+        seg_bytes, row_bytes = 2 * B * T * 4, B * H * T * 4
+        rate = BF16_OPS_PER_S if bf else F32_OPS_PER_S
+        in_line = bf and layout == "padded"
+        what = (f"B={B}, H={H}, T={T}, {str(dt)[6:]}, {layout}, prefix {P},"
+                f" {pairs} valid pairs")
+        mask = valid_pairs(seg, seg, P)[:, None]
+        lib_fwd = device_ms(lambda: Fn.scaled_dot_product_attention(q, k, v, attn_mask=mask))
+        entry("flash_attention_fwd",
+              "flash_attention_prefix" if P == S else "flash_attention_train", err_o,
+              device_ms(lambda: flash_attention_fwd(q, k, v, seg, seg, P)),
+              device_ms(lambda: flash_attention_plain(q, k, v, seg, seg, P)),
+              4 * n * es + row_bytes + seg_bytes, 4 * hd * pairs, lib_fwd,
+              f"1 launch: {what}", in_line, rate)
+        # the backward at P = 128 in both layouts (rows y, z) and, bf16
+        # only, at P = T (rows yT, zT: the NAR's training backward; printed
+        # beside the site's row)
+        if P != S and not bf:
+            continue
+        in_line = in_line and P == S
+        row = "" if P == S else " (rows yT, zT)"
+        qr, kr, vr = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+        lib_bwd = device_ms(lambda: torch.autograd.grad(
+            Fn.scaled_dot_product_attention(qr, kr, vr, attn_mask=mask), (qr, kr, vr),
+            do)) - lib_fwd
+        dq, di = flash_attention_bwd_dq(q, k, v, seg, seg, P, o, lse, do)
+        entry("flash_attention_bwd_dq", "flash_attention_bwd", err[0],
+              device_ms(lambda: flash_attention_bwd_dq(q, k, v, seg, seg, P, o, lse, do)),
+              device_ms(lambda: flash_attention_bwd_dq_plain(q, k, v, seg, seg, P, o, lse,
+                                                             do)),
+              6 * n * es + 2 * row_bytes + seg_bytes, 6 * hd * pairs, lib_bwd,
+              f"1 launch: dq and di, {what}; library: SDPA's whole backward{row}", in_line,
+              rate)
+        entry("flash_attention_bwd_dkv", "flash_attention_bwd", max(err[1:]),
+              device_ms(lambda: flash_attention_bwd_dkv(q, k, v, seg, seg, P, do, lse, di)),
+              device_ms(lambda: flash_attention_bwd_dkv_plain(q, k, v, seg, seg, P, o, lse,
+                                                              do)),
+              6 * n * es + 2 * row_bytes + seg_bytes, 8 * hd * pairs, lib_bwd,
+              f"1 launch: dk and dv, {what}; library: SDPA's whole backward{row}", in_line,
+              rate)
+        del qr, kr, vr, mask
 
 
 def train_path(dev, cfg) -> None:
@@ -533,34 +614,42 @@ def train_path(dev, cfg) -> None:
         f" forward, its re-run under remat, dQ and dK/dV for 2 x {cfg.num_layers} layers),"
         f" loss {met['loss']:.4f}, {s:.4f} s")
 
-    # one profiled step: device time by kernel and the device-busy share
+    # one profiled step: device time by kernel and the device-busy share; the
+    # bf16 backward must run on the tensor-core kernels alone
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         state, met, s = step(state, batch, opt, use_flash=True)
     events = trace_events(prof)
     device = [(float(e["ts"]), float(e["ts"]) + float(e["dur"]), e["name"]) for e in events
               if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e]
-    if device:
-        lo, hi = min(a for a, _, _ in device), max(b for _, b, _ in device)
-        by_name = {}
-        for a, b, name in device:
-            by_name[name] = by_name.get(name, 0.0) + (b - a) / 1e3
-        top = {n[:80]: round(t, 3) for n, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]}
-        by_class = {}
-        for name, t in by_name.items():
-            low = name.lower()
-            cls = ("flash_attention" if low.startswith(("void flash_", "flash_")) else
-                   "matmul" if any(w in low for w in ("gemm", "nvjet", "xmma", "cutlass")) else
-                   "other")
-            by_class[cls] = round(by_class.get(cls, 0.0) + t, 3)
-        say("trace " + json.dumps({
-            "request": "train_step, batch of 4 (T=1024), flash, bf16, AdamW",
-            "wall_ms_traced": round(s * 1e3, 3),
-            "device_busy_ms": round(busy_ms([(a, b) for a, b, _ in device], lo, hi), 3),
-            "device_window_ms": round((hi - lo) / 1e3, 3), "device_ops": len(device),
-            "device_ms_by_class": by_class, "device_ms_by_kernel": top}))
-    else:
-        say("  trace of one train_step: not measured (no device events)")
+    if not device:
+        fail("5f trace of one train_step: no device events")
+    lo, hi = min(a for a, _, _ in device), max(b for _, b, _ in device)
+    by_name = {}
+    for a, b, name in device:
+        by_name[name] = by_name.get(name, 0.0) + (b - a) / 1e3
+    flash = {n.split("(")[0].replace("void ", ""): round(t, 3) for n, t in by_name.items()
+             if "flash_" in n}
+    cuda_core_bwd = [n for n in flash if n.startswith(("flash_bwd_dq_kernel",
+                                                       "flash_bwd_dkv_kernel"))]
+    if cuda_core_bwd or not all(k in flash for k in TC_KERNELS):
+        fail(f"5f trace of a bf16 train_step: flash kernels {flash}; want {TC_KERNELS} and no"
+             " CUDA-core backward")
+    top = {n[:80]: round(t, 3) for n, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]}
+    by_class = {}
+    for name, t in by_name.items():
+        low = name.lower()
+        cls = ("flash_attention" if low.startswith(("void flash_", "flash_")) else
+               "matmul" if any(w in low for w in ("gemm", "nvjet", "xmma", "cutlass")) else
+               "other")
+        by_class[cls] = round(by_class.get(cls, 0.0) + t, 3)
+    say("trace " + json.dumps({
+        "request": "train_step, batch of 4 (T=1024), flash, bf16, AdamW",
+        "wall_ms_traced": round(s * 1e3, 3),
+        "device_busy_ms": round(busy_ms([(a, b) for a, b, _ in device], lo, hi), 3),
+        "device_window_ms": round((hi - lo) / 1e3, 3), "device_ops": len(device),
+        "device_ms_by_class": by_class, "flash_device_ms_by_kernel": flash,
+        "device_ms_by_kernel": top}))
     del state, model, opt, batch, pb
     torch.cuda.empty_cache()
 
@@ -609,41 +698,7 @@ def main() -> None:
         t0 = time.perf_counter()
         lib = loader.build()
         say(f"built {os.path.relpath(lib, REPO)} in {time.perf_counter() - t0:.2f} s")
-        report = lib.parent / ("ptxas_" + lib.name.split("_")[-1].split(".")[0] + ".txt")
-        if report.exists():
-            text = report.read_text()
-            for line in text.splitlines():
-                if "Used" in line and "registers" in line:
-                    say("  ptxas: " + line.split("ptxas info    :")[-1].strip())
-            # the bf16 flash forward: registers, shared memory, spills, and
-            # any serialized wgmma ptxas reports
-            for blk in text.split("Compiling entry function")[1:]:
-                if "flash_fwd_tc_kernel" in blk.split("\n")[0]:
-                    said = [ln.split(":", 1)[-1].strip() for ln in blk.splitlines()[1:]
-                            if any(w in ln for w in ("stack frame", "Used", "wgmma", "smem"))]
-                    say("  ptxas flash_fwd_tc_kernel: " + "; ".join(said))
-        say("  flash_fwd_tc_kernel dynamic shared memory per block at T = 2304:"
-            f" {loader.library().vx_flash_attention_fwd_smem(2304)} bytes")
-        cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-        if os.path.exists(cuobjdump):
-            sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True,
-                                  timeout=120, check=True).stdout
-            per_fn, fn = {}, None
-            for line in sass.splitlines():
-                m = re.search(r"Function : (\S+)", line)
-                if m:
-                    fn = m.group(1)
-                    per_fn[fn] = [0, 0]
-                elif fn is not None:
-                    per_fn[fn][0] += "HGMMA" in line
-                    per_fn[fn][1] += bool(re.search(r"\bHMMA", line))
-            tc = [c for f, c in per_fn.items() if "flash_fwd_tc_kernel" in f]
-            if not tc or tc[0][0] == 0:
-                fail(f"flash_fwd_tc_kernel: no HGMMA instruction in its SASS ({tc})")
-            say(f"  SASS (cuobjdump -sass): flash_fwd_tc_kernel holds {tc[0][0]} HGMMA and"
-                f" {tc[0][1]} HMMA instructions")
-        else:
-            say("  SASS: no cuobjdump in this toolkit; tensor-core instructions not counted")
+        tc_kernel_report(lib)
         loader.library()
 
     # ---- shared full-width state --------------------------------------------

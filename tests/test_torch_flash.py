@@ -13,6 +13,8 @@ keeps the log-sum-exp); the port's own backward formula against autograd
 at 1e-5; the single-mask rule against the two-call composition at 1e-6.
 """
 
+import importlib
+
 import jax
 import jax.experimental.pallas as pl
 import jax.numpy as jnp
@@ -23,8 +25,8 @@ import torch
 from vallex_tpu.models import layers as JL
 from vallex_tpu_torch.engine import nar as TNAR
 from vallex_tpu_torch.kernels.flash_attention import (
-    flash_attention, flash_attention_bwd_dkv_plain, flash_attention_bwd_dq_plain,
-    flash_attention_bwd_plain, flash_attention_plain, valid_pairs,
+    _check_tma, _tma_ok, flash_attention, flash_attention_bwd_dkv_plain,
+    flash_attention_bwd_dq_plain, flash_attention_bwd_plain, flash_attention_plain, valid_pairs,
 )
 from vallex_tpu_torch.models import layers as TL
 
@@ -178,3 +180,80 @@ def test_nar_attention_matches_pallas_interpret(interpret, rows):
     got = TNAR.flash_attention_fn(port_ok, rows)(*(torch.from_numpy(a) for a in (q, k, v)))
     valid = ok[:, None, :, None].repeat(H, 1).repeat(HD, 3)
     np.testing.assert_allclose(got.numpy()[valid], want[valid], atol=1e-5, rtol=1e-5)
+
+
+def _fused_qkv(dtype=torch.bfloat16):
+    """q, k, v as the training layers pass them: [B, H, T, 64] views of one
+    [B, T, 3 H 64] product (split_heads of its three chunks)."""
+    qkv = torch.zeros((B, 8, 3 * H * HD), dtype=dtype)
+    return [t.view(B, 8, H, HD).transpose(1, 2) for t in qkv.chunk(3, dim=-1)]
+
+
+_TMA_VIEWS = {
+    # accepted: contiguous, the fused-QKV views, a transposed dO, a dim of
+    # size 1 whose stride is immaterial
+    "contiguous": (lambda: torch.zeros((B, H, 8, HD), dtype=torch.bfloat16), True),
+    "fused_q": (lambda: _fused_qkv()[0], True),
+    "fused_v": (lambda: _fused_qkv()[2], True),
+    "transposed_dout": (lambda: torch.zeros((B, 8, H, HD), dtype=torch.bfloat16).transpose(1, 2),
+                        True),
+    "size1_odd_stride": (lambda: torch.zeros(H * 8 * HD, dtype=torch.bfloat16).as_strided(
+        (1, H, 8, HD), (7, 8 * HD, HD, 1)), True),
+    # refused: a base off 16 bytes, a row stride of 68 bf16 (136 bytes), a
+    # head stride off 16 bytes, and f32 rows of 65 values at an odd base
+    "base_off": (lambda: torch.zeros(B * H * 8 * HD + 1, dtype=torch.bfloat16)[1:].view(
+        B, H, 8, HD), False),
+    "row_stride_off": (lambda: torch.zeros((B, H, 8, 68), dtype=torch.bfloat16)[..., :HD], False),
+    "head_stride_off": (lambda: torch.zeros((B, H * 8 * HD + 4), dtype=torch.bfloat16)[
+        :, :H * 8 * HD].view(B, H, 8, HD), False),
+    "f32_odd": (lambda: torch.zeros((B, H, 8, HD + 1))[..., 1:], False),
+}
+
+
+@pytest.mark.parametrize("view", list(_TMA_VIEWS))
+def test_check_tma_views(view):
+    """_check_tma, the bf16 kernels' layout rule (kernels/flash_attention.py):
+    each base address and each stride of a dim longer than 1 a multiple of
+    16 bytes. The views the training layers pass meet it; others raise."""
+    make, ok = _TMA_VIEWS[view]
+    t = make()
+    assert t.stride(-1) == 1
+    assert _tma_ok(t) == ok
+    if ok:
+        _check_tma(t, name="test")
+    else:
+        with pytest.raises(ValueError, match="16-byte"):
+            _check_tma(t, name="test")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_makes_misaligned_dout_contiguous(monkeypatch, dtype):
+    """FlashAttention.backward hands flash_attention_bwd a dO that meets the
+    kernels' layout rule when the incoming gradient is a view off it (base
+    and row stride off 16 bytes); the gradients equal
+    flash_attention_bwd_plain's on the same values."""
+    fa = importlib.import_module("vallex_tpu_torch.kernels.flash_attention")
+    seen = []
+    orig = fa.flash_attention_bwd
+
+    def spy(q, k, v, q_seg, kv_seg, prefix, out, lse, dout):
+        seen.append(dout)
+        return orig(q, k, v, q_seg, kv_seg, prefix, out, lse, dout)
+
+    monkeypatch.setattr(fa, "flash_attention_bwd", spy)
+    t, prefix = 150, 37
+    q, k, v, w = (torch.from_numpy(a).to(dtype) for a in _inputs(6, t))
+    seg = torch.from_numpy(_segments("packed", t))
+    wide = torch.zeros((B, H, t, HD + 1), dtype=dtype)
+    wide[..., 1:] = w
+    dout = wide[..., 1:]
+    assert not _tma_ok(dout)
+    qt, kt, vt = (a.clone().requires_grad_(True) for a in (q, k, v))
+    got = torch.autograd.grad(flash_attention(qt, kt, vt, seg, seg, prefix), (qt, kt, vt),
+                              grad_outputs=dout)
+    assert len(seen) == 1 and _tma_ok(seen[0]) and seen[0].stride(-1) == 1
+    assert torch.equal(seen[0], dout)
+    out, lse = flash_attention_plain(q, k, v, seg, seg, prefix)
+    want = flash_attention_bwd_plain(q, k, v, seg, seg, prefix, out, lse, w)
+    for name, g, r in zip("qkv", got, want):
+        assert torch.equal(g, r), f"d{name}"

@@ -23,54 +23,34 @@
 // the non-causal pass over the text block alone (keys j >= P are out); for an
 // audio row i >= P it is j <= i, the causal pass over the whole sequence.
 //
-// Kernels:
+// Kernels, picked by kind (neither stands in for the other):
 //   flash_fwd_tc_kernel (bf16): the forward on the tensor cores, below;
 //   flash_fwd_kernel<float> (f32): the forward on the CUDA cores (tensor
 //       cores in f32 would be TF32, which changes the f32 numbers), one block
 //       of 256 threads per (query tile of 64, head, row); f32 tiles in shared
 //       memory (row stride 65, so a half-warp reading 16 rows hits 16 banks),
 //       each thread a 4 x 4 tile of the 64 x 64 scores;
-//   flash_bwd_dq_kernel: per query tile, di = sum(O * dO) in f32 from O as
-//       stored (written out for the dK/dV kernel), then dQ over the key tiles;
-//   flash_bwd_dkv_kernel: per key tile, dK and dV over the query tiles that
-//       can see it (all of them when the tile starts below P, else from the
-//       tile's own row on). It runs after the dQ kernel on the same stream
-//       and reads its di.
+//   flash_bwd_dq_tc_kernel (bf16) / flash_bwd_dq_kernel<float> (f32): per
+//       query tile, di = sum(O * dO) in f32 from O as stored (written out for
+//       the dK/dV kernel), then dQ over the key tiles;
+//   flash_bwd_dkv_tc_kernel (bf16) / flash_bwd_dkv_kernel<float> (f32): per
+//       key tile, dK and dV over the query tiles that can see it (all of them
+//       when the tile starts below P, else from the tile's own row on). It
+//       runs after the dQ kernel on the same stream and reads its di.
 // Both forwards write O in the input type and the row log-sum-exp (f32) for
-// the backward, which runs on the CUDA cores (the f32 layout above) in both
-// types. Neither backward kernel uses atomics: each output element is one
-// block's sum in a fixed order, so the gradients are the same from run to run.
+// the backward. The bf16 kernels run on the tensor cores (wgmma, TMA,
+// mbarrier; sm_90a), the f32 ones on the CUDA cores in the f32 layout above.
+// Neither backward uses atomics: each output element is one block's sum in a
+// fixed order, so the gradients are the same from run to run.
 // Rounding follows the library: scores in f32 (q.k, then times the scale),
 // p cast to V's type before P.V, p and ds cast to the input type before
 // their products in the backward, every product summed in f32.
 // Rows without a valid key give O = 0, lse = 0 and zero gradients.
 //
 // Bound on the H100: operations, 4 * hd per valid (query, key) pair forward
-// (bf16 at 989 TFLOP/s) and 10 * hd backward. The bf16 forward's design for
-// that bound:
-//  - one block of one warpgroup (128 threads) per (query tile of 64, head,
-//    row); S = Q K^T by wgmma m64n64k16, bf16 in, f32 out, with Q (loaded
-//    once) and the key tile in shared memory, both K-major: a row of 64 bf16
-//    is exactly one 128-byte line, so TMA's 128-byte swizzle and the wgmma
-//    descriptor's agree and the reads are free of bank conflicts;
-//  - the online softmax runs on the S accumulator in registers (a row's max
-//    across the 4 threads that hold it; each thread keeps its own partial
-//    sum), O is rescaled in registers;
-//  - O += P V by wgmma with P as the register A operand: the f32 S fragment,
-//    rounded to bf16 pairs, is m64nNk16's A fragment; V is stored head-dim
-//    contiguous, so it is MN-major, read with the transpose bit for B;
-//  - K/V tiles come through a ring of 2 stages in shared memory, loaded by
-//    TMA (4-d tensor maps over the strided [B, H, T, 64] views, built on the
-//    host, passed as __grid_constant__) with mbarrier completion; one thread
-//    refills a stage once the warpgroup is done with it. TMA's zero fill
-//    covers the ragged last tile;
-//  - work that is all masked is skipped: the key loop ends at
-//    max(q0 + 64, P), and a block first classifies its key tiles from the
-//    segment ids by a vote: a tile with no pair of equal ids adds exactly 0
-//    to every row and is never loaded (the NAR's padding in the middle and
-//    at the end of a row); a tile whose pairs all have one id and lie inside
-//    the causal bound and T uses its scores as they are; only the rest are
-//    masked pair by pair.
+// (bf16 at 989 TFLOP/s), 6 * hd in the dQ kernel (q.k, dO.v, ds.k) and
+// 8 * hd in the dK/dV kernel (q.k, dO.v, p.dO, ds.q); the bf16 backward's
+// design is with its kernels below. The bf16 forward's design for that bound:
 #include <cuda.h>  // CUtensorMap and its enums (the encoder comes through the runtime)
 #include <limits.h>
 #include <math.h>
@@ -87,23 +67,15 @@ template <typename T>
 __device__ __forceinline__ float fa_ld(const T* p);
 template <>
 __device__ __forceinline__ float fa_ld<float>(const float* p) { return *p; }
-template <>
-__device__ __forceinline__ float fa_ld<__nv_bfloat16>(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
 
-// x rounded to T and back (the library's .astype(v.dtype) before a product)
+// x rounded to T and back (the library's .astype(v.dtype) before a product;
+// the CUDA-core kernels run in f32 only, where it is x)
 template <typename T>
 __device__ __forceinline__ float fa_round(float x);
 template <>
 __device__ __forceinline__ float fa_round<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ float fa_round<__nv_bfloat16>(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
 
 __device__ __forceinline__ void fa_st(float* p, float x) { *p = x; }
-__device__ __forceinline__ void fa_st(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
 
 struct FaStrides {
   long long b, h, t;
@@ -391,6 +363,103 @@ __device__ __forceinline__ float fw_quad_sum(float v) {
   return v + __shfl_xor_sync(VX_FULL_MASK, v, 2);
 }
 
+// the A fragments of the four k-steps: the f32 accumulator x rounded to bf16
+// pairs (the fragment of columns 16 kk..16 kk + 15 is k-step kk's)
+__device__ __forceinline__ void fw_frag(uint32_t (&a)[4][4], const float (&x)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    a[kk][0] = fw_pack(x[8 * kk], x[8 * kk + 1]);
+    a[kk][1] = fw_pack(x[8 * kk + 2], x[8 * kk + 3]);
+    a[kk][2] = fw_pack(x[8 * kk + 4], x[8 * kk + 5]);
+    a[kk][3] = fw_pack(x[8 * kk + 6], x[8 * kk + 7]);
+  }
+}
+
+// d = A B^T over the head dim, both 64 x 64 tiles K-major in shared memory:
+// four k-steps of 16, each 32 bytes further into the 128-byte swizzled rows
+__device__ __forceinline__ void fw_mma_kk(float (&d)[32], uint32_t a_addr, uint32_t b_addr) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    fw_mma_ss(d, fw_desc(a_addr + 32 * kk, 16, 1024), fw_desc(b_addr + 32 * kk, 16, 1024), kk);
+}
+
+// d += A B: A from registers (fw_frag's fragments), B a 64 x 64 tile MN-major
+// in shared memory (its rows are the k dim, the head dim contiguous; k-step
+// kk is 16 rows further on)
+__device__ __forceinline__ void fw_mma_rk(float (&d)[32], const uint32_t (&a)[4][4],
+                                          uint32_t b_addr) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) fw_mma_rs(d, a[kk], fw_desc(b_addr + 2048 * kk, 8192, 1024));
+}
+
+// The tiles of the other side that a block's own tile of 64 rows meets,
+// classified before any is loaded (the bf16 forward and both bf16 backward
+// kernels), one warp per tile: the own ids' min / max against the tile's,
+// then an exact vote. A tile is skipped when no own id equals one of its ids
+// (every pair is masked, so it adds exactly 0); FULL when every pair has one
+// id and lies inside T and the causal bound (its scores are used as they
+// are); else MASKED, pair by pair. own_seg: the own tile's ids in shared
+// memory, pads past T; other_seg: the other side's ids of this batch row;
+// own_is_query says which side is the block's. Writes the visited tiles of
+// [t_lo, t_hi), in order, as (tile << 1 | class) to tiles[] and their number
+// to *count, and returns it to every thread.
+__device__ int fa_visit(const int* own_seg, bool own_is_query, int own0, const int* other_seg,
+                        int t_lo, int t_hi, int T_len, int P, int* tiles, int* count) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  int omin, omax;
+  {
+    const int a = own_seg[lane], c = own_seg[lane + 32];
+    const bool ia = own0 + lane < T_len, ic = own0 + lane + 32 < T_len;
+    omin = min(ia ? a : INT_MAX, ic ? c : INT_MAX);
+    omax = max(ia ? a : INT_MIN, ic ? c : INT_MIN);
+#pragma unroll
+    for (int s = 16; s > 0; s >>= 1) {
+      omin = min(omin, __shfl_xor_sync(VX_FULL_MASK, omin, s));
+      omax = max(omax, __shfl_xor_sync(VX_FULL_MASK, omax, s));
+    }
+  }
+  const bool own_whole = own0 + FA_TILE <= T_len && omin == omax;
+  const int pad = own_is_query ? FA_PAD_K : FA_PAD_Q;
+  for (int t = t_lo + warp; t < t_hi; t += blockDim.x >> 5) {
+    const int x0 = t * FA_TILE;
+    const bool ia = x0 + lane < T_len, ic = x0 + lane + 32 < T_len;
+    const int xa = ia ? other_seg[x0 + lane] : pad, xc = ic ? other_seg[x0 + lane + 32] : pad;
+    int xmin = min(ia ? xa : INT_MAX, ic ? xc : INT_MAX);
+    int xmax = max(ia ? xa : INT_MIN, ic ? xc : INT_MIN);
+#pragma unroll
+    for (int s = 16; s > 0; s >>= 1) {
+      xmin = min(xmin, __shfl_xor_sync(VX_FULL_MASK, xmin, s));
+      xmax = max(xmax, __shfl_xor_sync(VX_FULL_MASK, xmax, s));
+    }
+    // max(q0, P - 1) is the least bound max(i, P - 1) of the query tile's rows
+    const int q0 = own_is_query ? own0 : x0, k0 = own_is_query ? x0 : own0;
+    int cls = -1;  // skipped
+    if (xmax < omin || xmin > omax) {
+      cls = -1;
+    } else if (own_whole && xmin == xmax && xmin == omin && x0 + FA_TILE <= T_len &&
+               k0 + FA_TILE - 1 <= max(q0, P - 1)) {
+      cls = FW_FULL;
+    } else {
+      bool hit = false;  // the vote: any own id equal to one of this lane's ids
+      for (int r = 0; r < FA_TILE; ++r) {
+        const int so = own_seg[r];
+        hit |= (so == xa) | (so == xc);
+      }
+      cls = __any_sync(VX_FULL_MASK, hit) ? FW_MASKED : -1;
+    }
+    if (lane == 0) tiles[t - t_lo] = cls;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int n = 0;
+    for (int t = t_lo; t < t_hi; ++t)
+      if (tiles[t - t_lo] >= 0) tiles[n++] = (t << 1) | tiles[t - t_lo];
+    *count = n;
+  }
+  __syncthreads();
+  return *count;
+}
+
 // Shared memory: Q tile, FW_STAGES K and V tiles (each 64 rows of 128 bytes,
 // 1024-byte aligned for the swizzle), the barriers (Q, then one per stage),
 // the query tile's segment ids, the count and list of key tiles to visit.
@@ -429,67 +498,17 @@ __global__ void __launch_bounds__(FW_THREADS)
     fw_tma_load(Qs, &qmap, bars, qpos, q0, h, b);
   }
 
-  // Classify the key tiles this tile can see (up to max(q0 + 64, P)), one
-  // warp per tile: FULL when every pair has equal ids and no pair is cut by
-  // the causal bound or T; skipped when no query id equals a key id (such a
-  // tile adds exactly 0 to every row); else MASKED, pair by pair.
+  // the key tiles this tile can see (up to max(q0 + 64, P)), classified
   const int kend = min(T_len, max(q0 + FA_TILE, P));
-  const int nk = (kend + FA_TILE - 1) / FA_TILE;
-  int qmin, qmax;
-  {
-    const int a = segq[lane], c = segq[lane + 32];
-    const bool ia = q0 + lane < T_len, ic = q0 + lane + 32 < T_len;
-    qmin = min(ia ? a : INT_MAX, ic ? c : INT_MAX);
-    qmax = max(ia ? a : INT_MIN, ic ? c : INT_MIN);
-#pragma unroll
-    for (int s = 16; s > 0; s >>= 1) {
-      qmin = min(qmin, __shfl_xor_sync(VX_FULL_MASK, qmin, s));
-      qmax = max(qmax, __shfl_xor_sync(VX_FULL_MASK, qmax, s));
-    }
-  }
-  const bool q_whole = q0 + FA_TILE <= T_len && qmin == qmax;
-  const int bound_lo = max(q0, P - 1);  // the least max(i, P - 1) of the tile's rows
-  for (int t = warp; t < nk; t += FW_THREADS / 32) {
-    const int k0 = t * FA_TILE;
-    const bool ia = k0 + lane < T_len, ic = k0 + lane + 32 < T_len;
-    const int ka = ia ? ksg[k0 + lane] : FA_PAD_K, kc = ic ? ksg[k0 + lane + 32] : FA_PAD_K;
-    int kmin = min(ia ? ka : INT_MAX, ic ? kc : INT_MAX);
-    int kmax = max(ia ? ka : INT_MIN, ic ? kc : INT_MIN);
-#pragma unroll
-    for (int s = 16; s > 0; s >>= 1) {
-      kmin = min(kmin, __shfl_xor_sync(VX_FULL_MASK, kmin, s));
-      kmax = max(kmax, __shfl_xor_sync(VX_FULL_MASK, kmax, s));
-    }
-    int cls = -1;  // skipped
-    if (kmax < qmin || kmin > qmax) {
-      cls = -1;
-    } else if (q_whole && kmin == kmax && kmin == qmin && k0 + FA_TILE <= T_len &&
-               k0 + FA_TILE - 1 <= bound_lo) {
-      cls = FW_FULL;
-    } else {
-      bool hit = false;  // the vote: any query id equal to one of this lane's key ids
-      for (int r = 0; r < FA_TILE; ++r) {
-        const int sq = segq[r];
-        hit |= (sq == ka) | (sq == kc);
-      }
-      cls = __any_sync(VX_FULL_MASK, hit) ? FW_MASKED : -1;
-    }
-    if (lane == 0) tiles[t] = cls;
-  }
-  __syncthreads();
-  if (tid == 0) {  // the visited tiles, in order, as (tile << 1 | class)
-    int n = 0;
-    for (int t = 0; t < nk; ++t)
-      if (tiles[t] >= 0) tiles[n++] = (t << 1) | tiles[t];
-    *count = n;
+  const int n = fa_visit(segq, true, q0, ksg, 0, (kend + FA_TILE - 1) / FA_TILE, T_len, P, tiles,
+                         count);
+  if (tid == 0) {
     for (int i = 0; i < min(n, FW_STAGES); ++i) {
       fw_bar_expect(bars + 1 + i, 2 * FW_TILE_BYTES);
       fw_tma_load(Ks + i * FW_TILE_BYTES, &kmap, bars + 1 + i, kvpos, (tiles[i] >> 1) * FA_TILE, h, b);
       fw_tma_load(Vs + i * FW_TILE_BYTES, &vmap, bars + 1 + i, kvpos, (tiles[i] >> 1) * FA_TILE, h, b);
     }
   }
-  __syncthreads();
-  const int n = *count;
 
   // this thread's rows of the accumulators: r0 and r0 + 8; its columns
   // 8 j + 2 tq + {0, 1}, j = 0..7 (wgmma's m64nNk16 fragment)
@@ -511,13 +530,10 @@ __global__ void __launch_bounds__(FW_THREADS)
     const uint32_t v_addr = fw_smem(Vs + stage * FW_TILE_BYTES);
     fw_bar_wait(bars + 1 + stage, (it / FW_STAGES) & 1);
 
-    // S = Q K^T, f32: four k-steps of 16 along the head dim (32 bytes
-    // further into each 128-byte swizzled row)
+    // S = Q K^T, f32
     float s[32];
     fw_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      fw_mma_ss(s, fw_desc(q_addr + 32 * kk, 16, 1024), fw_desc(k_addr + 32 * kk, 16, 1024), kk);
+    fw_mma_kk(s, q_addr, k_addr);
     fw_commit();
     fw_wait_all();
     fw_hold(s);
@@ -565,21 +581,12 @@ __global__ void __launch_bounds__(FW_THREADS)
     l0 = l0 * al0 + ps0;
     l1 = l1 * al1 + ps1;
 
-    // O += P V: p rounded to bf16 (the S fragment of keys 16 kk..16 kk + 15
-    // is the A fragment of k-step kk); V's k-step kk is 16 rows further on
+    // O += P V: p rounded to bf16 as the A operand, V MN-major
     uint32_t pa[4][4];
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      pa[kk][0] = fw_pack(s[8 * kk], s[8 * kk + 1]);
-      pa[kk][1] = fw_pack(s[8 * kk + 2], s[8 * kk + 3]);
-      pa[kk][2] = fw_pack(s[8 * kk + 4], s[8 * kk + 5]);
-      pa[kk][3] = fw_pack(s[8 * kk + 6], s[8 * kk + 7]);
-    }
+    fw_frag(pa, s);
     fw_hold(acc);
     fw_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      fw_mma_rs(acc, pa[kk], fw_desc(v_addr + 2048 * kk, 8192, 1024));
+    fw_mma_rk(acc, pa, v_addr);
     fw_commit();
     fw_wait_all();
     fw_hold(acc);
@@ -868,10 +875,374 @@ __global__ void __launch_bounds__(FA_THREADS)
 }
 
 // ---------------------------------------------------------------------------
+// The bf16 backward on the tensor cores (wgmma, TMA, mbarrier; sm_90a).
+//
+// Replaces the JAX library's Pallas backward kernels
+// (jax/experimental/pallas/ops/tpu/flash_attention.py:
+// _flash_attention_bwd_dq, :1287, and _flash_attention_bwd_dkv, :941) for
+// the bf16 calls of attention_core_flash (vallex_tpu/models/layers.py:205)
+// and attention_core_flash_prefix (:259). Bound on the H100 at the training
+// shapes (B = 4, H = 16, T = 1152, 29 M valid pairs at prefix 128): the
+// bytes, ~0.017 ms each (q, k, v, O, dO read once, the gradients written
+// once), ahead of the operations (6 * hd per valid pair for dQ, 8 * hd for
+// dK/dV: 11.1 and 14.8 GFLOP, 0.011 and 0.015 ms at 989 TFLOP/s; at prefix
+// T, 57 M pairs, the operations lead: 0.022 and 0.030 ms). What the design
+// does about it:
+//  - every product runs on the tensor cores, in the two wgmma forms of the
+//    forward, with no transpose through shared memory: S = Q K^T, dP = dO V^T
+//    (dQ kernel) and S^T = K Q^T, dP^T = V dO^T (dK/dV kernel) take both
+//    operands K-major from shared memory; dQ += dS K, dV += P^T dO and
+//    dK += dS^T Q take p or ds from registers (the f32 accumulator fragment
+//    of keys / queries 16 kk..16 kk + 15, rounded to bf16 pairs, is the A
+//    fragment of k-step kk) and B MN-major with the transpose bit. Computing
+//    S^T and dP^T directly is what puts p^T and ds^T in that fragment;
+//  - one warpgroup per block, as the forward: the dQ kernel per (query tile
+//    of 64, head, row) holds S, dP and dQ (96 f32 registers a thread), the
+//    dK/dV kernel per (key tile of 64, head, row) holds S^T, dP^T, dK and dV
+//    (128);
+//  - the tiles a block keeps (Q and dO, or K and V) come in once by TMA, the
+//    other side's through a ring of FW_STAGES stages with mbarrier
+//    completion, one thread refilling a stage once the warpgroup is done
+//    with it; TMA's zero fill covers the ragged last tile;
+//  - masked work is skipped as in the forward (fa_visit): the dQ kernel
+//    visits the key tiles the forward visits, the dK/dV kernel the query
+//    tiles from (k0 < P ? 0 : k0) on with the roles swapped; a tile without
+//    an equal id is never loaded, a FULL one uses its scores unmasked; a key
+//    tile no query tile reaches writes zeros;
+//  - no atomics: dQ is summed per query tile, dK and dV per key tile, each in
+//    the order of its tile list, so two runs are bitwise equal.
+// ---------------------------------------------------------------------------
+
+// p = exp(s * scale - lse) and ds = p (dp - di) scale for one pair in f32,
+// 0 where the pair is masked; s arrives unscaled, lse2 = lse * log2(e).
+// Leaves p in s and ds in dp.
+__device__ __forceinline__ void fb_pds(float& s, float& dp, bool ok, float lse2, float di,
+                                       float scale, float scale_log2) {
+  const float p = ok ? exp2f(fmaf(s, scale_log2, -lse2)) : 0.f;
+  dp = p * (dp - di) * scale;
+  s = p;
+}
+
+// the 64 x 64 accumulator fragment as bf16 rows [t0, t0 + 64) of a
+// contiguous [T, 64] slice, rows past T dropped
+__device__ __forceinline__ void fb_store(__nv_bfloat16* dst, const float (&x)[32], int r0, int tq,
+                                         int t0, int T_len) {
+  const int i0 = t0 + r0, i1 = i0 + 8;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int c = 8 * j + 2 * tq;
+    if (i0 < T_len)
+      *reinterpret_cast<__nv_bfloat162*>(dst + (long long)i0 * FA_HD + c) =
+          __floats2bfloat162_rn(x[4 * j], x[4 * j + 1]);
+    if (i1 < T_len)
+      *reinterpret_cast<__nv_bfloat162*>(dst + (long long)i1 * FA_HD + c) =
+          __floats2bfloat162_rn(x[4 * j + 2], x[4 * j + 3]);
+  }
+}
+
+// Shared memory of the dQ kernel: Q and dO tiles, FW_STAGES K and V tiles,
+// the barriers (Q + dO, then one per stage), the query tile's segment ids and
+// di, the count and list of key tiles to visit.
+#define FB_DQ_SMEM_FIXED \
+  (1024 + (2 + 2 * FW_STAGES) * FW_TILE_BYTES + 8 * (1 + FW_STAGES) + 8 * FA_TILE + 16)
+
+__global__ void __launch_bounds__(FW_THREADS)
+    flash_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap qmap,
+                           const __grid_constant__ CUtensorMap kmap,
+                           const __grid_constant__ CUtensorMap vmap,
+                           const __grid_constant__ CUtensorMap domap, FaTmaPos qpos,
+                           FaTmaPos kvpos, FaTmaPos dopos, const __nv_bfloat16* __restrict__ o,
+                           FaStrides os, const __nv_bfloat16* __restrict__ dout, FaStrides dos,
+                           const int* __restrict__ qseg, const int* __restrict__ kvseg,
+                           const float* __restrict__ lse, float* __restrict__ di_out,
+                           __nv_bfloat16* __restrict__ dq, int H, int T_len, int P, float scale) {
+  extern __shared__ unsigned char fw_raw[];
+  unsigned char* base = fw_raw + ((1024 - (fw_smem(fw_raw) & 1023)) & 1023);
+  unsigned char* Qs = base;
+  unsigned char* dOs = Qs + FW_TILE_BYTES;
+  unsigned char* Ks = dOs + FW_TILE_BYTES;
+  unsigned char* Vs = Ks + FW_STAGES * FW_TILE_BYTES;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(Vs + FW_STAGES * FW_TILE_BYTES);
+  int* segq = reinterpret_cast<int*>(bars + 1 + FW_STAGES);
+  float* di_s = reinterpret_cast<float*>(segq + FA_TILE);
+  int* count = reinterpret_cast<int*>(di_s + FA_TILE);
+  int* tiles = count + 4;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int q0 = blockIdx.x * FA_TILE, h = blockIdx.y, b = blockIdx.z;
+  const long long bh = (long long)b * H + h;
+  const int* qsg = qseg + (long long)b * T_len;
+  const int* ksg = kvseg + (long long)b * T_len;
+  const float scale_log2 = scale * 1.4426950408889634f;
+
+  if (tid < FA_TILE) segq[tid] = q0 + tid < T_len ? qsg[q0 + tid] : FA_PAD_Q;
+  if (tid == 0) {
+    for (int i = 0; i < 1 + FW_STAGES; ++i) fw_bar_init(bars + i);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {  // the query and dO tiles, once
+    fw_bar_expect(bars, 2 * FW_TILE_BYTES);
+    fw_tma_load(Qs, &qmap, bars, qpos, q0, h, b);
+    fw_tma_load(dOs, &domap, bars, dopos, q0, h, b);
+  }
+  // di = sum_c O[i, c] dO[i, c] in f32 from O as stored, two threads a row
+  // (16-byte loads: the wrapper checked the bases and strides)
+  {
+    const int r = tid >> 1, half = tid & 1, i = q0 + r;
+    float acc = 0.f;
+    if (i < T_len) {
+      const uint4* op =
+          reinterpret_cast<const uint4*>(o + b * os.b + h * os.h + i * os.t) + 4 * half;
+      const uint4* dp =
+          reinterpret_cast<const uint4*>(dout + b * dos.b + h * dos.h + i * dos.t) + 4 * half;
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        float x[8], y[8];
+        vx_bf16x8_to_f32(op[u], x);
+        vx_bf16x8_to_f32(dp[u], y);
+#pragma unroll
+        for (int c = 0; c < 8; ++c) acc = fmaf(x[c], y[c], acc);
+      }
+    }
+    acc += __shfl_xor_sync(VX_FULL_MASK, acc, 1);
+    if (half == 0) {
+      di_s[r] = acc;
+      if (i < T_len) di_out[bh * T_len + i] = acc;
+    }
+  }
+
+  // the key tiles the forward visits (up to max(q0 + 64, P)), classified
+  const int kend = min(T_len, max(q0 + FA_TILE, P));
+  const int n = fa_visit(segq, true, q0, ksg, 0, (kend + FA_TILE - 1) / FA_TILE, T_len, P, tiles,
+                         count);
+  if (tid == 0) {
+    for (int i = 0; i < min(n, FW_STAGES); ++i) {
+      const int t0 = (tiles[i] >> 1) * FA_TILE;
+      fw_bar_expect(bars + 1 + i, 2 * FW_TILE_BYTES);
+      fw_tma_load(Ks + i * FW_TILE_BYTES, &kmap, bars + 1 + i, kvpos, t0, h, b);
+      fw_tma_load(Vs + i * FW_TILE_BYTES, &vmap, bars + 1 + i, kvpos, t0, h, b);
+    }
+  }
+
+  // this thread's query rows r0 and r0 + 8, key columns 8 j + 2 tq + {0, 1}
+  const int r0 = warp * 16 + (lane >> 2), tq = lane & 3;
+  const int seg0 = segq[r0], seg1 = segq[r0 + 8];
+  const int i0 = q0 + r0, i1 = i0 + 8;
+  const int lim0 = max(i0, P - 1), lim1 = max(i1, P - 1);
+  const float lse0 = i0 < T_len ? lse[bh * T_len + i0] * 1.4426950408889634f : 0.f;
+  const float lse1 = i1 < T_len ? lse[bh * T_len + i1] * 1.4426950408889634f : 0.f;
+  const float di0 = di_s[r0], di1 = di_s[r0 + 8];
+  float acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+
+  const uint32_t q_addr = fw_smem(Qs), do_addr = fw_smem(dOs);
+  fw_bar_wait(bars, 0);  // (also when no tile is visited: the loads must land first)
+  for (int it = 0; it < n; ++it) {
+    const int stage = it % FW_STAGES;
+    const int e = tiles[it], k0 = (e >> 1) * FA_TILE;
+    const uint32_t k_addr = fw_smem(Ks + stage * FW_TILE_BYTES);
+    const uint32_t v_addr = fw_smem(Vs + stage * FW_TILE_BYTES);
+    fw_bar_wait(bars + 1 + stage, (it / FW_STAGES) & 1);
+
+    // S = Q K^T and dP = dO V^T, f32
+    float s[32], dp[32];
+    fw_fence();
+    fw_mma_kk(s, q_addr, k_addr);
+    fw_mma_kk(dp, do_addr, v_addr);
+    fw_commit();
+    fw_wait_all();
+    fw_hold(s);
+    fw_hold(dp);
+
+    // p and ds, 0 on the masked pairs of a MASKED tile
+    const bool masked = e & FW_MASKED;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int x = 0; x < 2; ++x) {
+        const int col = k0 + 8 * j + 2 * tq + x;
+        const int sk = masked && col < T_len ? ksg[col] : FA_PAD_K;
+        fb_pds(s[4 * j + x], dp[4 * j + x], !masked || (sk == seg0 && col <= lim0), lse0, di0,
+               scale, scale_log2);
+        fb_pds(s[4 * j + 2 + x], dp[4 * j + 2 + x], !masked || (sk == seg1 && col <= lim1), lse1,
+               di1, scale, scale_log2);
+      }
+
+    // dQ += dS K: ds rounded to bf16 as the A operand, K MN-major
+    uint32_t da[4][4];
+    fw_frag(da, dp);
+    fw_hold(acc);
+    fw_fence();
+    fw_mma_rk(acc, da, k_addr);
+    fw_commit();
+    fw_wait_all();
+    fw_hold(acc);
+
+    __syncthreads();  // every warp is done with this stage: refill it
+    if (tid == 0 && it + FW_STAGES < n) {
+      const int t0 = (tiles[it + FW_STAGES] >> 1) * FA_TILE;
+      fw_bar_expect(bars + 1 + stage, 2 * FW_TILE_BYTES);
+      fw_tma_load(Ks + stage * FW_TILE_BYTES, &kmap, bars + 1 + stage, kvpos, t0, h, b);
+      fw_tma_load(Vs + stage * FW_TILE_BYTES, &vmap, bars + 1 + stage, kvpos, t0, h, b);
+    }
+  }
+  fb_store(dq + bh * T_len * FA_HD, acc, r0, tq, q0, T_len);
+}
+
+// Shared memory of the dK/dV kernel: K and V tiles, FW_STAGES Q and dO
+// tiles, the barriers (K + V, then one per stage), the key tile's segment
+// ids, the count, two buffers of a query tile's segment ids, lse (log2
+// units) and di, and the list of query tiles to visit.
+#define FB_DKV_SMEM_FIXED                                                                  \
+  (1024 + (2 + 2 * FW_STAGES) * FW_TILE_BYTES + 8 * (1 + FW_STAGES) + 4 * FA_TILE + 16 + \
+   2 * 3 * 4 * FA_TILE)
+
+__global__ void __launch_bounds__(FW_THREADS)
+    flash_bwd_dkv_tc_kernel(const __grid_constant__ CUtensorMap qmap,
+                            const __grid_constant__ CUtensorMap kmap,
+                            const __grid_constant__ CUtensorMap vmap,
+                            const __grid_constant__ CUtensorMap domap, FaTmaPos qpos,
+                            FaTmaPos kvpos, FaTmaPos dopos, const int* __restrict__ qseg,
+                            const int* __restrict__ kvseg, const float* __restrict__ lse,
+                            const float* __restrict__ di, __nv_bfloat16* __restrict__ dk,
+                            __nv_bfloat16* __restrict__ dv, int H, int T_len, int P,
+                            float scale) {
+  extern __shared__ unsigned char fw_raw[];
+  unsigned char* base = fw_raw + ((1024 - (fw_smem(fw_raw) & 1023)) & 1023);
+  unsigned char* Ks = base;
+  unsigned char* Vs = Ks + FW_TILE_BYTES;
+  unsigned char* Qs = Vs + FW_TILE_BYTES;
+  unsigned char* dOs = Qs + FW_STAGES * FW_TILE_BYTES;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(dOs + FW_STAGES * FW_TILE_BYTES);
+  int* segk = reinterpret_cast<int*>(bars + 1 + FW_STAGES);
+  int* count = segk + FA_TILE;
+  int* cseg = count + 4;                                       // [2][64]
+  float* clse = reinterpret_cast<float*>(cseg + 2 * FA_TILE);  // [2][64]
+  float* cdi = clse + 2 * FA_TILE;                             // [2][64]
+  int* tiles = reinterpret_cast<int*>(cdi + 2 * FA_TILE);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int k0 = blockIdx.x * FA_TILE, h = blockIdx.y, b = blockIdx.z;
+  const long long bh = (long long)b * H + h;
+  const int* qsg = qseg + (long long)b * T_len;
+  const int* ksg = kvseg + (long long)b * T_len;
+  const float scale_log2 = scale * 1.4426950408889634f;
+
+  if (tid < FA_TILE) segk[tid] = k0 + tid < T_len ? ksg[k0 + tid] : FA_PAD_K;
+  if (tid == 0) {
+    for (int i = 0; i < 1 + FW_STAGES; ++i) fw_bar_init(bars + i);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {  // the key and value tiles, once
+    fw_bar_expect(bars, 2 * FW_TILE_BYTES);
+    fw_tma_load(Ks, &kmap, bars, kvpos, k0, h, b);
+    fw_tma_load(Vs, &vmap, bars, kvpos, k0, h, b);
+  }
+
+  // the query tiles that can see this key tile (rows below it only through
+  // the prefix, keys j < P), classified
+  const int nq = (T_len + FA_TILE - 1) / FA_TILE;
+  const int n =
+      fa_visit(segk, false, k0, qsg, k0 < P ? 0 : k0 / FA_TILE, nq, T_len, P, tiles, count);
+  if (tid == 0) {
+    for (int i = 0; i < min(n, FW_STAGES); ++i) {
+      const int t0 = (tiles[i] >> 1) * FA_TILE;
+      fw_bar_expect(bars + 1 + i, 2 * FW_TILE_BYTES);
+      fw_tma_load(Qs + i * FW_TILE_BYTES, &qmap, bars + 1 + i, qpos, t0, h, b);
+      fw_tma_load(dOs + i * FW_TILE_BYTES, &domap, bars + 1 + i, dopos, t0, h, b);
+    }
+  }
+  // a query tile's ids, lse and di into buffer buf (threads 0..63)
+  auto load_cols = [&](int buf, int q0) {
+    const int i = q0 + tid;
+    const bool in = i < T_len;
+    cseg[buf * FA_TILE + tid] = in ? qsg[i] : FA_PAD_Q;
+    clse[buf * FA_TILE + tid] = in ? lse[bh * T_len + i] * 1.4426950408889634f : 0.f;
+    cdi[buf * FA_TILE + tid] = in ? di[bh * T_len + i] : 0.f;
+  };
+  if (tid < FA_TILE && n > 0) load_cols(0, (tiles[0] >> 1) * FA_TILE);
+  __syncthreads();
+
+  // this thread's key rows r0 and r0 + 8, query columns 8 j + 2 tq + {0, 1}
+  const int r0 = warp * 16 + (lane >> 2), tq = lane & 3;
+  const int sk0 = segk[r0], sk1 = segk[r0 + 8];
+  const int j0 = k0 + r0, j1 = j0 + 8;
+  float dka[32], dva[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dka[i] = dva[i] = 0.f;
+
+  const uint32_t k_addr = fw_smem(Ks), v_addr = fw_smem(Vs);
+  fw_bar_wait(bars, 0);  // (also when no tile is visited: the loads must land first)
+  for (int it = 0; it < n; ++it) {
+    const int stage = it % FW_STAGES, buf = it & 1;
+    const int e = tiles[it], q0 = (e >> 1) * FA_TILE;
+    const uint32_t q_addr = fw_smem(Qs + stage * FW_TILE_BYTES);
+    const uint32_t do_addr = fw_smem(dOs + stage * FW_TILE_BYTES);
+    fw_bar_wait(bars + 1 + stage, (it / FW_STAGES) & 1);
+
+    // S^T = K Q^T and dP^T = V dO^T, f32; the next tile's columns load
+    // meanwhile (their buffer was last read before the previous barrier)
+    float st[32], dpt[32];
+    fw_fence();
+    fw_mma_kk(st, k_addr, q_addr);
+    fw_mma_kk(dpt, v_addr, do_addr);
+    fw_commit();
+    if (tid < FA_TILE && it + 1 < n) load_cols(buf ^ 1, (tiles[it + 1] >> 1) * FA_TILE);
+    fw_wait_all();
+    fw_hold(st);
+    fw_hold(dpt);
+
+    // p^T and ds^T, 0 on the masked pairs of a MASKED tile
+    const bool masked = e & FW_MASKED;
+    const int* cs = cseg + buf * FA_TILE;
+    const float* cl = clse + buf * FA_TILE;
+    const float* cd = cdi + buf * FA_TILE;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int x = 0; x < 2; ++x) {
+        const int c = 8 * j + 2 * tq + x, lim = max(q0 + c, P - 1), sq = cs[c];
+        fb_pds(st[4 * j + x], dpt[4 * j + x], !masked || (sq == sk0 && j0 <= lim), cl[c], cd[c],
+               scale, scale_log2);
+        fb_pds(st[4 * j + 2 + x], dpt[4 * j + 2 + x], !masked || (sq == sk1 && j1 <= lim), cl[c],
+               cd[c], scale, scale_log2);
+      }
+
+    // dV += P^T dO and dK += dS^T Q: p and ds rounded to bf16 as the A
+    // operands, dO and Q MN-major
+    uint32_t pa[4][4], da[4][4];
+    fw_frag(pa, st);
+    fw_frag(da, dpt);
+    fw_hold(dva);
+    fw_hold(dka);
+    fw_fence();
+    fw_mma_rk(dva, pa, do_addr);
+    fw_mma_rk(dka, da, q_addr);
+    fw_commit();
+    fw_wait_all();
+    fw_hold(dva);
+    fw_hold(dka);
+
+    __syncthreads();  // every warp is done with this stage: refill it
+    if (tid == 0 && it + FW_STAGES < n) {
+      const int t0 = (tiles[it + FW_STAGES] >> 1) * FA_TILE;
+      fw_bar_expect(bars + 1 + stage, 2 * FW_TILE_BYTES);
+      fw_tma_load(Qs + stage * FW_TILE_BYTES, &qmap, bars + 1 + stage, qpos, t0, h, b);
+      fw_tma_load(dOs + stage * FW_TILE_BYTES, &domap, bars + 1 + stage, dopos, t0, h, b);
+    }
+  }
+  fb_store(dk + bh * T_len * FA_HD, dka, r0, tq, k0, T_len);
+  fb_store(dv + bh * T_len * FA_HD, dva, r0, tq, k0, T_len);
+}
+
+// ---------------------------------------------------------------------------
 // Launchers. Strides arrive as three long longs (b, h, t) in elements; the
 // last stride is 1. Gradients and lse / di are contiguous [B, H, T(, 64)].
-// kind 0: f32, kind 1: bf16 (q, k, v, O, dO and the gradients alike). The
-// forward picks its kernel by kind: bf16 on the tensor cores, f32 on the
+// kind 0: f32, kind 1: bf16 (q, k, v, O, dO and the gradients alike). Each
+// launcher picks its kernel by kind: bf16 on the tensor cores, f32 on the
 // CUDA cores; neither stands in for the other.
 // ---------------------------------------------------------------------------
 
@@ -998,37 +1369,98 @@ static int fa_fwd_tc(const void* q, const long long* qs, const void* k, const vo
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-static cudaError_t fa_bwd_dq(const void* q, const long long* qs, const void* k, const void* v,
-                             const long long* kvs, const void* o, const long long* os,
-                             const void* dout, const long long* dos, const int* qseg,
-                             const int* kvseg, const float* lse, float* di, void* dq, int B,
-                             int H, int T_len, int P, float scale, cudaStream_t s) {
-  cudaError_t e = fa_allow_smem(flash_bwd_dq_kernel<T>, FA_DQ_SMEM);
+static size_t fa_bwd_dq_tc_smem(int T_len) {
+  return FB_DQ_SMEM_FIXED + (size_t)((T_len + FA_TILE - 1) / FA_TILE) * sizeof(int);
+}
+static size_t fa_bwd_dkv_tc_smem(int T_len) {
+  return FB_DKV_SMEM_FIXED + (size_t)((T_len + FA_TILE - 1) / FA_TILE) * sizeof(int);
+}
+
+// the tensor maps of q, k, v and dO for the bf16 backward; 1000 + its
+// CUresult when one is refused, else 0
+static int fa_bwd_maps(CUtensorMap* m, FaTmaPos* pos, const void* q, const long long* qs,
+                       const void* k, const void* v, const long long* kvs, const void* dout,
+                       const long long* dos, int B, int H, int T_len) {
+  CUresult r = fa_tensor_map(m, pos, q, qs, B, H, T_len);
+  if (r == CUDA_SUCCESS) r = fa_tensor_map(m + 1, pos + 1, k, kvs, B, H, T_len);
+  if (r == CUDA_SUCCESS) r = fa_tensor_map(m + 2, pos + 1, v, kvs, B, H, T_len);
+  if (r == CUDA_SUCCESS) r = fa_tensor_map(m + 3, pos + 2, dout, dos, B, H, T_len);
+  return r == CUDA_SUCCESS ? 0 : 1000 + (int)r;
+}
+
+// the bf16 dQ kernel on the tensor cores
+static int fa_bwd_dq_tc(const void* q, const long long* qs, const void* k, const void* v,
+                        const long long* kvs, const void* o, const long long* os, const void* dout,
+                        const long long* dos, const int* qseg, const int* kvseg, const float* lse,
+                        float* di, void* dq, int B, int H, int T_len, int P, float scale,
+                        cudaStream_t s) {
+  CUtensorMap m[4];
+  FaTmaPos pos[3];
+  const int rc = fa_bwd_maps(m, pos, q, qs, k, v, kvs, dout, dos, B, H, T_len);
+  if (rc != 0) return rc;
+  const size_t smem = fa_bwd_dq_tc_smem(T_len);
+  if (smem > 232448) return (int)cudaErrorInvalidValue;
+  cudaError_t e = fa_allow_smem(flash_bwd_dq_tc_kernel, smem);
+  if (e != cudaSuccess) return (int)e;
+  flash_bwd_dq_tc_kernel<<<dim3((T_len + FA_TILE - 1) / FA_TILE, H, B), FW_THREADS, smem, s>>>(
+      m[0], m[1], m[2], m[3], pos[0], pos[1], pos[2],
+      reinterpret_cast<const __nv_bfloat16*>(o), fa_strides(os),
+      reinterpret_cast<const __nv_bfloat16*>(dout), fa_strides(dos), qseg, kvseg, lse, di,
+      reinterpret_cast<__nv_bfloat16*>(dq), H, T_len, P, scale);
+  return (int)cudaGetLastError();
+}
+
+// the bf16 dK/dV kernel on the tensor cores
+static int fa_bwd_dkv_tc(const void* q, const long long* qs, const void* k, const void* v,
+                         const long long* kvs, const void* dout, const long long* dos,
+                         const int* qseg, const int* kvseg, const float* lse, const float* di,
+                         void* dk, void* dv, int B, int H, int T_len, int P, float scale,
+                         cudaStream_t s) {
+  CUtensorMap m[4];
+  FaTmaPos pos[3];
+  const int rc = fa_bwd_maps(m, pos, q, qs, k, v, kvs, dout, dos, B, H, T_len);
+  if (rc != 0) return rc;
+  const size_t smem = fa_bwd_dkv_tc_smem(T_len);
+  if (smem > 232448) return (int)cudaErrorInvalidValue;
+  cudaError_t e = fa_allow_smem(flash_bwd_dkv_tc_kernel, smem);
+  if (e != cudaSuccess) return (int)e;
+  flash_bwd_dkv_tc_kernel<<<dim3((T_len + FA_TILE - 1) / FA_TILE, H, B), FW_THREADS, smem, s>>>(
+      m[0], m[1], m[2], m[3], pos[0], pos[1], pos[2], qseg, kvseg, lse, di,
+      reinterpret_cast<__nv_bfloat16*>(dk), reinterpret_cast<__nv_bfloat16*>(dv), H, T_len, P,
+      scale);
+  return (int)cudaGetLastError();
+}
+
+static cudaError_t fa_bwd_dq_f32(const void* q, const long long* qs, const void* k,
+                                 const void* v, const long long* kvs, const void* o,
+                                 const long long* os, const void* dout, const long long* dos,
+                                 const int* qseg, const int* kvseg, const float* lse, float* di,
+                                 void* dq, int B, int H, int T_len, int P, float scale,
+                                 cudaStream_t s) {
+  cudaError_t e = fa_allow_smem(flash_bwd_dq_kernel<float>, FA_DQ_SMEM);
   if (e != cudaSuccess) return e;
   const dim3 grid((T_len + FA_TILE - 1) / FA_TILE, H, B);
-  flash_bwd_dq_kernel<T><<<grid, FA_THREADS, FA_DQ_SMEM, s>>>(
-      reinterpret_cast<const T*>(q), fa_strides(qs), reinterpret_cast<const T*>(k),
-      reinterpret_cast<const T*>(v), fa_strides(kvs), reinterpret_cast<const T*>(o),
-      fa_strides(os), reinterpret_cast<const T*>(dout), fa_strides(dos), qseg, kvseg, lse, di,
-      reinterpret_cast<T*>(dq), H, T_len, P, scale);
+  flash_bwd_dq_kernel<float><<<grid, FA_THREADS, FA_DQ_SMEM, s>>>(
+      reinterpret_cast<const float*>(q), fa_strides(qs), reinterpret_cast<const float*>(k),
+      reinterpret_cast<const float*>(v), fa_strides(kvs), reinterpret_cast<const float*>(o),
+      fa_strides(os), reinterpret_cast<const float*>(dout), fa_strides(dos), qseg, kvseg, lse,
+      di, reinterpret_cast<float*>(dq), H, T_len, P, scale);
   return cudaGetLastError();
 }
 
-template <typename T>
-static cudaError_t fa_bwd_dkv(const void* q, const long long* qs, const void* k, const void* v,
-                              const long long* kvs, const void* dout, const long long* dos,
-                              const int* qseg, const int* kvseg, const float* lse,
-                              const float* di, void* dk, void* dv, int B, int H, int T_len,
-                              int P, float scale, cudaStream_t s) {
-  cudaError_t e = fa_allow_smem(flash_bwd_dkv_kernel<T>, FA_DKV_SMEM);
+static cudaError_t fa_bwd_dkv_f32(const void* q, const long long* qs, const void* k,
+                                  const void* v, const long long* kvs, const void* dout,
+                                  const long long* dos, const int* qseg, const int* kvseg,
+                                  const float* lse, const float* di, void* dk, void* dv, int B,
+                                  int H, int T_len, int P, float scale, cudaStream_t s) {
+  cudaError_t e = fa_allow_smem(flash_bwd_dkv_kernel<float>, FA_DKV_SMEM);
   if (e != cudaSuccess) return e;
   const dim3 grid((T_len + FA_TILE - 1) / FA_TILE, H, B);
-  flash_bwd_dkv_kernel<T><<<grid, FA_THREADS, FA_DKV_SMEM, s>>>(
-      reinterpret_cast<const T*>(q), fa_strides(qs), reinterpret_cast<const T*>(k),
-      reinterpret_cast<const T*>(v), fa_strides(kvs), reinterpret_cast<const T*>(dout),
-      fa_strides(dos), qseg, kvseg, lse, di, reinterpret_cast<T*>(dk), reinterpret_cast<T*>(dv),
-      H, T_len, P, scale);
+  flash_bwd_dkv_kernel<float><<<grid, FA_THREADS, FA_DKV_SMEM, s>>>(
+      reinterpret_cast<const float*>(q), fa_strides(qs), reinterpret_cast<const float*>(k),
+      reinterpret_cast<const float*>(v), fa_strides(kvs), reinterpret_cast<const float*>(dout),
+      fa_strides(dos), qseg, kvseg, lse, di, reinterpret_cast<float*>(dk),
+      reinterpret_cast<float*>(dv), H, T_len, P, scale);
   return cudaGetLastError();
 }
 
@@ -1047,8 +1479,11 @@ extern "C" int vx_flash_attention_fwd(const void* q, const long long* qs, const 
   return fa_fwd_tc(q, qs, k, v, kvs, qsg, ksg, o, os, l, B, H, T_len, P, scale, s);
 }
 
-// the bf16 forward's dynamic shared memory per block at this T, in bytes
+// the bf16 kernels' dynamic shared memory per block at this T, in bytes
 extern "C" int vx_flash_attention_fwd_smem(int T_len) { return (int)fa_fwd_tc_smem(T_len); }
+extern "C" int vx_flash_attention_bwd_smem(int T_len, int dkv) {
+  return (int)(dkv ? fa_bwd_dkv_tc_smem(T_len) : fa_bwd_dq_tc_smem(T_len));
+}
 
 extern "C" int vx_flash_attention_bwd_dq(const void* q, const long long* qs, const void* k,
                                          const void* v, const long long* kvs, const void* o,
@@ -1064,10 +1499,10 @@ extern "C" int vx_flash_attention_bwd_dq(const void* q, const long long* qs, con
   const float* l = reinterpret_cast<const float*>(lse);
   float* d = reinterpret_cast<float*>(di);
   if (kind == 0)
-    return (int)fa_bwd_dq<float>(q, qs, k, v, kvs, o, os, dout, dos, qsg, ksg, l, d, dq, B, H,
-                                 T_len, P, scale, s);
-  return (int)fa_bwd_dq<__nv_bfloat16>(q, qs, k, v, kvs, o, os, dout, dos, qsg, ksg, l, d, dq,
-                                       B, H, T_len, P, scale, s);
+    return (int)fa_bwd_dq_f32(q, qs, k, v, kvs, o, os, dout, dos, qsg, ksg, l, d, dq, B, H, T_len,
+                              P, scale, s);
+  return fa_bwd_dq_tc(q, qs, k, v, kvs, o, os, dout, dos, qsg, ksg, l, d, dq, B, H, T_len, P,
+                      scale, s);
 }
 
 extern "C" int vx_flash_attention_bwd_dkv(const void* q, const long long* qs, const void* k,
@@ -1083,8 +1518,8 @@ extern "C" int vx_flash_attention_bwd_dkv(const void* q, const long long* qs, co
   const float* l = reinterpret_cast<const float*>(lse);
   const float* d = reinterpret_cast<const float*>(di);
   if (kind == 0)
-    return (int)fa_bwd_dkv<float>(q, qs, k, v, kvs, dout, dos, qsg, ksg, l, d, dk, dv, B, H,
-                                  T_len, P, scale, s);
-  return (int)fa_bwd_dkv<__nv_bfloat16>(q, qs, k, v, kvs, dout, dos, qsg, ksg, l, d, dk, dv, B,
-                                        H, T_len, P, scale, s);
+    return (int)fa_bwd_dkv_f32(q, qs, k, v, kvs, dout, dos, qsg, ksg, l, d, dk, dv, B, H, T_len,
+                               P, scale, s);
+  return fa_bwd_dkv_tc(q, qs, k, v, kvs, dout, dos, qsg, ksg, l, d, dk, dv, B, H, T_len, P,
+                       scale, s);
 }

@@ -22,10 +22,12 @@ dtype and the row log-sum-exp [B, H, T] f32; the backward takes both and
 dO and returns dq, dk, dv in the inputs' dtype. Rows without a valid key
 give a zero output, lse 0 and zero gradients.
 
-On the card the forward picks its kernel by dtype: bf16 runs on the tensor
-cores (its q/k/v are read by TMA, so their base addresses and strides must
-be multiples of 16 bytes; the wrapper raises otherwise), f32 on the CUDA
-cores. `FlashAttention` is the autograd.Function; CPU tensors take the
+On the card each kernel is picked by dtype: bf16 runs on the tensor cores
+(the forward and both backward kernels; they read q/k/v and dO by TMA, so
+their base addresses and strides, and those of O for the dQ kernel, must be
+multiples of 16 bytes: the wrappers raise otherwise), f32 on the CUDA
+cores. `FlashAttention` is the autograd.Function; its backward makes the
+incoming gradient contiguous when it breaks that rule. CPU tensors take the
 plain versions, CUDA tensors launch the kernels or raise. Launch counts:
 the forward at its caller's site (`flash_attention_prefix` for the AR
 training mask, `flash_attention_train` for the NAR's and packed
@@ -148,16 +150,22 @@ def _check(q, k, v, q_seg, kv_seg, prefix: int, name: str) -> int:
     return kind
 
 
-def _check_tma(*ts) -> None:
-    """The tensor-core forward reads q/k/v by TMA: each base address and
-    each stride of a dim longer than 1 must be a multiple of 16 bytes (the
-    views of the fused QKV product are)."""
+def _tma_ok(t: torch.Tensor) -> bool:
+    """The base address and each stride of a dim longer than 1 are
+    multiples of 16 bytes (TMA's rule; the views of the fused QKV product
+    and a transposed dO meet it)."""
+    es = t.element_size()
+    return t.data_ptr() % 16 == 0 and all(st * es % 16 == 0 for st, n in zip(t.stride(), t.shape)
+                                          if n > 1 and st != 1)
+
+
+def _check_tma(*ts, name: str = "flash_attention") -> None:
+    """Raise unless every tensor meets `_tma_ok` (the bf16 kernels read them
+    by TMA or in 16-byte loads)."""
     for t in ts:
-        es = t.element_size()
-        if t.data_ptr() % 16 or any(st * es % 16 for st, n in zip(t.stride(), t.shape)
-                                    if n > 1 and st != 1):
-            raise ValueError("flash_attention: bf16 q/k/v need 16-byte aligned base addresses"
-                             f" and strides, got strides {t.stride()} at {t.data_ptr():#x}")
+        if not _tma_ok(t):
+            raise ValueError(f"{name}: bf16 tensors need 16-byte aligned base addresses and"
+                             f" strides, got strides {t.stride()} at {t.data_ptr():#x}")
 
 
 def flash_attention_fwd(q, k, v, q_seg, kv_seg, prefix: int, *, site: str = ""
@@ -201,6 +209,8 @@ def flash_attention_bwd_dq(q, k, v, q_seg, kv_seg, prefix: int, out, lse, dout
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dq, di) from the dQ kernel (CUDA tensors only)."""
     kind = _check_bwd(q, k, v, q_seg, kv_seg, prefix, lse, "flash_attention_bwd_dq", out, dout)
+    if q.dtype == torch.bfloat16:
+        _check_tma(q, k, v, out, dout, name="flash_attention_bwd_dq")
     B, H, T, hd = q.shape
     di = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
     dq = torch.empty((B, H, T, hd), dtype=q.dtype, device=q.device)
@@ -219,6 +229,8 @@ def flash_attention_bwd_dkv(q, k, v, q_seg, kv_seg, prefix: int, dout, lse, di
     """(dk, dv) from the dK/dV kernel (CUDA tensors only), given the dQ
     kernel's di; both on q's stream, so it runs after that kernel."""
     kind = _check_bwd(q, k, v, q_seg, kv_seg, prefix, lse, "flash_attention_bwd_dkv", dout)
+    if q.dtype == torch.bfloat16:
+        _check_tma(q, k, v, dout, name="flash_attention_bwd_dkv")
     B, H, T, hd = q.shape
     if di.shape != (B, H, T) or di.dtype != torch.float32 or not di.is_contiguous():
         raise ValueError(f"flash_attention_bwd_dkv: di must be contiguous [{B}, {H}, {T}] f32")
@@ -236,7 +248,8 @@ def flash_attention_bwd_dkv(q, k, v, q_seg, kv_seg, prefix: int, dout, lse, di
 def flash_attention_bwd(q, k, v, q_seg, kv_seg, prefix: int, out, lse, dout
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv): the plain version on the CPU; on the card the dQ kernel
-    (which also writes di) then the dK/dV kernel."""
+    (which also writes di) then the dK/dV kernel, both on the tensor cores
+    in bf16 and on the CUDA cores in f32."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, q_seg, kv_seg, prefix, out, lse, dout)
     dq, di = flash_attention_bwd_dq(q, k, v, q_seg, kv_seg, prefix, out, lse, dout)
@@ -258,7 +271,7 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, q_seg, kv_seg, out, lse = ctx.saved_tensors
-        if dout.stride(-1) != 1:
+        if dout.stride(-1) != 1 or not _tma_ok(dout):  # a layout rule of the kernels
             dout = dout.contiguous()
         dq, dk, dv = flash_attention_bwd(q, k, v, q_seg, kv_seg, ctx.prefix, out, lse, dout)
         return dq, dk, dv, None, None, None, None
