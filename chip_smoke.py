@@ -13,7 +13,9 @@ Phases, one flushed line each with its own seconds and wall-clock limit:
      SASS, cuobjdump; none fails)
   3  each kernel against its plain version, at each single-request site
      (the NAR attention: the flash forward with the NAR's segments (ok, ok)
-     at T = 2304); masked_attention refuses Tq = 16 on the card
+     at T = 2304); masked_attention at Tq = 16 (a verify pass at
+     decode_steps = 16); the prep kernel of gemm_small_m (the LayerNorm
+     rows of one verify pass); every product run twice, bitwise equal
   3b the same at the batched sites: decode attention with per-row bounds
      (B = 4), the NAR attention at B = 4, the products of one batched step
      at M = 4 and 8 (bf16 and int8, each row equal to its M = 1 product),
@@ -22,13 +24,22 @@ Phases, one flushed line each with its own seconds and wall-clock limit:
      (top_k 10 / 50, top_p 0.9 / 0.5, 1 and 20 rows), the grouped decode
      attention (1 request x 5 samples, 4 x 5), the products at M = 16 and
      20, and the f32 products and attention (compute_dtype="float32")
+  3f head dim 128 (d_model 1024, 8 heads, random weights from seed 0):
+     the decode attention (draft step, verify pass, 16 queries, int8 K/V
+     own column) and phase 3e's training attention against their plain
+     versions; decode_block_fused and decode_verify against the CPU; one
+     f32 and one bf16 train_step through the kernels and total_loss
+     against the mask route; a greedy generate_audio (the hd-128 rows'
+     launches are counted here)
   4  the ports of decode_block_fused (int8, K-1 = 7) and decode_verify
-     (bf16, K = 8) against the same ops on the CPU (the plain versions)
+     (bf16, K = 8 and K = 16) against the same ops on the CPU (the plain
+     versions)
   4b the batched decode_block_fused (K = 8, B = 4, bf16 and int8) against
      each row run alone from the same prefilled caches
   3d the same for the int8 KV cache, w8a8 and the single steps: the W8A8
      products (M = 1, 4, 8, 16, 20; cast-prologue products bitwise equal
-     to the plain version), the int8 K/V attention in its own-column mode
+     to the plain version; the W8A8 prep kernel's codes and scales), the
+     int8 K/V attention in its own-column mode
      (single, batched B = 4, grouped 4 x 5) and the own-column mode over a
      bf16 cache (decode_attention, decode_step, decode_step_fused), the
      written column bitwise the plain version's; the products and the
@@ -49,7 +60,8 @@ Phases, one flushed line each with its own seconds and wall-clock limit:
      generate_audio with best_of=5 and with top_k=50, top_p=0.9; the
      batch of 4 with best_of=5 (20 rows) and filtered; a greedy batch of
      16 against the batch of its first 4; long text in both modes; an f32
-     greedy request through the kernels against the plain path on the CPU;
+     greedy request through the kernels against the plain path on the CPU,
+     also at decode_steps=16 (64 frames); bf16 requests at decode_steps=16;
      POST /synthesize-long and a best_of=2 POST; the CLI in a subprocess
   5e the int8 KV cache, w8a8, decode_steps=1 and decode_mode="pallas":
      generate_audio in w8a8 and int8kv (greedy, sampled; int8kv best_of=5);
@@ -74,7 +86,7 @@ Phases, one flushed line each with its own seconds and wall-clock limit:
      (its bf16 backward must run on the tensor-core kernels alone)
   7  torch.profiler traces of one request and of one batch of 4: the
      device-busy share of their AR, NAR and Vocos spans, and the AR's
-     device time by kernel
+     device time by kernel and that of gemm_small_m's kernels
   8  the `kernels` JSON line, then the result line.
 Launch counts are zeroed just before phase 5 and read after phase 6 (the
 single-request path), zeroed again just before phase 5b and read after
@@ -136,6 +148,11 @@ TPU = {  # TPU kernel each main-path site stands for (file:line of the function)
     "flash_attention_train": "vallex_tpu/models/layers.py:205",
     "flash_attention_bwd": "vallex_tpu/models/layers.py:205",
 }
+# the same kernels at head dim 128 (phase 3f; their launches are counted there)
+HD128 = "_hd128"
+TPU.update({site + HD128: TPU[site] for site in (
+    "decode_block_fused", "decode_verify", "flash_attention_prefix", "flash_attention_train",
+    "flash_attention_bwd")})
 BATCHED_SITES = ("decode_block_fused_batched", "flash_attention_batched")
 SLICE3_SITES = ("decode_block_fused_filtered", "decode_block_fused_beams",
                 "decode_block_fused_grouped")
@@ -143,7 +160,7 @@ SLICE4_SITES = ("decode_block_fused_w8a8", "decode_block_fused_int8kv", "decode_
                 "decode_step_fused", "decode_attention")
 SLICE5_SITES = ("flash_attention_prefix", "flash_attention_train", "flash_attention_bwd")
 KERNEL_FILE = {"flash_attention_fwd": "flash_attention", "flash_attention_bwd_dq": "flash_attention",
-               "flash_attention_bwd_dkv": "flash_attention"}
+               "flash_attention_bwd_dkv": "flash_attention", "gemm_small_m_prep": "gemm_small_m"}
 
 
 def say(msg: str) -> None:
@@ -239,6 +256,12 @@ def trace_run(label: str, run) -> None:
             by_name[n] = by_name.get(n, 0.0) + (b - a) / 1e3
     out["ar_device_ms_by_kernel"] = {n[:80]: round(t, 3) for n, t in
                                      sorted(by_name.items(), key=lambda kv: -kv[1])[:8]}
+    # every kernel of gemm_small_m (its prep, products and f32 kind); with
+    # programmatic dependent launch a product's span includes its wait
+    gemm = {n: t for n, t in by_name.items() if n.replace("void ", "").startswith("gemm_")}
+    out["ar_gemm_small_m_device_ms"] = round(sum(gemm.values()), 3)
+    out["ar_gemm_small_m_busy_ms"] = round(busy_ms(
+        [(a, b) for a, b, n in device if b > lo and a < hi and n in gemm], lo, hi), 3)
     say("trace " + json.dumps(out))
 
 
@@ -353,7 +376,18 @@ def train_segments(layout: str, B: int, T: int, s_text: int, dev):
     return seg.to(dev)
 
 
-def train_kernel_checks(dev, entry, device_ms, g) -> None:
+def utterances(seed, lens_t, lens_a):
+    """Random utterances (text ids, 8 codebooks of audio) as the dataset yields them."""
+    import numpy as np
+
+    r = np.random.RandomState(seed)
+    return [dict(utt_id=f"u{i}", text_tokens=r.randint(5, 99, (t,)), text_tokens_lens=t,
+                 language=0, audio_features=r.randint(0, 1024, (8, a)),
+                 audio_features_lens=a)
+            for i, (t, a) in enumerate(zip(lens_t, lens_a))]
+
+
+def train_kernel_checks(dev, entry, device_ms, g, H=16, hd=64, suffix="") -> None:
     """Phase 3e: the flash forward, dQ and dK/dV kernels against their plain
     versions at the training shapes (B = 4, H = 16, T = 1152 = text 128 +
     audio 1024, hd 64), bf16 and f32, one padded segment per row and four
@@ -363,7 +397,9 @@ def train_kernel_checks(dev, entry, device_ms, g) -> None:
     q/k/v as the strided views of a fused [B, T, 3 H 64] QKV product (as the
     training layers pass them) with dO a transposed view; two backward runs
     bitwise equal in every case. Times the backward at P = 128 (rows y, z)
-    and at P = T (rows yT, zT) against SDPA's whole backward."""
+    and at P = T (rows yT, zT) against SDPA's whole backward. H and hd: the
+    same at head dim 128 (H = 8; bf16 then runs the CUDA-core kernels), its
+    rows at the sites + suffix."""
     import torch
     import torch.nn.functional as Fn
 
@@ -373,7 +409,7 @@ def train_kernel_checks(dev, entry, device_ms, g) -> None:
         flash_attention_fwd, flash_attention_plain, valid_pairs,
     )
 
-    B, H, S, hd = 4, 16, 128, 64
+    B, S = 4, 128
 
     def inputs(dt, T, fused):
         """q, k, v, dO [B, H, T, hd]: contiguous, or (fused) q/k/v as views
@@ -430,12 +466,12 @@ def train_kernel_checks(dev, entry, device_ms, g) -> None:
         seg_bytes, row_bytes = 2 * B * T * 4, B * H * T * 4
         rate = BF16_OPS_PER_S if bf else F32_OPS_PER_S
         in_line = bf and layout == "padded"
-        what = (f"B={B}, H={H}, T={T}, {str(dt)[6:]}, {layout}, prefix {P},"
+        what = (f"B={B}, H={H}, hd={hd}, T={T}, {str(dt)[6:]}, {layout}, prefix {P},"
                 f" {pairs} valid pairs")
         mask = valid_pairs(seg, seg, P)[:, None]
         lib_fwd = device_ms(lambda: Fn.scaled_dot_product_attention(q, k, v, attn_mask=mask))
         entry("flash_attention_fwd",
-              "flash_attention_prefix" if P == S else "flash_attention_train", err_o,
+              ("flash_attention_prefix" if P == S else "flash_attention_train") + suffix, err_o,
               device_ms(lambda: flash_attention_fwd(q, k, v, seg, seg, P)),
               device_ms(lambda: flash_attention_plain(q, k, v, seg, seg, P)),
               4 * n * es + row_bytes + seg_bytes, 4 * hd * pairs, lib_fwd,
@@ -452,14 +488,14 @@ def train_kernel_checks(dev, entry, device_ms, g) -> None:
             Fn.scaled_dot_product_attention(qr, kr, vr, attn_mask=mask), (qr, kr, vr),
             do)) - lib_fwd
         dq, di = flash_attention_bwd_dq(q, k, v, seg, seg, P, o, lse, do)
-        entry("flash_attention_bwd_dq", "flash_attention_bwd", err[0],
+        entry("flash_attention_bwd_dq", "flash_attention_bwd" + suffix, err[0],
               device_ms(lambda: flash_attention_bwd_dq(q, k, v, seg, seg, P, o, lse, do)),
               device_ms(lambda: flash_attention_bwd_dq_plain(q, k, v, seg, seg, P, o, lse,
                                                              do)),
               6 * n * es + 2 * row_bytes + seg_bytes, 6 * hd * pairs, lib_bwd,
               f"1 launch: dq and di, {what}; library: SDPA's whole backward{row}", in_line,
               rate)
-        entry("flash_attention_bwd_dkv", "flash_attention_bwd", max(err[1:]),
+        entry("flash_attention_bwd_dkv", "flash_attention_bwd" + suffix, max(err[1:]),
               device_ms(lambda: flash_attention_bwd_dkv(q, k, v, seg, seg, P, do, lse, di)),
               device_ms(lambda: flash_attention_bwd_dkv_plain(q, k, v, seg, seg, P, o, lse,
                                                               do)),
@@ -467,6 +503,57 @@ def train_kernel_checks(dev, entry, device_ms, g) -> None:
               f"1 launch: dk and dv, {what}; library: SDPA's whole backward{row}", in_line,
               rate)
         del qr, kr, vr, mask
+
+
+def train_head_dim(dev, cfg) -> None:
+    """Phase 3f's training half at cfg's head dim: one train_step in f32 and
+    one in bf16 through the flash kernels, then total_loss through the
+    kernels against the mask route in f32 (loss, gradient cosine per leaf,
+    held as phase 5f holds them)."""
+    import numpy as np
+    import torch
+
+    from vallex_tpu_torch.convert import load_tree
+    from vallex_tpu_torch.data.dataset import collate
+    from vallex_tpu_torch.models.vallex import VALLE, init_vallex
+    from vallex_tpu_torch.train import loss as TLoss
+    from vallex_tpu_torch.train import step as TStep
+    from vallex_tpu_torch.train.trainer import to_device
+
+    model = load_tree(VALLE(cfg), init_vallex(cfg, torch.Generator().manual_seed(0)),
+                      dtype=torch.float32, device=dev)
+    batch = to_device(collate(utterances(0, TRAIN_TEXT, TRAIN_AUDIO)), dev)
+    opt = TStep.make_optimizer(base_lr=1e-4)
+    state = TStep.init_train_state(model, opt)
+    losses = {}
+    for dt in ("float32", "bfloat16"):
+        state, met = TStep.train_step(state, batch, torch.Generator().manual_seed(42), cfg=cfg,
+                                      optimizer=opt, dtype=dt, use_flash=True)
+        losses[dt] = float(met["loss"])
+    if not np.isfinite(list(losses.values())).all():
+        fail(f"3f train_step at head dim {cfg.head_dim}: losses {losses}")
+
+    def loss_and_grads(use_flash):
+        model.zero_grad(set_to_none=True)
+        loss, _ = TLoss.total_loss(model, cfg, batch, torch.Generator().manual_seed(7),
+                                   torch.float32, 1, use_flash)
+        loss.backward()
+        return float(loss.detach()), [torch.cat([p.grad.float().flatten() for p in leaf.params])
+                                      for leaf in state.leaves]
+
+    (lk, gk), (lm, gm) = loss_and_grads(True), loss_and_grads(False)
+    cos = []
+    for a, b in zip(gk, gm):
+        na, nb = float(a.norm()), float(b.norm())
+        cos.append(1.0 if na == nb == 0 else float(a @ b) / max(na * nb, 1e-30))
+    if not (abs(lk - lm) <= 1e-2 * abs(lm) and min(cos) >= 0.999):
+        fail(f"3f kernels vs mask route at head dim {cfg.head_dim}: loss {lk} vs {lm},"
+             f" gradient cosine {min(cos)}")
+    say(f"  train_step at head dim {cfg.head_dim} (flash, batch of 4): loss f32 {losses['float32']:.4f},"
+        f" bf16 {losses['bfloat16']:.4f}; total_loss through the kernels vs the mask route, f32:"
+        f" loss {lk:.5f} vs {lm:.5f}, gradient cosine >= {min(cos):.6f} over {len(cos)} leaves")
+    del model, state, opt, batch
+    torch.cuda.empty_cache()
 
 
 def train_path(dev, cfg) -> None:
@@ -487,13 +574,6 @@ def train_path(dev, cfg) -> None:
     from vallex_tpu_torch.train import step as TStep
     from vallex_tpu_torch.train.scaled_adam import eden_schedule, scaled_adam
     from vallex_tpu_torch.train.trainer import to_device
-
-    def utterances(seed, lens_t, lens_a):
-        r = np.random.RandomState(seed)
-        return [dict(utt_id=f"u{i}", text_tokens=r.randint(5, 99, (t,)), text_tokens_lens=t,
-                     language=0, audio_features=r.randint(0, 1024, (8, a)),
-                     audio_features_lens=a)
-                for i, (t, a) in enumerate(zip(lens_t, lens_a))]
 
     model = load_tree(VALLE(cfg), init_vallex(cfg, torch.Generator().manual_seed(0)),
                       dtype=torch.float32, device=dev)
@@ -670,6 +750,7 @@ def main() -> None:
         gemm_small_m, gemm_small_m_plain, loader, masked_attention,
         masked_attention_plain, sample_epilogue, sample_epilogue_plain,
     )
+    from vallex_tpu_torch.kernels.gemm_small_m import gemm_prep, gemm_prep_plain
     from vallex_tpu_torch.kernels.flash_attention import (
         flash_attention_fwd, flash_attention_plain, valid_pairs,
     )
@@ -827,8 +908,12 @@ def main() -> None:
         err = 0.0
         for x, w, kw in calls:
             yk = gemm_small_m(x, w, site="check", **kw)
+            again = gemm_small_m(x, w, site="check", **kw)
             yp = gemm_small_m_plain(x, w, **kw)
             torch.cuda.synchronize()
+            if not torch.equal(yk, again):
+                # fixed-order sums, no atomics (gemm_small_m.cu)
+                fail(f"gemm_small_m@{site}: two runs differ for w {tuple(w.shape)}, M={M}")
             scale = max(1.0, float(yp.abs().max()))
             e = float((yk - yp).abs().max())
             # activations are rounded to bf16 (int8 with act_quant) after an
@@ -884,6 +969,59 @@ def main() -> None:
                  else ("f32" if f32 else "bf16"))
         entry("gemm_small_m", site, err, ms, pms, nbytes, ops, lib_ms,
               f"{unit}: {len(calls)} products, M={M}, {wname} weights", in_line, rate)
+
+    def check_prep(site, lw, M, act_quant, in_line=True):
+        """The prep kernel of gemm_small_m (the prologue once per product)
+        against its plain version, on the prologues of one decode step: the
+        LayerNorm rows of QKV, FFN1 and the head, and with act_quant also
+        the cast rows of out-proj and FFN2 (W8A8 quantizes every layer
+        product). bf16 rows within one bf16 ulp of the plain version's (its
+        LayerNorm sums run in another order); W8A8 scales within 1e-6 of
+        theirs and codes at most one apart (the same rounding halves may
+        fall either way after an f32 LayerNorm), bitwise equal for a cast."""
+        x_d = torch.randn((M, D), generator=g, device=dev)
+        x_f = torch.relu(torch.randn((M, F), generator=g, device=dev))
+        runs = []  # (x, ln, W8A8): the head's prologue stays bf16 (W8A16)
+        for li in range(NL):
+            runs += [(x_d, (lw["ln1s"][li], lw["ln1b"][li]), act_quant),
+                     (x_d, (lw["ln2s"][li], lw["ln2b"][li]), act_quant)]
+            if act_quant:
+                runs += [(x_d, None, True), (x_f, None, True)]
+        runs.append((x_d, (lw["fns"], lw["fnb"]), False))
+        err = 0.0
+        for x, ln, aq in runs[:4] + runs[-1:]:
+            got = gemm_prep(x, ln=ln, act_quant=aq)
+            ref = gemm_prep_plain(x, ln=ln, act_quant=aq)
+            torch.cuda.synchronize()
+            if aq:
+                (qk, sk), (qp, sp) = got, ref
+                dq = int((qk.int() - qp.int()).abs().max())
+                ds = float(((sk - sp).abs() / sp).max())
+                if ln is None and not (torch.equal(qk, qp) and torch.equal(sk, sp)):
+                    fail(f"gemm_small_m_prep@{site}: cast codes differ ({dq}) or scales ({ds})")
+                if not (dq <= 1 and ds <= 1e-6):
+                    fail(f"gemm_small_m_prep@{site}: codes {dq} apart, scales {ds} relative")
+                err = max(err, float(dq))
+            else:
+                e = (got.float() - ref.float()).abs()
+                ulp = torch.exp2(torch.floor(torch.log2(ref.float().abs().clamp_min(2.0 ** -100))) - 7)
+                if not bool((e <= ulp).all()):
+                    fail(f"gemm_small_m_prep@{site}: bf16 rows beyond one ulp, max err {float(e.max())}")
+                err = max(err, float(e.max()))
+        ms = device_ms(lambda: [gemm_prep(x, ln=ln, act_quant=a) for x, ln, a in runs])
+        pms = device_ms(lambda: [gemm_prep_plain(x, ln=ln, act_quant=a) for x, ln, a in runs])
+        # f32 rows read once, the LayerNorm's two vectors, the rows written
+        nbytes = sum(x.numel() * 4 + (0 if ln is None else 8 * x.shape[1])
+                     + x.numel() * (1 if a else 2) + (4 * x.shape[0] if a else 0)
+                     for x, ln, a in runs)
+        ops = sum(x.numel() * (8 if ln is not None else 1) + (x.numel() * 3 if a else 0)
+                  for x, ln, a in runs)
+        # library: null -- no one PyTorch call normalizes, rounds (or
+        # quantizes with a per-row scale) and writes the product's rows
+        entry("gemm_small_m_prep", site, err, ms, pms, nbytes, ops, None,
+              f"{len(runs)} launches: the prologues of one step, M={M},"
+              f" {'W8A8 codes and scales' if act_quant else 'bf16 rows'}"
+              f"{'; max_abs_err in codes' if act_quant else ''}", in_line, F32_OPS_PER_S)
 
     def check_attention(site, q, k, v, bounds, reps_layers, in_line=True, prefix=None,
                         beams=1, kv_scales=None, new_kv=None, slot=None):
@@ -1093,13 +1231,10 @@ def main() -> None:
                         one, NL)
         T_NAR, S_NAR = 2304, 256
         check_flash_nar("flash_attention", [150], [1058], S_NAR, T_NAR)
-        try:  # the NAR mode is gone: more than 8 queries are refused on the card
-            masked_attention(torch.zeros((1, H, 16, hd), device=dev), cache_k[0][None],
-                             cache_v[0][None], one, site="check")
-        except ValueError as exc:
-            say(f"  masked_attention with Tq = 16 on the card: refused ({exc})")
-        else:
-            fail("masked_attention took Tq = 16 on the card")
+        # the verify pass at decode_steps = 16: 16 queries per head
+        check_attention("decode_verify", decode_q(1, 16), cache_k[0][None], cache_v[0][None],
+                        one, NL, in_line=False)
+        check_prep("decode_verify", packed, 8, False)
         check_sample("decode_block_fused", 1, False)
         check_sample("decode_verify", 8, True)
 
@@ -1186,6 +1321,7 @@ def main() -> None:
         for M in (1, 4, 8, 16, 20):
             check_gemm("decode_block_fused_w8a8", draft, M, "one w8a8 step", in_line=M == 1,
                        act_quant=True)
+        check_prep("decode_block_fused_w8a8", draft, 1, True)
         # int8 K/V in the own-column mode, at the shapes of the int8kv blocks:
         # one request ...
         k8, v8, sc8 = int8_pair(cache_k[0][None], cache_v[0][None])
@@ -1238,6 +1374,75 @@ def main() -> None:
     with phase("3e training attention vs plain", 300):
         train_kernel_checks(dev, entry, device_ms, g)
 
+    # ---- phase 3f: head dim 128 (d_model 1024, 8 heads) -----------------------
+    loader.reset_launch_counts()
+    with phase("3f head dim 128", 420):
+        H8, HD8 = 8, 128
+        cfg128 = dataclasses.replace(cfg, num_heads=H8)
+        b128 = api.preload_models(random_weights=True, seed=0, device=dev, cfg=cfg128)
+        packed8, draft8 = b128.pipeline.packed_weights(True)
+        ck8, cv8 = (torch.randn((NL, H8, C, HD8), generator=g, device=dev).to(torch.bfloat16)
+                    for _ in range(2))
+
+        def qkv8(Tq):
+            qkv = torch.randn((Tq, 3 * D), generator=g, device=dev).view(1, Tq, 3, H8, HD8)
+            return tuple(qkv[:, :, i].transpose(1, 2) for i in range(3))
+
+        # the decode attention at hd 128: a draft step, a verify pass, an int8 K/V
+        # own-column step, and 16 queries
+        check_attention("decode_block_fused" + HD128, qkv8(1)[0], ck8[0][None], cv8[0][None],
+                        one, NL)
+        check_attention("decode_verify" + HD128, qkv8(8)[0], ck8[0][None], cv8[0][None], one, NL)
+        check_attention("decode_verify" + HD128, qkv8(16)[0], ck8[0][None], cv8[0][None], one,
+                        NL, in_line=False)
+        k8, v8, sc8 = int8_pair(ck8[0][None], cv8[0][None])
+        q, nk, nv = qkv8(1)
+        check_attention("decode_block_fused_int8kv", q, k8, v8, one, NL, in_line=False,
+                        kv_scales=sc8, new_kv=(nk, nv), slot=S_TEXT + POS0)
+        # the training attention at hd 128, as phase 3e
+        train_kernel_checks(dev, entry, device_ms, g, H=H8, hd=HD8, suffix=HD128)
+        # the decode ops against the CPU plain path, as phase 4
+        cpu8 = {k: (None if t is None else t.cpu()) for k, t in draft8.items()}
+        pcpu8 = {k: (None if t is None else t.cpu()) for k, t in packed8.items()}
+        pe8 = b128.model.pe
+        kw = dict(x_len=X_LEN, audio_pos=POS0, remaining=2 ** 30, temperature=1.0, steps=7,
+                  s_text=S_TEXT, vocab=vocab, eos=eos, stochastic=False)
+        z, nb = torch.zeros((1,), device=dev), torch.zeros((1,), dtype=torch.bool, device=dev)
+        ck, cv, ck_c, cv_c = ck8.clone(), cv8.clone(), ck8.cpu(), cv8.cpu()
+        rg = decode_block_fused(torch.tensor([17], device=dev), z, nb, z, draft8, ck, cv, pe8, **kw)
+        rc = decode_block_fused(torch.tensor([17]), z.cpu(), nb.cpu(), z.cpu(), cpu8, ck_c, cv_c,
+                                pe8.cpu(), **kw)
+        err = float((rg.step_logits.cpu() - rc.step_logits).abs().max())
+        scale = float(rc.step_logits.abs().max())
+        if rg.fed.tolist() != rc.fed.tolist() or not err <= 2e-2 * max(1.0, scale):
+            fail(f"3f decode_block_fused hd 128: tokens {rg.fed.tolist()} vs {rc.fed.tolist()},"
+                 f" logits err {err} (scale {scale})")
+        fed = torch.cat([rg.fed, rg.next_tok])
+        lg = decode_verify(fed, packed8, ck, cv, pe8, x_len=X_LEN, audio_pos=POS0, s_text=S_TEXT)
+        lc = decode_verify(fed.cpu(), pcpu8, ck_c, cv_c, pe8.cpu(), x_len=X_LEN, audio_pos=POS0,
+                           s_text=S_TEXT)
+        err2 = float((lg.cpu() - lc).abs().max())
+        scale2 = float(lc.abs().max())
+        if not (err2 <= 2e-2 * max(1.0, scale2)
+                and torch.equal(lg.cpu()[:, :vocab].argmax(-1), lc[:, :vocab].argmax(-1))):
+            fail(f"3f decode_verify hd 128: logits err {err2} (scale {scale2}) or argmax differs")
+        say(f"  hd 128: decode_block_fused (int8, K-1=7, greedy) tokens equal to the CPU's, logits"
+            f" max_abs_err {err:.3e} (scale {scale:.1f}); decode_verify (bf16, K=8) argmax equal,"
+            f" logits max_abs_err {err2:.3e} (scale {scale2:.1f})")
+        del ck, cv, ck_c, cv_c, ck8, cv8, k8, v8, cpu8, pcpu8
+        # the entry points at hd 128, their launches counted for the hd-128 rows
+        loader.reset_launch_counts()
+        train_head_dim(dev, cfg128)
+        wave = api.generate_audio("Hello world.", prompt="paimon", language="en", top_k=1,
+                                  max_duration=0.86)
+        if not (len(wave) > 0 and np.isfinite(wave).all()):
+            fail("3f generate_audio at hd 128: no finite wave")
+        say(f"  hd 128: generate_audio greedy, {len(b128.last.codes)} frames through the kernels")
+        counts_hd128 = dict(loader.launch_counts)
+        api._bundle = bundle
+        del b128, packed8, draft8
+        torch.cuda.empty_cache()
+
     # ---- phase 4: the decode ops against the plain (CPU) path -----------------
     with phase("4 decode ops vs plain", 240):
         cpu = lambda lw: {k: (None if t is None else t.cpu()) for k, t in lw.items()}  # noqa: E731
@@ -1280,6 +1485,19 @@ def main() -> None:
             fail("decode_verify: argmax disagrees with the plain path")
         say(f"  decode_verify (bf16, K=8): argmax equal, logits max_abs_err {err:.3e}"
             f" (scale {scale:.1f}), {t_gpu * 1e3:.1f} ms host clock")
+        # decode_steps = 16: 16 positions in one pass (masked_attention at Tq = 16)
+        fed16 = torch.cat([fed, fed.flip(0)])
+        lg = decode_verify(fed16, packed, ck, cv, pe, x_len=X_LEN, audio_pos=POS0 + 8,
+                           s_text=S_TEXT)
+        lc = decode_verify(fed16.cpu(), cpu(packed), ck_c, cv_c, pe.cpu(), x_len=X_LEN,
+                           audio_pos=POS0 + 8, s_text=S_TEXT)
+        err = float((lg.cpu() - lc).abs().max())
+        scale = float(lc.abs().max())
+        if not (err <= 2e-2 * max(1.0, scale)
+                and torch.equal(lg.cpu()[:, :vocab].argmax(-1), lc[:, :vocab].argmax(-1))):
+            fail(f"decode_verify K=16: logits err {err} (scale {scale}) or argmax disagrees")
+        say(f"  decode_verify (bf16, K=16): argmax equal, logits max_abs_err {err:.3e}"
+            f" (scale {scale:.1f})")
         del ck, cv, ck_c, cv_c
 
     # ---- phase 4b: the batched decode op against its rows run alone ----------
@@ -1733,7 +1951,33 @@ def main() -> None:
                 f" the CPU plain path's, all 8 codebooks; {t_gpu:.2f} s on the card,"
                 f" {res.ar.iterations} {'verify passes' if spec == 'auto' else 'blocks'},"
                 f" {res.ar.accepted_drafts} drafts accepted, {n_verify} f32 verify products")
+        # decode_steps = 16: each verify pass sends 16 queries per head to
+        # masked_attention. f32 on the card against the CPU plain path (the
+        # per-token loop, which never speculates: cpu32 is its reference
+        # too), at the 64-frame cap of the f32 checks above
+        e16 = dataclasses.replace(base_ecfg, compute_dtype="float32", decode_steps=16)
+        api.preload_models(random_weights=True, seed=0, device=dev, ecfg=e16)
+        before = loader.launch_counts.get(("masked_attention", "decode_verify"), 0)
+        t0 = time.perf_counter()
+        api.generate_audio(**req)
+        res16, t16 = api._bundle.last, time.perf_counter() - t0
+        n16 = loader.launch_counts.get(("masked_attention", "decode_verify"), 0) - before
+        if not (n16 > 0 and len(res16.codes) == 64 and np.array_equal(res16.codes, cpu32.codes)):
+            fail(f"5d f32 decode_steps=16: codes {res16.codes.shape} on the card vs"
+                 f" {cpu32.codes.shape} on the CPU (equal: {np.array_equal(res16.codes, cpu32.codes)}),"
+                 f" {n16} verify attention launches")
+        say(f"  f32 greedy request (64 frames), decode_steps=16 (speculative): codes on the card"
+            f" equal the CPU plain path's, all 8 codebooks; {t16:.2f} s, {res16.ar.iterations}"
+            f" verify passes of 16 positions, {res16.ar.accepted_drafts} drafts accepted,"
+            f" {n16} verify attention launches")
         api._bundle = bundle
+        # ... and in bf16 through the main bundle: greedy and sampled
+        use(decode_steps=16)
+        run("decode_steps=16, greedy", text="Hello world.", prompt="paimon", language="en",
+            top_k=1)
+        run("decode_steps=16, sampled", text="Hello world.", prompt="paimon", language="en",
+            seed=0)
+        use()
     counts_slice3 = dict(loader.launch_counts)
 
     # ---- phase 5e: int8kv, w8a8, decode_steps=1, decode_mode="pallas" --------
@@ -1888,6 +2132,11 @@ def main() -> None:
                 fail(f"masked_attention launched at the NAR's site {site}")
         for e in entries:
             kernel, site = e["name"].split("@")
+            if site.endswith(HD128):
+                e["launches"] = counts_hd128.get((kernel, site[:-len(HD128)]), 0)
+                if e["launches"] == 0:
+                    fail(f"{e['name']}: no launch at head dim 128")
+                continue
             counts = (counts_batched if site in BATCHED_SITES
                       else counts_slice3 if site in SLICE3_SITES
                       else counts_slice4 if site in SLICE4_SITES

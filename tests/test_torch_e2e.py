@@ -46,13 +46,16 @@ def _port(ref, **ecfg):
         cfg=ModelConfig(**TINY), ecfg=EngineConfig(**BUCKETS, **ecfg))
 
 
-@pytest.mark.parametrize("mode,speculative", [
-    ("auto", "auto"), ("megakernel", "auto"), ("megakernel", "off"),
-], ids=["auto-auto", "kernels-auto", "kernels-off"])
-def test_generate_audio_greedy_matches_jax(jax_ref, mode, speculative):
+@pytest.mark.parametrize("mode,speculative,steps", [
+    ("auto", "auto", 8), ("megakernel", "auto", 8), ("megakernel", "off", 8),
+    ("megakernel", "auto", 16),
+], ids=["auto-auto", "kernels-auto", "kernels-off", "kernels-auto-k16"])
+def test_generate_audio_greedy_matches_jax(jax_ref, mode, speculative, steps):
     """"auto" is the per-token path on the CPU; "megakernel" runs the
-    kernel path's ops (speculative, or K-step blocks with speculation off)."""
-    bundle = _port(jax_ref, decode_mode=mode, speculative=speculative)
+    kernel path's ops (speculative, or K-step blocks with speculation off).
+    decode_steps = 16: verify passes of 16 positions (16 queries per head
+    in masked_attention) give the same greedy codes."""
+    bundle = _port(jax_ref, decode_mode=mode, speculative=speculative, decode_steps=steps)
     audio, text_prompt, lang_pr = tapi._load_prompt(PROMPT)
     ids, langs = tapi._prepare_text(bundle, TEXT, text_prompt, lang_pr, "en")
     np.testing.assert_array_equal(ids, jax_ref["ids"])

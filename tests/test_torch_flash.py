@@ -2,7 +2,8 @@
 versions that CPU tensors take) against the JAX package's
 attention_core_flash / attention_core_flash_prefix, whose Pallas kernels
 (the JAX library's flash attention and its backward) run in interpret mode,
-at B = 2, H = 2, T = 256, hd = 64 in f32.
+at B = 2, H = 2, T = 256, hd = 64 (and hd = 128 for the prefix-causal
+call) in f32.
 
 The NAR's attention (engine/nar.py at C >= 1536) is held the same way
 against attention_core_flash with the JAX package's NAR segments.
@@ -46,9 +47,9 @@ def _segments(layout: str, t: int = T) -> np.ndarray:
     return np.ones((2, t), np.int32)  # all valid
 
 
-def _inputs(seed: int, t: int = T):
+def _inputs(seed: int, t: int = T, hd: int = HD):
     rng = np.random.RandomState(seed)
-    q, k, v, w = (rng.standard_normal((B, H, t, HD)).astype(np.float32) for _ in range(4))
+    q, k, v, w = (rng.standard_normal((B, H, t, hd)).astype(np.float32) for _ in range(4))
     return q, k, v, w
 
 
@@ -94,6 +95,22 @@ def test_attention_core_flash_matches_pallas_interpret(interpret, layout, causal
 @pytest.mark.parametrize("layout", ["padded", "packed", "all_valid"])
 def test_attention_core_flash_prefix_matches_pallas_interpret(interpret, layout):
     q, k, v, w = _inputs(2)
+    seg = _segments(layout)
+    jseg = jnp.asarray(seg)
+    tseg = torch.from_numpy(seg)
+    want = _jax_out_and_grads(
+        lambda a, b, c: JL.attention_core_flash_prefix(a, b, c, jseg, jseg, 128), q, k, v, w)
+    got = _port_out_and_grads(
+        lambda a, b, c: TL.attention_core_flash_prefix(a, b, c, tseg, tseg, 128), q, k, v, w)
+    _compare(want, got)
+
+
+@pytest.mark.parametrize("layout", ["padded", "packed"])
+def test_attention_core_flash_prefix_head_dim_128_matches_pallas_interpret(interpret, layout):
+    """Head dim 128 (a d_model 256 model with 2 heads; the card's kernels
+    are built for 64 and 128): the AR's prefix-causal attention and its
+    gradients, at the tolerances above."""
+    q, k, v, w = _inputs(3, hd=128)
     seg = _segments(layout)
     jseg = jnp.asarray(seg)
     tseg = torch.from_numpy(seg)

@@ -280,3 +280,47 @@ def test_int8kv_greedy_tracks_int8_greedy():
         assert n >= 10
         diff = np.nonzero(got[:n] != ref[:n])[0]
         assert (diff[0] if len(diff) else n) >= 10
+
+
+def _qmat_jax(x, w_kn, srow):
+    """The TPU kernels' `qmat` arithmetic (vallex_tpu/ops/decode_block.py:160-165),
+    as jnp ops on [M, K] rows and [K, N] int8 weights → (codes, sx, y)."""
+    ax = jnp.max(jnp.abs(x), axis=1, keepdims=True)
+    sx = jnp.maximum(ax, 1e-6) * (1.0 / 127.0)
+    xq = jnp.clip(jnp.round(x / sx), -127.0, 127.0).astype(jnp.int8)
+    acc = jax.lax.dot(xq, w_kn, preferred_element_type=jnp.int32)
+    return xq, sx, acc.astype(jnp.float32) * (sx * srow)
+
+
+def test_quantize_rows_and_w8a8_product_match_jax_qmat():
+    """`quantize_rows` and the W8A8 plain product (what the prep kernel and
+    the int8 tensor-core product compute on the card) against the `qmat`
+    arithmetic in JAX: rows whose quotients land on rounding halves (round
+    half to even on both sides), an all-zero row (the 1e-6 clamp), a row
+    whose extremes quantize to ±127, and random rows. Codes and scales
+    equal; the products equal up to f32 rounding of the same operations
+    (rtol 1e-6)."""
+    from vallex_tpu_torch.kernels.gemm_small_m import gemm_small_m_plain, quantize_rows
+
+    K, N = 128, 48
+    rng = np.random.RandomState(3)
+    halves = np.zeros(K, np.float32)
+    halves[0] = 127.0  # sx = 127 / 127: every other quotient is the value itself
+    halves[1:9] = [0.5, 1.5, 2.5, -0.5, -1.5, -2.5, 126.5, -126.5]
+    extremes = (rng.standard_normal(K) * 0.1).astype(np.float32)
+    extremes[5], extremes[77] = 3.3, -3.3
+    x = np.stack([halves, np.zeros(K, np.float32), extremes,
+                  *rng.standard_normal((3, K)).astype(np.float32)])
+    w = rng.randint(-127, 128, (N, K)).astype(np.int8)
+    srow = (rng.rand(N).astype(np.float32) * 0.02 + 1e-3)
+    jq, jsx, jy = (np.asarray(a) for a in _qmat_jax(jnp.asarray(x), jnp.asarray(w.T),
+                                                   jnp.asarray(srow)))
+    tq, tsx = quantize_rows(torch.from_numpy(x))
+    np.testing.assert_array_equal(tq.numpy().astype(np.int8), jq)
+    np.testing.assert_array_equal(tsx.numpy(), jsx)
+    assert list(jq[0, 1:9]) == [0, 2, 2, 0, -2, -2, 126, -126]  # halves to even
+    assert not jq[1].any() and jsx[1, 0] == np.float32(1e-6) * np.float32(1.0 / 127.0)
+    assert jq[2, 5] == 127 and jq[2, 77] == -127
+    ty = gemm_small_m_plain(torch.from_numpy(x), torch.from_numpy(w),
+                            scale=torch.from_numpy(srow), act_quant=True)
+    np.testing.assert_allclose(ty.numpy(), jy, rtol=1e-6, atol=0)

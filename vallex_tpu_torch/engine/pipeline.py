@@ -20,6 +20,7 @@ import torch
 from torch.profiler import record_function
 
 from ..config import EngineConfig, ModelConfig
+from ..kernels import check_head_dim
 from ..models import vallex as V
 from ..ops.decode_step import pack_layer_weights, quantize_weights
 from .ar import (
@@ -126,6 +127,7 @@ class SynthesisPipeline:
         self.ecfg = ecfg
         self.vocos = vocos
         self.device = model.pe.device
+        check_head_dim(cfg.head_dim, self.device)
         self.dtype = DTYPES[ecfg.compute_dtype]
         mode = ecfg.decode_mode
         if mode not in DECODE_MODES:

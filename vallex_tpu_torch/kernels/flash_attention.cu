@@ -1,4 +1,4 @@
-// flash_attention: full-sequence attention of VALL-E X for head_dim 64, with
+// flash_attention: full-sequence attention of VALL-E X for head_dim 64 or 128, with
 // segment ids and a prefix-causal bound: the NAR's key-padded attention when
 // serving, and the training attention, forward and backward.
 //
@@ -23,23 +23,27 @@
 // the non-causal pass over the text block alone (keys j >= P are out); for an
 // audio row i >= P it is j <= i, the causal pass over the whole sequence.
 //
-// Kernels, picked by kind (neither stands in for the other):
-//   flash_fwd_tc_kernel (bf16): the forward on the tensor cores, below;
-//   flash_fwd_kernel<float> (f32): the forward on the CUDA cores (tensor
-//       cores in f32 would be TF32, which changes the f32 numbers), one block
-//       of 256 threads per (query tile of 64, head, row); f32 tiles in shared
-//       memory (row stride 65, so a half-warp reading 16 rows hits 16 banks),
-//       each thread a 4 x 4 tile of the 64 x 64 scores;
-//   flash_bwd_dq_tc_kernel (bf16) / flash_bwd_dq_kernel<float> (f32): per
+// Kernels, picked by kind and head dim (neither stands in for the other):
+//   flash_fwd_tc_kernel (bf16, hd 64): the forward on the tensor cores, below;
+//   flash_fwd_kernel<float, hd> (f32) and flash_fwd_kernel<bf16, 128>: the
+//       forward on the CUDA cores (tensor cores in f32 would be TF32, which
+//       changes the f32 numbers; the tensor-core kernels hold their 64 x hd
+//       tiles in one warpgroup's registers and are written for hd 64), one
+//       block of 256 threads per (query tile of 64, head, row); f32 tiles in
+//       shared memory (row stride hd + 1, so a half-warp reading 16 rows hits
+//       16 banks), each thread a 4 x 4 tile of the 64 x 64 scores and a
+//       4 x hd/16 tile of the output;
+//   flash_bwd_dq_tc_kernel (bf16, hd 64) / flash_bwd_dq_kernel<T, hd>: per
 //       query tile, di = sum(O * dO) in f32 from O as stored (written out for
 //       the dK/dV kernel), then dQ over the key tiles;
-//   flash_bwd_dkv_tc_kernel (bf16) / flash_bwd_dkv_kernel<float> (f32): per
+//   flash_bwd_dkv_tc_kernel (bf16, hd 64) / flash_bwd_dkv_kernel<T, hd>: per
 //       key tile, dK and dV over the query tiles that can see it (all of them
 //       when the tile starts below P, else from the tile's own row on). It
 //       runs after the dQ kernel on the same stream and reads its di.
 // Both forwards write O in the input type and the row log-sum-exp (f32) for
-// the backward. The bf16 kernels run on the tensor cores (wgmma, TMA,
-// mbarrier; sm_90a), the f32 ones on the CUDA cores in the f32 layout above.
+// the backward. The bf16 kernels at hd 64 run on the tensor cores (wgmma,
+// TMA, mbarrier; sm_90a), the f32 ones and bf16 at hd 128 on the CUDA cores
+// in the f32 layout above.
 // Neither backward uses atomics: each output element is one block's sum in a
 // fixed order, so the gradients are the same from run to run.
 // Rounding follows the library: scores in f32 (q.k, then times the scale),
@@ -57,25 +61,32 @@
 
 #include "common.cuh"
 
-#define FA_HD 64
+#define FA_HD 64  // the tensor-core kernels' head dim
 #define FA_TILE 64
-#define FA_LD (FA_HD + 1)
+#define FA_PLD (FA_TILE + 1)  // row stride of the CUDA-core kernels' 64 x 64 p / ds tiles
 #define FA_THREADS 256
-#define FA_TILE_FLOATS (FA_TILE * FA_LD)
 
 template <typename T>
 __device__ __forceinline__ float fa_ld(const T* p);
 template <>
 __device__ __forceinline__ float fa_ld<float>(const float* p) { return *p; }
+template <>
+__device__ __forceinline__ float fa_ld<__nv_bfloat16>(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
 
-// x rounded to T and back (the library's .astype(v.dtype) before a product;
-// the CUDA-core kernels run in f32 only, where it is x)
+// x rounded to T and back (the library's .astype(v.dtype) before a product)
 template <typename T>
 __device__ __forceinline__ float fa_round(float x);
 template <>
 __device__ __forceinline__ float fa_round<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ float fa_round<__nv_bfloat16>(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
 
 __device__ __forceinline__ void fa_st(float* p, float x) { *p = x; }
+__device__ __forceinline__ void fa_st(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
 
 struct FaStrides {
   long long b, h, t;
@@ -93,14 +104,14 @@ __device__ __forceinline__ float fa_sum16(float v) {
   return v;
 }
 
-// rows [t0, t0 + 64) of one (b, h) slice into a [64][65] f32 tile, zeros
-// past T
-template <typename T>
+// rows [t0, t0 + 64) of one (b, h) slice into a [64][HD + 1] f32 tile,
+// zeros past T
+template <typename T, int HD>
 __device__ __forceinline__ void fa_load_tile(float* dst, const T* src, long long st, int t0,
                                              int T_len) {
-  for (int idx = threadIdx.x; idx < FA_TILE * FA_HD; idx += FA_THREADS) {
-    const int r = idx / FA_HD, c = idx % FA_HD, t = t0 + r;
-    dst[r * FA_LD + c] = t < T_len ? fa_ld(src + t * st + c) : 0.f;
+  for (int idx = threadIdx.x; idx < FA_TILE * HD; idx += FA_THREADS) {
+    const int r = idx / HD, c = idx % HD, t = t0 + r;
+    dst[r * (HD + 1) + c] = t < T_len ? fa_ld(src + t * st + c) : 0.f;
   }
 }
 
@@ -120,18 +131,22 @@ __device__ __forceinline__ bool fa_valid(int i, int j, int P, int seg_i, int seg
   return seg_i == seg_j && j <= max(i, P - 1);
 }
 
-template <typename T>
+// The CUDA-core kernels, for head dim HD (64 or 128): f32, and bf16 at 128.
+// Thread (ty, tx) of the 16 x 16 grid holds query (or key) rows ty * 4 + a
+// and head columns tx + 16 j (j < HD / 16) of its outputs.
+template <typename T, int HD>
 __global__ void __launch_bounds__(FA_THREADS)
     flash_fwd_kernel(const T* __restrict__ q, FaStrides qs, const T* __restrict__ k,
                      const T* __restrict__ v, FaStrides kvs, const int* __restrict__ qseg,
                      const int* __restrict__ kvseg, T* __restrict__ o, FaStrides os,
                      float* __restrict__ lse, int H, int T_len, int P, float scale) {
+  constexpr int LD = HD + 1, NJ = HD / 16;
   extern __shared__ float fa_smem[];
   float* Qs = fa_smem;
-  float* Ks = Qs + FA_TILE_FLOATS;
-  float* Vs = Ks + FA_TILE_FLOATS;
-  float* Ps = Vs + FA_TILE_FLOATS;
-  int* segq = reinterpret_cast<int*>(Ps + FA_TILE_FLOATS);
+  float* Ks = Qs + FA_TILE * LD;
+  float* Vs = Ks + FA_TILE * LD;
+  float* Ps = Vs + FA_TILE * LD;
+  int* segq = reinterpret_cast<int*>(Ps + FA_TILE * FA_PLD);
   int* segk = segq + FA_TILE;
 
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
@@ -142,23 +157,23 @@ __global__ void __launch_bounds__(FA_THREADS)
   const int* qsg = qseg + (long long)b * T_len;
   const int* ksg = kvseg + (long long)b * T_len;
 
-  fa_load_tile(Qs, qb, qs.t, q0, T_len);
+  fa_load_tile<T, HD>(Qs, qb, qs.t, q0, T_len);
   fa_load_seg(segq, qsg, q0, T_len, FA_PAD_Q);
 
-  float m[4], l[4], acc[4][4];
+  float m[4], l[4], acc[4][NJ];
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
     m[a] = -INFINITY;
     l[a] = 0.f;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[a][j] = 0.f;
+    for (int j = 0; j < NJ; ++j) acc[a][j] = 0.f;
   }
   // the last key any row of this tile sees is max(q0 + 63, P - 1)
   const int kend = min(T_len, max(q0 + FA_TILE, P));
   for (int k0 = 0; k0 < kend; k0 += FA_TILE) {
     __syncthreads();  // the previous tile's reads of Ks, Vs, Ps are done
-    fa_load_tile(Ks, kb, kvs.t, k0, T_len);
-    fa_load_tile(Vs, vb, kvs.t, k0, T_len);
+    fa_load_tile<T, HD>(Ks, kb, kvs.t, k0, T_len);
+    fa_load_tile<T, HD>(Vs, vb, kvs.t, k0, T_len);
     fa_load_seg(segk, ksg, k0, T_len, FA_PAD_K);
     __syncthreads();
 
@@ -168,12 +183,12 @@ __global__ void __launch_bounds__(FA_THREADS)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[a][j] = 0.f;
 #pragma unroll 8
-    for (int d = 0; d < FA_HD; ++d) {
+    for (int d = 0; d < HD; ++d) {
       float qv[4], kv[4];
 #pragma unroll
-      for (int a = 0; a < 4; ++a) qv[a] = Qs[(ty * 4 + a) * FA_LD + d];
+      for (int a = 0; a < 4; ++a) qv[a] = Qs[(ty * 4 + a) * LD + d];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = Ks[(tx + 16 * j) * FA_LD + d];
+      for (int j = 0; j < 4; ++j) kv[j] = Ks[(tx + 16 * j) * LD + d];
 #pragma unroll
       for (int a = 0; a < 4; ++a)
 #pragma unroll
@@ -197,28 +212,28 @@ __global__ void __launch_bounds__(FA_THREADS)
         for (int j = 0; j < 4; ++j) {
           const float p = expf(s[a][j] - m_new);
           psum += p;
-          Ps[r * FA_LD + tx + 16 * j] = fa_round<T>(p);
+          Ps[r * FA_PLD + tx + 16 * j] = fa_round<T>(p);
         }
       } else {
 #pragma unroll
-        for (int j = 0; j < 4; ++j) Ps[r * FA_LD + tx + 16 * j] = 0.f;
+        for (int j = 0; j < 4; ++j) Ps[r * FA_PLD + tx + 16 * j] = 0.f;
       }
       l[a] = l[a] * alpha + fa_sum16(psum);
       m[a] = m_new;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[a][j] *= alpha;
+      for (int j = 0; j < NJ; ++j) acc[a][j] *= alpha;
     }
     __syncthreads();
 #pragma unroll 8
     for (int kk = 0; kk < FA_TILE; ++kk) {
-      float vv[4];
+      float vv[NJ];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) vv[j] = Vs[kk * FA_LD + tx + 16 * j];
+      for (int j = 0; j < NJ; ++j) vv[j] = Vs[kk * LD + tx + 16 * j];
 #pragma unroll
       for (int a = 0; a < 4; ++a) {
-        const float p = Ps[(ty * 4 + a) * FA_LD + kk];
+        const float p = Ps[(ty * 4 + a) * FA_PLD + kk];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[a][j] = fmaf(p, vv[j], acc[a][j]);
+        for (int j = 0; j < NJ; ++j) acc[a][j] = fmaf(p, vv[j], acc[a][j]);
       }
     }
   }
@@ -230,7 +245,7 @@ __global__ void __launch_bounds__(FA_THREADS)
     if (i >= T_len) continue;
     const float inv = l[a] > 0.f ? 1.f / l[a] : 0.f;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) fa_st(ob + i * os.t + tx + 16 * j, acc[a][j] * inv);
+    for (int j = 0; j < NJ; ++j) fa_st(ob + i * os.t + tx + 16 * j, acc[a][j] * inv);
     if (tx == 0) lb[i] = l[a] > 0.f ? m[a] + logf(l[a]) : 0.f;
   }
 }
@@ -621,7 +636,7 @@ __global__ void __launch_bounds__(FW_THREADS)
   }
 }
 
-template <typename T>
+template <typename T, int HD>
 __global__ void __launch_bounds__(FA_THREADS)
     flash_bwd_dq_kernel(const T* __restrict__ q, FaStrides qs, const T* __restrict__ k,
                         const T* __restrict__ v, FaStrides kvs, const T* __restrict__ o,
@@ -629,13 +644,14 @@ __global__ void __launch_bounds__(FA_THREADS)
                         const int* __restrict__ qseg, const int* __restrict__ kvseg,
                         const float* __restrict__ lse, float* __restrict__ di_out,
                         T* __restrict__ dq, int H, int T_len, int P, float scale) {
+  constexpr int LD = HD + 1, NJ = HD / 16;
   extern __shared__ float fa_smem[];
   float* Qs = fa_smem;
-  float* dOs = Qs + FA_TILE_FLOATS;
-  float* Ks = dOs + FA_TILE_FLOATS;
-  float* Vs = Ks + FA_TILE_FLOATS;
-  float* dSs = Vs + FA_TILE_FLOATS;
-  int* segq = reinterpret_cast<int*>(dSs + FA_TILE_FLOATS);
+  float* dOs = Qs + FA_TILE * LD;
+  float* Ks = dOs + FA_TILE * LD;
+  float* Vs = Ks + FA_TILE * LD;
+  float* dSs = Vs + FA_TILE * LD;
+  int* segq = reinterpret_cast<int*>(dSs + FA_TILE * FA_PLD);
   int* segk = segq + FA_TILE;
   float* lse_s = reinterpret_cast<float*>(segk + FA_TILE);
   float* di_s = lse_s + FA_TILE;
@@ -648,8 +664,8 @@ __global__ void __launch_bounds__(FA_THREADS)
   const T* ob = o + b * os.b + h * os.h;
   const int* ksg = kvseg + (long long)b * T_len;
 
-  fa_load_tile(Qs, q + b * qs.b + h * qs.h, qs.t, q0, T_len);
-  fa_load_tile(dOs, dout + b * dos.b + h * dos.h, dos.t, q0, T_len);
+  fa_load_tile<T, HD>(Qs, q + b * qs.b + h * qs.h, qs.t, q0, T_len);
+  fa_load_tile<T, HD>(dOs, dout + b * dos.b + h * dos.h, dos.t, q0, T_len);
   fa_load_seg(segq, qseg + (long long)b * T_len, q0, T_len, FA_PAD_Q);
   // di = sum_c O[i, c] * dO[i, c] in f32, four lanes per row
   {
@@ -657,8 +673,8 @@ __global__ void __launch_bounds__(FA_THREADS)
     __syncthreads();  // dOs is loaded
     float acc = 0.f;
     if (i < T_len) {
-      for (int c = part * 16; c < part * 16 + 16; ++c)
-        acc = fmaf(fa_ld(ob + i * os.t + c), dOs[r * FA_LD + c], acc);
+      for (int c = part * (HD / 4); c < (part + 1) * (HD / 4); ++c)
+        acc = fmaf(fa_ld(ob + i * os.t + c), dOs[r * LD + c], acc);
     }
     acc += __shfl_xor_sync(VX_FULL_MASK, acc, 1);
     acc += __shfl_xor_sync(VX_FULL_MASK, acc, 2);
@@ -669,16 +685,16 @@ __global__ void __launch_bounds__(FA_THREADS)
     }
   }
 
-  float dqa[4][4];
+  float dqa[4][NJ];
 #pragma unroll
   for (int a = 0; a < 4; ++a)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) dqa[a][j] = 0.f;
+    for (int j = 0; j < NJ; ++j) dqa[a][j] = 0.f;
   const int kend = min(T_len, max(q0 + FA_TILE, P));
   for (int k0 = 0; k0 < kend; k0 += FA_TILE) {
     __syncthreads();
-    fa_load_tile(Ks, kb, kvs.t, k0, T_len);
-    fa_load_tile(Vs, vb, kvs.t, k0, T_len);
+    fa_load_tile<T, HD>(Ks, kb, kvs.t, k0, T_len);
+    fa_load_tile<T, HD>(Vs, vb, kvs.t, k0, T_len);
     fa_load_seg(segk, ksg, k0, T_len, FA_PAD_K);
     __syncthreads();
 
@@ -688,17 +704,17 @@ __global__ void __launch_bounds__(FA_THREADS)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[a][j] = dp[a][j] = 0.f;
 #pragma unroll 4
-    for (int d = 0; d < FA_HD; ++d) {
+    for (int d = 0; d < HD; ++d) {
       float qv[4], dov[4], kv[4], vv[4];
 #pragma unroll
       for (int a = 0; a < 4; ++a) {
-        qv[a] = Qs[(ty * 4 + a) * FA_LD + d];
-        dov[a] = dOs[(ty * 4 + a) * FA_LD + d];
+        qv[a] = Qs[(ty * 4 + a) * LD + d];
+        dov[a] = dOs[(ty * 4 + a) * LD + d];
       }
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        kv[j] = Ks[(tx + 16 * j) * FA_LD + d];
-        vv[j] = Vs[(tx + 16 * j) * FA_LD + d];
+        kv[j] = Ks[(tx + 16 * j) * LD + d];
+        vv[j] = Vs[(tx + 16 * j) * LD + d];
       }
 #pragma unroll
       for (int a = 0; a < 4; ++a)
@@ -719,34 +735,34 @@ __global__ void __launch_bounds__(FA_THREADS)
           const float p = expf(s[a][j] * scale - lse_s[r]);
           ds = p * (dp[a][j] - di_s[r]) * scale;
         }
-        dSs[r * FA_LD + c] = fa_round<T>(ds);
+        dSs[r * FA_PLD + c] = fa_round<T>(ds);
       }
     }
     __syncthreads();
 #pragma unroll 8
     for (int kk = 0; kk < FA_TILE; ++kk) {
-      float kv[4];
+      float kv[NJ];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = Ks[kk * FA_LD + tx + 16 * j];
+      for (int j = 0; j < NJ; ++j) kv[j] = Ks[kk * LD + tx + 16 * j];
 #pragma unroll
       for (int a = 0; a < 4; ++a) {
-        const float ds = dSs[(ty * 4 + a) * FA_LD + kk];
+        const float ds = dSs[(ty * 4 + a) * FA_PLD + kk];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) dqa[a][j] = fmaf(ds, kv[j], dqa[a][j]);
+        for (int j = 0; j < NJ; ++j) dqa[a][j] = fmaf(ds, kv[j], dqa[a][j]);
       }
     }
   }
-  T* dqb = dq + bh * T_len * FA_HD;
+  T* dqb = dq + bh * T_len * HD;
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
     const int i = q0 + ty * 4 + a;
     if (i >= T_len) continue;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) fa_st(dqb + (long long)i * FA_HD + tx + 16 * j, dqa[a][j]);
+    for (int j = 0; j < NJ; ++j) fa_st(dqb + (long long)i * HD + tx + 16 * j, dqa[a][j]);
   }
 }
 
-template <typename T>
+template <typename T, int HD>
 __global__ void __launch_bounds__(FA_THREADS)
     flash_bwd_dkv_kernel(const T* __restrict__ q, FaStrides qs, const T* __restrict__ k,
                          const T* __restrict__ v, FaStrides kvs, const T* __restrict__ dout,
@@ -754,14 +770,15 @@ __global__ void __launch_bounds__(FA_THREADS)
                          const int* __restrict__ kvseg, const float* __restrict__ lse,
                          const float* __restrict__ di, T* __restrict__ dk, T* __restrict__ dv,
                          int H, int T_len, int P, float scale) {
+  constexpr int LD = HD + 1, NJ = HD / 16;
   extern __shared__ float fa_smem[];
   float* Ks = fa_smem;
-  float* Vs = Ks + FA_TILE_FLOATS;
-  float* Qs = Vs + FA_TILE_FLOATS;
-  float* dOs = Qs + FA_TILE_FLOATS;
-  float* Pts = dOs + FA_TILE_FLOATS;  // p transposed: [key][query]
-  float* dSts = Pts + FA_TILE_FLOATS;  // ds transposed: [key][query]
-  int* segk = reinterpret_cast<int*>(dSts + FA_TILE_FLOATS);
+  float* Vs = Ks + FA_TILE * LD;
+  float* Qs = Vs + FA_TILE * LD;
+  float* dOs = Qs + FA_TILE * LD;
+  float* Pts = dOs + FA_TILE * LD;       // p transposed: [key][query]
+  float* dSts = Pts + FA_TILE * FA_PLD;  // ds transposed: [key][query]
+  int* segk = reinterpret_cast<int*>(dSts + FA_TILE * FA_PLD);
   int* segq = segk + FA_TILE;
   float* lse_s = reinterpret_cast<float*>(segq + FA_TILE);
   float* di_s = lse_s + FA_TILE;
@@ -773,21 +790,21 @@ __global__ void __launch_bounds__(FA_THREADS)
   const T* dob = dout + b * dos.b + h * dos.h;
   const int* qsg = qseg + (long long)b * T_len;
 
-  fa_load_tile(Ks, k + b * kvs.b + h * kvs.h, kvs.t, k0, T_len);
-  fa_load_tile(Vs, v + b * kvs.b + h * kvs.h, kvs.t, k0, T_len);
+  fa_load_tile<T, HD>(Ks, k + b * kvs.b + h * kvs.h, kvs.t, k0, T_len);
+  fa_load_tile<T, HD>(Vs, v + b * kvs.b + h * kvs.h, kvs.t, k0, T_len);
   fa_load_seg(segk, kvseg + (long long)b * T_len, k0, T_len, FA_PAD_K);
 
-  float dka[4][4], dva[4][4];
+  float dka[4][NJ], dva[4][NJ];
 #pragma unroll
   for (int a = 0; a < 4; ++a)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) dka[a][j] = dva[a][j] = 0.f;
+    for (int j = 0; j < NJ; ++j) dka[a][j] = dva[a][j] = 0.f;
   // rows below this tile see it only through the prefix (keys j < P)
   const int qstart = k0 < P ? 0 : k0;
   for (int q0 = qstart; q0 < T_len; q0 += FA_TILE) {
     __syncthreads();
-    fa_load_tile(Qs, qb, qs.t, q0, T_len);
-    fa_load_tile(dOs, dob, dos.t, q0, T_len);
+    fa_load_tile<T, HD>(Qs, qb, qs.t, q0, T_len);
+    fa_load_tile<T, HD>(dOs, dob, dos.t, q0, T_len);
     fa_load_seg(segq, qsg, q0, T_len, FA_PAD_Q);
     for (int r = tid; r < FA_TILE; r += FA_THREADS) {
       const bool in = q0 + r < T_len;
@@ -803,17 +820,17 @@ __global__ void __launch_bounds__(FA_THREADS)
 #pragma unroll
       for (int j = 0; j < 4; ++j) st[a][j] = dpt[a][j] = 0.f;
 #pragma unroll 4
-    for (int d = 0; d < FA_HD; ++d) {
+    for (int d = 0; d < HD; ++d) {
       float kv[4], vv[4], qv[4], dov[4];
 #pragma unroll
       for (int a = 0; a < 4; ++a) {
-        kv[a] = Ks[(ty * 4 + a) * FA_LD + d];
-        vv[a] = Vs[(ty * 4 + a) * FA_LD + d];
+        kv[a] = Ks[(ty * 4 + a) * LD + d];
+        vv[a] = Vs[(ty * 4 + a) * LD + d];
       }
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        qv[j] = Qs[(tx + 16 * j) * FA_LD + d];
-        dov[j] = dOs[(tx + 16 * j) * FA_LD + d];
+        qv[j] = Qs[(tx + 16 * j) * LD + d];
+        dov[j] = dOs[(tx + 16 * j) * LD + d];
       }
 #pragma unroll
       for (int a = 0; a < 4; ++a)
@@ -834,42 +851,42 @@ __global__ void __launch_bounds__(FA_THREADS)
           p = expf(st[a][j] * scale - lse_s[c]);
           ds = p * (dpt[a][j] - di_s[c]) * scale;
         }
-        Pts[kr * FA_LD + c] = fa_round<T>(p);
-        dSts[kr * FA_LD + c] = fa_round<T>(ds);
+        Pts[kr * FA_PLD + c] = fa_round<T>(p);
+        dSts[kr * FA_PLD + c] = fa_round<T>(ds);
       }
     }
     __syncthreads();
     // dV += p^T dO, dK += ds^T Q: key rows ty*4 + a, head columns tx + 16 j
 #pragma unroll 4
     for (int i = 0; i < FA_TILE; ++i) {
-      float dov[4], qv[4];
+      float dov[NJ], qv[NJ];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        dov[j] = dOs[i * FA_LD + tx + 16 * j];
-        qv[j] = Qs[i * FA_LD + tx + 16 * j];
+      for (int j = 0; j < NJ; ++j) {
+        dov[j] = dOs[i * LD + tx + 16 * j];
+        qv[j] = Qs[i * LD + tx + 16 * j];
       }
 #pragma unroll
       for (int a = 0; a < 4; ++a) {
-        const float p = Pts[(ty * 4 + a) * FA_LD + i];
-        const float ds = dSts[(ty * 4 + a) * FA_LD + i];
+        const float p = Pts[(ty * 4 + a) * FA_PLD + i];
+        const float ds = dSts[(ty * 4 + a) * FA_PLD + i];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < NJ; ++j) {
           dva[a][j] = fmaf(p, dov[j], dva[a][j]);
           dka[a][j] = fmaf(ds, qv[j], dka[a][j]);
         }
       }
     }
   }
-  T* dkb = dk + bh * T_len * FA_HD;
-  T* dvb = dv + bh * T_len * FA_HD;
+  T* dkb = dk + bh * T_len * HD;
+  T* dvb = dv + bh * T_len * HD;
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
     const int j = k0 + ty * 4 + a;
     if (j >= T_len) continue;
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      fa_st(dkb + (long long)j * FA_HD + tx + 16 * c, dka[a][c]);
-      fa_st(dvb + (long long)j * FA_HD + tx + 16 * c, dva[a][c]);
+    for (int c = 0; c < NJ; ++c) {
+      fa_st(dkb + (long long)j * HD + tx + 16 * c, dka[a][c]);
+      fa_st(dvb + (long long)j * HD + tx + 16 * c, dva[a][c]);
     }
   }
 }
@@ -1240,39 +1257,46 @@ __global__ void __launch_bounds__(FW_THREADS)
 
 // ---------------------------------------------------------------------------
 // Launchers. Strides arrive as three long longs (b, h, t) in elements; the
-// last stride is 1. Gradients and lse / di are contiguous [B, H, T(, 64)].
-// kind 0: f32, kind 1: bf16 (q, k, v, O, dO and the gradients alike). Each
-// launcher picks its kernel by kind: bf16 on the tensor cores, f32 on the
-// CUDA cores; neither stands in for the other.
+// last stride is 1. Gradients and lse / di are contiguous [B, H, T(, hd)].
+// kind 0: f32, kind 1: bf16 (q, k, v, O, dO and the gradients alike); hd 64
+// or 128. Each launcher picks its kernel by (kind, hd): bf16 at hd 64 on the
+// tensor cores, bf16 at hd 128 and f32 on the CUDA cores; neither stands in
+// for the other.
 // ---------------------------------------------------------------------------
 
 static FaStrides fa_strides(const long long* s) { return FaStrides{s[0], s[1], s[2]}; }
 
-static const size_t FA_FWD_SMEM = 4 * FA_TILE_FLOATS * sizeof(float) + 2 * FA_TILE * sizeof(int);
-static const size_t FA_DQ_SMEM =
-    5 * FA_TILE_FLOATS * sizeof(float) + 2 * FA_TILE * sizeof(int) + 2 * FA_TILE * sizeof(float);
-static const size_t FA_DKV_SMEM =
-    6 * FA_TILE_FLOATS * sizeof(float) + 2 * FA_TILE * sizeof(int) + 2 * FA_TILE * sizeof(float);
+// the CUDA-core kernels' dynamic shared memory: f32 tiles of [64][hd + 1]
+// (q, k, v, dO as each kernel needs them) and of [64][65] (p, ds), the
+// segment ids, lse and di of a tile
+static size_t fa_core_smem(int hd, int hd_tiles, int p_tiles) {
+  return ((size_t)hd_tiles * FA_TILE * (hd + 1) + (size_t)p_tiles * FA_TILE * FA_PLD) *
+             sizeof(float) +
+         4 * FA_TILE * sizeof(int);
+}
 
 template <typename K>
 static cudaError_t fa_allow_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-static bool fa_shape_ok(int kind, int B, int H, int T_len) {
-  return (kind == 0 || kind == 1) && B >= 1 && B <= 65535 && H >= 1 && H <= 65535 && T_len >= 1;
+static bool fa_shape_ok(int kind, int hd, int B, int H, int T_len) {
+  return (kind == 0 || kind == 1) && (hd == 64 || hd == 128) && B >= 1 && B <= 65535 &&
+         H >= 1 && H <= 65535 && T_len >= 1;
 }
 
-static cudaError_t fa_fwd_f32(const void* q, const long long* qs, const void* k, const void* v,
-                              const long long* kvs, const int* qseg, const int* kvseg, void* o,
-                              const long long* os, float* lse, int B, int H, int T_len, int P,
-                              float scale, cudaStream_t s) {
-  cudaError_t e = fa_allow_smem(flash_fwd_kernel<float>, FA_FWD_SMEM);
+template <typename T, int HD>
+static cudaError_t fa_fwd_core(const void* q, const long long* qs, const void* k, const void* v,
+                               const long long* kvs, const int* qseg, const int* kvseg, void* o,
+                               const long long* os, float* lse, int B, int H, int T_len, int P,
+                               float scale, cudaStream_t s) {
+  const size_t smem = fa_core_smem(HD, 3, 1);
+  cudaError_t e = fa_allow_smem(flash_fwd_kernel<T, HD>, smem);
   if (e != cudaSuccess) return e;
   const dim3 grid((T_len + FA_TILE - 1) / FA_TILE, H, B);
-  flash_fwd_kernel<float><<<grid, FA_THREADS, FA_FWD_SMEM, s>>>(
-      reinterpret_cast<const float*>(q), fa_strides(qs), reinterpret_cast<const float*>(k),
-      reinterpret_cast<const float*>(v), fa_strides(kvs), qseg, kvseg, reinterpret_cast<float*>(o),
+  flash_fwd_kernel<T, HD><<<grid, FA_THREADS, smem, s>>>(
+      reinterpret_cast<const T*>(q), fa_strides(qs), reinterpret_cast<const T*>(k),
+      reinterpret_cast<const T*>(v), fa_strides(kvs), qseg, kvseg, reinterpret_cast<T*>(o),
       fa_strides(os), lse, H, T_len, P, scale);
   return cudaGetLastError();
 }
@@ -1431,52 +1455,63 @@ static int fa_bwd_dkv_tc(const void* q, const long long* qs, const void* k, cons
   return (int)cudaGetLastError();
 }
 
-static cudaError_t fa_bwd_dq_f32(const void* q, const long long* qs, const void* k,
-                                 const void* v, const long long* kvs, const void* o,
-                                 const long long* os, const void* dout, const long long* dos,
-                                 const int* qseg, const int* kvseg, const float* lse, float* di,
-                                 void* dq, int B, int H, int T_len, int P, float scale,
-                                 cudaStream_t s) {
-  cudaError_t e = fa_allow_smem(flash_bwd_dq_kernel<float>, FA_DQ_SMEM);
+template <typename T, int HD>
+static cudaError_t fa_bwd_dq_core(const void* q, const long long* qs, const void* k,
+                                  const void* v, const long long* kvs, const void* o,
+                                  const long long* os, const void* dout, const long long* dos,
+                                  const int* qseg, const int* kvseg, const float* lse, float* di,
+                                  void* dq, int B, int H, int T_len, int P, float scale,
+                                  cudaStream_t s) {
+  const size_t smem = fa_core_smem(HD, 4, 1);
+  cudaError_t e = fa_allow_smem(flash_bwd_dq_kernel<T, HD>, smem);
   if (e != cudaSuccess) return e;
   const dim3 grid((T_len + FA_TILE - 1) / FA_TILE, H, B);
-  flash_bwd_dq_kernel<float><<<grid, FA_THREADS, FA_DQ_SMEM, s>>>(
-      reinterpret_cast<const float*>(q), fa_strides(qs), reinterpret_cast<const float*>(k),
-      reinterpret_cast<const float*>(v), fa_strides(kvs), reinterpret_cast<const float*>(o),
-      fa_strides(os), reinterpret_cast<const float*>(dout), fa_strides(dos), qseg, kvseg, lse,
-      di, reinterpret_cast<float*>(dq), H, T_len, P, scale);
+  flash_bwd_dq_kernel<T, HD><<<grid, FA_THREADS, smem, s>>>(
+      reinterpret_cast<const T*>(q), fa_strides(qs), reinterpret_cast<const T*>(k),
+      reinterpret_cast<const T*>(v), fa_strides(kvs), reinterpret_cast<const T*>(o),
+      fa_strides(os), reinterpret_cast<const T*>(dout), fa_strides(dos), qseg, kvseg, lse, di,
+      reinterpret_cast<T*>(dq), H, T_len, P, scale);
   return cudaGetLastError();
 }
 
-static cudaError_t fa_bwd_dkv_f32(const void* q, const long long* qs, const void* k,
-                                  const void* v, const long long* kvs, const void* dout,
-                                  const long long* dos, const int* qseg, const int* kvseg,
-                                  const float* lse, const float* di, void* dk, void* dv, int B,
-                                  int H, int T_len, int P, float scale, cudaStream_t s) {
-  cudaError_t e = fa_allow_smem(flash_bwd_dkv_kernel<float>, FA_DKV_SMEM);
+template <typename T, int HD>
+static cudaError_t fa_bwd_dkv_core(const void* q, const long long* qs, const void* k,
+                                   const void* v, const long long* kvs, const void* dout,
+                                   const long long* dos, const int* qseg, const int* kvseg,
+                                   const float* lse, const float* di, void* dk, void* dv, int B,
+                                   int H, int T_len, int P, float scale, cudaStream_t s) {
+  const size_t smem = fa_core_smem(HD, 4, 2);
+  cudaError_t e = fa_allow_smem(flash_bwd_dkv_kernel<T, HD>, smem);
   if (e != cudaSuccess) return e;
   const dim3 grid((T_len + FA_TILE - 1) / FA_TILE, H, B);
-  flash_bwd_dkv_kernel<float><<<grid, FA_THREADS, FA_DKV_SMEM, s>>>(
-      reinterpret_cast<const float*>(q), fa_strides(qs), reinterpret_cast<const float*>(k),
-      reinterpret_cast<const float*>(v), fa_strides(kvs), reinterpret_cast<const float*>(dout),
-      fa_strides(dos), qseg, kvseg, lse, di, reinterpret_cast<float*>(dk),
-      reinterpret_cast<float*>(dv), H, T_len, P, scale);
+  flash_bwd_dkv_kernel<T, HD><<<grid, FA_THREADS, smem, s>>>(
+      reinterpret_cast<const T*>(q), fa_strides(qs), reinterpret_cast<const T*>(k),
+      reinterpret_cast<const T*>(v), fa_strides(kvs), reinterpret_cast<const T*>(dout),
+      fa_strides(dos), qseg, kvseg, lse, di, reinterpret_cast<T*>(dk), reinterpret_cast<T*>(dv),
+      H, T_len, P, scale);
   return cudaGetLastError();
 }
 
 extern "C" int vx_flash_attention_fwd(const void* q, const long long* qs, const void* k,
                                       const void* v, const long long* kvs, const void* qseg,
                                       const void* kvseg, void* o, const long long* os,
-                                      void* lse, int kind, int B, int H, int T_len, int P,
+                                      void* lse, int kind, int hd, int B, int H, int T_len, int P,
                                       float scale, void* stream) {
-  if (!fa_shape_ok(kind, B, H, T_len)) return (int)cudaErrorInvalidValue;
+  if (!fa_shape_ok(kind, hd, B, H, T_len)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const int* qsg = reinterpret_cast<const int*>(qseg);
   const int* ksg = reinterpret_cast<const int*>(kvseg);
   float* l = reinterpret_cast<float*>(lse);
-  if (kind == 0)
-    return (int)fa_fwd_f32(q, qs, k, v, kvs, qsg, ksg, o, os, l, B, H, T_len, P, scale, s);
-  return fa_fwd_tc(q, qs, k, v, kvs, qsg, ksg, o, os, l, B, H, T_len, P, scale, s);
+  if (kind == 1 && hd == 64)
+    return fa_fwd_tc(q, qs, k, v, kvs, qsg, ksg, o, os, l, B, H, T_len, P, scale, s);
+  if (kind == 1)
+    return (int)fa_fwd_core<__nv_bfloat16, 128>(q, qs, k, v, kvs, qsg, ksg, o, os, l, B, H,
+                                                 T_len, P, scale, s);
+  if (hd == 64)
+    return (int)fa_fwd_core<float, 64>(q, qs, k, v, kvs, qsg, ksg, o, os, l, B, H, T_len, P,
+                                       scale, s);
+  return (int)fa_fwd_core<float, 128>(q, qs, k, v, kvs, qsg, ksg, o, os, l, B, H, T_len, P,
+                                      scale, s);
 }
 
 // the bf16 kernels' dynamic shared memory per block at this T, in bytes
@@ -1490,36 +1525,48 @@ extern "C" int vx_flash_attention_bwd_dq(const void* q, const long long* qs, con
                                          const long long* os, const void* dout,
                                          const long long* dos, const void* qseg,
                                          const void* kvseg, const void* lse, void* di, void* dq,
-                                         int kind, int B, int H, int T_len, int P, float scale,
-                                         void* stream) {
-  if (!fa_shape_ok(kind, B, H, T_len)) return (int)cudaErrorInvalidValue;
+                                         int kind, int hd, int B, int H, int T_len, int P,
+                                         float scale, void* stream) {
+  if (!fa_shape_ok(kind, hd, B, H, T_len)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const int* qsg = reinterpret_cast<const int*>(qseg);
   const int* ksg = reinterpret_cast<const int*>(kvseg);
   const float* l = reinterpret_cast<const float*>(lse);
   float* d = reinterpret_cast<float*>(di);
-  if (kind == 0)
-    return (int)fa_bwd_dq_f32(q, qs, k, v, kvs, o, os, dout, dos, qsg, ksg, l, d, dq, B, H, T_len,
-                              P, scale, s);
-  return fa_bwd_dq_tc(q, qs, k, v, kvs, o, os, dout, dos, qsg, ksg, l, d, dq, B, H, T_len, P,
-                      scale, s);
+  if (kind == 1 && hd == 64)
+    return fa_bwd_dq_tc(q, qs, k, v, kvs, o, os, dout, dos, qsg, ksg, l, d, dq, B, H, T_len, P,
+                        scale, s);
+  if (kind == 1)
+    return (int)fa_bwd_dq_core<__nv_bfloat16, 128>(q, qs, k, v, kvs, o, os, dout, dos, qsg, ksg,
+                                                    l, d, dq, B, H, T_len, P, scale, s);
+  if (hd == 64)
+    return (int)fa_bwd_dq_core<float, 64>(q, qs, k, v, kvs, o, os, dout, dos, qsg, ksg, l, d, dq,
+                                          B, H, T_len, P, scale, s);
+  return (int)fa_bwd_dq_core<float, 128>(q, qs, k, v, kvs, o, os, dout, dos, qsg, ksg, l, d, dq,
+                                         B, H, T_len, P, scale, s);
 }
 
 extern "C" int vx_flash_attention_bwd_dkv(const void* q, const long long* qs, const void* k,
                                           const void* v, const long long* kvs, const void* dout,
                                           const long long* dos, const void* qseg,
                                           const void* kvseg, const void* lse, const void* di,
-                                          void* dk, void* dv, int kind, int B, int H, int T_len,
-                                          int P, float scale, void* stream) {
-  if (!fa_shape_ok(kind, B, H, T_len)) return (int)cudaErrorInvalidValue;
+                                          void* dk, void* dv, int kind, int hd, int B, int H,
+                                          int T_len, int P, float scale, void* stream) {
+  if (!fa_shape_ok(kind, hd, B, H, T_len)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const int* qsg = reinterpret_cast<const int*>(qseg);
   const int* ksg = reinterpret_cast<const int*>(kvseg);
   const float* l = reinterpret_cast<const float*>(lse);
   const float* d = reinterpret_cast<const float*>(di);
-  if (kind == 0)
-    return (int)fa_bwd_dkv_f32(q, qs, k, v, kvs, dout, dos, qsg, ksg, l, d, dk, dv, B, H, T_len,
-                               P, scale, s);
-  return fa_bwd_dkv_tc(q, qs, k, v, kvs, dout, dos, qsg, ksg, l, d, dk, dv, B, H, T_len, P,
-                       scale, s);
+  if (kind == 1 && hd == 64)
+    return fa_bwd_dkv_tc(q, qs, k, v, kvs, dout, dos, qsg, ksg, l, d, dk, dv, B, H, T_len, P,
+                         scale, s);
+  if (kind == 1)
+    return (int)fa_bwd_dkv_core<__nv_bfloat16, 128>(q, qs, k, v, kvs, dout, dos, qsg, ksg, l, d,
+                                                     dk, dv, B, H, T_len, P, scale, s);
+  if (hd == 64)
+    return (int)fa_bwd_dkv_core<float, 64>(q, qs, k, v, kvs, dout, dos, qsg, ksg, l, d, dk, dv, B,
+                                           H, T_len, P, scale, s);
+  return (int)fa_bwd_dkv_core<float, 128>(q, qs, k, v, kvs, dout, dos, qsg, ksg, l, d, dk, dv, B,
+                                          H, T_len, P, scale, s);
 }

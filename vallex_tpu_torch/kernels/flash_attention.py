@@ -16,18 +16,20 @@ the text block alone) in one launch. The NAR (engine/nar.py) passes its
 key-padding rule as segments (ok, ok) with prefix T, as the JAX package's
 NAR does: valid rows see exactly the valid keys.
 
-q, k, v are [B, H, T, 64] in bf16 or f32 (any strides with a unit last
-stride), segment ids [B, T] int32. The forward returns the output in q's
-dtype and the row log-sum-exp [B, H, T] f32; the backward takes both and
-dO and returns dq, dk, dv in the inputs' dtype. Rows without a valid key
+q, k, v are [B, H, T, hd] in bf16 or f32 (any strides with a unit last
+stride; hd 64 or 128 on the card), segment ids [B, T] int32. The forward
+returns the output in q's dtype and the row log-sum-exp [B, H, T] f32;
+the backward takes both and dO and returns dq, dk, dv in the inputs'
+dtype. Rows without a valid key
 give a zero output, lse 0 and zero gradients.
 
-On the card each kernel is picked by dtype: bf16 runs on the tensor cores
-(the forward and both backward kernels; they read q/k/v and dO by TMA, so
-their base addresses and strides, and those of O for the dQ kernel, must be
-multiples of 16 bytes: the wrappers raise otherwise), f32 on the CUDA
-cores. `FlashAttention` is the autograd.Function; its backward makes the
-incoming gradient contiguous when it breaks that rule. CPU tensors take the
+On the card each kernel is picked by dtype and head dim: bf16 at hd 64 runs
+on the tensor cores (the forward and both backward kernels; they read
+q/k/v and dO by TMA, so their base addresses and strides, and those of O
+for the dQ kernel, must be multiples of 16 bytes: the wrappers raise
+otherwise), f32 and bf16 at hd 128 on the CUDA cores. `FlashAttention` is
+the autograd.Function; its backward makes the incoming gradient
+contiguous when it breaks that rule. CPU tensors take the
 plain versions, CUDA tensors launch the kernels or raise. Launch counts:
 the forward at its caller's site (`flash_attention_prefix` for the AR
 training mask, `flash_attention_train` for the NAR's and packed
@@ -45,9 +47,8 @@ from typing import Tuple
 
 import torch
 
-from .loader import check, launch_counts, library, stream_ptr
+from .loader import HEAD_DIMS, check, launch_counts, library, stream_ptr
 
-HEAD_DIM = 64
 KINDS = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -127,9 +128,9 @@ def _strides(t: torch.Tensor):
 
 def _check(q, k, v, q_seg, kv_seg, prefix: int, name: str) -> int:
     B, H, T, hd = q.shape
-    if hd != HEAD_DIM or k.shape != q.shape or v.shape != q.shape:
-        raise ValueError(f"{name}: want q/k/v [B, H, T, {HEAD_DIM}] of one shape, got"
-                         f" {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    if hd not in HEAD_DIMS or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"{name}: want q/k/v [B, H, T, hd] of one shape with hd in"
+                         f" {HEAD_DIMS}, got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     kind = KINDS.get(q.dtype)
     if kind is None or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"{name}: q/k/v must all be f32 or all bf16, got"
@@ -159,6 +160,12 @@ def _tma_ok(t: torch.Tensor) -> bool:
                                           if n > 1 and st != 1)
 
 
+def _tensor_cores(q: torch.Tensor) -> bool:
+    """bf16 at hd 64: the tensor-core kernels (picked by shape, as the
+    launcher does); everything else runs on the CUDA-core ones."""
+    return q.dtype == torch.bfloat16 and q.shape[-1] == 64
+
+
 def _check_tma(*ts, name: str = "flash_attention") -> None:
     """Raise unless every tensor meets `_tma_ok` (the bf16 kernels read them
     by TMA or in 16-byte loads)."""
@@ -174,7 +181,7 @@ def flash_attention_fwd(q, k, v, q_seg, kv_seg, prefix: int, *, site: str = ""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, q_seg, kv_seg, prefix)
     kind = _check(q, k, v, q_seg, kv_seg, prefix, "flash_attention")
-    if q.dtype == torch.bfloat16:
+    if _tensor_cores(q):
         _check_tma(q, k, v)
     B, H, T, hd = q.shape
     out = torch.empty((B, H, T, hd), dtype=q.dtype, device=q.device)
@@ -182,7 +189,7 @@ def flash_attention_fwd(q, k, v, q_seg, kv_seg, prefix: int, *, site: str = ""
     rc = library().vx_flash_attention_fwd(
         q.data_ptr(), _strides(q), k.data_ptr(), v.data_ptr(), _strides(k),
         q_seg.data_ptr(), kv_seg.data_ptr(), out.data_ptr(), _strides(out),
-        lse.data_ptr(), kind, B, H, T, prefix, ctypes.c_float(1.0 / math.sqrt(hd)),
+        lse.data_ptr(), kind, hd, B, H, T, prefix, ctypes.c_float(1.0 / math.sqrt(hd)),
         stream_ptr(q))
     check(rc, "flash_attention")
     launch_counts[("flash_attention_fwd", site)] += 1
@@ -209,7 +216,7 @@ def flash_attention_bwd_dq(q, k, v, q_seg, kv_seg, prefix: int, out, lse, dout
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dq, di) from the dQ kernel (CUDA tensors only)."""
     kind = _check_bwd(q, k, v, q_seg, kv_seg, prefix, lse, "flash_attention_bwd_dq", out, dout)
-    if q.dtype == torch.bfloat16:
+    if _tensor_cores(q):
         _check_tma(q, k, v, out, dout, name="flash_attention_bwd_dq")
     B, H, T, hd = q.shape
     di = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
@@ -218,7 +225,7 @@ def flash_attention_bwd_dq(q, k, v, q_seg, kv_seg, prefix: int, out, lse, dout
         q.data_ptr(), _strides(q), k.data_ptr(), v.data_ptr(), _strides(k),
         out.data_ptr(), _strides(out), dout.data_ptr(), _strides(dout),
         q_seg.data_ptr(), kv_seg.data_ptr(), lse.data_ptr(), di.data_ptr(), dq.data_ptr(),
-        kind, B, H, T, prefix, ctypes.c_float(1.0 / math.sqrt(hd)), stream_ptr(q))
+        kind, hd, B, H, T, prefix, ctypes.c_float(1.0 / math.sqrt(hd)), stream_ptr(q))
     check(rc, "flash_attention_bwd_dq")
     launch_counts[("flash_attention_bwd_dq", "flash_attention_bwd")] += 1
     return dq, di
@@ -229,7 +236,7 @@ def flash_attention_bwd_dkv(q, k, v, q_seg, kv_seg, prefix: int, dout, lse, di
     """(dk, dv) from the dK/dV kernel (CUDA tensors only), given the dQ
     kernel's di; both on q's stream, so it runs after that kernel."""
     kind = _check_bwd(q, k, v, q_seg, kv_seg, prefix, lse, "flash_attention_bwd_dkv", dout)
-    if q.dtype == torch.bfloat16:
+    if _tensor_cores(q):
         _check_tma(q, k, v, dout, name="flash_attention_bwd_dkv")
     B, H, T, hd = q.shape
     if di.shape != (B, H, T) or di.dtype != torch.float32 or not di.is_contiguous():
@@ -239,7 +246,7 @@ def flash_attention_bwd_dkv(q, k, v, q_seg, kv_seg, prefix: int, dout, lse, di
         q.data_ptr(), _strides(q), k.data_ptr(), v.data_ptr(), _strides(k),
         dout.data_ptr(), _strides(dout), q_seg.data_ptr(), kv_seg.data_ptr(),
         lse.data_ptr(), di.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        kind, B, H, T, prefix, ctypes.c_float(1.0 / math.sqrt(hd)), stream_ptr(q))
+        kind, hd, B, H, T, prefix, ctypes.c_float(1.0 / math.sqrt(hd)), stream_ptr(q))
     check(rc, "flash_attention_bwd_dkv")
     launch_counts[("flash_attention_bwd_dkv", "flash_attention_bwd")] += 1
     return dk, dv
@@ -249,7 +256,7 @@ def flash_attention_bwd(q, k, v, q_seg, kv_seg, prefix: int, out, lse, dout
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv): the plain version on the CPU; on the card the dQ kernel
     (which also writes di) then the dK/dV kernel, both on the tensor cores
-    in bf16 and on the CUDA cores in f32."""
+    in bf16 at hd 64 and on the CUDA cores otherwise."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, q_seg, kv_seg, prefix, out, lse, dout)
     dq, di = flash_attention_bwd_dq(q, k, v, q_seg, kv_seg, prefix, out, lse, dout)

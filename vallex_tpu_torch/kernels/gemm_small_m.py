@@ -11,8 +11,15 @@ and the int32 sum is scaled by sx · srow. It carries QKV, out-proj, FFN1,
 FFN2 and the head of the draft and batched-request steps
 (ops/decode_block.py, one row per request and sample), of the verify pass
 (ops/decode_verify.py) and of the single steps (ops/decode_step.py). Any
-M: the kernel takes the rows in groups of 8, and each row is bitwise its
-M = 1 product.
+M: the kernel takes the rows in groups of 24 (f32: 8), and each row is
+bitwise its M = 1 product.
+
+On the card a bf16, int8 or W8A8 product runs the prologue once (a prep
+kernel writing bf16 rows, or int8 codes and their scales, into scratch
+that this wrapper allocates; a bf16 / int8 cast prologue over 16-byte
+aligned rows needs none) and the product on the tensor cores, launched
+back to back with programmatic dependent launch (gemm_small_m.cu). One
+call counts one launch of `gemm_small_m`, whatever it launches.
 """
 
 from __future__ import annotations
@@ -36,6 +43,48 @@ def quantize_rows(x: torch.Tensor):
     return torch.clamp(torch.round(x / sx), -127.0, 127.0), sx
 
 
+def _prologue(x: torch.Tensor, ln, eps: float) -> torch.Tensor:
+    """The f32 LayerNorm of each row (or the rows themselves)."""
+    xf = x.float()
+    if ln is not None:
+        mean = xf.mean(-1, keepdim=True)
+        var = (xf - mean).square().mean(-1, keepdim=True)
+        xf = (xf - mean) * torch.rsqrt(var + eps) * ln[0].float() + ln[1].float()
+    return xf
+
+
+def gemm_prep_plain(x: torch.Tensor, *, ln=None, eps: float = 1e-5, act_quant: bool = False):
+    """The prologue alone, as the prep kernel writes it: bf16 rows [M, K],
+    or with act_quant the int8 codes [M, K] and their scales sx [M]."""
+    xf = _prologue(x, ln, eps)
+    if act_quant:
+        xq, sx = quantize_rows(xf)
+        return xq.to(torch.int8), sx[:, 0]
+    return xf.to(torch.bfloat16)
+
+
+def gemm_prep(x: torch.Tensor, *, ln=None, eps: float = 1e-5, act_quant: bool = False):
+    """The prep kernel alone on CUDA tensors (plain version on the CPU): the
+    rows the product reads. x [M, K] f32 with a unit last stride, K % 64 == 0."""
+    if x.device.type == "cpu":
+        return gemm_prep_plain(x, ln=ln, eps=eps, act_quant=act_quant)
+    M, K = x.shape
+    if x.dtype != torch.float32 or x.stride(-1) != 1 or K % 64 or M < 1:
+        raise ValueError("gemm_prep: x must be f32 [M, K] with a unit last stride, K % 64 == 0")
+    for t in (ln if ln is not None else ()):
+        if t.shape != (K,) or t.dtype != torch.float32 or t.device != x.device \
+                or not t.is_contiguous():
+            raise ValueError(f"gemm_prep: ln must be two contiguous f32 [{K}] on x's device")
+    act = torch.empty((M, K), dtype=torch.int8 if act_quant else torch.bfloat16, device=x.device)
+    sx = torch.empty((M,), dtype=torch.float32, device=x.device) if act_quant else None
+    rc = library().vx_gemm_small_m_prep(
+        x.data_ptr(), x.stride(0), _ptr(ln[0]) if ln is not None else None,
+        _ptr(ln[1]) if ln is not None else None, M, K, ctypes.c_float(eps), int(act_quant),
+        act.data_ptr(), _ptr(sx), stream_ptr(x))
+    check(rc, "gemm_prep")
+    return (act, sx) if act_quant else act
+
+
 def gemm_small_m_plain(
     x: torch.Tensor,
     w: torch.Tensor,
@@ -54,11 +103,7 @@ def gemm_small_m_plain(
     activations (`quantize_rows`); the integer sum is taken in float64,
     which holds it exactly (|sum| <= 127·127·K < 2^53; an f32 sum would
     round past 2^24), and rounded to f32 once, as the kernel's int32 sum."""
-    xf = x.float()
-    if ln is not None:
-        mean = xf.mean(-1, keepdim=True)
-        var = (xf - mean).square().mean(-1, keepdim=True)
-        xf = (xf - mean) * torch.rsqrt(var + eps) * ln[0].float() + ln[1].float()
+    xf = _prologue(x, ln, eps)
     if act_quant:
         if w.dtype != torch.int8 or scale is None:
             raise ValueError("gemm_small_m: act_quant needs int8 weights with scales")
@@ -114,8 +159,10 @@ def gemm_small_m(
         raise ValueError("gemm_small_m: int8 weights need per-channel scales")
     if act_quant and w.dtype != torch.int8:
         raise TypeError(f"gemm_small_m: act_quant (W8A8) needs int8 weights, got {w.dtype}")
-    if w.shape != (N, K) or not w.is_contiguous() or K % 16:
-        raise ValueError(f"gemm_small_m: w must be contiguous [N, K], K % 16 == 0; got {tuple(w.shape)}")
+    k_mult = 16 if w.dtype == torch.float32 else 64
+    if w.shape != (N, K) or not w.is_contiguous() or K % k_mult or w.data_ptr() % 16:
+        raise ValueError(f"gemm_small_m: w must be contiguous [N, K], 16-byte aligned, with"
+                         f" K % {k_mult} == 0 for {w.dtype} weights; got {tuple(w.shape)}")
     for t in f32:
         if t is not None and (t.dtype != torch.float32 or t.device != x.device
                               or t.stride(-1) != 1):
@@ -125,6 +172,12 @@ def gemm_small_m(
     if w.device != x.device:
         raise ValueError("gemm_small_m: w and x on different devices")
     y = torch.empty((M, N), dtype=torch.float32, device=x.device)
+    scratch = None
+    if w.dtype != torch.float32 and (act_quant or ln is not None or x.data_ptr() % 16
+                                     or x.stride(0) % 4):
+        # the prep kernel's rows: int8 codes then M f32 scales (W8A8), or bf16
+        nbytes = -(-M * K // 16) * 16 + 4 * M if act_quant else 2 * M * K
+        scratch = torch.empty((nbytes,), dtype=torch.uint8, device=x.device)
     rc = library().vx_gemm_small_m(
         x.data_ptr(), x.stride(0), w.data_ptr(), W_W8A8 if act_quant else W_KINDS[w.dtype],
         _ptr(scale), _ptr(bias),
@@ -132,8 +185,10 @@ def gemm_small_m(
         _ptr(ln[1]) if ln is not None else None,
         _ptr(residual), residual.stride(0) if residual is not None else 0,
         y.data_ptr(), y.stride(0), M, N, K, int(relu), ctypes.c_float(eps),
-        stream_ptr(x),
+        _ptr(scratch), stream_ptr(x),
     )
     check(rc, "gemm_small_m")
     launch_counts[("gemm_small_m", site)] += 1
+    if scratch is not None:
+        launch_counts[("gemm_small_m_prep", site)] += 1
     return y

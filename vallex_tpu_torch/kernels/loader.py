@@ -32,6 +32,8 @@ NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-Xptxas=-v",
 )
 
+HEAD_DIMS = (64, 128)  # the head dims the attention kernels are built for
+
 # (kernel, site) -> launches; each wrapper adds one per kernel launch. The
 # site names the TPU kernel whose work the launch carries.
 launch_counts: "collections.Counter[tuple[str, str]]" = collections.Counter()
@@ -49,20 +51,21 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     "vx_gemm_small_m": (_P, _I, _P, _I, _P, _P, _P, _P, _P, _I, _P, _I,
-                        _I, _I, _I, _I, _F, _P),
+                        _I, _I, _I, _I, _F, _P, _P),
+    "vx_gemm_small_m_prep": (_P, _I, _P, _P, _I, _I, _F, _I, _P, _P, _P),
     "vx_masked_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P,
-                            _I, _I, _I, _I, _I, _P, _I, _I, _I, _F,
+                            _I, _I, _I, _I, _I, _I, _P, _I, _I, _I, _F,
                             _P, _P, _P, _P, _P, _I, _P),
     "vx_sample_epilogue": (_P, _I, _P, _I, _I, _I, _I, _F, _I, _I, _I, _F,
                            _P, _P, _P, _I, _P),
     "vx_flash_attention_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                               _I, _I, _I, _I, _I, _F, _P),
+                               _I, _I, _I, _I, _I, _I, _F, _P),
     "vx_flash_attention_fwd_smem": (_I,),
     "vx_flash_attention_bwd_smem": (_I, _I),
     "vx_flash_attention_bwd_dq": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                  _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
+                                  _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
     "vx_flash_attention_bwd_dkv": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                   _P, _P, _I, _I, _I, _I, _I, _F, _P),
+                                   _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
 }
 
 

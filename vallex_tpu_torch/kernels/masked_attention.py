@@ -1,7 +1,7 @@
-"""`masked_attention`: the decode attention — at most 8 queries over the
-valid keys of a [text | audio] cache, with bounds per batch row (kernel:
-masked_attention.cu). The NAR's full-sequence attention is
-`flash_attention`'s; the plain version takes any number of queries.
+"""`masked_attention`: the decode attention — any number of queries over
+the valid keys of a [text | audio] cache, with bounds per batch row, head
+dim 64 or 128 on the card (kernel: masked_attention.cu, one block per
+query). The NAR's full-sequence attention is `flash_attention`'s.
 
 Key c is valid for row b and query qi iff
     c < x_len[b]
@@ -44,9 +44,9 @@ from typing import List, NamedTuple, Optional, Tuple, Union
 
 import torch
 
-from .loader import check, launch_counts, library, stream_ptr
+from .loader import HEAD_DIMS, check, launch_counts, library, stream_ptr
 
-HEAD_DIM = 64
+MAX_QUERIES = 65535  # the grid's x extent: one block per query
 
 IntOrRows = Union[int, torch.Tensor]  # one value for every row, or [B]
 
@@ -184,7 +184,6 @@ def _strides3(t: torch.Tensor):
     return (ctypes.c_longlong * 3)(t.stride(0), t.stride(1), t.stride(2))
 
 
-MAX_QUERIES = 8  # the kernel's queries per head (one block each)
 KINDS = {  # (q/out dtype, k/v dtype) → the launcher's `kinds`
     (torch.float32, torch.bfloat16): 0,
     (torch.float32, torch.float32): 2,
@@ -200,11 +199,11 @@ def masked_attention(
     slot: Optional[int] = None,
     out: Optional[torch.Tensor] = None, site: str = "", **layout,
 ) -> torch.Tensor:
-    """q [B, H, Tq, 64]; k/v [B, H, C, 64] (any strides with a unit last
-    stride): f32 q with bf16 k/v, all f32 (compute_dtype="float32") or f32
-    q with int8 k/v and `kv_scales` (the int8 KV cache); on the card
-    Tq <= 8 → [B, H, Tq, 64] in q's dtype, written into `out` when
-    given (e.g. a strided view of a [Tq, H·64] buffer). Bounds, or the
+    """q [B, H, Tq, hd]; k/v [B, H, C, hd] (any strides with a unit last
+    stride; hd 64 or 128 on the card): f32 q with bf16 k/v, all f32
+    (compute_dtype="float32") or f32 q with int8 k/v and `kv_scales` (the
+    int8 KV cache) → [B, H, Tq, hd] in q's dtype, written into `out` when
+    given (e.g. a strided view of a [Tq, H·hd] buffer). Bounds, or the
     keywords of `attention_bounds`; `prefix` + `beams` for the grouped
     mode; `new_kv` + `slot` for the own-column mode, which also writes the
     column into k/v. CPU tensors take the plain version; CUDA tensors
@@ -226,11 +225,12 @@ def masked_attention(
         out.copy_(o)
         return out
     C = k.shape[2]
-    if Tq > MAX_QUERIES:
-        raise ValueError(f"masked_attention: the kernel takes at most {MAX_QUERIES} queries,"
-                         f" got Tq = {Tq} (full-sequence attention is flash_attention's)")
-    if hd != HEAD_DIM or k.shape != (B, H, C, hd) or v.shape != k.shape:
-        raise ValueError(f"masked_attention: want q [B,H,Tq,{HEAD_DIM}], k/v [B,H,C,{HEAD_DIM}]; got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    if not 1 <= Tq <= MAX_QUERIES:
+        raise ValueError(f"masked_attention: the kernel takes 1 to {MAX_QUERIES} queries,"
+                         f" got Tq = {Tq}")
+    if hd not in HEAD_DIMS or k.shape != (B, H, C, hd) or v.shape != k.shape:
+        raise ValueError(f"masked_attention: want q [B,H,Tq,hd], k/v [B,H,C,hd] with hd in"
+                         f" {HEAD_DIMS}; got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     kinds = KINDS.get((q.dtype, k.dtype))
     if kinds is None or v.dtype != k.dtype:
         raise TypeError(f"masked_attention: q/k/v dtypes {q.dtype}/{k.dtype}/{v.dtype} not taken"
@@ -286,7 +286,7 @@ def masked_attention(
     rc = library().vx_masked_attention(
         q.data_ptr(), _strides3(q), k.data_ptr(), v.data_ptr(), _strides3(k),
         pk, pv, ps, P, beams, out.data_ptr(), _strides3(out), kinds,
-        B, H, Tq, C, lens.data_ptr(), bounds.a1_lo, bounds.a2_lo, bounds.q_off,
+        B, H, Tq, C, hd, lens.data_ptr(), bounds.a1_lo, bounds.a2_lo, bounds.q_off,
         ctypes.c_float(1.0 / math.sqrt(hd)), ks, vs, nk, nv, ns,
         0 if slot is None else slot, stream_ptr(q),
     )

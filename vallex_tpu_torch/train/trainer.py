@@ -149,6 +149,7 @@ def run(args) -> dict:
 
     from ..convert import load_tree
     from ..data.datamodule import TtsDataModule
+    from ..kernels import check_head_dim
     from ..models import get_model, model_config_from_args
     from ..models.vallex import VALLE
     from .loss import total_loss
@@ -157,9 +158,10 @@ def run(args) -> dict:
 
     _unported(args)
     device = torch.device(args.device)
+    cfg = model_config_from_args(args)
+    check_head_dim(cfg.head_dim, device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: pass --device cpu to train on the CPU")
-    cfg = model_config_from_args(args)
     init_fn, _module = get_model(args.model_name, cfg)
     model = load_tree(VALLE(cfg), init_fn(cfg, torch.Generator().manual_seed(args.seed)),
                       dtype=torch.float32, device=device)
