@@ -8,9 +8,10 @@ weights from a seed) and shows that each path went through the kernels.
 Phases, one flushed line each with its own seconds and wall-clock limit:
   1  card name and power limit (nvidia-smi)
   2  kernel build (nvcc, from the sources in the checkout); the bf16 flash
-     kernels' (forward, dQ, dK/dV) registers, shared memory and spills
-     (ptxas; a spill fails) and their tensor-core instructions (HGMMA in the
-     SASS, cuobjdump; none fails)
+     kernels' (forward, dQ, dK/dV, each at head dim 64 and 128) registers,
+     shared memory and spills (ptxas; a spill fails) and their tensor-core
+     instructions (HGMMA in the SASS, cuobjdump; none fails); a CUDA-core
+     flash kernel built for bf16 fails
   3  each kernel against its plain version, at each single-request site
      (the NAR attention: the flash forward with the NAR's segments (ok, ok)
      at T = 2304); masked_attention at Tq = 16 (a verify pass at
@@ -26,11 +27,13 @@ Phases, one flushed line each with its own seconds and wall-clock limit:
      20, and the f32 products and attention (compute_dtype="float32")
   3f head dim 128 (d_model 1024, 8 heads, random weights from seed 0):
      the decode attention (draft step, verify pass, 16 queries, int8 K/V
-     own column) and phase 3e's training attention against their plain
+     own column), the NAR attention (B = 1 and 4, T = 2304, as phases 3
+     and 3b) and phase 3e's training attention against their plain
      versions; decode_block_fused and decode_verify against the CPU; one
      f32 and one bf16 train_step through the kernels and total_loss
-     against the mask route; a greedy generate_audio (the hd-128 rows'
-     launches are counted here)
+     against the mask route; a greedy generate_audio, and a request and a
+     batch of two whose NAR runs the flash forward (C >= 1536; the hd-128
+     rows' launches are counted here)
   4  the ports of decode_block_fused (int8, K-1 = 7) and decode_verify
      (bf16, K = 8 and K = 16) against the same ops on the CPU (the plain
      versions)
@@ -151,8 +154,8 @@ TPU = {  # TPU kernel each main-path site stands for (file:line of the function)
 # the same kernels at head dim 128 (phase 3f; their launches are counted there)
 HD128 = "_hd128"
 TPU.update({site + HD128: TPU[site] for site in (
-    "decode_block_fused", "decode_verify", "flash_attention_prefix", "flash_attention_train",
-    "flash_attention_bwd")})
+    "decode_block_fused", "decode_verify", "flash_attention", "flash_attention_batched",
+    "flash_attention_prefix", "flash_attention_train", "flash_attention_bwd")})
 BATCHED_SITES = ("decode_block_fused_batched", "flash_attention_batched")
 SLICE3_SITES = ("decode_block_fused_filtered", "decode_block_fused_beams",
                 "decode_block_fused_grouped")
@@ -189,6 +192,27 @@ def phase(name: str, limit_s: float):
 def fail(msg: str) -> None:
     print("FAIL " + msg, file=sys.stderr, flush=True)
     sys.exit(1)
+
+
+def device_ms(fn, reps=20):
+    """Median device time of fn over reps, by CUDA events. A spin kernel
+    queued first keeps the card busy while the host enqueues, so host launch
+    overhead stays out of the interval."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        if hasattr(torch.cuda, "_sleep"):
+            torch.cuda._sleep(20_000_000)
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e))
+    return statistics.median(times)
 
 
 def busy_ms(intervals, lo, hi):
@@ -292,16 +316,83 @@ def running_max_rounding(q, k, v, seg, prefix):
     return acc / torch.where(l > 0, l, torch.ones_like(l))
 
 
+def check_flash_nar(dev, entry, g, site, x_len, audio_len, s_text, T, H=16, hd=64) -> None:
+    """The flash forward at the NAR's shapes against its plain version:
+    q/k/v as the NAR hands them (views of the fused QKV product of a
+    d_model H * hd model), its key-padding rule as segments (ok, ok),
+    prefix T. On the valid rows (the NAR discards the others) each output
+    element must lie within one bf16 ulp + 1e-5 of max|ref| of the plain
+    version's f32 output, plus 2^-8 of sum(p |v|) / l: both round each p to
+    bf16 once (at most 2^-9 of p each way), the kernel at the running row
+    max of its key tiles (as the JAX library's kernel does), the plain
+    version at the final one. lse within 1e-3."""
+    import torch
+    import torch.nn.functional as Fn
+
+    from vallex_tpu_torch.kernels.flash_attention import (
+        flash_attention_fwd, flash_attention_plain, valid_pairs,
+    )
+
+    B, D = len(x_len), H * hd
+    cols = torch.arange(T, device=dev)[None, :]
+    xl, al = (torch.tensor(a, dtype=torch.int32, device=dev) for a in (x_len, audio_len))
+    seg = torch.where(cols < s_text, cols < xl[:, None], (cols - s_text) < al[:, None]
+                      ).to(torch.int32)
+    qkv = torch.randn((B, T, 3 * D), generator=g, device=dev).to(torch.bfloat16)
+    q, k, v = (qkv[..., i * D:(i + 1) * D].view(B, T, H, hd).transpose(1, 2)
+               for i in range(3))
+    o, lse = flash_attention_fwd(q, k, v, seg, seg, T, site="check")
+    ref, lref = flash_attention_plain(q.float(), k, v, seg, seg, T)  # f32 out
+    spread = flash_attention_plain(q.float(), k, v.abs(), seg, seg, T)[0]
+    torch.cuda.synchronize()
+    rows = seg.bool()[:, None, :, None].expand_as(ref)  # the valid query rows
+    diff = (o.float() - ref).abs()[rows]
+    ulp = torch.exp2(torch.floor(torch.log2(ref.abs().clamp_min(2.0 ** -100))) - 7)[rows]
+    one_ulp = ulp + 1e-5 * float(ref.abs().max())
+    tol = one_ulp + 2.0 ** -8 * spread[rows]
+    err, err_l = float(diff.max()), float((lse - lref).abs()[rows[..., 0]].max())
+    if not (bool((diff <= tol).all()) and err_l <= 1e-3):
+        i = int((diff - tol).argmax())
+        fail(f"flash_attention_fwd@{site}: err {float(diff[i])} > {float(tol[i])}, lse err"
+             f" {err_l}")
+    beyond = int((diff > one_ulp).sum())
+    own = running_max_rounding(q, k, v, seg, T)
+    beyond_own = int(((o.float() - own).abs()[rows] > one_ulp).sum())
+    say(f"  flash_attention_fwd@{site}: valid rows within one bf16 ulp + 1e-5 of max for"
+        f" {diff.numel() - beyond} of {diff.numel()} elements, the rest within the p-rounding"
+        f" term (worst {float((diff / tol).max()):.3f} of its bound); lse err {err_l:.3e};"
+        f" against the kernel's rounding order in plain PyTorch {beyond_own} beyond one ulp")
+    ok = valid_pairs(seg, seg, T)
+    pairs = int(ok.sum()) * H
+    mask = ok[:, None]
+    lib_ms = device_ms(lambda: Fn.scaled_dot_product_attention(q, k, v, attn_mask=mask))
+    n = B * H * T * hd
+    entry("flash_attention_fwd", site, err,
+          device_ms(lambda: flash_attention_fwd(q, k, v, seg, seg, T, site="check")),
+          device_ms(lambda: flash_attention_plain(q, k, v, seg, seg, T)),
+          4 * n * 2 + B * H * T * 4 + 2 * B * T * 4, 4 * hd * pairs, lib_ms,
+          f"1 launch: NAR, B={B}, H={H}, hd={hd}, T={T}, bf16, segments (ok, ok), prefix T;"
+          f" {int(seg.sum())} valid rows, {pairs} valid pairs")
+    del qkv, q, k, v, o, ref, spread, own, mask, ok
+
+
 TC_KERNELS = ("flash_fwd_tc_kernel", "flash_bwd_dq_tc_kernel", "flash_bwd_dkv_tc_kernel")
+CORE_KERNELS = ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")
+TC_HEAD_DIMS = (64, 128)  # each tensor-core kernel is a template on the head dim
 
 
 def tc_kernel_report(lib) -> None:
     """Phase 2's report on the build: each kernel's ptxas line; for the bf16
-    flash kernels (tensor cores) their registers, shared memory, spills and
-    any serialized wgmma ptxas reports, their dynamic shared memory per
-    block, and their HGMMA count in the SASS (cuobjdump). Fails if one of
-    them has no HGMMA instruction or ptxas reports a spill."""
+    flash kernels (tensor cores) at each head dim their registers, shared
+    memory, spills and any serialized wgmma ptxas reports, their dynamic
+    shared memory per block, and their HGMMA count in the SASS (cuobjdump).
+    Fails if one of them has no HGMMA instruction, ptxas reports a spill, or
+    a CUDA-core flash kernel is built for bf16 (those run f32 only)."""
     from vallex_tpu_torch.kernels import loader
+
+    def instance(kernel, hd, fn_name):
+        """fn_name (mangled) is kernel<hd>: _Z<len>kernelILi<hd>E..."""
+        return re.search(rf"\d{kernel}ILi{hd}E", fn_name) is not None
 
     report = lib.parent / ("ptxas_" + lib.name.split("_")[-1].split(".")[0] + ".txt")
     if report.exists():
@@ -310,7 +401,9 @@ def tc_kernel_report(lib) -> None:
             if "Used" in line and "registers" in line:
                 say("  ptxas: " + line.split("ptxas info    :")[-1].strip())
         for blk in text.split("Compiling entry function")[1:]:
-            name = [k for k in TC_KERNELS if k in blk.split("\n")[0]]
+            head = blk.split("\n")[0]
+            name = [f"{k}<{hd}>" for k in TC_KERNELS for hd in TC_HEAD_DIMS
+                    if instance(k, hd, head)]
             if name:
                 said = [ln.split(":", 1)[-1].strip() for ln in blk.splitlines()[1:]
                         if any(w in ln for w in ("stack frame", "Used", "wgmma", "smem"))]
@@ -319,10 +412,11 @@ def tc_kernel_report(lib) -> None:
                 if any(int(x) for x in spills):
                     fail(f"{name[0]}: ptxas reports spills: {'; '.join(said)}")
     lib_ = loader.library()
-    say("  dynamic shared memory per block at T = 2304: flash_fwd_tc_kernel"
-        f" {lib_.vx_flash_attention_fwd_smem(2304)}, flash_bwd_dq_tc_kernel"
-        f" {lib_.vx_flash_attention_bwd_smem(2304, 0)}, flash_bwd_dkv_tc_kernel"
-        f" {lib_.vx_flash_attention_bwd_smem(2304, 1)} bytes")
+    for hd in TC_HEAD_DIMS:
+        say(f"  dynamic shared memory per block at T = 2304, hd {hd}: flash_fwd_tc_kernel"
+            f" {lib_.vx_flash_attention_fwd_smem(2304, hd)}, flash_bwd_dq_tc_kernel"
+            f" {lib_.vx_flash_attention_bwd_smem(2304, 0, hd)}, flash_bwd_dkv_tc_kernel"
+            f" {lib_.vx_flash_attention_bwd_smem(2304, 1, hd)} bytes")
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(cuobjdump):
         say("  SASS: no cuobjdump in this toolkit; tensor-core instructions not counted")
@@ -339,11 +433,17 @@ def tc_kernel_report(lib) -> None:
             per_fn[fn][0] += "HGMMA" in line
             per_fn[fn][1] += bool(re.search(r"\bHMMA", line))
     for kernel in TC_KERNELS:
-        tc = [c for f, c in per_fn.items() if kernel in f]
-        if not tc or tc[0][0] == 0:
-            fail(f"{kernel}: no HGMMA instruction in its SASS ({tc})")
-        say(f"  SASS (cuobjdump -sass): {kernel} holds {tc[0][0]} HGMMA and {tc[0][1]} HMMA"
-            " instructions")
+        for hd in TC_HEAD_DIMS:
+            tc = [c for f, c in per_fn.items() if instance(kernel, hd, f)]
+            if not tc or tc[0][0] == 0:
+                fail(f"{kernel}<{hd}>: no HGMMA instruction in its SASS ({tc})")
+            say(f"  SASS (cuobjdump -sass): {kernel}<{hd}> holds {tc[0][0]} HGMMA and"
+                f" {tc[0][1]} HMMA instructions")
+    core = [f for f in per_fn if any(re.search(rf"\d{k}I", f) for k in CORE_KERNELS)]
+    bf16_core = [f for f in core if "bfloat16" in f]
+    if bf16_core or not core:
+        fail(f"CUDA-core flash kernels in the library: {core}; want f32 instances only")
+    say(f"  SASS: {len(core)} CUDA-core flash kernels, all f32 (no bf16 instance)")
 
 
 # ---------------------------------------------------------------------------
@@ -387,7 +487,7 @@ def utterances(seed, lens_t, lens_a):
             for i, (t, a) in enumerate(zip(lens_t, lens_a))]
 
 
-def train_kernel_checks(dev, entry, device_ms, g, H=16, hd=64, suffix="") -> None:
+def train_kernel_checks(dev, entry, g, H=16, hd=64, suffix="") -> None:
     """Phase 3e: the flash forward, dQ and dK/dV kernels against their plain
     versions at the training shapes (B = 4, H = 16, T = 1152 = text 128 +
     audio 1024, hd 64), bf16 and f32, one padded segment per row and four
@@ -398,8 +498,7 @@ def train_kernel_checks(dev, entry, device_ms, g, H=16, hd=64, suffix="") -> Non
     training layers pass them) with dO a transposed view; two backward runs
     bitwise equal in every case. Times the backward at P = 128 (rows y, z)
     and at P = T (rows yT, zT) against SDPA's whole backward. H and hd: the
-    same at head dim 128 (H = 8; bf16 then runs the CUDA-core kernels), its
-    rows at the sites + suffix."""
+    same at head dim 128 (H = 8), its rows at the sites + suffix."""
     import torch
     import torch.nn.functional as Fn
 
@@ -712,7 +811,7 @@ def train_path(dev, cfg) -> None:
              if "flash_" in n}
     cuda_core_bwd = [n for n in flash if n.startswith(("flash_bwd_dq_kernel",
                                                        "flash_bwd_dkv_kernel"))]
-    if cuda_core_bwd or not all(k in flash for k in TC_KERNELS):
+    if cuda_core_bwd or not all(k in {n.split("<")[0] for n in flash} for k in TC_KERNELS):
         fail(f"5f trace of a bf16 train_step: flash kernels {flash}; want {TC_KERNELS} and no"
              " CUDA-core backward")
     top = {n[:80]: round(t, 3) for n, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]}
@@ -751,9 +850,6 @@ def main() -> None:
         masked_attention_plain, sample_epilogue, sample_epilogue_plain,
     )
     from vallex_tpu_torch.kernels.gemm_small_m import gemm_prep, gemm_prep_plain
-    from vallex_tpu_torch.kernels.flash_attention import (
-        flash_attention_fwd, flash_attention_plain, valid_pairs,
-    )
     from vallex_tpu_torch.kernels.masked_attention import (
         attention_bounds, valid_keys, with_prefix, write_column,
     )
@@ -801,26 +897,6 @@ def main() -> None:
     XL_B, PL_B, T_GEN = [20, 52, 90, 128], [0, 60, 400, 758], 2048
     P_AUDIO = -(-(max(PL_B) + 1) // AR.ABLK) * AR.ABLK
     C_B = S_TEXT + P_AUDIO + T_GEN + 8
-
-    has_sleep = hasattr(torch.cuda, "_sleep")
-
-    def device_ms(fn, reps=20):
-        """Median device time of fn over reps, by CUDA events. A spin
-        kernel queued first keeps the card busy while the host enqueues,
-        so host launch overhead stays out of the interval."""
-        fn()
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(reps):
-            if has_sleep:
-                torch.cuda._sleep(20_000_000)
-            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            s.record()
-            fn()
-            e.record()
-            e.synchronize()
-            times.append(s.elapsed_time(e))
-        return statistics.median(times)
 
     entries = []
 
@@ -1088,57 +1164,6 @@ def main() -> None:
               in_line, {torch.float32: F32_OPS_PER_S, torch.int8: INT8_OPS_PER_S}.get(
                   kf.dtype, BF16_OPS_PER_S))
 
-    def check_flash_nar(site, x_len, audio_len, s_text, T):
-        """The flash forward at the NAR's shapes against its plain version:
-        q/k/v as the NAR hands them (views of the fused QKV product), its
-        key-padding rule as segments (ok, ok), prefix T. On the valid rows
-        (the NAR discards the others) each output element must lie within
-        one bf16 ulp + 1e-5 of max|ref| of the plain version's f32 output,
-        plus 2^-8 of sum(p |v|) / l: both round each p to bf16 once (at most
-        2^-9 of p each way), the kernel at the running row max of its key
-        tiles (as the JAX library's kernel does), the plain version at the
-        final one. lse within 1e-3."""
-        B = len(x_len)
-        cols = torch.arange(T, device=dev)[None, :]
-        seg = torch.where(cols < s_text, cols < rows_i32(x_len)[:, None],
-                          (cols - s_text) < rows_i32(audio_len)[:, None]).to(torch.int32)
-        qkv = torch.randn((B, T, 3 * D), generator=g, device=dev).to(torch.bfloat16)
-        q, k, v = (qkv[..., i * D:(i + 1) * D].view(B, T, H, hd).transpose(1, 2)
-                   for i in range(3))
-        o, lse = flash_attention_fwd(q, k, v, seg, seg, T, site="check")
-        ref, lref = flash_attention_plain(q.float(), k, v, seg, seg, T)  # f32 out
-        spread = flash_attention_plain(q.float(), k, v.abs(), seg, seg, T)[0]
-        torch.cuda.synchronize()
-        rows = seg.bool()[:, None, :, None].expand_as(ref)  # the valid query rows
-        diff = (o.float() - ref).abs()[rows]
-        ulp = torch.exp2(torch.floor(torch.log2(ref.abs().clamp_min(2.0 ** -100))) - 7)[rows]
-        one_ulp = ulp + 1e-5 * float(ref.abs().max())
-        tol = one_ulp + 2.0 ** -8 * spread[rows]
-        err, err_l = float(diff.max()), float((lse - lref).abs()[rows[..., 0]].max())
-        if not (bool((diff <= tol).all()) and err_l <= 1e-3):
-            i = int((diff - tol).argmax())
-            fail(f"flash_attention_fwd@{site}: err {float(diff[i])} > {float(tol[i])}, lse err"
-                 f" {err_l}")
-        beyond = int((diff > one_ulp).sum())
-        own = running_max_rounding(q, k, v, seg, T)
-        beyond_own = int(((o.float() - own).abs()[rows] > one_ulp).sum())
-        say(f"  flash_attention_fwd@{site}: valid rows within one bf16 ulp + 1e-5 of max for"
-            f" {diff.numel() - beyond} of {diff.numel()} elements, the rest within the p-rounding"
-            f" term (worst {float((diff / tol).max()):.3f} of its bound); lse err {err_l:.3e};"
-            f" against the kernel's rounding order in plain PyTorch {beyond_own} beyond one ulp")
-        ok = valid_pairs(seg, seg, T)
-        pairs = int(ok.sum()) * H
-        mask = ok[:, None]
-        lib_ms = device_ms(lambda: Fn.scaled_dot_product_attention(q, k, v, attn_mask=mask))
-        n = B * H * T * hd
-        entry("flash_attention_fwd", site, err,
-              device_ms(lambda: flash_attention_fwd(q, k, v, seg, seg, T, site="check")),
-              device_ms(lambda: flash_attention_plain(q, k, v, seg, seg, T)),
-              4 * n * 2 + B * H * T * 4 + 2 * B * T * 4, 4 * hd * pairs, lib_ms,
-              f"1 launch: NAR, B={B}, H={H}, T={T}, bf16, segments (ok, ok), prefix T;"
-              f" {int(seg.sum())} valid rows, {pairs} valid pairs")
-        del qkv, q, k, v, o, ref, spread, own, mask, ok
-
     def check_sample(site, rows, greedy):
         logits = torch.randn((rows, VP), generator=g, device=dev) * 3
         u = None if greedy else torch.rand((rows, VP), generator=g, device=dev)
@@ -1230,7 +1255,8 @@ def main() -> None:
         check_attention("decode_verify", decode_q(1, 8), cache_k[0][None], cache_v[0][None],
                         one, NL)
         T_NAR, S_NAR = 2304, 256
-        check_flash_nar("flash_attention", [150], [1058], S_NAR, T_NAR)
+        NAR_XL_B, NAR_AL_B = [20, 52, 150, 256], [832, 892, 1158, 2046]
+        check_flash_nar(dev, entry, g, "flash_attention", [150], [1058], S_NAR, T_NAR)
         # the verify pass at decode_steps = 16: 16 queries per head
         check_attention("decode_verify", decode_q(1, 16), cache_k[0][None], cache_v[0][None],
                         one, NL, in_line=False)
@@ -1248,8 +1274,8 @@ def main() -> None:
                               audio_len=rows_i32(PL_B) + 1, q_off=1,
                               gen_lo=S_TEXT + P_AUDIO, gen_len=rows_i32(gen) + 1, device=dev)
         check_attention("decode_block_fused_batched", decode_q(B, 1), kb, vb, bb, NL)
-        check_flash_nar("flash_attention_batched", [20, 52, 150, 256], [832, 892, 1158, 2046],
-                        S_NAR, T_NAR)
+        check_flash_nar(dev, entry, g, "flash_attention_batched", NAR_XL_B, NAR_AL_B, S_NAR,
+                        T_NAR)
         check_gemm("decode_block_fused_batched", packed, 4, "one batched step")
         check_gemm("decode_block_fused_batched", packed, 8, "one batched step", in_line=False)
         check_gemm("decode_block_fused_batched", draft, 4, "one batched step", in_line=False)
@@ -1372,7 +1398,7 @@ def main() -> None:
 
     # ---- phase 3e: the training attention, forward and backward --------------
     with phase("3e training attention vs plain", 300):
-        train_kernel_checks(dev, entry, device_ms, g)
+        train_kernel_checks(dev, entry, g)
 
     # ---- phase 3f: head dim 128 (d_model 1024, 8 heads) -----------------------
     loader.reset_launch_counts()
@@ -1399,8 +1425,13 @@ def main() -> None:
         q, nk, nv = qkv8(1)
         check_attention("decode_block_fused_int8kv", q, k8, v8, one, NL, in_line=False,
                         kv_scales=sc8, new_kv=(nk, nv), slot=S_TEXT + POS0)
+        # the NAR attention at hd 128, as phases 3 and 3b (rows g128, k128)
+        check_flash_nar(dev, entry, g, "flash_attention" + HD128, [150], [1058], S_NAR, T_NAR,
+                        H=H8, hd=HD8)
+        check_flash_nar(dev, entry, g, "flash_attention_batched" + HD128, NAR_XL_B, NAR_AL_B,
+                        S_NAR, T_NAR, H=H8, hd=HD8)
         # the training attention at hd 128, as phase 3e
-        train_kernel_checks(dev, entry, device_ms, g, H=H8, hd=HD8, suffix=HD128)
+        train_kernel_checks(dev, entry, g, H=H8, hd=HD8, suffix=HD128)
         # the decode ops against the CPU plain path, as phase 4
         cpu8 = {k: (None if t is None else t.cpu()) for k, t in draft8.items()}
         pcpu8 = {k: (None if t is None else t.cpu()) for k, t in packed8.items()}
@@ -1438,6 +1469,27 @@ def main() -> None:
         if not (len(wave) > 0 and np.isfinite(wave).all()):
             fail("3f generate_audio at hd 128: no finite wave")
         say(f"  hd 128: generate_audio greedy, {len(b128.last.codes)} frames through the kernels")
+        # the NAR at C >= 1536 through the flash forward: one request with the
+        # 758-frame fuxuan prompt (as phase 6), then a batch of two
+        for label, run_nar in (
+                ("generate_audio", lambda: [api.generate_audio(
+                    "The quick brown fox jumps over the lazy dog.", prompt="fuxuan",
+                    language="en", max_duration=4.0, seed=1)]),
+                ("generate_audio_batch", lambda: api.generate_audio_batch(
+                    ["The quick brown fox jumps over the lazy dog.", "Hello world."],
+                    ["fuxuan", "paimon"], language="en", top_k=1))):
+            before = sum(n for (kn, st), n in loader.launch_counts.items()
+                         if kn == "flash_attention_fwd" and st in ("flash_attention",
+                                                                   "flash_attention_batched"))
+            waves = run_nar()
+            nar = sum(n for (kn, st), n in loader.launch_counts.items()
+                      if kn == "flash_attention_fwd" and st in ("flash_attention",
+                                                                "flash_attention_batched")) - before
+            if not (nar > 0 and all(len(w) > 0 and np.isfinite(w).all() for w in waves)):
+                fail(f"3f {label} at hd 128, NAR >= 1536: {nar} flash launches, waves"
+                     f" {[len(w) for w in waves]}")
+            say(f"  hd 128: {label}, NAR >= 1536: {[len(w) // 320 for w in waves]} frames,"
+                f" {nar} NAR flash launches, NAR {b128.last.seconds['nar']:.2f} s")
         counts_hd128 = dict(loader.launch_counts)
         api._bundle = bundle
         del b128, packed8, draft8

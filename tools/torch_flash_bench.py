@@ -1,0 +1,97 @@
+"""The port's flash-attention kernels on one GPU, alone: build, check and time.
+
+    python3 tools/torch_flash_bench.py [--root DIR] [--label NAME] [--hd 64,128]
+
+Runs the checks and timings of chip_smoke.py's phases 3e / 3f (the forward,
+dQ and dK/dV kernels against their plain versions at B = 4, T = 1152,
+H = 1024 / hd: bf16 and f32, padded and packed rows, prefix T / 0 / 128, a
+ragged T = 1100, fused-QKV views; two backward runs bitwise equal) and of
+phases 3 / 3b (the NAR's forward at T = 2304, B = 1 and 4) for each head dim,
+without the rest of the smoke run. Each timed row prints as one JSON line
+(`row {...}`: kernel, site, ms, plain_ms, bound_ms, bound_by, library_ms,
+max_abs_err, unit), after the card's name and power limit and the flash
+kernels' ptxas lines.
+
+--root imports and builds `vallex_tpu_torch` from another tree (a commit
+unpacked with `git archive`), so two commits compare on one card in one
+call: run parent, change, change, parent. Needs one CUDA card; exits 1
+without one.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import os
+import subprocess
+import sys
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--root", default=HERE, help="tree whose vallex_tpu_torch is built and timed")
+    ap.add_argument("--label", default="", help="name printed on every row")
+    ap.add_argument("--hd", default="64,128", help="head dims to run (H = 1024 / hd)")
+    args = ap.parse_args()
+    root = os.path.abspath(args.root)
+    sys.path.insert(0, root)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("FAIL no CUDA device: this benchmark runs on the GPU", file=sys.stderr)
+        sys.exit(1)
+    # this tree's chip_smoke.py (its checks), whatever tree the port comes from
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(HERE, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    from vallex_tpu_torch.kernels import loader
+
+    import vallex_tpu_torch
+    if not os.path.abspath(vallex_tpu_torch.__file__).startswith(root):
+        cs.fail(f"imported {vallex_tpu_torch.__file__}, not the tree {root}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=30).stdout.strip()
+    cs.say(f"{args.label} card: {smi.splitlines()[0] if smi else 'nvidia-smi gave nothing'};"
+           f" tree {root}")
+    lib = loader.build()
+    report = lib.parent / ("ptxas_" + lib.name.split("_")[-1].split(".")[0] + ".txt")
+    if report.exists():
+        for blk in report.read_text().split("Compiling entry function")[1:]:
+            head = blk.split("\n")[0]
+            if "flash_" in head:
+                said = [ln.split(":", 1)[-1].strip() for ln in blk.splitlines()[1:]
+                        if any(w in ln for w in ("spill", "Used"))]
+                cs.say(f"  ptxas {head.split(chr(39))[1][:48]}: " + "; ".join(said))
+    loader.library()
+
+    def entry(kernel, site, err, ms, plain_ms, bytes_, ops, library_ms, unit, in_line=True,
+              ops_per_s=cs.BF16_OPS_PER_S):
+        bound_b, bound_o = bytes_ / cs.HBM_BYTES_PER_S * 1e3, ops / ops_per_s * 1e3
+        cs.say("row " + json.dumps(dict(
+            label=args.label, kernel=kernel, site=site, ms=round(ms, 4),
+            plain_ms=round(plain_ms, 4), bound_ms=round(max(bound_b, bound_o), 4),
+            bound_by="bytes" if bound_b >= bound_o else "operations",
+            library_ms=None if library_ms is None else round(library_ms, 4),
+            max_abs_err=float(err), unit=unit)))
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(1)
+    for hd in (int(x) for x in args.hd.split(",")):
+        H, suffix = 1024 // hd, "" if hd == 64 else "_hd128"
+        cs.check_flash_nar(dev, entry, g, "flash_attention" + suffix, [150], [1058], 256, 2304,
+                           H=H, hd=hd)
+        cs.check_flash_nar(dev, entry, g, "flash_attention_batched" + suffix,
+                           [20, 52, 150, 256], [832, 892, 1158, 2046], 256, 2304, H=H, hd=hd)
+        cs.train_kernel_checks(dev, entry, g, H=H, hd=hd, suffix=suffix)
+        torch.cuda.empty_cache()
+    cs.say(f"{args.label} ok")
+
+
+if __name__ == "__main__":
+    main()

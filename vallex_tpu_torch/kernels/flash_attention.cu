@@ -23,27 +23,26 @@
 // the non-causal pass over the text block alone (keys j >= P are out); for an
 // audio row i >= P it is j <= i, the causal pass over the whole sequence.
 //
-// Kernels, picked by kind and head dim (neither stands in for the other):
-//   flash_fwd_tc_kernel (bf16, hd 64): the forward on the tensor cores, below;
-//   flash_fwd_kernel<float, hd> (f32) and flash_fwd_kernel<bf16, 128>: the
-//       forward on the CUDA cores (tensor cores in f32 would be TF32, which
-//       changes the f32 numbers; the tensor-core kernels hold their 64 x hd
-//       tiles in one warpgroup's registers and are written for hd 64), one
-//       block of 256 threads per (query tile of 64, head, row); f32 tiles in
-//       shared memory (row stride hd + 1, so a half-warp reading 16 rows hits
-//       16 banks), each thread a 4 x 4 tile of the 64 x 64 scores and a
-//       4 x hd/16 tile of the output;
-//   flash_bwd_dq_tc_kernel (bf16, hd 64) / flash_bwd_dq_kernel<T, hd>: per
-//       query tile, di = sum(O * dO) in f32 from O as stored (written out for
-//       the dK/dV kernel), then dQ over the key tiles;
-//   flash_bwd_dkv_tc_kernel (bf16, hd 64) / flash_bwd_dkv_kernel<T, hd>: per
-//       key tile, dK and dV over the query tiles that can see it (all of them
-//       when the tile starts below P, else from the tile's own row on). It
-//       runs after the dQ kernel on the same stream and reads its di.
+// Kernels, picked by kind (bf16 or f32) and head dim HD (64 or 128); neither
+// kind stands in for the other:
+//   bf16 on the tensor cores (wgmma, TMA, mbarrier; sm_90a), templated on HD:
+//     flash_fwd_tc_kernel<HD>: the forward, one warpgroup per query tile of
+//       64 (design below);
+//     flash_bwd_dq_tc_kernel<HD>: per query tile, di = sum(O * dO) in f32
+//       from O as stored (written out for the dK/dV kernel), then dQ over the
+//       key tiles; one warpgroup;
+//     flash_bwd_dkv_tc_kernel<HD>: per key tile, dK and dV over the query
+//       tiles that can see it (all of them when the tile starts below P, else
+//       from the tile's own row on), HD / 64 warpgroups; it runs after the dQ
+//       kernel on the same stream and reads its di;
+//   f32 on the CUDA cores (tensor cores in f32 would round to TF32 and change
+//     the f32 numbers): flash_fwd_kernel<HD>, flash_bwd_dq_kernel<HD> and
+//     flash_bwd_dkv_kernel<HD>, the same three roles, one block of 256
+//     threads per (tile of 64, head, row); tiles in shared memory (row stride
+//     HD + 1, so a half-warp reading 16 rows hits 16 banks), each thread a
+//     4 x 4 tile of the 64 x 64 scores and a 4 x HD/16 tile of its outputs.
 // Both forwards write O in the input type and the row log-sum-exp (f32) for
-// the backward. The bf16 kernels at hd 64 run on the tensor cores (wgmma,
-// TMA, mbarrier; sm_90a), the f32 ones and bf16 at hd 128 on the CUDA cores
-// in the f32 layout above.
+// the backward.
 // Neither backward uses atomics: each output element is one block's sum in a
 // fixed order, so the gradients are the same from run to run.
 // Rounding follows the library: scores in f32 (q.k, then times the scale),
@@ -53,40 +52,18 @@
 //
 // Bound on the H100: operations, 4 * hd per valid (query, key) pair forward
 // (bf16 at 989 TFLOP/s), 6 * hd in the dQ kernel (q.k, dO.v, ds.k) and
-// 8 * hd in the dK/dV kernel (q.k, dO.v, p.dO, ds.q); the bf16 backward's
-// design is with its kernels below. The bf16 forward's design for that bound:
+// 8 * hd in the dK/dV kernel (q.k, dO.v, p.dO, ds.q), or the bytes (q, k, v,
+// O, dO read once, the outputs written once) where fewer pairs are valid.
+// The bf16 kernels' designs for that bound are with them below.
 #include <cuda.h>  // CUtensorMap and its enums (the encoder comes through the runtime)
 #include <limits.h>
 #include <math.h>
 
 #include "common.cuh"
 
-#define FA_HD 64  // the tensor-core kernels' head dim
 #define FA_TILE 64
 #define FA_PLD (FA_TILE + 1)  // row stride of the CUDA-core kernels' 64 x 64 p / ds tiles
 #define FA_THREADS 256
-
-template <typename T>
-__device__ __forceinline__ float fa_ld(const T* p);
-template <>
-__device__ __forceinline__ float fa_ld<float>(const float* p) { return *p; }
-template <>
-__device__ __forceinline__ float fa_ld<__nv_bfloat16>(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-
-// x rounded to T and back (the library's .astype(v.dtype) before a product)
-template <typename T>
-__device__ __forceinline__ float fa_round(float x);
-template <>
-__device__ __forceinline__ float fa_round<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ float fa_round<__nv_bfloat16>(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-__device__ __forceinline__ void fa_st(float* p, float x) { *p = x; }
-__device__ __forceinline__ void fa_st(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
 
 struct FaStrides {
   long long b, h, t;
@@ -106,12 +83,12 @@ __device__ __forceinline__ float fa_sum16(float v) {
 
 // rows [t0, t0 + 64) of one (b, h) slice into a [64][HD + 1] f32 tile,
 // zeros past T
-template <typename T, int HD>
-__device__ __forceinline__ void fa_load_tile(float* dst, const T* src, long long st, int t0,
+template <int HD>
+__device__ __forceinline__ void fa_load_tile(float* dst, const float* src, long long st, int t0,
                                              int T_len) {
   for (int idx = threadIdx.x; idx < FA_TILE * HD; idx += FA_THREADS) {
     const int r = idx / HD, c = idx % HD, t = t0 + r;
-    dst[r * (HD + 1) + c] = t < T_len ? fa_ld(src + t * st + c) : 0.f;
+    dst[r * (HD + 1) + c] = t < T_len ? src[t * st + c] : 0.f;
   }
 }
 
@@ -131,14 +108,14 @@ __device__ __forceinline__ bool fa_valid(int i, int j, int P, int seg_i, int seg
   return seg_i == seg_j && j <= max(i, P - 1);
 }
 
-// The CUDA-core kernels, for head dim HD (64 or 128): f32, and bf16 at 128.
-// Thread (ty, tx) of the 16 x 16 grid holds query (or key) rows ty * 4 + a
-// and head columns tx + 16 j (j < HD / 16) of its outputs.
-template <typename T, int HD>
+// The f32 kernels on the CUDA cores, for head dim HD (64 or 128). Thread
+// (ty, tx) of the 16 x 16 grid holds query (or key) rows ty * 4 + a and head
+// columns tx + 16 j (j < HD / 16) of its outputs.
+template <int HD>
 __global__ void __launch_bounds__(FA_THREADS)
-    flash_fwd_kernel(const T* __restrict__ q, FaStrides qs, const T* __restrict__ k,
-                     const T* __restrict__ v, FaStrides kvs, const int* __restrict__ qseg,
-                     const int* __restrict__ kvseg, T* __restrict__ o, FaStrides os,
+    flash_fwd_kernel(const float* __restrict__ q, FaStrides qs, const float* __restrict__ k,
+                     const float* __restrict__ v, FaStrides kvs, const int* __restrict__ qseg,
+                     const int* __restrict__ kvseg, float* __restrict__ o, FaStrides os,
                      float* __restrict__ lse, int H, int T_len, int P, float scale) {
   constexpr int LD = HD + 1, NJ = HD / 16;
   extern __shared__ float fa_smem[];
@@ -151,13 +128,13 @@ __global__ void __launch_bounds__(FA_THREADS)
 
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int q0 = blockIdx.x * FA_TILE, h = blockIdx.y, b = blockIdx.z;
-  const T* qb = q + b * qs.b + h * qs.h;
-  const T* kb = k + b * kvs.b + h * kvs.h;
-  const T* vb = v + b * kvs.b + h * kvs.h;
+  const float* qb = q + b * qs.b + h * qs.h;
+  const float* kb = k + b * kvs.b + h * kvs.h;
+  const float* vb = v + b * kvs.b + h * kvs.h;
   const int* qsg = qseg + (long long)b * T_len;
   const int* ksg = kvseg + (long long)b * T_len;
 
-  fa_load_tile<T, HD>(Qs, qb, qs.t, q0, T_len);
+  fa_load_tile<HD>(Qs, qb, qs.t, q0, T_len);
   fa_load_seg(segq, qsg, q0, T_len, FA_PAD_Q);
 
   float m[4], l[4], acc[4][NJ];
@@ -172,8 +149,8 @@ __global__ void __launch_bounds__(FA_THREADS)
   const int kend = min(T_len, max(q0 + FA_TILE, P));
   for (int k0 = 0; k0 < kend; k0 += FA_TILE) {
     __syncthreads();  // the previous tile's reads of Ks, Vs, Ps are done
-    fa_load_tile<T, HD>(Ks, kb, kvs.t, k0, T_len);
-    fa_load_tile<T, HD>(Vs, vb, kvs.t, k0, T_len);
+    fa_load_tile<HD>(Ks, kb, kvs.t, k0, T_len);
+    fa_load_tile<HD>(Vs, vb, kvs.t, k0, T_len);
     fa_load_seg(segk, ksg, k0, T_len, FA_PAD_K);
     __syncthreads();
 
@@ -212,7 +189,7 @@ __global__ void __launch_bounds__(FA_THREADS)
         for (int j = 0; j < 4; ++j) {
           const float p = expf(s[a][j] - m_new);
           psum += p;
-          Ps[r * FA_PLD + tx + 16 * j] = fa_round<T>(p);
+          Ps[r * FA_PLD + tx + 16 * j] = p;
         }
       } else {
 #pragma unroll
@@ -237,7 +214,7 @@ __global__ void __launch_bounds__(FA_THREADS)
       }
     }
   }
-  T* ob = o + b * os.b + h * os.h;
+  float* ob = o + b * os.b + h * os.h;
   float* lb = lse + ((long long)b * H + h) * T_len;
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
@@ -245,23 +222,309 @@ __global__ void __launch_bounds__(FA_THREADS)
     if (i >= T_len) continue;
     const float inv = l[a] > 0.f ? 1.f / l[a] : 0.f;
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) fa_st(ob + i * os.t + tx + 16 * j, acc[a][j] * inv);
+    for (int j = 0; j < NJ; ++j) ob[i * os.t + tx + 16 * j] = acc[a][j] * inv;
     if (tx == 0) lb[i] = l[a] > 0.f ? m[a] + logf(l[a]) : 0.f;
   }
 }
 
+template <int HD>
+__global__ void __launch_bounds__(FA_THREADS)
+    flash_bwd_dq_kernel(const float* __restrict__ q, FaStrides qs, const float* __restrict__ k,
+                        const float* __restrict__ v, FaStrides kvs, const float* __restrict__ o,
+                        FaStrides os, const float* __restrict__ dout, FaStrides dos,
+                        const int* __restrict__ qseg, const int* __restrict__ kvseg,
+                        const float* __restrict__ lse, float* __restrict__ di_out,
+                        float* __restrict__ dq, int H, int T_len, int P, float scale) {
+  constexpr int LD = HD + 1, NJ = HD / 16;
+  extern __shared__ float fa_smem[];
+  float* Qs = fa_smem;
+  float* dOs = Qs + FA_TILE * LD;
+  float* Ks = dOs + FA_TILE * LD;
+  float* Vs = Ks + FA_TILE * LD;
+  float* dSs = Vs + FA_TILE * LD;
+  int* segq = reinterpret_cast<int*>(dSs + FA_TILE * FA_PLD);
+  int* segk = segq + FA_TILE;
+  float* lse_s = reinterpret_cast<float*>(segk + FA_TILE);
+  float* di_s = lse_s + FA_TILE;
+
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int q0 = blockIdx.x * FA_TILE, h = blockIdx.y, b = blockIdx.z;
+  const long long bh = (long long)b * H + h;
+  const float* kb = k + b * kvs.b + h * kvs.h;
+  const float* vb = v + b * kvs.b + h * kvs.h;
+  const float* ob = o + b * os.b + h * os.h;
+  const int* ksg = kvseg + (long long)b * T_len;
+
+  fa_load_tile<HD>(Qs, q + b * qs.b + h * qs.h, qs.t, q0, T_len);
+  fa_load_tile<HD>(dOs, dout + b * dos.b + h * dos.h, dos.t, q0, T_len);
+  fa_load_seg(segq, qseg + (long long)b * T_len, q0, T_len, FA_PAD_Q);
+  // di = sum_c O[i, c] * dO[i, c] in f32, four lanes per row
+  {
+    const int r = tid >> 2, part = tid & 3, i = q0 + r;
+    __syncthreads();  // dOs is loaded
+    float acc = 0.f;
+    if (i < T_len) {
+      for (int c = part * (HD / 4); c < (part + 1) * (HD / 4); ++c)
+        acc = fmaf(ob[i * os.t + c], dOs[r * LD + c], acc);
+    }
+    acc += __shfl_xor_sync(VX_FULL_MASK, acc, 1);
+    acc += __shfl_xor_sync(VX_FULL_MASK, acc, 2);
+    if (part == 0) {
+      di_s[r] = acc;
+      lse_s[r] = i < T_len ? lse[bh * T_len + i] : 0.f;
+      if (i < T_len) di_out[bh * T_len + i] = acc;
+    }
+  }
+
+  float dqa[4][NJ];
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) dqa[a][j] = 0.f;
+  const int kend = min(T_len, max(q0 + FA_TILE, P));
+  for (int k0 = 0; k0 < kend; k0 += FA_TILE) {
+    __syncthreads();
+    fa_load_tile<HD>(Ks, kb, kvs.t, k0, T_len);
+    fa_load_tile<HD>(Vs, vb, kvs.t, k0, T_len);
+    fa_load_seg(segk, ksg, k0, T_len, FA_PAD_K);
+    __syncthreads();
+
+    float s[4][4], dp[4][4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[a][j] = dp[a][j] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < HD; ++d) {
+      float qv[4], dov[4], kv[4], vv[4];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        qv[a] = Qs[(ty * 4 + a) * LD + d];
+        dov[a] = dOs[(ty * 4 + a) * LD + d];
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        kv[j] = Ks[(tx + 16 * j) * LD + d];
+        vv[j] = Vs[(tx + 16 * j) * LD + d];
+      }
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          s[a][j] = fmaf(qv[a], kv[j], s[a][j]);
+          dp[a][j] = fmaf(dov[a], vv[j], dp[a][j]);
+        }
+    }
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      const int r = ty * 4 + a, i = q0 + r;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = tx + 16 * j;
+        float ds = 0.f;
+        if (fa_valid(i, k0 + c, P, segq[r], segk[c])) {
+          const float p = expf(s[a][j] * scale - lse_s[r]);
+          ds = p * (dp[a][j] - di_s[r]) * scale;
+        }
+        dSs[r * FA_PLD + c] = ds;
+      }
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int kk = 0; kk < FA_TILE; ++kk) {
+      float kv[NJ];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) kv[j] = Ks[kk * LD + tx + 16 * j];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        const float ds = dSs[(ty * 4 + a) * FA_PLD + kk];
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) dqa[a][j] = fmaf(ds, kv[j], dqa[a][j]);
+      }
+    }
+  }
+  float* dqb = dq + bh * T_len * HD;
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int i = q0 + ty * 4 + a;
+    if (i >= T_len) continue;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) dqb[(long long)i * HD + tx + 16 * j] = dqa[a][j];
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(FA_THREADS)
+    flash_bwd_dkv_kernel(const float* __restrict__ q, FaStrides qs, const float* __restrict__ k,
+                         const float* __restrict__ v, FaStrides kvs,
+                         const float* __restrict__ dout, FaStrides dos,
+                         const int* __restrict__ qseg, const int* __restrict__ kvseg,
+                         const float* __restrict__ lse, const float* __restrict__ di,
+                         float* __restrict__ dk, float* __restrict__ dv, int H, int T_len, int P,
+                         float scale) {
+  constexpr int LD = HD + 1, NJ = HD / 16;
+  extern __shared__ float fa_smem[];
+  float* Ks = fa_smem;
+  float* Vs = Ks + FA_TILE * LD;
+  float* Qs = Vs + FA_TILE * LD;
+  float* dOs = Qs + FA_TILE * LD;
+  float* Pts = dOs + FA_TILE * LD;       // p transposed: [key][query]
+  float* dSts = Pts + FA_TILE * FA_PLD;  // ds transposed: [key][query]
+  int* segk = reinterpret_cast<int*>(dSts + FA_TILE * FA_PLD);
+  int* segq = segk + FA_TILE;
+  float* lse_s = reinterpret_cast<float*>(segq + FA_TILE);
+  float* di_s = lse_s + FA_TILE;
+
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int k0 = blockIdx.x * FA_TILE, h = blockIdx.y, b = blockIdx.z;
+  const long long bh = (long long)b * H + h;
+  const float* qb = q + b * qs.b + h * qs.h;
+  const float* dob = dout + b * dos.b + h * dos.h;
+  const int* qsg = qseg + (long long)b * T_len;
+
+  fa_load_tile<HD>(Ks, k + b * kvs.b + h * kvs.h, kvs.t, k0, T_len);
+  fa_load_tile<HD>(Vs, v + b * kvs.b + h * kvs.h, kvs.t, k0, T_len);
+  fa_load_seg(segk, kvseg + (long long)b * T_len, k0, T_len, FA_PAD_K);
+
+  float dka[4][NJ], dva[4][NJ];
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) dka[a][j] = dva[a][j] = 0.f;
+  // rows below this tile see it only through the prefix (keys j < P)
+  const int qstart = k0 < P ? 0 : k0;
+  for (int q0 = qstart; q0 < T_len; q0 += FA_TILE) {
+    __syncthreads();
+    fa_load_tile<HD>(Qs, qb, qs.t, q0, T_len);
+    fa_load_tile<HD>(dOs, dob, dos.t, q0, T_len);
+    fa_load_seg(segq, qsg, q0, T_len, FA_PAD_Q);
+    for (int r = tid; r < FA_TILE; r += FA_THREADS) {
+      const bool in = q0 + r < T_len;
+      lse_s[r] = in ? lse[bh * T_len + q0 + r] : 0.f;
+      di_s[r] = in ? di[bh * T_len + q0 + r] : 0.f;
+    }
+    __syncthreads();
+
+    // s^T and dp^T: key rows ty*4 + a, query columns tx + 16 j
+    float st[4][4], dpt[4][4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) st[a][j] = dpt[a][j] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < HD; ++d) {
+      float kv[4], vv[4], qv[4], dov[4];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        kv[a] = Ks[(ty * 4 + a) * LD + d];
+        vv[a] = Vs[(ty * 4 + a) * LD + d];
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        qv[j] = Qs[(tx + 16 * j) * LD + d];
+        dov[j] = dOs[(tx + 16 * j) * LD + d];
+      }
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          st[a][j] = fmaf(kv[a], qv[j], st[a][j]);
+          dpt[a][j] = fmaf(vv[a], dov[j], dpt[a][j]);
+        }
+    }
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      const int kr = ty * 4 + a;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = tx + 16 * j;
+        float p = 0.f, ds = 0.f;
+        if (fa_valid(q0 + c, k0 + kr, P, segq[c], segk[kr])) {
+          p = expf(st[a][j] * scale - lse_s[c]);
+          ds = p * (dpt[a][j] - di_s[c]) * scale;
+        }
+        Pts[kr * FA_PLD + c] = p;
+        dSts[kr * FA_PLD + c] = ds;
+      }
+    }
+    __syncthreads();
+    // dV += p^T dO, dK += ds^T Q: key rows ty*4 + a, head columns tx + 16 j
+#pragma unroll 4
+    for (int i = 0; i < FA_TILE; ++i) {
+      float dov[NJ], qv[NJ];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        dov[j] = dOs[i * LD + tx + 16 * j];
+        qv[j] = Qs[i * LD + tx + 16 * j];
+      }
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        const float p = Pts[(ty * 4 + a) * FA_PLD + i];
+        const float ds = dSts[(ty * 4 + a) * FA_PLD + i];
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          dva[a][j] = fmaf(p, dov[j], dva[a][j]);
+          dka[a][j] = fmaf(ds, qv[j], dka[a][j]);
+        }
+      }
+    }
+  }
+  float* dkb = dk + bh * T_len * HD;
+  float* dvb = dv + bh * T_len * HD;
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int j = k0 + ty * 4 + a;
+    if (j >= T_len) continue;
+#pragma unroll
+    for (int c = 0; c < NJ; ++c) {
+      dkb[(long long)j * HD + tx + 16 * c] = dka[a][c];
+      dvb[(long long)j * HD + tx + 16 * c] = dva[a][c];
+    }
+  }
+}
+
 // ---------------------------------------------------------------------------
-// The bf16 forward on the tensor cores (wgmma, TMA, mbarrier; sm_90a).
+// The bf16 kernels on the tensor cores (wgmma, TMA, mbarrier; sm_90a).
+//
+// Tiles. A 64-row tile of q, k, v or dO holds 64 x HD bf16 values. It comes
+// into shared memory by TMA as HD / 64 boxes of 64 rows by 64 head columns
+// (128 bytes a row, the span of the 128-byte swizzle), each box 8 KB, 1024-
+// byte aligned, box c holding head columns 64 c..64 c + 63; one barrier
+// counts the bytes of all of a tile's boxes. Every product reads these boxes
+// in one of two wgmma forms:
+//  - K-major from shared memory (S = Q K^T, and the backward's dP = dO V^T,
+//    S^T = K Q^T, dP^T = V dO^T): HD / 16 k-steps of m64n64k16, four in each
+//    box, each 32 bytes further into the swizzled rows;
+//  - A from registers, B MN-major with the transpose bit (O += P V, and the
+//    backward's dQ += dS K, dV += P^T dO, dK += dS^T Q): the f32 accumulator
+//    fragment of keys (or queries) 16 kk..16 kk + 15, rounded to bf16 pairs,
+//    is the A fragment of k-step kk; the B descriptor's leading byte offset
+//    is the 8 KB between boxes, so one m64n128k16 covers both boxes at
+//    HD = 128 (a 64-register accumulator) and m64n64k16 one box.
+//
+// The forward (flash_fwd_tc_kernel<HD>), at the training shapes (B = 4,
+// T = 1152; H = 16 at hd 64, 8 at hd 128: the same operations and bytes)
+// bounded by the bytes at prefix 128 and by the operations at prefix T
+// (0.011 / 0.015 ms): one warpgroup per 64-row query tile; S = Q K^T from
+// shared memory; the online softmax on the S accumulator in registers (exp2
+// in log2 units, p rounded to bf16 as the P.V operand at the running row
+// max, as the library's kernel); O += P V with the O accumulator in
+// registers (32 f32 a thread at hd 64, 64 at hd 128); K/V through a ring of
+// FW_STAGES stages (TMA, mbarrier completion), one thread refilling a stage
+// once the warpgroup is done with it; the Q tile once. Masked work is skipped
+// before any load (fa_visit): a key tile without an id equal to one of the
+// query tile's is never loaded, a FULL one uses its scores unmasked.
 // ---------------------------------------------------------------------------
 
-#define FW_THREADS 128  // one warpgroup: 64 query rows, 16 per warp
-#define FW_STAGES 2     // the K/V ring
-#define FW_TILE_BYTES (FA_TILE * FA_HD * 2)
+#define FW_THREADS 128  // one warpgroup: 64 rows, 16 per warp
+#define FW_STAGES 2     // the ring of the other side's tiles
+#define FW_BOX_BYTES (FA_TILE * 64 * 2)        // one 64 x 64 bf16 box (8 KB)
+#define FW_TILE_BYTES(hd) (FA_TILE * (hd) * 2)  // a 64-row tile: hd / 64 boxes
 // key-tile classes (the low bit of a listed tile)
 #define FW_FULL 0
 #define FW_MASKED 1
 
-// Where the tensor map puts each outer dimension of a [B, H, T, 64] view:
+// Where the tensor map puts each outer dimension of a [B, H, T, hd] view:
 // its coordinate slot (1..3; slot 0 is the head dim).
 struct FaTmaPos {
   int t, h, b;
@@ -295,10 +558,11 @@ __device__ __forceinline__ void fw_bar_wait(uint64_t* bar, uint32_t parity) {
   }
 }
 
-// one 64 x 64 box of a 4-d tensor map into shared memory, completing on bar
-__device__ __forceinline__ void fw_tma_load(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                            FaTmaPos pos, int t0, int h, int b) {
-  int c[4] = {0, 0, 0, 0};
+// one 64 x 64 box of a 4-d tensor map (head columns c0..c0 + 63) into shared
+// memory, completing on bar
+__device__ __forceinline__ void fw_tma_box(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                           FaTmaPos pos, int c0, int t0, int h, int b) {
+  int c[4] = {c0, 0, 0, 0};
   c[pos.t] = t0;
   c[pos.h] = h;
   c[pos.b] = b;
@@ -310,7 +574,15 @@ __device__ __forceinline__ void fw_tma_load(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
-// wgmma shared-memory descriptor, 128-byte swizzle; the tile starts on a
+// one 64-row tile (rows t0..t0 + 63): its HD / 64 boxes, 8 KB apart
+template <int HD>
+__device__ __forceinline__ void fw_tma_tile(unsigned char* dst, const CUtensorMap* map,
+                                            uint64_t* bar, FaTmaPos pos, int t0, int h, int b) {
+#pragma unroll
+  for (int c = 0; c < HD / 64; ++c) fw_tma_box(dst + c * FW_BOX_BYTES, map, bar, pos, 64 * c, t0, h, b);
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle; the box starts on a
 // 1024-byte boundary (base offset 0)
 __device__ __forceinline__ uint64_t fw_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
@@ -326,9 +598,10 @@ __device__ __forceinline__ void fw_wait_all() {
 }
 // keeps the compiler from moving reads or writes of an accumulator across
 // the asynchronous wgmma region
-__device__ __forceinline__ void fw_hold(float (&d)[32]) {
+template <int N>
+__device__ __forceinline__ void fw_hold(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 #define FW_D32                                                                             \
@@ -340,6 +613,18 @@ __device__ __forceinline__ void fw_hold(float (&d)[32]) {
 #define FW_REGS32                                                                     \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, " \
   "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+#define FW_D64                                                                                 \
+  FW_D32, "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),        \
+      "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),            \
+      "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),            \
+      "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),            \
+      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),            \
+      "+f"(d[62]), "+f"(d[63])
+#define FW_REGS64                                                                          \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
+  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "  \
+  "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "  \
+  "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
 
 // d[64 x 64] (+)= A[64 x 16] B[16 x 64]: A and B from shared memory, both
 // K-major (S = Q K^T: Q rows and K rows hold the head dim contiguously)
@@ -361,6 +646,18 @@ __device__ __forceinline__ void fw_mma_rs(float (&d)[32], const uint32_t (&a)[4]
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " FW_REGS32
       ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
       : FW_D32
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// the same with N = 128: d[64 x 128] += A[64 x 16] B[16 x 128], B's two
+// 64-column boxes a leading byte offset apart
+__device__ __forceinline__ void fw_mma_rs128(float (&d)[64], const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " FW_REGS64
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : FW_D64
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
@@ -390,21 +687,34 @@ __device__ __forceinline__ void fw_frag(uint32_t (&a)[4][4], const float (&x)[32
   }
 }
 
-// d = A B^T over the head dim, both 64 x 64 tiles K-major in shared memory:
-// four k-steps of 16, each 32 bytes further into the 128-byte swizzled rows
+// d = A B^T over the head dim, both 64 x HD tiles K-major in shared memory:
+// HD / 16 k-steps of 16, four in each box, each 32 bytes further into the
+// box's 128-byte swizzled rows
+template <int HD>
 __device__ __forceinline__ void fw_mma_kk(float (&d)[32], uint32_t a_addr, uint32_t b_addr) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-    fw_mma_ss(d, fw_desc(a_addr + 32 * kk, 16, 1024), fw_desc(b_addr + 32 * kk, 16, 1024), kk);
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const uint32_t off = (kk >> 2) * FW_BOX_BYTES + 32 * (kk & 3);
+    fw_mma_ss(d, fw_desc(a_addr + off, 16, 1024), fw_desc(b_addr + off, 16, 1024), kk);
+  }
 }
 
-// d += A B: A from registers (fw_frag's fragments), B a 64 x 64 tile MN-major
-// in shared memory (its rows are the k dim, the head dim contiguous; k-step
-// kk is 16 rows further on)
-__device__ __forceinline__ void fw_mma_rk(float (&d)[32], const uint32_t (&a)[4][4],
+// d += A B: A from registers (fw_frag's fragments), B the N head columns of
+// a 64-row tile MN-major in shared memory (its rows are the k dim, the head
+// dim contiguous; k-step kk is 16 rows further on); N = 64 reads one box,
+// N = 128 both, the box stride as the leading byte offset
+template <int N>
+__device__ __forceinline__ void fw_mma_rk(float (&d)[N / 2], const uint32_t (&a)[4][4],
                                           uint32_t b_addr) {
+  static_assert(N == 64 || N == 128, "one or two 64-column boxes");
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) fw_mma_rs(d, a[kk], fw_desc(b_addr + 2048 * kk, 8192, 1024));
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t db = fw_desc(b_addr + 2048 * kk, FW_BOX_BYTES, 1024);
+    if constexpr (N == 64)
+      fw_mma_rs(d, a[kk], db);
+    else
+      fw_mma_rs128(d, a[kk], db);
+  }
 }
 
 // The tiles of the other side that a block's own tile of 64 rows meets,
@@ -475,11 +785,13 @@ __device__ int fa_visit(const int* own_seg, bool own_is_query, int own0, const i
   return *count;
 }
 
-// Shared memory: Q tile, FW_STAGES K and V tiles (each 64 rows of 128 bytes,
-// 1024-byte aligned for the swizzle), the barriers (Q, then one per stage),
-// the query tile's segment ids, the count and list of key tiles to visit.
-#define FW_SMEM_FIXED (1024 + (1 + 2 * FW_STAGES) * FW_TILE_BYTES + 8 * (1 + FW_STAGES) + 4 * FA_TILE + 16)
+// Shared memory: Q tile, FW_STAGES K and V tiles (1024-byte aligned boxes
+// for the swizzle), the barriers (Q, then one per stage), the query tile's
+// segment ids, the count and list of key tiles to visit.
+#define FW_SMEM_FIXED(hd) \
+  (1024 + (1 + 2 * FW_STAGES) * FW_TILE_BYTES(hd) + 8 * (1 + FW_STAGES) + 4 * FA_TILE + 16)
 
+template <int HD>
 __global__ void __launch_bounds__(FW_THREADS)
     flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap qmap,
                         const __grid_constant__ CUtensorMap kmap,
@@ -487,12 +799,13 @@ __global__ void __launch_bounds__(FW_THREADS)
                         const int* __restrict__ qseg, const int* __restrict__ kvseg,
                         __nv_bfloat16* __restrict__ o, FaStrides os, float* __restrict__ lse,
                         int H, int T_len, int P, float scale_log2) {
+  constexpr int TB = FW_TILE_BYTES(HD);
   extern __shared__ unsigned char fw_raw[];
   unsigned char* base = fw_raw + ((1024 - (fw_smem(fw_raw) & 1023)) & 1023);
   unsigned char* Qs = base;
-  unsigned char* Ks = Qs + FW_TILE_BYTES;
-  unsigned char* Vs = Ks + FW_STAGES * FW_TILE_BYTES;
-  uint64_t* bars = reinterpret_cast<uint64_t*>(Vs + FW_STAGES * FW_TILE_BYTES);
+  unsigned char* Ks = Qs + TB;
+  unsigned char* Vs = Ks + FW_STAGES * TB;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(Vs + FW_STAGES * TB);
   int* segq = reinterpret_cast<int*>(bars + 1 + FW_STAGES);
   int* count = segq + FA_TILE;
   int* tiles = count + 4;
@@ -509,8 +822,8 @@ __global__ void __launch_bounds__(FW_THREADS)
   }
   __syncthreads();
   if (tid == 0) {  // the query tile, once
-    fw_bar_expect(bars, FW_TILE_BYTES);
-    fw_tma_load(Qs, &qmap, bars, qpos, q0, h, b);
+    fw_bar_expect(bars, TB);
+    fw_tma_tile<HD>(Qs, &qmap, bars, qpos, q0, h, b);
   }
 
   // the key tiles this tile can see (up to max(q0 + 64, P)), classified
@@ -519,21 +832,21 @@ __global__ void __launch_bounds__(FW_THREADS)
                          count);
   if (tid == 0) {
     for (int i = 0; i < min(n, FW_STAGES); ++i) {
-      fw_bar_expect(bars + 1 + i, 2 * FW_TILE_BYTES);
-      fw_tma_load(Ks + i * FW_TILE_BYTES, &kmap, bars + 1 + i, kvpos, (tiles[i] >> 1) * FA_TILE, h, b);
-      fw_tma_load(Vs + i * FW_TILE_BYTES, &vmap, bars + 1 + i, kvpos, (tiles[i] >> 1) * FA_TILE, h, b);
+      fw_bar_expect(bars + 1 + i, 2 * TB);
+      fw_tma_tile<HD>(Ks + i * TB, &kmap, bars + 1 + i, kvpos, (tiles[i] >> 1) * FA_TILE, h, b);
+      fw_tma_tile<HD>(Vs + i * TB, &vmap, bars + 1 + i, kvpos, (tiles[i] >> 1) * FA_TILE, h, b);
     }
   }
 
   // this thread's rows of the accumulators: r0 and r0 + 8; its columns
-  // 8 j + 2 tq + {0, 1}, j = 0..7 (wgmma's m64nNk16 fragment)
+  // 8 j + 2 tq + {0, 1}, j = 0..N/8 - 1 (wgmma's m64nNk16 fragment)
   const int r0 = warp * 16 + (lane >> 2), tq = lane & 3;
   const int seg0 = segq[r0], seg1 = segq[r0 + 8];
   const int i0 = q0 + r0, i1 = i0 + 8;
   const int lim0 = max(i0, P - 1), lim1 = max(i1, P - 1);
-  float acc[32];
+  float acc[HD / 2];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
   float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;  // l: this thread's columns only
 
   const uint32_t q_addr = fw_smem(Qs);
@@ -541,14 +854,14 @@ __global__ void __launch_bounds__(FW_THREADS)
   for (int it = 0; it < n; ++it) {
     const int stage = it % FW_STAGES;
     const int e = tiles[it], k0 = (e >> 1) * FA_TILE;
-    const uint32_t k_addr = fw_smem(Ks + stage * FW_TILE_BYTES);
-    const uint32_t v_addr = fw_smem(Vs + stage * FW_TILE_BYTES);
+    const uint32_t k_addr = fw_smem(Ks + stage * TB);
+    const uint32_t v_addr = fw_smem(Vs + stage * TB);
     fw_bar_wait(bars + 1 + stage, (it / FW_STAGES) & 1);
 
     // S = Q K^T, f32
     float s[32];
     fw_fence();
-    fw_mma_kk(s, q_addr, k_addr);
+    fw_mma_kk<HD>(s, q_addr, k_addr);
     fw_commit();
     fw_wait_all();
     fw_hold(s);
@@ -588,10 +901,15 @@ __global__ void __launch_bounds__(FW_THREADS)
       s[4 * j + 3] = exp2f(s[4 * j + 3] - b1);
       ps0 += s[4 * j] + s[4 * j + 1];
       ps1 += s[4 * j + 2] + s[4 * j + 3];
-      acc[4 * j] *= al0;
-      acc[4 * j + 1] *= al0;
-      acc[4 * j + 2] *= al1;
-      acc[4 * j + 3] *= al1;
+      // O's columns 8 j.. of each 64-column box (interleaved with the exps:
+      // the hd-64 schedule)
+#pragma unroll
+      for (int c = 0; c < HD / 64; ++c) {
+        acc[32 * c + 4 * j] *= al0;
+        acc[32 * c + 4 * j + 1] *= al0;
+        acc[32 * c + 4 * j + 2] *= al1;
+        acc[32 * c + 4 * j + 3] *= al1;
+      }
     }
     l0 = l0 * al0 + ps0;
     l1 = l1 * al1 + ps1;
@@ -601,7 +919,7 @@ __global__ void __launch_bounds__(FW_THREADS)
     fw_frag(pa, s);
     fw_hold(acc);
     fw_fence();
-    fw_mma_rk(acc, pa, v_addr);
+    fw_mma_rk<HD>(acc, pa, v_addr);
     fw_commit();
     fw_wait_all();
     fw_hold(acc);
@@ -609,9 +927,9 @@ __global__ void __launch_bounds__(FW_THREADS)
     __syncthreads();  // every warp is done with this stage: refill it
     if (tid == 0 && it + FW_STAGES < n) {
       const int t = tiles[it + FW_STAGES] >> 1;
-      fw_bar_expect(bars + 1 + stage, 2 * FW_TILE_BYTES);
-      fw_tma_load(Ks + stage * FW_TILE_BYTES, &kmap, bars + 1 + stage, kvpos, t * FA_TILE, h, b);
-      fw_tma_load(Vs + stage * FW_TILE_BYTES, &vmap, bars + 1 + stage, kvpos, t * FA_TILE, h, b);
+      fw_bar_expect(bars + 1 + stage, 2 * TB);
+      fw_tma_tile<HD>(Ks + stage * TB, &kmap, bars + 1 + stage, kvpos, t * FA_TILE, h, b);
+      fw_tma_tile<HD>(Vs + stage * TB, &vmap, bars + 1 + stage, kvpos, t * FA_TILE, h, b);
     }
   }
 
@@ -620,7 +938,7 @@ __global__ void __launch_bounds__(FW_THREADS)
   const float inv0 = l0 > 0.f ? 1.f / l0 : 0.f, inv1 = l1 > 0.f ? 1.f / l1 : 0.f;
   __nv_bfloat16* ob = o + b * os.b + h * os.h;
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
+  for (int j = 0; j < HD / 8; ++j) {
     const int c = 8 * j + 2 * tq;
     if (i0 < T_len)
       *reinterpret_cast<__nv_bfloat162*>(ob + i0 * os.t + c) =
@@ -636,290 +954,46 @@ __global__ void __launch_bounds__(FW_THREADS)
   }
 }
 
-template <typename T, int HD>
-__global__ void __launch_bounds__(FA_THREADS)
-    flash_bwd_dq_kernel(const T* __restrict__ q, FaStrides qs, const T* __restrict__ k,
-                        const T* __restrict__ v, FaStrides kvs, const T* __restrict__ o,
-                        FaStrides os, const T* __restrict__ dout, FaStrides dos,
-                        const int* __restrict__ qseg, const int* __restrict__ kvseg,
-                        const float* __restrict__ lse, float* __restrict__ di_out,
-                        T* __restrict__ dq, int H, int T_len, int P, float scale) {
-  constexpr int LD = HD + 1, NJ = HD / 16;
-  extern __shared__ float fa_smem[];
-  float* Qs = fa_smem;
-  float* dOs = Qs + FA_TILE * LD;
-  float* Ks = dOs + FA_TILE * LD;
-  float* Vs = Ks + FA_TILE * LD;
-  float* dSs = Vs + FA_TILE * LD;
-  int* segq = reinterpret_cast<int*>(dSs + FA_TILE * FA_PLD);
-  int* segk = segq + FA_TILE;
-  float* lse_s = reinterpret_cast<float*>(segk + FA_TILE);
-  float* di_s = lse_s + FA_TILE;
-
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int q0 = blockIdx.x * FA_TILE, h = blockIdx.y, b = blockIdx.z;
-  const long long bh = (long long)b * H + h;
-  const T* kb = k + b * kvs.b + h * kvs.h;
-  const T* vb = v + b * kvs.b + h * kvs.h;
-  const T* ob = o + b * os.b + h * os.h;
-  const int* ksg = kvseg + (long long)b * T_len;
-
-  fa_load_tile<T, HD>(Qs, q + b * qs.b + h * qs.h, qs.t, q0, T_len);
-  fa_load_tile<T, HD>(dOs, dout + b * dos.b + h * dos.h, dos.t, q0, T_len);
-  fa_load_seg(segq, qseg + (long long)b * T_len, q0, T_len, FA_PAD_Q);
-  // di = sum_c O[i, c] * dO[i, c] in f32, four lanes per row
-  {
-    const int r = tid >> 2, part = tid & 3, i = q0 + r;
-    __syncthreads();  // dOs is loaded
-    float acc = 0.f;
-    if (i < T_len) {
-      for (int c = part * (HD / 4); c < (part + 1) * (HD / 4); ++c)
-        acc = fmaf(fa_ld(ob + i * os.t + c), dOs[r * LD + c], acc);
-    }
-    acc += __shfl_xor_sync(VX_FULL_MASK, acc, 1);
-    acc += __shfl_xor_sync(VX_FULL_MASK, acc, 2);
-    if (part == 0) {
-      di_s[r] = acc;
-      lse_s[r] = i < T_len ? lse[bh * T_len + i] : 0.f;
-      if (i < T_len) di_out[bh * T_len + i] = acc;
-    }
-  }
-
-  float dqa[4][NJ];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) dqa[a][j] = 0.f;
-  const int kend = min(T_len, max(q0 + FA_TILE, P));
-  for (int k0 = 0; k0 < kend; k0 += FA_TILE) {
-    __syncthreads();
-    fa_load_tile<T, HD>(Ks, kb, kvs.t, k0, T_len);
-    fa_load_tile<T, HD>(Vs, vb, kvs.t, k0, T_len);
-    fa_load_seg(segk, ksg, k0, T_len, FA_PAD_K);
-    __syncthreads();
-
-    float s[4][4], dp[4][4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[a][j] = dp[a][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < HD; ++d) {
-      float qv[4], dov[4], kv[4], vv[4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        qv[a] = Qs[(ty * 4 + a) * LD + d];
-        dov[a] = dOs[(ty * 4 + a) * LD + d];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        kv[j] = Ks[(tx + 16 * j) * LD + d];
-        vv[j] = Vs[(tx + 16 * j) * LD + d];
-      }
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[a][j] = fmaf(qv[a], kv[j], s[a][j]);
-          dp[a][j] = fmaf(dov[a], vv[j], dp[a][j]);
-        }
-    }
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int r = ty * 4 + a, i = q0 + r;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        float ds = 0.f;
-        if (fa_valid(i, k0 + c, P, segq[r], segk[c])) {
-          const float p = expf(s[a][j] * scale - lse_s[r]);
-          ds = p * (dp[a][j] - di_s[r]) * scale;
-        }
-        dSs[r * FA_PLD + c] = fa_round<T>(ds);
-      }
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < FA_TILE; ++kk) {
-      float kv[NJ];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) kv[j] = Ks[kk * LD + tx + 16 * j];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        const float ds = dSs[(ty * 4 + a) * FA_PLD + kk];
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) dqa[a][j] = fmaf(ds, kv[j], dqa[a][j]);
-      }
-    }
-  }
-  T* dqb = dq + bh * T_len * HD;
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int i = q0 + ty * 4 + a;
-    if (i >= T_len) continue;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) fa_st(dqb + (long long)i * HD + tx + 16 * j, dqa[a][j]);
-  }
-}
-
-template <typename T, int HD>
-__global__ void __launch_bounds__(FA_THREADS)
-    flash_bwd_dkv_kernel(const T* __restrict__ q, FaStrides qs, const T* __restrict__ k,
-                         const T* __restrict__ v, FaStrides kvs, const T* __restrict__ dout,
-                         FaStrides dos, const int* __restrict__ qseg,
-                         const int* __restrict__ kvseg, const float* __restrict__ lse,
-                         const float* __restrict__ di, T* __restrict__ dk, T* __restrict__ dv,
-                         int H, int T_len, int P, float scale) {
-  constexpr int LD = HD + 1, NJ = HD / 16;
-  extern __shared__ float fa_smem[];
-  float* Ks = fa_smem;
-  float* Vs = Ks + FA_TILE * LD;
-  float* Qs = Vs + FA_TILE * LD;
-  float* dOs = Qs + FA_TILE * LD;
-  float* Pts = dOs + FA_TILE * LD;       // p transposed: [key][query]
-  float* dSts = Pts + FA_TILE * FA_PLD;  // ds transposed: [key][query]
-  int* segk = reinterpret_cast<int*>(dSts + FA_TILE * FA_PLD);
-  int* segq = segk + FA_TILE;
-  float* lse_s = reinterpret_cast<float*>(segq + FA_TILE);
-  float* di_s = lse_s + FA_TILE;
-
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int k0 = blockIdx.x * FA_TILE, h = blockIdx.y, b = blockIdx.z;
-  const long long bh = (long long)b * H + h;
-  const T* qb = q + b * qs.b + h * qs.h;
-  const T* dob = dout + b * dos.b + h * dos.h;
-  const int* qsg = qseg + (long long)b * T_len;
-
-  fa_load_tile<T, HD>(Ks, k + b * kvs.b + h * kvs.h, kvs.t, k0, T_len);
-  fa_load_tile<T, HD>(Vs, v + b * kvs.b + h * kvs.h, kvs.t, k0, T_len);
-  fa_load_seg(segk, kvseg + (long long)b * T_len, k0, T_len, FA_PAD_K);
-
-  float dka[4][NJ], dva[4][NJ];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) dka[a][j] = dva[a][j] = 0.f;
-  // rows below this tile see it only through the prefix (keys j < P)
-  const int qstart = k0 < P ? 0 : k0;
-  for (int q0 = qstart; q0 < T_len; q0 += FA_TILE) {
-    __syncthreads();
-    fa_load_tile<T, HD>(Qs, qb, qs.t, q0, T_len);
-    fa_load_tile<T, HD>(dOs, dob, dos.t, q0, T_len);
-    fa_load_seg(segq, qsg, q0, T_len, FA_PAD_Q);
-    for (int r = tid; r < FA_TILE; r += FA_THREADS) {
-      const bool in = q0 + r < T_len;
-      lse_s[r] = in ? lse[bh * T_len + q0 + r] : 0.f;
-      di_s[r] = in ? di[bh * T_len + q0 + r] : 0.f;
-    }
-    __syncthreads();
-
-    // s^T and dp^T: key rows ty*4 + a, query columns tx + 16 j
-    float st[4][4], dpt[4][4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) st[a][j] = dpt[a][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < HD; ++d) {
-      float kv[4], vv[4], qv[4], dov[4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        kv[a] = Ks[(ty * 4 + a) * LD + d];
-        vv[a] = Vs[(ty * 4 + a) * LD + d];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        qv[j] = Qs[(tx + 16 * j) * LD + d];
-        dov[j] = dOs[(tx + 16 * j) * LD + d];
-      }
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          st[a][j] = fmaf(kv[a], qv[j], st[a][j]);
-          dpt[a][j] = fmaf(vv[a], dov[j], dpt[a][j]);
-        }
-    }
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int kr = ty * 4 + a;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        float p = 0.f, ds = 0.f;
-        if (fa_valid(q0 + c, k0 + kr, P, segq[c], segk[kr])) {
-          p = expf(st[a][j] * scale - lse_s[c]);
-          ds = p * (dpt[a][j] - di_s[c]) * scale;
-        }
-        Pts[kr * FA_PLD + c] = fa_round<T>(p);
-        dSts[kr * FA_PLD + c] = fa_round<T>(ds);
-      }
-    }
-    __syncthreads();
-    // dV += p^T dO, dK += ds^T Q: key rows ty*4 + a, head columns tx + 16 j
-#pragma unroll 4
-    for (int i = 0; i < FA_TILE; ++i) {
-      float dov[NJ], qv[NJ];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        dov[j] = dOs[i * LD + tx + 16 * j];
-        qv[j] = Qs[i * LD + tx + 16 * j];
-      }
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        const float p = Pts[(ty * 4 + a) * FA_PLD + i];
-        const float ds = dSts[(ty * 4 + a) * FA_PLD + i];
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-          dva[a][j] = fmaf(p, dov[j], dva[a][j]);
-          dka[a][j] = fmaf(ds, qv[j], dka[a][j]);
-        }
-      }
-    }
-  }
-  T* dkb = dk + bh * T_len * HD;
-  T* dvb = dv + bh * T_len * HD;
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int j = k0 + ty * 4 + a;
-    if (j >= T_len) continue;
-#pragma unroll
-    for (int c = 0; c < NJ; ++c) {
-      fa_st(dkb + (long long)j * HD + tx + 16 * c, dka[a][c]);
-      fa_st(dvb + (long long)j * HD + tx + 16 * c, dva[a][c]);
-    }
-  }
-}
-
 // ---------------------------------------------------------------------------
-// The bf16 backward on the tensor cores (wgmma, TMA, mbarrier; sm_90a).
+// The bf16 backward on the tensor cores.
 //
 // Replaces the JAX library's Pallas backward kernels
 // (jax/experimental/pallas/ops/tpu/flash_attention.py:
 // _flash_attention_bwd_dq, :1287, and _flash_attention_bwd_dkv, :941) for
 // the bf16 calls of attention_core_flash (vallex_tpu/models/layers.py:205)
 // and attention_core_flash_prefix (:259). Bound on the H100 at the training
-// shapes (B = 4, H = 16, T = 1152, 29 M valid pairs at prefix 128): the
-// bytes, ~0.017 ms each (q, k, v, O, dO read once, the gradients written
-// once), ahead of the operations (6 * hd per valid pair for dQ, 8 * hd for
-// dK/dV: 11.1 and 14.8 GFLOP, 0.011 and 0.015 ms at 989 TFLOP/s; at prefix
-// T, 57 M pairs, the operations lead: 0.022 and 0.030 ms). What the design
-// does about it:
-//  - every product runs on the tensor cores, in the two wgmma forms of the
-//    forward, with no transpose through shared memory: S = Q K^T, dP = dO V^T
-//    (dQ kernel) and S^T = K Q^T, dP^T = V dO^T (dK/dV kernel) take both
-//    operands K-major from shared memory; dQ += dS K, dV += P^T dO and
-//    dK += dS^T Q take p or ds from registers (the f32 accumulator fragment
-//    of keys / queries 16 kk..16 kk + 15, rounded to bf16 pairs, is the A
-//    fragment of k-step kk) and B MN-major with the transpose bit. Computing
-//    S^T and dP^T directly is what puts p^T and ds^T in that fragment;
-//  - one warpgroup per block, as the forward: the dQ kernel per (query tile
-//    of 64, head, row) holds S, dP and dQ (96 f32 registers a thread), the
-//    dK/dV kernel per (key tile of 64, head, row) holds S^T, dP^T, dK and dV
-//    (128);
+// shapes (B = 4, T = 1152, H = 16 at hd 64 or 8 at hd 128, 29 M valid pairs
+// per 16 heads at prefix 128): the bytes, ~0.017 ms each (q, k, v, O, dO read
+// once, the gradients written once), ahead of the operations (6 * hd per
+// valid pair for dQ, 8 * hd for dK/dV: 11.1 and 14.8 GFLOP, 0.011 and 0.015
+// ms at 989 TFLOP/s; at prefix T, 57 M pairs, the operations lead: 0.022 and
+// 0.030 ms). What the design does about it:
+//  - every product runs on the tensor cores in the two forms above, with no
+//    transpose through shared memory: S = Q K^T, dP = dO V^T (dQ kernel) and
+//    S^T = K Q^T, dP^T = V dO^T (dK/dV kernel) take both operands K-major;
+//    dQ += dS K, dV += P^T dO and dK += dS^T Q take p or ds from registers
+//    and B MN-major. Computing S^T and dP^T directly is what puts p^T and
+//    ds^T in that fragment;
+//  - the dQ kernel is one warpgroup per (query tile of 64, head, row): S, dP
+//    and dQ are 32 + 32 + HD / 2 f32 registers a thread;
+//  - the dK/dV kernel per (key tile of 64, head, row) holds S^T and dP^T
+//    (32 + 32) and dK and dV. At hd 64 one warpgroup holds all of them (128
+//    f32 a thread, 164 registers in all). At hd 128 dK and dV alone are 128,
+//    192 with S^T and dP^T before any fragment or address, past the 255 a
+//    thread can have without spills. So the kernel runs HD / 64 consumer
+//    warpgroups per key tile, warpgroup w owning head columns 64 w..64 w + 63
+//    of dK and dV (32 + 32 registers, as at hd 64); each computes the whole
+//    S^T and dP^T (the reduction runs over the full head dim, 8 k-steps)
+//    and its own p^T and ds^T. That repeats S^T and dP^T: 12 * hd
+//    operations per pair instead of 8 * hd, and the exp and mask work twice.
+//    It was chosen over a 128-key tile of two warpgroups with a producer
+//    warp and setmaxnreg (no operation repeated, ~240 registers a consumer)
+//    because it keeps the hd-64 kernel's structure, synchronisation and
+//    register budget unchanged; the tensor cores are not what bounds these
+//    kernels at these shapes (they run at 110-250 TFLOP/s, PERF.md);
 //  - the tiles a block keeps (Q and dO, or K and V) come in once by TMA, the
 //    other side's through a ring of FW_STAGES stages with mbarrier
-//    completion, one thread refilling a stage once the warpgroup is done
+//    completion, one thread refilling a stage once every warpgroup is done
 //    with it; TMA's zero fill covers the ragged last tile;
 //  - masked work is skipped as in the forward (fa_visit): the dQ kernel
 //    visits the key tiles the forward visits, the dK/dV kernel the query
@@ -940,19 +1014,20 @@ __device__ __forceinline__ void fb_pds(float& s, float& dp, bool ok, float lse2,
   s = p;
 }
 
-// the 64 x 64 accumulator fragment as bf16 rows [t0, t0 + 64) of a
-// contiguous [T, 64] slice, rows past T dropped
-__device__ __forceinline__ void fb_store(__nv_bfloat16* dst, const float (&x)[32], int r0, int tq,
-                                         int t0, int T_len) {
+// an accumulator fragment of N head columns (from col0) as bf16 rows
+// [t0, t0 + 64) of a contiguous [T, HD] slice, rows past T dropped
+template <int HD, int N>
+__device__ __forceinline__ void fb_store(__nv_bfloat16* dst, const float (&x)[N / 2], int r0,
+                                         int tq, int t0, int T_len, int col0) {
   const int i0 = t0 + r0, i1 = i0 + 8;
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int c = 8 * j + 2 * tq;
+  for (int j = 0; j < N / 8; ++j) {
+    const int c = col0 + 8 * j + 2 * tq;
     if (i0 < T_len)
-      *reinterpret_cast<__nv_bfloat162*>(dst + (long long)i0 * FA_HD + c) =
+      *reinterpret_cast<__nv_bfloat162*>(dst + (long long)i0 * HD + c) =
           __floats2bfloat162_rn(x[4 * j], x[4 * j + 1]);
     if (i1 < T_len)
-      *reinterpret_cast<__nv_bfloat162*>(dst + (long long)i1 * FA_HD + c) =
+      *reinterpret_cast<__nv_bfloat162*>(dst + (long long)i1 * HD + c) =
           __floats2bfloat162_rn(x[4 * j + 2], x[4 * j + 3]);
   }
 }
@@ -960,9 +1035,10 @@ __device__ __forceinline__ void fb_store(__nv_bfloat16* dst, const float (&x)[32
 // Shared memory of the dQ kernel: Q and dO tiles, FW_STAGES K and V tiles,
 // the barriers (Q + dO, then one per stage), the query tile's segment ids and
 // di, the count and list of key tiles to visit.
-#define FB_DQ_SMEM_FIXED \
-  (1024 + (2 + 2 * FW_STAGES) * FW_TILE_BYTES + 8 * (1 + FW_STAGES) + 8 * FA_TILE + 16)
+#define FB_DQ_SMEM_FIXED(hd) \
+  (1024 + (2 + 2 * FW_STAGES) * FW_TILE_BYTES(hd) + 8 * (1 + FW_STAGES) + 8 * FA_TILE + 16)
 
+template <int HD>
 __global__ void __launch_bounds__(FW_THREADS)
     flash_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap qmap,
                            const __grid_constant__ CUtensorMap kmap,
@@ -973,13 +1049,14 @@ __global__ void __launch_bounds__(FW_THREADS)
                            const int* __restrict__ qseg, const int* __restrict__ kvseg,
                            const float* __restrict__ lse, float* __restrict__ di_out,
                            __nv_bfloat16* __restrict__ dq, int H, int T_len, int P, float scale) {
+  constexpr int TB = FW_TILE_BYTES(HD);
   extern __shared__ unsigned char fw_raw[];
   unsigned char* base = fw_raw + ((1024 - (fw_smem(fw_raw) & 1023)) & 1023);
   unsigned char* Qs = base;
-  unsigned char* dOs = Qs + FW_TILE_BYTES;
-  unsigned char* Ks = dOs + FW_TILE_BYTES;
-  unsigned char* Vs = Ks + FW_STAGES * FW_TILE_BYTES;
-  uint64_t* bars = reinterpret_cast<uint64_t*>(Vs + FW_STAGES * FW_TILE_BYTES);
+  unsigned char* dOs = Qs + TB;
+  unsigned char* Ks = dOs + TB;
+  unsigned char* Vs = Ks + FW_STAGES * TB;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(Vs + FW_STAGES * TB);
   int* segq = reinterpret_cast<int*>(bars + 1 + FW_STAGES);
   float* di_s = reinterpret_cast<float*>(segq + FA_TILE);
   int* count = reinterpret_cast<int*>(di_s + FA_TILE);
@@ -999,9 +1076,9 @@ __global__ void __launch_bounds__(FW_THREADS)
   }
   __syncthreads();
   if (tid == 0) {  // the query and dO tiles, once
-    fw_bar_expect(bars, 2 * FW_TILE_BYTES);
-    fw_tma_load(Qs, &qmap, bars, qpos, q0, h, b);
-    fw_tma_load(dOs, &domap, bars, dopos, q0, h, b);
+    fw_bar_expect(bars, 2 * TB);
+    fw_tma_tile<HD>(Qs, &qmap, bars, qpos, q0, h, b);
+    fw_tma_tile<HD>(dOs, &domap, bars, dopos, q0, h, b);
   }
   // di = sum_c O[i, c] dO[i, c] in f32 from O as stored, two threads a row
   // (16-byte loads: the wrapper checked the bases and strides)
@@ -1010,11 +1087,12 @@ __global__ void __launch_bounds__(FW_THREADS)
     float acc = 0.f;
     if (i < T_len) {
       const uint4* op =
-          reinterpret_cast<const uint4*>(o + b * os.b + h * os.h + i * os.t) + 4 * half;
+          reinterpret_cast<const uint4*>(o + b * os.b + h * os.h + i * os.t) + (HD / 16) * half;
       const uint4* dp =
-          reinterpret_cast<const uint4*>(dout + b * dos.b + h * dos.h + i * dos.t) + 4 * half;
+          reinterpret_cast<const uint4*>(dout + b * dos.b + h * dos.h + i * dos.t) +
+          (HD / 16) * half;
 #pragma unroll
-      for (int u = 0; u < 4; ++u) {
+      for (int u = 0; u < HD / 16; ++u) {
         float x[8], y[8];
         vx_bf16x8_to_f32(op[u], x);
         vx_bf16x8_to_f32(dp[u], y);
@@ -1036,9 +1114,9 @@ __global__ void __launch_bounds__(FW_THREADS)
   if (tid == 0) {
     for (int i = 0; i < min(n, FW_STAGES); ++i) {
       const int t0 = (tiles[i] >> 1) * FA_TILE;
-      fw_bar_expect(bars + 1 + i, 2 * FW_TILE_BYTES);
-      fw_tma_load(Ks + i * FW_TILE_BYTES, &kmap, bars + 1 + i, kvpos, t0, h, b);
-      fw_tma_load(Vs + i * FW_TILE_BYTES, &vmap, bars + 1 + i, kvpos, t0, h, b);
+      fw_bar_expect(bars + 1 + i, 2 * TB);
+      fw_tma_tile<HD>(Ks + i * TB, &kmap, bars + 1 + i, kvpos, t0, h, b);
+      fw_tma_tile<HD>(Vs + i * TB, &vmap, bars + 1 + i, kvpos, t0, h, b);
     }
   }
 
@@ -1050,24 +1128,24 @@ __global__ void __launch_bounds__(FW_THREADS)
   const float lse0 = i0 < T_len ? lse[bh * T_len + i0] * 1.4426950408889634f : 0.f;
   const float lse1 = i1 < T_len ? lse[bh * T_len + i1] * 1.4426950408889634f : 0.f;
   const float di0 = di_s[r0], di1 = di_s[r0 + 8];
-  float acc[32];
+  float acc[HD / 2];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
 
   const uint32_t q_addr = fw_smem(Qs), do_addr = fw_smem(dOs);
   fw_bar_wait(bars, 0);  // (also when no tile is visited: the loads must land first)
   for (int it = 0; it < n; ++it) {
     const int stage = it % FW_STAGES;
     const int e = tiles[it], k0 = (e >> 1) * FA_TILE;
-    const uint32_t k_addr = fw_smem(Ks + stage * FW_TILE_BYTES);
-    const uint32_t v_addr = fw_smem(Vs + stage * FW_TILE_BYTES);
+    const uint32_t k_addr = fw_smem(Ks + stage * TB);
+    const uint32_t v_addr = fw_smem(Vs + stage * TB);
     fw_bar_wait(bars + 1 + stage, (it / FW_STAGES) & 1);
 
     // S = Q K^T and dP = dO V^T, f32
     float s[32], dp[32];
     fw_fence();
-    fw_mma_kk(s, q_addr, k_addr);
-    fw_mma_kk(dp, do_addr, v_addr);
+    fw_mma_kk<HD>(s, q_addr, k_addr);
+    fw_mma_kk<HD>(dp, do_addr, v_addr);
     fw_commit();
     fw_wait_all();
     fw_hold(s);
@@ -1092,7 +1170,7 @@ __global__ void __launch_bounds__(FW_THREADS)
     fw_frag(da, dp);
     fw_hold(acc);
     fw_fence();
-    fw_mma_rk(acc, da, k_addr);
+    fw_mma_rk<HD>(acc, da, k_addr);
     fw_commit();
     fw_wait_all();
     fw_hold(acc);
@@ -1100,23 +1178,24 @@ __global__ void __launch_bounds__(FW_THREADS)
     __syncthreads();  // every warp is done with this stage: refill it
     if (tid == 0 && it + FW_STAGES < n) {
       const int t0 = (tiles[it + FW_STAGES] >> 1) * FA_TILE;
-      fw_bar_expect(bars + 1 + stage, 2 * FW_TILE_BYTES);
-      fw_tma_load(Ks + stage * FW_TILE_BYTES, &kmap, bars + 1 + stage, kvpos, t0, h, b);
-      fw_tma_load(Vs + stage * FW_TILE_BYTES, &vmap, bars + 1 + stage, kvpos, t0, h, b);
+      fw_bar_expect(bars + 1 + stage, 2 * TB);
+      fw_tma_tile<HD>(Ks + stage * TB, &kmap, bars + 1 + stage, kvpos, t0, h, b);
+      fw_tma_tile<HD>(Vs + stage * TB, &vmap, bars + 1 + stage, kvpos, t0, h, b);
     }
   }
-  fb_store(dq + bh * T_len * FA_HD, acc, r0, tq, q0, T_len);
+  fb_store<HD, HD>(dq + bh * T_len * HD, acc, r0, tq, q0, T_len, 0);
 }
 
 // Shared memory of the dK/dV kernel: K and V tiles, FW_STAGES Q and dO
 // tiles, the barriers (K + V, then one per stage), the key tile's segment
 // ids, the count, two buffers of a query tile's segment ids, lse (log2
 // units) and di, and the list of query tiles to visit.
-#define FB_DKV_SMEM_FIXED                                                                  \
-  (1024 + (2 + 2 * FW_STAGES) * FW_TILE_BYTES + 8 * (1 + FW_STAGES) + 4 * FA_TILE + 16 + \
+#define FB_DKV_SMEM_FIXED(hd)                                                                  \
+  (1024 + (2 + 2 * FW_STAGES) * FW_TILE_BYTES(hd) + 8 * (1 + FW_STAGES) + 4 * FA_TILE + 16 + \
    2 * 3 * 4 * FA_TILE)
 
-__global__ void __launch_bounds__(FW_THREADS)
+template <int HD>
+__global__ void __launch_bounds__(FW_THREADS * (HD / 64))
     flash_bwd_dkv_tc_kernel(const __grid_constant__ CUtensorMap qmap,
                             const __grid_constant__ CUtensorMap kmap,
                             const __grid_constant__ CUtensorMap vmap,
@@ -1126,13 +1205,14 @@ __global__ void __launch_bounds__(FW_THREADS)
                             const float* __restrict__ di, __nv_bfloat16* __restrict__ dk,
                             __nv_bfloat16* __restrict__ dv, int H, int T_len, int P,
                             float scale) {
+  constexpr int TB = FW_TILE_BYTES(HD);
   extern __shared__ unsigned char fw_raw[];
   unsigned char* base = fw_raw + ((1024 - (fw_smem(fw_raw) & 1023)) & 1023);
   unsigned char* Ks = base;
-  unsigned char* Vs = Ks + FW_TILE_BYTES;
-  unsigned char* Qs = Vs + FW_TILE_BYTES;
-  unsigned char* dOs = Qs + FW_STAGES * FW_TILE_BYTES;
-  uint64_t* bars = reinterpret_cast<uint64_t*>(dOs + FW_STAGES * FW_TILE_BYTES);
+  unsigned char* Vs = Ks + TB;
+  unsigned char* Qs = Vs + TB;
+  unsigned char* dOs = Qs + FW_STAGES * TB;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(dOs + FW_STAGES * TB);
   int* segk = reinterpret_cast<int*>(bars + 1 + FW_STAGES);
   int* count = segk + FA_TILE;
   int* cseg = count + 4;                                       // [2][64]
@@ -1141,6 +1221,8 @@ __global__ void __launch_bounds__(FW_THREADS)
   int* tiles = reinterpret_cast<int*>(cdi + 2 * FA_TILE);
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  // warpgroup wg owns dK's and dV's head columns 64 wg..64 wg + 63 (its box)
+  const int wg = HD == 64 ? 0 : warp >> 2;
   const int k0 = blockIdx.x * FA_TILE, h = blockIdx.y, b = blockIdx.z;
   const long long bh = (long long)b * H + h;
   const int* qsg = qseg + (long long)b * T_len;
@@ -1154,9 +1236,9 @@ __global__ void __launch_bounds__(FW_THREADS)
   }
   __syncthreads();
   if (tid == 0) {  // the key and value tiles, once
-    fw_bar_expect(bars, 2 * FW_TILE_BYTES);
-    fw_tma_load(Ks, &kmap, bars, kvpos, k0, h, b);
-    fw_tma_load(Vs, &vmap, bars, kvpos, k0, h, b);
+    fw_bar_expect(bars, 2 * TB);
+    fw_tma_tile<HD>(Ks, &kmap, bars, kvpos, k0, h, b);
+    fw_tma_tile<HD>(Vs, &vmap, bars, kvpos, k0, h, b);
   }
 
   // the query tiles that can see this key tile (rows below it only through
@@ -1167,9 +1249,9 @@ __global__ void __launch_bounds__(FW_THREADS)
   if (tid == 0) {
     for (int i = 0; i < min(n, FW_STAGES); ++i) {
       const int t0 = (tiles[i] >> 1) * FA_TILE;
-      fw_bar_expect(bars + 1 + i, 2 * FW_TILE_BYTES);
-      fw_tma_load(Qs + i * FW_TILE_BYTES, &qmap, bars + 1 + i, qpos, t0, h, b);
-      fw_tma_load(dOs + i * FW_TILE_BYTES, &domap, bars + 1 + i, dopos, t0, h, b);
+      fw_bar_expect(bars + 1 + i, 2 * TB);
+      fw_tma_tile<HD>(Qs + i * TB, &qmap, bars + 1 + i, qpos, t0, h, b);
+      fw_tma_tile<HD>(dOs + i * TB, &domap, bars + 1 + i, dopos, t0, h, b);
     }
   }
   // a query tile's ids, lse and di into buffer buf (threads 0..63)
@@ -1184,7 +1266,7 @@ __global__ void __launch_bounds__(FW_THREADS)
   __syncthreads();
 
   // this thread's key rows r0 and r0 + 8, query columns 8 j + 2 tq + {0, 1}
-  const int r0 = warp * 16 + (lane >> 2), tq = lane & 3;
+  const int r0 = (warp & 3) * 16 + (lane >> 2), tq = lane & 3;
   const int sk0 = segk[r0], sk1 = segk[r0 + 8];
   const int j0 = k0 + r0, j1 = j0 + 8;
   float dka[32], dva[32];
@@ -1196,16 +1278,17 @@ __global__ void __launch_bounds__(FW_THREADS)
   for (int it = 0; it < n; ++it) {
     const int stage = it % FW_STAGES, buf = it & 1;
     const int e = tiles[it], q0 = (e >> 1) * FA_TILE;
-    const uint32_t q_addr = fw_smem(Qs + stage * FW_TILE_BYTES);
-    const uint32_t do_addr = fw_smem(dOs + stage * FW_TILE_BYTES);
+    const uint32_t q_addr = fw_smem(Qs + stage * TB);
+    const uint32_t do_addr = fw_smem(dOs + stage * TB);
     fw_bar_wait(bars + 1 + stage, (it / FW_STAGES) & 1);
 
-    // S^T = K Q^T and dP^T = V dO^T, f32; the next tile's columns load
-    // meanwhile (their buffer was last read before the previous barrier)
+    // S^T = K Q^T and dP^T = V dO^T, f32 (every warpgroup the whole tile);
+    // the next tile's columns load meanwhile (their buffer was last read
+    // before the previous barrier)
     float st[32], dpt[32];
     fw_fence();
-    fw_mma_kk(st, k_addr, q_addr);
-    fw_mma_kk(dpt, v_addr, do_addr);
+    fw_mma_kk<HD>(st, k_addr, q_addr);
+    fw_mma_kk<HD>(dpt, v_addr, do_addr);
     fw_commit();
     if (tid < FA_TILE && it + 1 < n) load_cols(buf ^ 1, (tiles[it + 1] >> 1) * FA_TILE);
     fw_wait_all();
@@ -1228,16 +1311,16 @@ __global__ void __launch_bounds__(FW_THREADS)
                cd[c], scale, scale_log2);
       }
 
-    // dV += P^T dO and dK += dS^T Q: p and ds rounded to bf16 as the A
-    // operands, dO and Q MN-major
+    // dV += P^T dO and dK += dS^T Q over this warpgroup's head columns: p
+    // and ds rounded to bf16 as the A operands, dO and Q MN-major (its box)
     uint32_t pa[4][4], da[4][4];
     fw_frag(pa, st);
     fw_frag(da, dpt);
     fw_hold(dva);
     fw_hold(dka);
     fw_fence();
-    fw_mma_rk(dva, pa, do_addr);
-    fw_mma_rk(dka, da, q_addr);
+    fw_mma_rk<64>(dva, pa, do_addr + wg * FW_BOX_BYTES);
+    fw_mma_rk<64>(dka, da, q_addr + wg * FW_BOX_BYTES);
     fw_commit();
     fw_wait_all();
     fw_hold(dva);
@@ -1246,22 +1329,21 @@ __global__ void __launch_bounds__(FW_THREADS)
     __syncthreads();  // every warp is done with this stage: refill it
     if (tid == 0 && it + FW_STAGES < n) {
       const int t0 = (tiles[it + FW_STAGES] >> 1) * FA_TILE;
-      fw_bar_expect(bars + 1 + stage, 2 * FW_TILE_BYTES);
-      fw_tma_load(Qs + stage * FW_TILE_BYTES, &qmap, bars + 1 + stage, qpos, t0, h, b);
-      fw_tma_load(dOs + stage * FW_TILE_BYTES, &domap, bars + 1 + stage, dopos, t0, h, b);
+      fw_bar_expect(bars + 1 + stage, 2 * TB);
+      fw_tma_tile<HD>(Qs + stage * TB, &qmap, bars + 1 + stage, qpos, t0, h, b);
+      fw_tma_tile<HD>(dOs + stage * TB, &domap, bars + 1 + stage, dopos, t0, h, b);
     }
   }
-  fb_store(dk + bh * T_len * FA_HD, dka, r0, tq, k0, T_len);
-  fb_store(dv + bh * T_len * FA_HD, dva, r0, tq, k0, T_len);
+  fb_store<HD, 64>(dk + bh * T_len * HD, dka, r0, tq, k0, T_len, 64 * wg);
+  fb_store<HD, 64>(dv + bh * T_len * HD, dva, r0, tq, k0, T_len, 64 * wg);
 }
 
 // ---------------------------------------------------------------------------
 // Launchers. Strides arrive as three long longs (b, h, t) in elements; the
 // last stride is 1. Gradients and lse / di are contiguous [B, H, T(, hd)].
 // kind 0: f32, kind 1: bf16 (q, k, v, O, dO and the gradients alike); hd 64
-// or 128. Each launcher picks its kernel by (kind, hd): bf16 at hd 64 on the
-// tensor cores, bf16 at hd 128 and f32 on the CUDA cores; neither stands in
-// for the other.
+// or 128. Each launcher picks its kernel by (kind, hd): bf16 on the tensor
+// cores, f32 on the CUDA cores; neither stands in for the other.
 // ---------------------------------------------------------------------------
 
 static FaStrides fa_strides(const long long* s) { return FaStrides{s[0], s[1], s[2]}; }
@@ -1285,19 +1367,19 @@ static bool fa_shape_ok(int kind, int hd, int B, int H, int T_len) {
          H >= 1 && H <= 65535 && T_len >= 1;
 }
 
-template <typename T, int HD>
+template <int HD>
 static cudaError_t fa_fwd_core(const void* q, const long long* qs, const void* k, const void* v,
                                const long long* kvs, const int* qseg, const int* kvseg, void* o,
                                const long long* os, float* lse, int B, int H, int T_len, int P,
                                float scale, cudaStream_t s) {
   const size_t smem = fa_core_smem(HD, 3, 1);
-  cudaError_t e = fa_allow_smem(flash_fwd_kernel<T, HD>, smem);
+  cudaError_t e = fa_allow_smem(flash_fwd_kernel<HD>, smem);
   if (e != cudaSuccess) return e;
   const dim3 grid((T_len + FA_TILE - 1) / FA_TILE, H, B);
-  flash_fwd_kernel<T, HD><<<grid, FA_THREADS, smem, s>>>(
-      reinterpret_cast<const T*>(q), fa_strides(qs), reinterpret_cast<const T*>(k),
-      reinterpret_cast<const T*>(v), fa_strides(kvs), qseg, kvseg, reinterpret_cast<T*>(o),
-      fa_strides(os), lse, H, T_len, P, scale);
+  flash_fwd_kernel<HD><<<grid, FA_THREADS, smem, s>>>(
+      reinterpret_cast<const float*>(q), fa_strides(qs), reinterpret_cast<const float*>(k),
+      reinterpret_cast<const float*>(v), fa_strides(kvs), qseg, kvseg,
+      reinterpret_cast<float*>(o), fa_strides(os), lse, H, T_len, P, scale);
   return cudaGetLastError();
 }
 
@@ -1320,14 +1402,14 @@ static FaEncodeTiled fa_encoder() {
   return fn;
 }
 
-// A 4-d tensor map over a bf16 [B, H, T, 64] view with element strides st
+// A 4-d tensor map over a bf16 [B, H, T, hd] view with element strides st
 // (b, h, t) and a unit head-dim stride: the outer dims ordered by stride (a
 // dim of size 1 last, its stride then immaterial), a box of 64 rows of t by
-// the 64 head-dim values, 128-byte swizzle, zeros past T. pos gets each
-// dim's coordinate slot. The caller checked the 16-byte alignment of the
-// base and of each stride.
+// 64 head-dim values (a tile is hd / 64 such boxes), 128-byte swizzle, zeros
+// past T. pos gets each dim's coordinate slot. The caller checked the
+// 16-byte alignment of the base and of each stride.
 static CUresult fa_tensor_map(CUtensorMap* map, FaTmaPos* pos, const void* base,
-                              const long long* st, int B, int H, int T_len) {
+                              const long long* st, int B, int H, int T_len, int hd) {
   struct Dim {
     long long stride, size;
     int which;  // 0: t, 1: h, 2: b
@@ -1342,9 +1424,9 @@ static CUresult fa_tensor_map(CUtensorMap* map, FaTmaPos* pos, const void* base,
         d[j + 1] = t;
       }
     }
-  cuuint64_t dims[4] = {FA_HD, 0, 0, 0}, strides[3];
-  cuuint32_t box[4] = {FA_HD, 1, 1, 1}, unit[4] = {1, 1, 1, 1};
-  long long span = FA_HD * 2;  // bytes the dims so far cover
+  cuuint64_t dims[4] = {(cuuint64_t)hd, 0, 0, 0}, strides[3];
+  cuuint32_t box[4] = {64, 1, 1, 1}, unit[4] = {1, 1, 1, 1};
+  long long span = (long long)hd * 2;  // bytes the dims so far cover
   for (int i = 0; i < 3; ++i) {
     const long long bytes = d[i].size == 1 ? span : d[i].stride * 2;
     dims[i + 1] = (cuuint64_t)d[i].size;
@@ -1366,53 +1448,55 @@ static CUresult fa_tensor_map(CUtensorMap* map, FaTmaPos* pos, const void* base,
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
-static size_t fa_fwd_tc_smem(int T_len) {
-  return FW_SMEM_FIXED + (size_t)((T_len + FA_TILE - 1) / FA_TILE) * sizeof(int);
+static size_t fa_tiles_list(int T_len) {
+  return (size_t)((T_len + FA_TILE - 1) / FA_TILE) * sizeof(int);
+}
+static size_t fa_fwd_tc_smem(int T_len, int hd) { return FW_SMEM_FIXED(hd) + fa_tiles_list(T_len); }
+static size_t fa_bwd_dq_tc_smem(int T_len, int hd) {
+  return FB_DQ_SMEM_FIXED(hd) + fa_tiles_list(T_len);
+}
+static size_t fa_bwd_dkv_tc_smem(int T_len, int hd) {
+  return FB_DKV_SMEM_FIXED(hd) + fa_tiles_list(T_len);
 }
 
 // the bf16 forward on the tensor cores; a refused tensor map returns
 // 1000 + its CUresult
+template <int HD>
 static int fa_fwd_tc(const void* q, const long long* qs, const void* k, const void* v,
                      const long long* kvs, const int* qseg, const int* kvseg, void* o,
                      const long long* os, float* lse, int B, int H, int T_len, int P, float scale,
                      cudaStream_t s) {
   CUtensorMap qm, km, vm;
   FaTmaPos qp, kvp;
-  CUresult r = fa_tensor_map(&qm, &qp, q, qs, B, H, T_len);
-  if (r == CUDA_SUCCESS) r = fa_tensor_map(&km, &kvp, k, kvs, B, H, T_len);
-  if (r == CUDA_SUCCESS) r = fa_tensor_map(&vm, &kvp, v, kvs, B, H, T_len);
+  CUresult r = fa_tensor_map(&qm, &qp, q, qs, B, H, T_len, HD);
+  if (r == CUDA_SUCCESS) r = fa_tensor_map(&km, &kvp, k, kvs, B, H, T_len, HD);
+  if (r == CUDA_SUCCESS) r = fa_tensor_map(&vm, &kvp, v, kvs, B, H, T_len, HD);
   if (r != CUDA_SUCCESS) return 1000 + (int)r;
   const int nq = (T_len + FA_TILE - 1) / FA_TILE;
-  const size_t smem = fa_fwd_tc_smem(T_len);
+  const size_t smem = fa_fwd_tc_smem(T_len, HD);
   if (smem > 232448) return (int)cudaErrorInvalidValue;
-  cudaError_t e = fa_allow_smem(flash_fwd_tc_kernel, smem);
+  cudaError_t e = fa_allow_smem(flash_fwd_tc_kernel<HD>, smem);
   if (e != cudaSuccess) return (int)e;
-  flash_fwd_tc_kernel<<<dim3(nq, H, B), FW_THREADS, smem, s>>>(
+  flash_fwd_tc_kernel<HD><<<dim3(nq, H, B), FW_THREADS, smem, s>>>(
       qm, km, vm, qp, kvp, qseg, kvseg, reinterpret_cast<__nv_bfloat16*>(o), fa_strides(os), lse,
       H, T_len, P, scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
-}
-
-static size_t fa_bwd_dq_tc_smem(int T_len) {
-  return FB_DQ_SMEM_FIXED + (size_t)((T_len + FA_TILE - 1) / FA_TILE) * sizeof(int);
-}
-static size_t fa_bwd_dkv_tc_smem(int T_len) {
-  return FB_DKV_SMEM_FIXED + (size_t)((T_len + FA_TILE - 1) / FA_TILE) * sizeof(int);
 }
 
 // the tensor maps of q, k, v and dO for the bf16 backward; 1000 + its
 // CUresult when one is refused, else 0
 static int fa_bwd_maps(CUtensorMap* m, FaTmaPos* pos, const void* q, const long long* qs,
                        const void* k, const void* v, const long long* kvs, const void* dout,
-                       const long long* dos, int B, int H, int T_len) {
-  CUresult r = fa_tensor_map(m, pos, q, qs, B, H, T_len);
-  if (r == CUDA_SUCCESS) r = fa_tensor_map(m + 1, pos + 1, k, kvs, B, H, T_len);
-  if (r == CUDA_SUCCESS) r = fa_tensor_map(m + 2, pos + 1, v, kvs, B, H, T_len);
-  if (r == CUDA_SUCCESS) r = fa_tensor_map(m + 3, pos + 2, dout, dos, B, H, T_len);
+                       const long long* dos, int B, int H, int T_len, int hd) {
+  CUresult r = fa_tensor_map(m, pos, q, qs, B, H, T_len, hd);
+  if (r == CUDA_SUCCESS) r = fa_tensor_map(m + 1, pos + 1, k, kvs, B, H, T_len, hd);
+  if (r == CUDA_SUCCESS) r = fa_tensor_map(m + 2, pos + 1, v, kvs, B, H, T_len, hd);
+  if (r == CUDA_SUCCESS) r = fa_tensor_map(m + 3, pos + 2, dout, dos, B, H, T_len, hd);
   return r == CUDA_SUCCESS ? 0 : 1000 + (int)r;
 }
 
 // the bf16 dQ kernel on the tensor cores
+template <int HD>
 static int fa_bwd_dq_tc(const void* q, const long long* qs, const void* k, const void* v,
                         const long long* kvs, const void* o, const long long* os, const void* dout,
                         const long long* dos, const int* qseg, const int* kvseg, const float* lse,
@@ -1420,21 +1504,23 @@ static int fa_bwd_dq_tc(const void* q, const long long* qs, const void* k, const
                         cudaStream_t s) {
   CUtensorMap m[4];
   FaTmaPos pos[3];
-  const int rc = fa_bwd_maps(m, pos, q, qs, k, v, kvs, dout, dos, B, H, T_len);
+  const int rc = fa_bwd_maps(m, pos, q, qs, k, v, kvs, dout, dos, B, H, T_len, HD);
   if (rc != 0) return rc;
-  const size_t smem = fa_bwd_dq_tc_smem(T_len);
+  const size_t smem = fa_bwd_dq_tc_smem(T_len, HD);
   if (smem > 232448) return (int)cudaErrorInvalidValue;
-  cudaError_t e = fa_allow_smem(flash_bwd_dq_tc_kernel, smem);
+  cudaError_t e = fa_allow_smem(flash_bwd_dq_tc_kernel<HD>, smem);
   if (e != cudaSuccess) return (int)e;
-  flash_bwd_dq_tc_kernel<<<dim3((T_len + FA_TILE - 1) / FA_TILE, H, B), FW_THREADS, smem, s>>>(
-      m[0], m[1], m[2], m[3], pos[0], pos[1], pos[2],
-      reinterpret_cast<const __nv_bfloat16*>(o), fa_strides(os),
-      reinterpret_cast<const __nv_bfloat16*>(dout), fa_strides(dos), qseg, kvseg, lse, di,
-      reinterpret_cast<__nv_bfloat16*>(dq), H, T_len, P, scale);
+  flash_bwd_dq_tc_kernel<HD>
+      <<<dim3((T_len + FA_TILE - 1) / FA_TILE, H, B), FW_THREADS, smem, s>>>(
+          m[0], m[1], m[2], m[3], pos[0], pos[1], pos[2],
+          reinterpret_cast<const __nv_bfloat16*>(o), fa_strides(os),
+          reinterpret_cast<const __nv_bfloat16*>(dout), fa_strides(dos), qseg, kvseg, lse, di,
+          reinterpret_cast<__nv_bfloat16*>(dq), H, T_len, P, scale);
   return (int)cudaGetLastError();
 }
 
-// the bf16 dK/dV kernel on the tensor cores
+// the bf16 dK/dV kernel on the tensor cores (HD / 64 warpgroups a block)
+template <int HD>
 static int fa_bwd_dkv_tc(const void* q, const long long* qs, const void* k, const void* v,
                          const long long* kvs, const void* dout, const long long* dos,
                          const int* qseg, const int* kvseg, const float* lse, const float* di,
@@ -1442,20 +1528,21 @@ static int fa_bwd_dkv_tc(const void* q, const long long* qs, const void* k, cons
                          cudaStream_t s) {
   CUtensorMap m[4];
   FaTmaPos pos[3];
-  const int rc = fa_bwd_maps(m, pos, q, qs, k, v, kvs, dout, dos, B, H, T_len);
+  const int rc = fa_bwd_maps(m, pos, q, qs, k, v, kvs, dout, dos, B, H, T_len, HD);
   if (rc != 0) return rc;
-  const size_t smem = fa_bwd_dkv_tc_smem(T_len);
+  const size_t smem = fa_bwd_dkv_tc_smem(T_len, HD);
   if (smem > 232448) return (int)cudaErrorInvalidValue;
-  cudaError_t e = fa_allow_smem(flash_bwd_dkv_tc_kernel, smem);
+  cudaError_t e = fa_allow_smem(flash_bwd_dkv_tc_kernel<HD>, smem);
   if (e != cudaSuccess) return (int)e;
-  flash_bwd_dkv_tc_kernel<<<dim3((T_len + FA_TILE - 1) / FA_TILE, H, B), FW_THREADS, smem, s>>>(
-      m[0], m[1], m[2], m[3], pos[0], pos[1], pos[2], qseg, kvseg, lse, di,
-      reinterpret_cast<__nv_bfloat16*>(dk), reinterpret_cast<__nv_bfloat16*>(dv), H, T_len, P,
-      scale);
+  flash_bwd_dkv_tc_kernel<HD>
+      <<<dim3((T_len + FA_TILE - 1) / FA_TILE, H, B), FW_THREADS * (HD / 64), smem, s>>>(
+          m[0], m[1], m[2], m[3], pos[0], pos[1], pos[2], qseg, kvseg, lse, di,
+          reinterpret_cast<__nv_bfloat16*>(dk), reinterpret_cast<__nv_bfloat16*>(dv), H, T_len,
+          P, scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int HD>
+template <int HD>
 static cudaError_t fa_bwd_dq_core(const void* q, const long long* qs, const void* k,
                                   const void* v, const long long* kvs, const void* o,
                                   const long long* os, const void* dout, const long long* dos,
@@ -1463,32 +1550,32 @@ static cudaError_t fa_bwd_dq_core(const void* q, const long long* qs, const void
                                   void* dq, int B, int H, int T_len, int P, float scale,
                                   cudaStream_t s) {
   const size_t smem = fa_core_smem(HD, 4, 1);
-  cudaError_t e = fa_allow_smem(flash_bwd_dq_kernel<T, HD>, smem);
+  cudaError_t e = fa_allow_smem(flash_bwd_dq_kernel<HD>, smem);
   if (e != cudaSuccess) return e;
   const dim3 grid((T_len + FA_TILE - 1) / FA_TILE, H, B);
-  flash_bwd_dq_kernel<T, HD><<<grid, FA_THREADS, smem, s>>>(
-      reinterpret_cast<const T*>(q), fa_strides(qs), reinterpret_cast<const T*>(k),
-      reinterpret_cast<const T*>(v), fa_strides(kvs), reinterpret_cast<const T*>(o),
-      fa_strides(os), reinterpret_cast<const T*>(dout), fa_strides(dos), qseg, kvseg, lse, di,
-      reinterpret_cast<T*>(dq), H, T_len, P, scale);
+  flash_bwd_dq_kernel<HD><<<grid, FA_THREADS, smem, s>>>(
+      reinterpret_cast<const float*>(q), fa_strides(qs), reinterpret_cast<const float*>(k),
+      reinterpret_cast<const float*>(v), fa_strides(kvs), reinterpret_cast<const float*>(o),
+      fa_strides(os), reinterpret_cast<const float*>(dout), fa_strides(dos), qseg, kvseg, lse,
+      di, reinterpret_cast<float*>(dq), H, T_len, P, scale);
   return cudaGetLastError();
 }
 
-template <typename T, int HD>
+template <int HD>
 static cudaError_t fa_bwd_dkv_core(const void* q, const long long* qs, const void* k,
                                    const void* v, const long long* kvs, const void* dout,
                                    const long long* dos, const int* qseg, const int* kvseg,
                                    const float* lse, const float* di, void* dk, void* dv, int B,
                                    int H, int T_len, int P, float scale, cudaStream_t s) {
   const size_t smem = fa_core_smem(HD, 4, 2);
-  cudaError_t e = fa_allow_smem(flash_bwd_dkv_kernel<T, HD>, smem);
+  cudaError_t e = fa_allow_smem(flash_bwd_dkv_kernel<HD>, smem);
   if (e != cudaSuccess) return e;
   const dim3 grid((T_len + FA_TILE - 1) / FA_TILE, H, B);
-  flash_bwd_dkv_kernel<T, HD><<<grid, FA_THREADS, smem, s>>>(
-      reinterpret_cast<const T*>(q), fa_strides(qs), reinterpret_cast<const T*>(k),
-      reinterpret_cast<const T*>(v), fa_strides(kvs), reinterpret_cast<const T*>(dout),
-      fa_strides(dos), qseg, kvseg, lse, di, reinterpret_cast<T*>(dk), reinterpret_cast<T*>(dv),
-      H, T_len, P, scale);
+  flash_bwd_dkv_kernel<HD><<<grid, FA_THREADS, smem, s>>>(
+      reinterpret_cast<const float*>(q), fa_strides(qs), reinterpret_cast<const float*>(k),
+      reinterpret_cast<const float*>(v), fa_strides(kvs), reinterpret_cast<const float*>(dout),
+      fa_strides(dos), qseg, kvseg, lse, di, reinterpret_cast<float*>(dk),
+      reinterpret_cast<float*>(dv), H, T_len, P, scale);
   return cudaGetLastError();
 }
 
@@ -1502,22 +1589,22 @@ extern "C" int vx_flash_attention_fwd(const void* q, const long long* qs, const 
   const int* qsg = reinterpret_cast<const int*>(qseg);
   const int* ksg = reinterpret_cast<const int*>(kvseg);
   float* l = reinterpret_cast<float*>(lse);
-  if (kind == 1 && hd == 64)
-    return fa_fwd_tc(q, qs, k, v, kvs, qsg, ksg, o, os, l, B, H, T_len, P, scale, s);
   if (kind == 1)
-    return (int)fa_fwd_core<__nv_bfloat16, 128>(q, qs, k, v, kvs, qsg, ksg, o, os, l, B, H,
-                                                 T_len, P, scale, s);
+    return hd == 64 ? fa_fwd_tc<64>(q, qs, k, v, kvs, qsg, ksg, o, os, l, B, H, T_len, P, scale, s)
+                    : fa_fwd_tc<128>(q, qs, k, v, kvs, qsg, ksg, o, os, l, B, H, T_len, P, scale,
+                                     s);
   if (hd == 64)
-    return (int)fa_fwd_core<float, 64>(q, qs, k, v, kvs, qsg, ksg, o, os, l, B, H, T_len, P,
-                                       scale, s);
-  return (int)fa_fwd_core<float, 128>(q, qs, k, v, kvs, qsg, ksg, o, os, l, B, H, T_len, P,
-                                      scale, s);
+    return (int)fa_fwd_core<64>(q, qs, k, v, kvs, qsg, ksg, o, os, l, B, H, T_len, P, scale, s);
+  return (int)fa_fwd_core<128>(q, qs, k, v, kvs, qsg, ksg, o, os, l, B, H, T_len, P, scale, s);
 }
 
-// the bf16 kernels' dynamic shared memory per block at this T, in bytes
-extern "C" int vx_flash_attention_fwd_smem(int T_len) { return (int)fa_fwd_tc_smem(T_len); }
-extern "C" int vx_flash_attention_bwd_smem(int T_len, int dkv) {
-  return (int)(dkv ? fa_bwd_dkv_tc_smem(T_len) : fa_bwd_dq_tc_smem(T_len));
+// the bf16 kernels' dynamic shared memory per block at this T and head dim,
+// in bytes
+extern "C" int vx_flash_attention_fwd_smem(int T_len, int hd) {
+  return (int)fa_fwd_tc_smem(T_len, hd);
+}
+extern "C" int vx_flash_attention_bwd_smem(int T_len, int dkv, int hd) {
+  return (int)(dkv ? fa_bwd_dkv_tc_smem(T_len, hd) : fa_bwd_dq_tc_smem(T_len, hd));
 }
 
 extern "C" int vx_flash_attention_bwd_dq(const void* q, const long long* qs, const void* k,
@@ -1533,17 +1620,16 @@ extern "C" int vx_flash_attention_bwd_dq(const void* q, const long long* qs, con
   const int* ksg = reinterpret_cast<const int*>(kvseg);
   const float* l = reinterpret_cast<const float*>(lse);
   float* d = reinterpret_cast<float*>(di);
-  if (kind == 1 && hd == 64)
-    return fa_bwd_dq_tc(q, qs, k, v, kvs, o, os, dout, dos, qsg, ksg, l, d, dq, B, H, T_len, P,
-                        scale, s);
   if (kind == 1)
-    return (int)fa_bwd_dq_core<__nv_bfloat16, 128>(q, qs, k, v, kvs, o, os, dout, dos, qsg, ksg,
-                                                    l, d, dq, B, H, T_len, P, scale, s);
+    return hd == 64 ? fa_bwd_dq_tc<64>(q, qs, k, v, kvs, o, os, dout, dos, qsg, ksg, l, d, dq, B,
+                                       H, T_len, P, scale, s)
+                    : fa_bwd_dq_tc<128>(q, qs, k, v, kvs, o, os, dout, dos, qsg, ksg, l, d, dq,
+                                        B, H, T_len, P, scale, s);
   if (hd == 64)
-    return (int)fa_bwd_dq_core<float, 64>(q, qs, k, v, kvs, o, os, dout, dos, qsg, ksg, l, d, dq,
-                                          B, H, T_len, P, scale, s);
-  return (int)fa_bwd_dq_core<float, 128>(q, qs, k, v, kvs, o, os, dout, dos, qsg, ksg, l, d, dq,
-                                         B, H, T_len, P, scale, s);
+    return (int)fa_bwd_dq_core<64>(q, qs, k, v, kvs, o, os, dout, dos, qsg, ksg, l, d, dq, B, H,
+                                   T_len, P, scale, s);
+  return (int)fa_bwd_dq_core<128>(q, qs, k, v, kvs, o, os, dout, dos, qsg, ksg, l, d, dq, B, H,
+                                  T_len, P, scale, s);
 }
 
 extern "C" int vx_flash_attention_bwd_dkv(const void* q, const long long* qs, const void* k,
@@ -1558,15 +1644,14 @@ extern "C" int vx_flash_attention_bwd_dkv(const void* q, const long long* qs, co
   const int* ksg = reinterpret_cast<const int*>(kvseg);
   const float* l = reinterpret_cast<const float*>(lse);
   const float* d = reinterpret_cast<const float*>(di);
-  if (kind == 1 && hd == 64)
-    return fa_bwd_dkv_tc(q, qs, k, v, kvs, dout, dos, qsg, ksg, l, d, dk, dv, B, H, T_len, P,
-                         scale, s);
   if (kind == 1)
-    return (int)fa_bwd_dkv_core<__nv_bfloat16, 128>(q, qs, k, v, kvs, dout, dos, qsg, ksg, l, d,
-                                                     dk, dv, B, H, T_len, P, scale, s);
+    return hd == 64 ? fa_bwd_dkv_tc<64>(q, qs, k, v, kvs, dout, dos, qsg, ksg, l, d, dk, dv, B, H,
+                                        T_len, P, scale, s)
+                    : fa_bwd_dkv_tc<128>(q, qs, k, v, kvs, dout, dos, qsg, ksg, l, d, dk, dv, B,
+                                         H, T_len, P, scale, s);
   if (hd == 64)
-    return (int)fa_bwd_dkv_core<float, 64>(q, qs, k, v, kvs, dout, dos, qsg, ksg, l, d, dk, dv, B,
-                                           H, T_len, P, scale, s);
-  return (int)fa_bwd_dkv_core<float, 128>(q, qs, k, v, kvs, dout, dos, qsg, ksg, l, d, dk, dv, B,
-                                          H, T_len, P, scale, s);
+    return (int)fa_bwd_dkv_core<64>(q, qs, k, v, kvs, dout, dos, qsg, ksg, l, d, dk, dv, B, H,
+                                    T_len, P, scale, s);
+  return (int)fa_bwd_dkv_core<128>(q, qs, k, v, kvs, dout, dos, qsg, ksg, l, d, dk, dv, B, H,
+                                   T_len, P, scale, s);
 }

@@ -23,13 +23,13 @@ the backward takes both and dO and returns dq, dk, dv in the inputs'
 dtype. Rows without a valid key
 give a zero output, lse 0 and zero gradients.
 
-On the card each kernel is picked by dtype and head dim: bf16 at hd 64 runs
-on the tensor cores (the forward and both backward kernels; they read
-q/k/v and dO by TMA, so their base addresses and strides, and those of O
-for the dQ kernel, must be multiples of 16 bytes: the wrappers raise
-otherwise), f32 and bf16 at hd 128 on the CUDA cores. `FlashAttention` is
-the autograd.Function; its backward makes the incoming gradient
-contiguous when it breaks that rule. CPU tensors take the
+On the card each kernel is picked by dtype and head dim: bf16 runs on the
+tensor cores at hd 64 and 128 (the forward and both backward kernels; they
+read q/k/v and dO by TMA, so their base addresses and strides, and those of
+O for the dQ kernel, must be multiples of 16 bytes: the wrappers raise
+otherwise), f32 on the CUDA cores (tensor cores in f32 would round to
+TF32). `FlashAttention` is the autograd.Function; its backward makes the
+incoming gradient contiguous when it breaks that rule. CPU tensors take the
 plain versions, CUDA tensors launch the kernels or raise. Launch counts:
 the forward at its caller's site (`flash_attention_prefix` for the AR
 training mask, `flash_attention_train` for the NAR's and packed
@@ -161,9 +161,9 @@ def _tma_ok(t: torch.Tensor) -> bool:
 
 
 def _tensor_cores(q: torch.Tensor) -> bool:
-    """bf16 at hd 64: the tensor-core kernels (picked by shape, as the
-    launcher does); everything else runs on the CUDA-core ones."""
-    return q.dtype == torch.bfloat16 and q.shape[-1] == 64
+    """bf16 (at either head dim): the tensor-core kernels, picked by dtype
+    as the launcher does; f32 runs on the CUDA-core ones."""
+    return q.dtype == torch.bfloat16
 
 
 def _check_tma(*ts, name: str = "flash_attention") -> None:
@@ -256,7 +256,7 @@ def flash_attention_bwd(q, k, v, q_seg, kv_seg, prefix: int, out, lse, dout
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv): the plain version on the CPU; on the card the dQ kernel
     (which also writes di) then the dK/dV kernel, both on the tensor cores
-    in bf16 at hd 64 and on the CUDA cores otherwise."""
+    in bf16 and on the CUDA cores in f32."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, q_seg, kv_seg, prefix, out, lse, dout)
     dq, di = flash_attention_bwd_dq(q, k, v, q_seg, kv_seg, prefix, out, lse, dout)

@@ -60,8 +60,8 @@ _SIGNATURES = {
                            _P, _P, _P, _I, _P),
     "vx_flash_attention_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                _I, _I, _I, _I, _I, _I, _F, _P),
-    "vx_flash_attention_fwd_smem": (_I,),
-    "vx_flash_attention_bwd_smem": (_I, _I),
+    "vx_flash_attention_fwd_smem": (_I, _I),
+    "vx_flash_attention_bwd_smem": (_I, _I, _I),
     "vx_flash_attention_bwd_dq": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                   _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
     "vx_flash_attention_bwd_dkv": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
