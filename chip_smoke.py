@@ -11,10 +11,14 @@ Phases, one flushed line each with its own seconds and wall-clock limit:
      kernels' (forward, dQ, dK/dV, each at head dim 64 and 128) registers,
      shared memory and spills (ptxas; a spill fails) and their tensor-core
      instructions (HGMMA in the SASS, cuobjdump; none fails); a CUDA-core
-     flash kernel built for bf16 fails
+     flash kernel built for bf16 fails; the f32 forward's (hd 64 and 128)
+     and the f32 product's registers, shared memory and spills (a spill
+     fails), the f32 forward's resident warps per SM at each head dim
+     (under 8 fails); an old f32 forward or product kernel left in the
+     library fails
   3  each kernel against its plain version, at each single-request site
      (the NAR attention: the flash forward with the NAR's segments (ok, ok)
-     at T = 2304); masked_attention at Tq = 16 (a verify pass at
+     at T = 2304, bf16 and f32); masked_attention at Tq = 16 (a verify pass at
      decode_steps = 16); the prep kernel of gemm_small_m (the LayerNorm
      rows of one verify pass); every product run twice, bitwise equal
   3b the same at the batched sites: decode attention with per-row bounds
@@ -24,7 +28,9 @@ Phases, one flushed line each with its own seconds and wall-clock limit:
   3c the same for best_of and filtered sampling: the filtered epilogue
      (top_k 10 / 50, top_p 0.9 / 0.5, 1 and 20 rows), the grouped decode
      attention (1 request x 5 samples, 4 x 5), the products at M = 16 and
-     20, and the f32 products and attention (compute_dtype="float32")
+     20, and the f32 products (M = 1, 4, 8, 20: 1e-4 of scale, bitwise rows
+     and runs, the head's argmax), the f32 prep rows (1e-6 of each row's
+     scale) and attention (compute_dtype="float32")
   3f head dim 128 (d_model 1024, 8 heads, random weights from seed 0):
      the decode attention (draft step, verify pass, 16 queries, int8 K/V
      own column), the NAR attention (B = 1 and 4, T = 2304, as phases 3
@@ -80,7 +86,8 @@ Phases, one flushed line each with its own seconds and wall-clock limit:
      per row and four packed ones, prefix T / 0 / 128; a ragged T = 1100
      (bf16 and f32, the same prefixes); bf16 q/k/v as views of a fused QKV
      with a transposed dO; two backward runs bitwise equal; the backward
-     timed at prefix 128 and T
+     timed at prefix 128 and T; f32 q views that break the 16-byte rule
+     (a base off by one float, a row stride of hd + 1) raise
   5f training at the shipped width: train_step with AdamW on a fixed batch
      of four utterances for 10 steps (the loss falls), the kernel route
      against the mask route on that batch (loss, gradient cosine per
@@ -316,7 +323,8 @@ def running_max_rounding(q, k, v, seg, prefix):
     return acc / torch.where(l > 0, l, torch.ones_like(l))
 
 
-def check_flash_nar(dev, entry, g, site, x_len, audio_len, s_text, T, H=16, hd=64) -> None:
+def check_flash_nar(dev, entry, g, site, x_len, audio_len, s_text, T, H=16, hd=64,
+                    dtype=None) -> None:
     """The flash forward at the NAR's shapes against its plain version:
     q/k/v as the NAR hands them (views of the fused QKV product of a
     d_model H * hd model), its key-padding rule as segments (ok, ok),
@@ -325,7 +333,9 @@ def check_flash_nar(dev, entry, g, site, x_len, audio_len, s_text, T, H=16, hd=6
     version's f32 output, plus 2^-8 of sum(p |v|) / l: both round each p to
     bf16 once (at most 2^-9 of p each way), the kernel at the running row
     max of its key tiles (as the JAX library's kernel does), the plain
-    version at the final one. lse within 1e-3."""
+    version at the final one. lse within 1e-3. dtype float32 (the f32 NAR,
+    compute_dtype="float32"; a row beside the site's, not in the kernels
+    line): the valid rows within 2e-5 of their scale, lse within 1e-3."""
     import torch
     import torch.nn.functional as Fn
 
@@ -333,15 +343,41 @@ def check_flash_nar(dev, entry, g, site, x_len, audio_len, s_text, T, H=16, hd=6
         flash_attention_fwd, flash_attention_plain, valid_pairs,
     )
 
+    dtype = dtype or torch.bfloat16
     B, D = len(x_len), H * hd
     cols = torch.arange(T, device=dev)[None, :]
     xl, al = (torch.tensor(a, dtype=torch.int32, device=dev) for a in (x_len, audio_len))
     seg = torch.where(cols < s_text, cols < xl[:, None], (cols - s_text) < al[:, None]
                       ).to(torch.int32)
-    qkv = torch.randn((B, T, 3 * D), generator=g, device=dev).to(torch.bfloat16)
+    qkv = torch.randn((B, T, 3 * D), generator=g, device=dev).to(dtype)
     q, k, v = (qkv[..., i * D:(i + 1) * D].view(B, T, H, hd).transpose(1, 2)
                for i in range(3))
     o, lse = flash_attention_fwd(q, k, v, seg, seg, T, site="check")
+    if dtype == torch.float32:
+        ref, lref = flash_attention_plain(q, k, v, seg, seg, T)
+        torch.cuda.synchronize()
+        rows = seg.bool()[:, None, :, None].expand_as(ref)
+        err = float((o - ref).abs()[rows].max())
+        scale = float(ref.abs()[rows].max())
+        err_l = float((lse - lref).abs()[rows[..., 0]].max())
+        if not (err <= 2e-5 * scale and err_l <= 1e-3):
+            fail(f"flash_attention_fwd@{site} f32: out err {err} of scale {scale}, lse err"
+                 f" {err_l}")
+        say(f"  flash_attention_fwd@{site} f32: valid rows out err {err:.3e} (scale"
+            f" {scale:.3f}), lse err {err_l:.3e}")
+        ok = valid_pairs(seg, seg, T)
+        pairs = int(ok.sum()) * H
+        mask = ok[:, None]
+        lib_ms = device_ms(lambda: Fn.scaled_dot_product_attention(q, k, v, attn_mask=mask))
+        n = B * H * T * hd
+        entry("flash_attention_fwd", site, err,
+              device_ms(lambda: flash_attention_fwd(q, k, v, seg, seg, T, site="check")),
+              device_ms(lambda: flash_attention_plain(q, k, v, seg, seg, T)),
+              4 * n * 4 + B * H * T * 4 + 2 * B * T * 4, 4 * hd * pairs, lib_ms,
+              f"1 launch: NAR, B={B}, H={H}, hd={hd}, T={T}, f32, segments (ok, ok), prefix T;"
+              f" {int(seg.sum())} valid rows, {pairs} valid pairs", False, F32_OPS_PER_S)
+        del qkv, q, k, v, o, ref, mask, ok
+        return
     ref, lref = flash_attention_plain(q.float(), k, v, seg, seg, T)  # f32 out
     spread = flash_attention_plain(q.float(), k, v.abs(), seg, seg, T)[0]
     torch.cuda.synchronize()
@@ -377,22 +413,33 @@ def check_flash_nar(dev, entry, g, site, x_len, audio_len, s_text, T, H=16, hd=6
 
 
 TC_KERNELS = ("flash_fwd_tc_kernel", "flash_bwd_dq_tc_kernel", "flash_bwd_dkv_tc_kernel")
-CORE_KERNELS = ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")
-TC_HEAD_DIMS = (64, 128)  # each tensor-core kernel is a template on the head dim
+CORE_KERNELS = ("flash_fwd_ffma_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")
+TC_HEAD_DIMS = (64, 128)  # each flash kernel is a template on the head dim
+# the f32 forward and product designs that flash_fwd_ffma_kernel and
+# gemm_ffma_kernel replaced: neither may be left in the library
+OLD_F32_KERNELS = ("flash_fwd_kernel", "gemm_f32_kernel")
 
 
 def tc_kernel_report(lib) -> None:
     """Phase 2's report on the build: each kernel's ptxas line; for the bf16
     flash kernels (tensor cores) at each head dim their registers, shared
     memory, spills and any serialized wgmma ptxas reports, their dynamic
-    shared memory per block, and their HGMMA count in the SASS (cuobjdump).
-    Fails if one of them has no HGMMA instruction, ptxas reports a spill, or
-    a CUDA-core flash kernel is built for bf16 (those run f32 only)."""
+    shared memory per block, and their HGMMA count in the SASS (cuobjdump);
+    for the f32 forward (flash_fwd_ffma_kernel<hd>) and the f32 product
+    (gemm_ffma_kernel<MR, CS>) their registers, shared memory and spills,
+    and the forward's resident warps per SM. Fails if a tensor-core kernel
+    has no HGMMA instruction, ptxas reports a spill in any of these, the
+    f32 forward keeps fewer than 8 warps resident per SM, a CUDA-core
+    flash kernel is built for bf16 (those run f32 only), or an old f32
+    kernel (OLD_F32_KERNELS) is left in the library."""
     from vallex_tpu_torch.kernels import loader
 
     def instance(kernel, hd, fn_name):
         """fn_name (mangled) is kernel<hd>: _Z<len>kernelILi<hd>E..."""
         return re.search(rf"\d{kernel}ILi{hd}E", fn_name) is not None
+
+    def old_f32(fn_name):
+        return any(re.search(rf"\d{k}[A-Z]", fn_name) for k in OLD_F32_KERNELS)
 
     report = lib.parent / ("ptxas_" + lib.name.split("_")[-1].split(".")[0] + ".txt")
     if report.exists():
@@ -402,8 +449,13 @@ def tc_kernel_report(lib) -> None:
                 say("  ptxas: " + line.split("ptxas info    :")[-1].strip())
         for blk in text.split("Compiling entry function")[1:]:
             head = blk.split("\n")[0]
-            name = [f"{k}<{hd}>" for k in TC_KERNELS for hd in TC_HEAD_DIMS
-                    if instance(k, hd, head)]
+            if old_f32(head):
+                fail(f"an old f32 kernel is still built: {head.strip()[:100]}")
+            name = [f"{k}<{hd}>" for k in TC_KERNELS + ("flash_fwd_ffma_kernel",)
+                    for hd in TC_HEAD_DIMS if instance(k, hd, head)]
+            mr_cs = re.search(r"\dgemm_ffma_kernelILi(\d+)ELi(\d+)E", head)
+            if mr_cs:
+                name = [f"gemm_ffma_kernel<{mr_cs.group(1)}, {mr_cs.group(2)}>"]
             if name:
                 said = [ln.split(":", 1)[-1].strip() for ln in blk.splitlines()[1:]
                         if any(w in ln for w in ("stack frame", "Used", "wgmma", "smem"))]
@@ -417,6 +469,11 @@ def tc_kernel_report(lib) -> None:
             f" {lib_.vx_flash_attention_fwd_smem(2304, hd)}, flash_bwd_dq_tc_kernel"
             f" {lib_.vx_flash_attention_bwd_smem(2304, 0, hd)}, flash_bwd_dkv_tc_kernel"
             f" {lib_.vx_flash_attention_bwd_smem(2304, 1, hd)} bytes")
+        warps = lib_.vx_flash_attention_fwd_f32_warps(2304, hd)
+        say(f"  flash_fwd_ffma_kernel<{hd}>: {warps} warps resident per SM at T = 2304"
+            f" (cudaOccupancyMaxActiveBlocksPerMultiprocessor)")
+        if warps < 8:
+            fail(f"flash_fwd_ffma_kernel<{hd}>: {warps} resident warps per SM, want at least 8")
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(cuobjdump):
         say("  SASS: no cuobjdump in this toolkit; tensor-core instructions not counted")
@@ -443,7 +500,11 @@ def tc_kernel_report(lib) -> None:
     bf16_core = [f for f in core if "bfloat16" in f]
     if bf16_core or not core:
         fail(f"CUDA-core flash kernels in the library: {core}; want f32 instances only")
-    say(f"  SASS: {len(core)} CUDA-core flash kernels, all f32 (no bf16 instance)")
+    old = [f for f in per_fn if old_f32(f)]
+    if old:
+        fail(f"old f32 kernels left in the library: {old}")
+    say(f"  SASS: {len(core)} CUDA-core flash kernels, all f32 (no bf16 instance); no"
+        f" {' or '.join(OLD_F32_KERNELS)}")
 
 
 # ---------------------------------------------------------------------------
@@ -602,6 +663,34 @@ def train_kernel_checks(dev, entry, g, H=16, hd=64, suffix="") -> None:
               f"1 launch: dk and dv, {what}; library: SDPA's whole backward{row}", in_line,
               rate)
         del qr, kr, vr, mask
+
+
+def check_layout_rule(dev) -> None:
+    """Phase 3e: the f32 forward reads q/k/v in 16-byte pieces, so a view
+    that breaks the 16-byte rule raises, naming the rule, before any launch:
+    q with a base off by one float, and with a row stride of hd + 1."""
+    import torch
+
+    from vallex_tpu_torch.kernels import loader
+    from vallex_tpu_torch.kernels.flash_attention import flash_attention_fwd
+
+    B, H, T, hd = 1, 2, 128, 64
+    seg = torch.ones((B, T), dtype=torch.int32, device=dev)
+    kv = torch.randn((B, H, T, hd), device=dev)
+    for what, q in (("a base off by one float",
+                     torch.randn(B * H * T * hd + 1, device=dev)[1:].view(B, H, T, hd)),
+                    ("a row stride of hd + 1",
+                     torch.randn((B, H, T, hd + 1), device=dev)[..., :hd])):
+        before = dict(loader.launch_counts)
+        try:
+            flash_attention_fwd(q, kv, kv, seg, seg, T, site="check")
+        except ValueError as exc:
+            if "16-byte" not in str(exc) or dict(loader.launch_counts) != before:
+                fail(f"flash_attention_fwd f32 q with {what}: raised {exc!r}, launches"
+                     f" {dict(loader.launch_counts) != before}")
+            say(f"  flash_attention_fwd f32 q with {what}: raises ({exc})")
+        else:
+            fail(f"flash_attention_fwd f32 q with {what}: no error (the 16-byte rule)")
 
 
 def train_head_dim(dev, cfg) -> None:
@@ -833,6 +922,163 @@ def train_path(dev, cfg) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# The decode products (phases 3-3d): module-level so that
+# tools/torch_flash_bench.py times them for another tree too.
+# ---------------------------------------------------------------------------
+
+def gemm_calls(lw, M, g, act_quant=False):
+    """The 49 products of one decode step at M rows of packed weights lw
+    ([NL, N, K] a layer); act_quant: the 48 layer products W8A8, the head
+    W8A16 (as the TPU kernels)."""
+    import torch
+
+    NL, D, F = lw["wqkv"].shape[0], lw["wqkv"].shape[2], lw["w1"].shape[1]
+    dev = lw["wqkv"].device
+    x_d = torch.randn((M, D), generator=g, device=dev)
+    x_f = torch.relu(torch.randn((M, F), generator=g, device=dev))
+    aq = dict(act_quant=True) if act_quant else {}
+    calls = []
+    for li in range(NL):
+        sc = (lambda n: None if lw[n] is None else lw[n][li])
+        calls += [
+            (x_d, lw["wqkv"][li], dict(scale=sc("sqkv"), bias=lw["bqkv"][li],
+                                       ln=(lw["ln1s"][li], lw["ln1b"][li]), **aq)),
+            (x_d, lw["wout"][li], dict(scale=sc("sout"), bias=lw["bout"][li], residual=x_d,
+                                       **aq)),
+            (x_d, lw["w1"][li], dict(scale=sc("s1"), bias=lw["b1"][li],
+                                     ln=(lw["ln2s"][li], lw["ln2b"][li]), relu=True, **aq)),
+            (x_f, lw["w2"][li], dict(scale=sc("s2"), bias=lw["b2"][li], residual=x_d, **aq)),
+        ]
+    calls.append((x_d, lw["wpred"], dict(scale=lw["spred"], ln=(lw["fns"], lw["fnb"]))))
+    return calls
+
+
+def int8_library_ms(calls):
+    """torch._weight_int8pack_mm (bf16 x, int8 W [N, K], bf16
+    scales) per product, or None where this torch has no CUDA
+    kernel for it or its result is not the same product."""
+    import torch
+
+    from vallex_tpu_torch.kernels import gemm_small_m_plain
+
+    xs = [(x.to(torch.bfloat16).contiguous(), w, kw["scale"].to(torch.bfloat16))
+          for x, w, kw in calls]
+    try:
+        y = torch._weight_int8pack_mm(*xs[-1])
+    except (AttributeError, NotImplementedError, RuntimeError) as exc:
+        say(f"  library: torch._weight_int8pack_mm unavailable on CUDA: {str(exc).splitlines()[0][:160]}")
+        return None
+    x, w, sc = xs[-1]
+    ref = gemm_small_m_plain(x, w, scale=sc)
+    e = float((y.float() - ref).abs().max())
+    say(f"  library: torch._weight_int8pack_mm head product max_abs_err {e:.3e}"
+        f" vs the plain version (scale {float(ref.abs().max()):.2f})")
+    if not e <= 2e-2 * max(1.0, float(ref.abs().max())):
+        say("  library: torch._weight_int8pack_mm computes another product; not timed")
+        return None
+    return device_ms(lambda: [torch._weight_int8pack_mm(x, w, sc) for x, w, sc in xs])
+
+
+def int_mm_library_ms(calls, M, g):
+    """torch._int_mm (int8 x int8 → int32, the integer product alone)
+    per W8A8 product, the rows padded to 17: on CUDA it refuses 16 rows
+    or fewer. None where this torch has no such kernel."""
+    import torch
+
+    dev = g.device
+    rows = max(M, 17)
+    xs = [(torch.randint(-127, 128, (rows, w.shape[1]), generator=g, device=dev,
+                         dtype=torch.int8), w.t()) for _, w, kw in calls if kw.get("act_quant")]
+    try:
+        torch._int_mm(*xs[0])
+    except (AttributeError, NotImplementedError, RuntimeError) as exc:
+        say(f"  library: torch._int_mm unavailable on CUDA: {str(exc).splitlines()[0][:160]}")
+        return None
+    say(f"  library: torch._int_mm on {rows} rows (M={M} padded to at least 17), the int32"
+        f" products of the {len(xs)} W8A8 layer products only")
+    return device_ms(lambda: [torch._int_mm(a, b) for a, b in xs])
+
+
+def check_gemm_products(entry, g, vocab, site, lw, M, unit, in_line=True, act_quant=False):
+    """gemm_small_m against its plain version on the 49 products of one
+    decode step at M rows: 1e-2 of the output scale (f32 weights: 1e-4),
+    two runs bitwise equal, each row of M > 1 bitwise its M = 1 product,
+    the head's argmax; then timed against the plain version and one library
+    call per product (entry(...) takes the row)."""
+    import torch
+    import torch.nn.functional as Fn
+
+    from vallex_tpu_torch.kernels import gemm_small_m, gemm_small_m_plain
+
+    calls = gemm_calls(lw, M, g, act_quant)
+    f32 = lw["wqkv"].dtype == torch.float32
+    err = 0.0
+    for x, w, kw in calls:
+        yk = gemm_small_m(x, w, site="check", **kw)
+        again = gemm_small_m(x, w, site="check", **kw)
+        yp = gemm_small_m_plain(x, w, **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(yk, again):
+            # fixed-order sums, no atomics (gemm_small_m.cu)
+            fail(f"gemm_small_m@{site}: two runs differ for w {tuple(w.shape)}, M={M}")
+        scale = max(1.0, float(yp.abs().max()))
+        e = float((yk - yp).abs().max())
+        # activations are rounded to bf16 (int8 with act_quant) after an
+        # f32 LayerNorm on both sides; one rounding flip moves a sum by
+        # ~1e-3 of its scale. f32 weights: no rounding, only the order of
+        # the f32 sums
+        if not e <= (1e-4 if f32 else 1e-2) * scale:
+            fail(f"gemm_small_m@{site}: err {e} at scale {scale} for w {tuple(w.shape)}")
+        if kw.get("act_quant") and "ln" not in kw and not torch.equal(yk, yp):
+            # a cast prologue: the same int8 codes, an exact integer sum
+            # and the same rounded epilogue on both sides
+            fail(f"gemm_small_m@{site}: W8A8 product with a cast prologue differs from"
+                 f" the plain version by {e} for w {tuple(w.shape)}")
+        err = max(err, e)
+        if M > 1:
+            # a request's output must not depend on its companions: each
+            # row reduces in the same order at any M (gemm_small_m.cu)
+            for m in range(M):
+                one = gemm_small_m(x[m:m + 1], w, site="check", **{
+                    k: (v[m:m + 1] if k == "residual" else v) for k, v in kw.items()})
+                if not torch.equal(one[0], yk[m]):
+                    fail(f"gemm_small_m@{site}: row {m} of M={M} differs from its M=1 product")
+    yk, yp = gemm_small_m(*calls[-1][:2], site="check", **calls[-1][2]), \
+        gemm_small_m_plain(*calls[-1][:2], **calls[-1][2])
+    if not torch.equal(yk[:, :vocab].argmax(-1), yp[:, :vocab].argmax(-1)):
+        fail(f"gemm_small_m@{site}: head argmax disagrees")
+    ms = device_ms(lambda: [gemm_small_m(x, w, site="check", **kw) for x, w, kw in calls])
+    pms = device_ms(lambda: [gemm_small_m_plain(x, w, **kw) for x, w, kw in calls])
+    if act_quant and M == 1:
+        # where a W8A8 step's time goes: each product of layer 0 in W8A8
+        # and in W8A16 (the same int8 weights, bf16 activations)
+        parts = []
+        for name, (x, w, kw) in zip(("QKV (LN)", "out-proj (cast)", "FFN1 (LN)",
+                                      "FFN2 (cast)"), calls):
+            w16 = {k: v for k, v in kw.items() if k != "act_quant"}
+            parts.append(f"{name} {device_ms(lambda: gemm_small_m(x, w, site='check', **kw)):.4f}"
+                         f" / {device_ms(lambda: gemm_small_m(x, w, site='check', **w16)):.4f}")
+        say("  W8A8 / W8A16 ms per product of layer 0, M=1: " + ", ".join(parts))
+    if lw["sqkv"] is None:  # bf16 or f32: one F.linear per product
+        xs = [(x.to(w.dtype), w, kw.get("bias")) for x, w, kw in calls]
+        lib_ms = device_ms(lambda: [Fn.linear(x, w, b if b is None else b.to(w.dtype)) for x, w, b in xs])
+    elif act_quant:  # W8A8: one _int_mm per layer product
+        lib_ms = int_mm_library_ms(calls, M, g)
+    else:  # int8 W8A16: one _weight_int8pack_mm per product
+        lib_ms = int8_library_ms(calls)
+    nbytes = sum(w.numel() * w.element_size() + 4 * (M * (w.shape[0] + w.shape[1]))
+                 + (0 if kw.get("scale") is None else 4 * w.shape[0]) for x, w, kw in calls)
+    rate = F32_OPS_PER_S if f32 else BF16_OPS_PER_S
+    # the operations in bf16-rate units: W8A8 products run at the int8 rate
+    ops = sum(2 * M * w.shape[0] * w.shape[1] * (rate / INT8_OPS_PER_S if kw.get("act_quant")
+                                                 else 1.0) for _, w, kw in calls)
+    wname = ("w8a8 (head W8A16)" if act_quant else "int8" if lw["sqkv"] is not None
+             else ("f32" if f32 else "bf16"))
+    entry("gemm_small_m", site, err, ms, pms, nbytes, ops, lib_ms,
+          f"{unit}: {len(calls)} products, M={M}, {wname} weights", in_line, rate)
+
+
 def main() -> None:
     import torch
 
@@ -920,141 +1166,21 @@ def main() -> None:
             f"{'null' if library_ms is None else f'{library_ms:.4f} ms'}  ({unit})")
 
     # ---- kernel checks -------------------------------------------------------
-    def gemm_calls(lw, M, act_quant=False):
-        """The 49 products of one decode step at M rows; act_quant: the 48
-        layer products W8A8, the head W8A16 (as the TPU kernels)."""
-        x_d = torch.randn((M, D), generator=g, device=dev)
-        x_f = torch.relu(torch.randn((M, F), generator=g, device=dev))
-        aq = dict(act_quant=True) if act_quant else {}
-        calls = []
-        for li in range(NL):
-            sc = (lambda n: None if lw[n] is None else lw[n][li])
-            calls += [
-                (x_d, lw["wqkv"][li], dict(scale=sc("sqkv"), bias=lw["bqkv"][li],
-                                           ln=(lw["ln1s"][li], lw["ln1b"][li]), **aq)),
-                (x_d, lw["wout"][li], dict(scale=sc("sout"), bias=lw["bout"][li], residual=x_d,
-                                           **aq)),
-                (x_d, lw["w1"][li], dict(scale=sc("s1"), bias=lw["b1"][li],
-                                         ln=(lw["ln2s"][li], lw["ln2b"][li]), relu=True, **aq)),
-                (x_f, lw["w2"][li], dict(scale=sc("s2"), bias=lw["b2"][li], residual=x_d, **aq)),
-            ]
-        calls.append((x_d, lw["wpred"], dict(scale=lw["spred"], ln=(lw["fns"], lw["fnb"]))))
-        return calls
-
-    def int8_library_ms(calls):
-        """torch._weight_int8pack_mm (bf16 x, int8 W [N, K], bf16
-        scales) per product, or None where this torch has no CUDA
-        kernel for it or its result is not the same product."""
-        xs = [(x.to(torch.bfloat16).contiguous(), w, kw["scale"].to(torch.bfloat16))
-              for x, w, kw in calls]
-        try:
-            y = torch._weight_int8pack_mm(*xs[-1])
-        except (AttributeError, NotImplementedError, RuntimeError) as exc:
-            say(f"  library: torch._weight_int8pack_mm unavailable on CUDA: {str(exc).splitlines()[0][:160]}")
-            return None
-        x, w, sc = xs[-1]
-        ref = gemm_small_m_plain(x, w, scale=sc)
-        e = float((y.float() - ref).abs().max())
-        say(f"  library: torch._weight_int8pack_mm head product max_abs_err {e:.3e}"
-            f" vs the plain version (scale {float(ref.abs().max()):.2f})")
-        if not e <= 2e-2 * max(1.0, float(ref.abs().max())):
-            say("  library: torch._weight_int8pack_mm computes another product; not timed")
-            return None
-        return device_ms(lambda: [torch._weight_int8pack_mm(x, w, sc) for x, w, sc in xs])
-
-    def int_mm_library_ms(calls, M):
-        """torch._int_mm (int8 x int8 → int32, the integer product alone)
-        per W8A8 product, the rows padded to 17: on CUDA it refuses 16 rows
-        or fewer. None where this torch has no such kernel."""
-        rows = max(M, 17)
-        xs = [(torch.randint(-127, 128, (rows, w.shape[1]), generator=g, device=dev,
-                             dtype=torch.int8), w.t()) for _, w, kw in calls if kw.get("act_quant")]
-        try:
-            torch._int_mm(*xs[0])
-        except (AttributeError, NotImplementedError, RuntimeError) as exc:
-            say(f"  library: torch._int_mm unavailable on CUDA: {str(exc).splitlines()[0][:160]}")
-            return None
-        say(f"  library: torch._int_mm on {rows} rows (M={M} padded to at least 17), the int32"
-            f" products of the {len(xs)} W8A8 layer products only")
-        return device_ms(lambda: [torch._int_mm(a, b) for a, b in xs])
-
     def check_gemm(site, lw, M, unit, in_line=True, act_quant=False):
-        calls = gemm_calls(lw, M, act_quant)
-        f32 = lw["wqkv"].dtype == torch.float32
-        err = 0.0
-        for x, w, kw in calls:
-            yk = gemm_small_m(x, w, site="check", **kw)
-            again = gemm_small_m(x, w, site="check", **kw)
-            yp = gemm_small_m_plain(x, w, **kw)
-            torch.cuda.synchronize()
-            if not torch.equal(yk, again):
-                # fixed-order sums, no atomics (gemm_small_m.cu)
-                fail(f"gemm_small_m@{site}: two runs differ for w {tuple(w.shape)}, M={M}")
-            scale = max(1.0, float(yp.abs().max()))
-            e = float((yk - yp).abs().max())
-            # activations are rounded to bf16 (int8 with act_quant) after an
-            # f32 LayerNorm on both sides; one rounding flip moves a sum by
-            # ~1e-3 of its scale. f32 weights: no rounding, only the order of
-            # the f32 sums
-            if not e <= (1e-4 if f32 else 1e-2) * scale:
-                fail(f"gemm_small_m@{site}: err {e} at scale {scale} for w {tuple(w.shape)}")
-            if kw.get("act_quant") and "ln" not in kw and not torch.equal(yk, yp):
-                # a cast prologue: the same int8 codes, an exact integer sum
-                # and the same rounded epilogue on both sides
-                fail(f"gemm_small_m@{site}: W8A8 product with a cast prologue differs from"
-                     f" the plain version by {e} for w {tuple(w.shape)}")
-            err = max(err, e)
-            if M > 1:
-                # a request's output must not depend on its companions: each
-                # row reduces in the same order at any M (gemm_small_m.cu)
-                for m in range(M):
-                    one = gemm_small_m(x[m:m + 1], w, site="check", **{
-                        k: (v[m:m + 1] if k == "residual" else v) for k, v in kw.items()})
-                    if not torch.equal(one[0], yk[m]):
-                        fail(f"gemm_small_m@{site}: row {m} of M={M} differs from its M=1 product")
-        yk, yp = gemm_small_m(*calls[-1][:2], site="check", **calls[-1][2]), \
-            gemm_small_m_plain(*calls[-1][:2], **calls[-1][2])
-        if not torch.equal(yk[:, :vocab].argmax(-1), yp[:, :vocab].argmax(-1)):
-            fail(f"gemm_small_m@{site}: head argmax disagrees")
-        ms = device_ms(lambda: [gemm_small_m(x, w, site="check", **kw) for x, w, kw in calls])
-        pms = device_ms(lambda: [gemm_small_m_plain(x, w, **kw) for x, w, kw in calls])
-        if act_quant and M == 1:
-            # where a W8A8 step's time goes: each product of layer 0 in W8A8
-            # and in W8A16 (the same int8 weights, bf16 activations)
-            parts = []
-            for name, (x, w, kw) in zip(("QKV (LN)", "out-proj (cast)", "FFN1 (LN)",
-                                          "FFN2 (cast)"), calls):
-                w16 = {k: v for k, v in kw.items() if k != "act_quant"}
-                parts.append(f"{name} {device_ms(lambda: gemm_small_m(x, w, site='check', **kw)):.4f}"
-                             f" / {device_ms(lambda: gemm_small_m(x, w, site='check', **w16)):.4f}")
-            say("  W8A8 / W8A16 ms per product of layer 0, M=1: " + ", ".join(parts))
-        if lw["sqkv"] is None:  # bf16 or f32: one F.linear per product
-            xs = [(x.to(w.dtype), w, kw.get("bias")) for x, w, kw in calls]
-            lib_ms = device_ms(lambda: [Fn.linear(x, w, b if b is None else b.to(w.dtype)) for x, w, b in xs])
-        elif act_quant:  # W8A8: one _int_mm per layer product
-            lib_ms = int_mm_library_ms(calls, M)
-        else:  # int8 W8A16: one _weight_int8pack_mm per product
-            lib_ms = int8_library_ms(calls)
-        nbytes = sum(w.numel() * w.element_size() + 4 * (M * (w.shape[0] + w.shape[1]))
-                     + (0 if kw.get("scale") is None else 4 * w.shape[0]) for x, w, kw in calls)
-        rate = F32_OPS_PER_S if f32 else BF16_OPS_PER_S
-        # the operations in bf16-rate units: W8A8 products run at the int8 rate
-        ops = sum(2 * M * w.shape[0] * w.shape[1] * (rate / INT8_OPS_PER_S if kw.get("act_quant")
-                                                     else 1.0) for _, w, kw in calls)
-        wname = ("w8a8 (head W8A16)" if act_quant else "int8" if lw["sqkv"] is not None
-                 else ("f32" if f32 else "bf16"))
-        entry("gemm_small_m", site, err, ms, pms, nbytes, ops, lib_ms,
-              f"{unit}: {len(calls)} products, M={M}, {wname} weights", in_line, rate)
+        check_gemm_products(entry, g, vocab, site, lw, M, unit, in_line, act_quant)
 
-    def check_prep(site, lw, M, act_quant, in_line=True):
+    def check_prep(site, lw, M, act_quant, in_line=True, dtype=torch.bfloat16):
         """The prep kernel of gemm_small_m (the prologue once per product)
         against its plain version, on the prologues of one decode step: the
         LayerNorm rows of QKV, FFN1 and the head, and with act_quant also
         the cast rows of out-proj and FFN2 (W8A8 quantizes every layer
         product). bf16 rows within one bf16 ulp of the plain version's (its
-        LayerNorm sums run in another order); W8A8 scales within 1e-6 of
-        theirs and codes at most one apart (the same rounding halves may
-        fall either way after an f32 LayerNorm), bitwise equal for a cast."""
+        LayerNorm sums run in another order); f32 rows (dtype float32, the
+        f32 product's) within 1e-6 of each row's scale; W8A8 scales within
+        1e-6 of theirs and codes at most one apart (the same rounding halves
+        may fall either way after an f32 LayerNorm), bitwise equal for a
+        cast."""
+        f32 = dtype == torch.float32
         x_d = torch.randn((M, D), generator=g, device=dev)
         x_f = torch.relu(torch.randn((M, F), generator=g, device=dev))
         runs = []  # (x, ln, W8A8): the head's prologue stays bf16 (W8A16)
@@ -1066,8 +1192,8 @@ def main() -> None:
         runs.append((x_d, (lw["fns"], lw["fnb"]), False))
         err = 0.0
         for x, ln, aq in runs[:4] + runs[-1:]:
-            got = gemm_prep(x, ln=ln, act_quant=aq)
-            ref = gemm_prep_plain(x, ln=ln, act_quant=aq)
+            got = gemm_prep(x, ln=ln, act_quant=aq, dtype=dtype)
+            ref = gemm_prep_plain(x, ln=ln, act_quant=aq, dtype=dtype)
             torch.cuda.synchronize()
             if aq:
                 (qk, sk), (qp, sp) = got, ref
@@ -1078,17 +1204,26 @@ def main() -> None:
                 if not (dq <= 1 and ds <= 1e-6):
                     fail(f"gemm_small_m_prep@{site}: codes {dq} apart, scales {ds} relative")
                 err = max(err, float(dq))
+            elif f32:
+                e = (got - ref).abs()
+                row_scale = ref.abs().amax(-1, keepdim=True)
+                if not bool((e <= 1e-6 * row_scale).all()):
+                    fail(f"gemm_small_m_prep@{site}: f32 rows beyond 1e-6 of their scale, max"
+                         f" err {float(e.max())}")
+                err = max(err, float(e.max()))
             else:
                 e = (got.float() - ref.float()).abs()
                 ulp = torch.exp2(torch.floor(torch.log2(ref.float().abs().clamp_min(2.0 ** -100))) - 7)
                 if not bool((e <= ulp).all()):
                     fail(f"gemm_small_m_prep@{site}: bf16 rows beyond one ulp, max err {float(e.max())}")
                 err = max(err, float(e.max()))
-        ms = device_ms(lambda: [gemm_prep(x, ln=ln, act_quant=a) for x, ln, a in runs])
-        pms = device_ms(lambda: [gemm_prep_plain(x, ln=ln, act_quant=a) for x, ln, a in runs])
+        ms = device_ms(lambda: [gemm_prep(x, ln=ln, act_quant=a, dtype=dtype)
+                                for x, ln, a in runs])
+        pms = device_ms(lambda: [gemm_prep_plain(x, ln=ln, act_quant=a, dtype=dtype)
+                                 for x, ln, a in runs])
         # f32 rows read once, the LayerNorm's two vectors, the rows written
         nbytes = sum(x.numel() * 4 + (0 if ln is None else 8 * x.shape[1])
-                     + x.numel() * (1 if a else 2) + (4 * x.shape[0] if a else 0)
+                     + x.numel() * (1 if a else 4 if f32 else 2) + (4 * x.shape[0] if a else 0)
                      for x, ln, a in runs)
         ops = sum(x.numel() * (8 if ln is not None else 1) + (x.numel() * 3 if a else 0)
                   for x, ln, a in runs)
@@ -1096,7 +1231,7 @@ def main() -> None:
         # quantizes with a per-row scale) and writes the product's rows
         entry("gemm_small_m_prep", site, err, ms, pms, nbytes, ops, None,
               f"{len(runs)} launches: the prologues of one step, M={M},"
-              f" {'W8A8 codes and scales' if act_quant else 'bf16 rows'}"
+              f" {'W8A8 codes and scales' if act_quant else 'f32 rows' if f32 else 'bf16 rows'}"
               f"{'; max_abs_err in codes' if act_quant else ''}", in_line, F32_OPS_PER_S)
 
     def check_attention(site, q, k, v, bounds, reps_layers, in_line=True, prefix=None,
@@ -1257,6 +1392,9 @@ def main() -> None:
         T_NAR, S_NAR = 2304, 256
         NAR_XL_B, NAR_AL_B = [20, 52, 150, 256], [832, 892, 1158, 2046]
         check_flash_nar(dev, entry, g, "flash_attention", [150], [1058], S_NAR, T_NAR)
+        # the f32 NAR (compute_dtype="float32") on the CUDA-core forward: row g32
+        check_flash_nar(dev, entry, g, "flash_attention", [150], [1058], S_NAR, T_NAR,
+                        dtype=torch.float32)
         # the verify pass at decode_steps = 16: 16 queries per head
         check_attention("decode_verify", decode_q(1, 16), cache_k[0][None], cache_v[0][None],
                         one, NL, in_line=False)
@@ -1321,6 +1459,13 @@ def main() -> None:
         # compute_dtype="float32": f32 weights, f32 cache
         packed32 = pack_layer_weights(bundle.model, torch.float32)
         check_gemm("decode_block_fused", packed32, 1, "one f32 step", in_line=False)
+        # more f32 rows: each row bitwise its M = 1 product (gemm_ffma_kernel)
+        check_gemm("decode_block_fused_batched", packed32, 4, "one f32 batched step",
+                   in_line=False)
+        check_gemm("decode_block_fused_batched", packed32, 20, "one f32 batched step",
+                   in_line=False)
+        # the f32 LayerNorm rows of the prep kernel (row dp32)
+        check_prep("decode_verify", packed32, 8, False, in_line=False, dtype=torch.float32)
         check_attention("decode_block_fused", decode_q(1, 1), cache_k[0][None].float(),
                         cache_v[0][None].float(), one, NL, in_line=False)
         # ... and its verify pass (speculative="auto" drafts with int8 and
@@ -1399,6 +1544,7 @@ def main() -> None:
     # ---- phase 3e: the training attention, forward and backward --------------
     with phase("3e training attention vs plain", 300):
         train_kernel_checks(dev, entry, g)
+        check_layout_rule(dev)
 
     # ---- phase 3f: head dim 128 (d_model 1024, 8 heads) -----------------------
     loader.reset_launch_counts()

@@ -1,16 +1,23 @@
-"""The port's flash-attention kernels on one GPU, alone: build, check and time.
+"""The port's flash-attention and decode-product kernels on one GPU, alone:
+build, check and time.
 
     python3 tools/torch_flash_bench.py [--root DIR] [--label NAME] [--hd 64,128]
+                                       [--parts flash,gemm]
 
-Runs the checks and timings of chip_smoke.py's phases 3e / 3f (the forward,
-dQ and dK/dV kernels against their plain versions at B = 4, T = 1152,
-H = 1024 / hd: bf16 and f32, padded and packed rows, prefix T / 0 / 128, a
-ragged T = 1100, fused-QKV views; two backward runs bitwise equal) and of
-phases 3 / 3b (the NAR's forward at T = 2304, B = 1 and 4) for each head dim,
-without the rest of the smoke run. Each timed row prints as one JSON line
-(`row {...}`: kernel, site, ms, plain_ms, bound_ms, bound_by, library_ms,
-max_abs_err, unit), after the card's name and power limit and the flash
-kernels' ptxas lines.
+Part "flash" runs the checks and timings of chip_smoke.py's phases 3e / 3f
+(the forward, dQ and dK/dV kernels against their plain versions at B = 4,
+T = 1152, H = 1024 / hd: bf16 and f32, padded and packed rows, prefix T / 0
+/ 128, a ragged T = 1100, fused-QKV views; two backward runs bitwise equal)
+and of phases 3 / 3b (the NAR's forward at T = 2304, B = 1 and 4, and the
+f32 NAR at B = 1) for each head dim. Part "gemm" builds the shipped model
+(random weights, seed 0) and runs phase 3's and 3c's product checks and
+timings: the int8 draft step at M = 1 (row a), the bf16 verify pass at
+M = 8 (row d) and both in f32 (rows a32, d32), then the f32 step's device
+time by kernel under torch.profiler (`breakdown {...}`: the products, the
+prep kernels, and the sum of kernel times against the step's span). Each timed row prints as one
+JSON line (`row {...}`: kernel, site, ms, plain_ms, bound_ms, bound_by,
+library_ms, max_abs_err, unit), after the card's name and power limit and
+the flash and product kernels' ptxas lines.
 
 --root imports and builds `vallex_tpu_torch` from another tree (a commit
 unpacked with `git archive`), so two commits compare on one card in one
@@ -30,11 +37,41 @@ import sys
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+def breakdown(cs, label, fn) -> None:
+    """Device ms of fn() by kernel name and grid under torch.profiler, and
+    the span from the first kernel's start to the last one's end."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in cs.trace_events(prof) if e.get("cat") == "kernel" and "dur" in e]
+    if not events:
+        cs.say(f"breakdown {json.dumps({'label': label, 'kernels': 'not measured'})}")
+        return
+    by = {}
+    for e in events:
+        name = e["name"].replace("void ", "").split("(")[0].split("<")[0]
+        name += " grid " + "x".join(str(x) for x in e.get("args", {}).get("grid", []))
+        n, t = by.get(name, (0, 0.0))
+        by[name] = (n + 1, t + float(e["dur"]) / 1e3)
+    span = (max(float(e["ts"]) + float(e["dur"]) for e in events)
+            - min(float(e["ts"]) for e in events)) / 1e3
+    cs.say("breakdown " + json.dumps({
+        "label": label, "span_ms": round(span, 4),
+        "kernel_ms": round(sum(t for _, t in by.values()), 4),
+        "by_kernel": {k: {"launches": n, "ms": round(t, 4)} for k, (n, t) in by.items()}}))
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=HERE, help="tree whose vallex_tpu_torch is built and timed")
     ap.add_argument("--label", default="", help="name printed on every row")
     ap.add_argument("--hd", default="64,128", help="head dims to run (H = 1024 / hd)")
+    ap.add_argument("--parts", default="flash", help="comma-separated: flash, gemm")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -64,7 +101,7 @@ def main() -> None:
     if report.exists():
         for blk in report.read_text().split("Compiling entry function")[1:]:
             head = blk.split("\n")[0]
-            if "flash_" in head:
+            if "flash_" in head or "gemm_ffma" in head:
                 said = [ln.split(":", 1)[-1].strip() for ln in blk.splitlines()[1:]
                         if any(w in ln for w in ("spill", "Used"))]
                 cs.say(f"  ptxas {head.split(chr(39))[1][:48]}: " + "; ".join(said))
@@ -82,10 +119,34 @@ def main() -> None:
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1)
-    for hd in (int(x) for x in args.hd.split(",")):
+    parts = args.parts.split(",")
+    if "gemm" in parts:
+        from vallex_tpu_torch import api
+        from vallex_tpu_torch.ops.decode_step import pack_layer_weights
+
+        bundle = api.preload_models(random_weights=True, seed=0, device=dev)
+        vocab = bundle.cfg.num_audio_tokens + 1
+        packed, draft = bundle.pipeline.packed_weights(True)
+        packed32 = pack_layer_weights(bundle.model, torch.float32)
+        for site, lw, M, unit in (("decode_block_fused", draft, 1, "one draft step"),
+                                  ("decode_verify", packed, 8, "one verify pass"),
+                                  ("decode_block_fused", packed32, 1, "one f32 step"),
+                                  ("decode_verify", packed32, 8, "one f32 verify pass")):
+            cs.check_gemm_products(entry, g, vocab, site, lw, M, unit)
+        from vallex_tpu_torch.kernels import gemm_small_m
+
+        for M in (1, 8):
+            calls = cs.gemm_calls(packed32, M, g)
+            breakdown(cs, f"{args.label} f32 step M={M}",
+                      lambda: [gemm_small_m(x, w, site="check", **kw) for x, w, kw in calls])
+        del bundle, packed, draft, packed32
+        torch.cuda.empty_cache()
+    for hd in (int(x) for x in args.hd.split(",")) if "flash" in parts else ():
         H, suffix = 1024 // hd, "" if hd == 64 else "_hd128"
         cs.check_flash_nar(dev, entry, g, "flash_attention" + suffix, [150], [1058], 256, 2304,
                            H=H, hd=hd)
+        cs.check_flash_nar(dev, entry, g, "flash_attention" + suffix, [150], [1058], 256, 2304,
+                           H=H, hd=hd, dtype=torch.float32)
         cs.check_flash_nar(dev, entry, g, "flash_attention_batched" + suffix,
                            [20, 52, 150, 256], [832, 892, 1158, 2046], 256, 2304, H=H, hd=hd)
         cs.train_kernel_checks(dev, entry, g, H=H, hd=hd, suffix=suffix)

@@ -36,11 +36,16 @@
 //       from the tile's own row on), HD / 64 warpgroups; it runs after the dQ
 //       kernel on the same stream and reads its di;
 //   f32 on the CUDA cores (tensor cores in f32 would round to TF32 and change
-//     the f32 numbers): flash_fwd_kernel<HD>, flash_bwd_dq_kernel<HD> and
-//     flash_bwd_dkv_kernel<HD>, the same three roles, one block of 256
-//     threads per (tile of 64, head, row); tiles in shared memory (row stride
-//     HD + 1, so a half-warp reading 16 rows hits 16 banks), each thread a
-//     4 x 4 tile of the 64 x 64 scores and a 4 x HD/16 tile of its outputs.
+//     the f32 numbers), the same three roles:
+//     flash_fwd_ffma_kernel<HD>: the forward, one block of 256 threads per
+//       query tile of 128, K and V through a ring of cp.async stages,
+//       masked key tiles skipped (flash_attention_f32.cu, its own
+//       translation unit; its design is there);
+//     flash_bwd_dq_kernel<HD> and flash_bwd_dkv_kernel<HD>: one block of 256
+//       threads per (tile of 64, head, row); tiles in shared memory (row
+//       stride HD + 1, so a half-warp reading 16 rows hits 16 banks), each
+//       thread a 4 x 4 tile of the 64 x 64 scores and a 4 x HD/16 tile of its
+//       outputs.
 // Both forwards write O in the input type and the row log-sum-exp (f32) for
 // the backward.
 // Neither backward uses atomics: each output element is one block's sum in a
@@ -56,30 +61,11 @@
 // O, dO read once, the outputs written once) where fewer pairs are valid.
 // The bf16 kernels' designs for that bound are with them below.
 #include <cuda.h>  // CUtensorMap and its enums (the encoder comes through the runtime)
-#include <limits.h>
-#include <math.h>
 
-#include "common.cuh"
+#include "flash_attention.cuh"
 
-#define FA_TILE 64
 #define FA_PLD (FA_TILE + 1)  // row stride of the CUDA-core kernels' 64 x 64 p / ds tiles
 #define FA_THREADS 256
-
-struct FaStrides {
-  long long b, h, t;
-};
-
-// max / sum over the 16 lanes that share a row group (tx = lane & 15)
-__device__ __forceinline__ float fa_max16(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(VX_FULL_MASK, v, o));
-  return v;
-}
-__device__ __forceinline__ float fa_sum16(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(VX_FULL_MASK, v, o);
-  return v;
-}
 
 // rows [t0, t0 + 64) of one (b, h) slice into a [64][HD + 1] f32 tile,
 // zeros past T
@@ -99,134 +85,10 @@ __device__ __forceinline__ void fa_load_seg(int* dst, const int* seg, int t0, in
     dst[r] = t0 + r < T_len ? seg[t0 + r] : pad;
 }
 
-// Rows past T carry distinct pads in the query and key tiles, so they never
-// match: INT_MIN for keys, INT_MIN + 1 for queries.
-#define FA_PAD_K (-2147483647 - 1)
-#define FA_PAD_Q (-2147483647)
 
-__device__ __forceinline__ bool fa_valid(int i, int j, int P, int seg_i, int seg_j) {
-  return seg_i == seg_j && j <= max(i, P - 1);
-}
-
-// The f32 kernels on the CUDA cores, for head dim HD (64 or 128). Thread
-// (ty, tx) of the 16 x 16 grid holds query (or key) rows ty * 4 + a and head
-// columns tx + 16 j (j < HD / 16) of its outputs.
-template <int HD>
-__global__ void __launch_bounds__(FA_THREADS)
-    flash_fwd_kernel(const float* __restrict__ q, FaStrides qs, const float* __restrict__ k,
-                     const float* __restrict__ v, FaStrides kvs, const int* __restrict__ qseg,
-                     const int* __restrict__ kvseg, float* __restrict__ o, FaStrides os,
-                     float* __restrict__ lse, int H, int T_len, int P, float scale) {
-  constexpr int LD = HD + 1, NJ = HD / 16;
-  extern __shared__ float fa_smem[];
-  float* Qs = fa_smem;
-  float* Ks = Qs + FA_TILE * LD;
-  float* Vs = Ks + FA_TILE * LD;
-  float* Ps = Vs + FA_TILE * LD;
-  int* segq = reinterpret_cast<int*>(Ps + FA_TILE * FA_PLD);
-  int* segk = segq + FA_TILE;
-
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int q0 = blockIdx.x * FA_TILE, h = blockIdx.y, b = blockIdx.z;
-  const float* qb = q + b * qs.b + h * qs.h;
-  const float* kb = k + b * kvs.b + h * kvs.h;
-  const float* vb = v + b * kvs.b + h * kvs.h;
-  const int* qsg = qseg + (long long)b * T_len;
-  const int* ksg = kvseg + (long long)b * T_len;
-
-  fa_load_tile<HD>(Qs, qb, qs.t, q0, T_len);
-  fa_load_seg(segq, qsg, q0, T_len, FA_PAD_Q);
-
-  float m[4], l[4], acc[4][NJ];
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    m[a] = -INFINITY;
-    l[a] = 0.f;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[a][j] = 0.f;
-  }
-  // the last key any row of this tile sees is max(q0 + 63, P - 1)
-  const int kend = min(T_len, max(q0 + FA_TILE, P));
-  for (int k0 = 0; k0 < kend; k0 += FA_TILE) {
-    __syncthreads();  // the previous tile's reads of Ks, Vs, Ps are done
-    fa_load_tile<HD>(Ks, kb, kvs.t, k0, T_len);
-    fa_load_tile<HD>(Vs, vb, kvs.t, k0, T_len);
-    fa_load_seg(segk, ksg, k0, T_len, FA_PAD_K);
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[a][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < HD; ++d) {
-      float qv[4], kv[4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) qv[a] = Qs[(ty * 4 + a) * LD + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = Ks[(tx + 16 * j) * LD + d];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[a][j] = fmaf(qv[a], kv[j], s[a][j]);
-    }
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int r = ty * 4 + a, i = q0 + r;
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        s[a][j] = fa_valid(i, k0 + c, P, segq[r], segk[c]) ? s[a][j] * scale : -INFINITY;
-        mx = fmaxf(mx, s[a][j]);
-      }
-      const float m_new = fmaxf(m[a], fa_max16(mx));
-      float alpha = 1.f, psum = 0.f;
-      if (m_new != -INFINITY) {
-        alpha = expf(m[a] - m_new);  // 0 while the row had no valid key
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float p = expf(s[a][j] - m_new);
-          psum += p;
-          Ps[r * FA_PLD + tx + 16 * j] = p;
-        }
-      } else {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) Ps[r * FA_PLD + tx + 16 * j] = 0.f;
-      }
-      l[a] = l[a] * alpha + fa_sum16(psum);
-      m[a] = m_new;
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) acc[a][j] *= alpha;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < FA_TILE; ++kk) {
-      float vv[NJ];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) vv[j] = Vs[kk * LD + tx + 16 * j];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        const float p = Ps[(ty * 4 + a) * FA_PLD + kk];
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) acc[a][j] = fmaf(p, vv[j], acc[a][j]);
-      }
-    }
-  }
-  float* ob = o + b * os.b + h * os.h;
-  float* lb = lse + ((long long)b * H + h) * T_len;
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int i = q0 + ty * 4 + a;
-    if (i >= T_len) continue;
-    const float inv = l[a] > 0.f ? 1.f / l[a] : 0.f;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) ob[i * os.t + tx + 16 * j] = acc[a][j] * inv;
-    if (tx == 0) lb[i] = l[a] > 0.f ? m[a] + logf(l[a]) : 0.f;
-  }
-}
-
+// The f32 backward kernels on the CUDA cores, for head dim HD (64 or 128).
+// Thread (ty, tx) of the 16 x 16 grid holds query (or key) rows ty * 4 + a
+// and head columns tx + 16 j (j < HD / 16) of its outputs.
 template <int HD>
 __global__ void __launch_bounds__(FA_THREADS)
     flash_bwd_dq_kernel(const float* __restrict__ q, FaStrides qs, const float* __restrict__ k,
@@ -1343,14 +1205,17 @@ __global__ void __launch_bounds__(FW_THREADS * (HD / 64))
 // last stride is 1. Gradients and lse / di are contiguous [B, H, T(, hd)].
 // kind 0: f32, kind 1: bf16 (q, k, v, O, dO and the gradients alike); hd 64
 // or 128. Each launcher picks its kernel by (kind, hd): bf16 on the tensor
-// cores, f32 on the CUDA cores; neither stands in for the other.
+// cores, f32 on the CUDA cores; neither stands in for the other. Both
+// forwards read q, k, v in 16-byte pieces (TMA boxes, cp.async), so their
+// base addresses and strides must be multiples of 16 bytes (the wrapper
+// checks).
 // ---------------------------------------------------------------------------
 
 static FaStrides fa_strides(const long long* s) { return FaStrides{s[0], s[1], s[2]}; }
 
-// the CUDA-core kernels' dynamic shared memory: f32 tiles of [64][hd + 1]
-// (q, k, v, dO as each kernel needs them) and of [64][65] (p, ds), the
-// segment ids, lse and di of a tile
+// the CUDA-core backward kernels' dynamic shared memory: f32 tiles of
+// [64][hd + 1] (q, k, v, dO as each kernel needs them) and of [64][65] (p,
+// ds), the segment ids, lse and di of a tile
 static size_t fa_core_smem(int hd, int hd_tiles, int p_tiles) {
   return ((size_t)hd_tiles * FA_TILE * (hd + 1) + (size_t)p_tiles * FA_TILE * FA_PLD) *
              sizeof(float) +
@@ -1365,22 +1230,6 @@ static cudaError_t fa_allow_smem(K kernel, size_t bytes) {
 static bool fa_shape_ok(int kind, int hd, int B, int H, int T_len) {
   return (kind == 0 || kind == 1) && (hd == 64 || hd == 128) && B >= 1 && B <= 65535 &&
          H >= 1 && H <= 65535 && T_len >= 1;
-}
-
-template <int HD>
-static cudaError_t fa_fwd_core(const void* q, const long long* qs, const void* k, const void* v,
-                               const long long* kvs, const int* qseg, const int* kvseg, void* o,
-                               const long long* os, float* lse, int B, int H, int T_len, int P,
-                               float scale, cudaStream_t s) {
-  const size_t smem = fa_core_smem(HD, 3, 1);
-  cudaError_t e = fa_allow_smem(flash_fwd_kernel<HD>, smem);
-  if (e != cudaSuccess) return e;
-  const dim3 grid((T_len + FA_TILE - 1) / FA_TILE, H, B);
-  flash_fwd_kernel<HD><<<grid, FA_THREADS, smem, s>>>(
-      reinterpret_cast<const float*>(q), fa_strides(qs), reinterpret_cast<const float*>(k),
-      reinterpret_cast<const float*>(v), fa_strides(kvs), qseg, kvseg,
-      reinterpret_cast<float*>(o), fa_strides(os), lse, H, T_len, P, scale);
-  return cudaGetLastError();
 }
 
 typedef CUresult (*FaEncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -1593,9 +1442,7 @@ extern "C" int vx_flash_attention_fwd(const void* q, const long long* qs, const 
     return hd == 64 ? fa_fwd_tc<64>(q, qs, k, v, kvs, qsg, ksg, o, os, l, B, H, T_len, P, scale, s)
                     : fa_fwd_tc<128>(q, qs, k, v, kvs, qsg, ksg, o, os, l, B, H, T_len, P, scale,
                                      s);
-  if (hd == 64)
-    return (int)fa_fwd_core<64>(q, qs, k, v, kvs, qsg, ksg, o, os, l, B, H, T_len, P, scale, s);
-  return (int)fa_fwd_core<128>(q, qs, k, v, kvs, qsg, ksg, o, os, l, B, H, T_len, P, scale, s);
+  return fa_fwd_f32(q, qs, k, v, kvs, qsg, ksg, o, os, l, hd, B, H, T_len, P, scale, s);
 }
 
 // the bf16 kernels' dynamic shared memory per block at this T and head dim,

@@ -28,8 +28,11 @@ tensor cores at hd 64 and 128 (the forward and both backward kernels; they
 read q/k/v and dO by TMA, so their base addresses and strides, and those of
 O for the dQ kernel, must be multiples of 16 bytes: the wrappers raise
 otherwise), f32 on the CUDA cores (tensor cores in f32 would round to
-TF32). `FlashAttention` is the autograd.Function; its backward makes the
-incoming gradient contiguous when it breaks that rule. CPU tensors take the
+TF32); the f32 forward reads q/k/v in 16-byte cp.async pieces and holds
+them to the same rule (the training layers' fused-QKV views and the NAR's
+meet it; nothing is copied quietly). `FlashAttention` is the
+autograd.Function; its backward makes the incoming gradient contiguous
+when it breaks that rule. CPU tensors take the
 plain versions, CUDA tensors launch the kernels or raise. Launch counts:
 the forward at its caller's site (`flash_attention_prefix` for the AR
 training mask, `flash_attention_train` for the NAR's and packed
@@ -167,12 +170,13 @@ def _tensor_cores(q: torch.Tensor) -> bool:
 
 
 def _check_tma(*ts, name: str = "flash_attention") -> None:
-    """Raise unless every tensor meets `_tma_ok` (the bf16 kernels read them
-    by TMA or in 16-byte loads)."""
+    """Raise unless every tensor meets `_tma_ok` (the kernels read them by
+    TMA, cp.async or in 16-byte loads)."""
     for t in ts:
         if not _tma_ok(t):
-            raise ValueError(f"{name}: bf16 tensors need 16-byte aligned base addresses and"
-                             f" strides, got strides {t.stride()} at {t.data_ptr():#x}")
+            raise ValueError(f"{name}: {str(t.dtype)[6:]} tensors need 16-byte aligned base"
+                             f" addresses and strides, got strides {t.stride()} at"
+                             f" {t.data_ptr():#x}")
 
 
 def flash_attention_fwd(q, k, v, q_seg, kv_seg, prefix: int, *, site: str = ""
@@ -181,8 +185,7 @@ def flash_attention_fwd(q, k, v, q_seg, kv_seg, prefix: int, *, site: str = ""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, q_seg, kv_seg, prefix)
     kind = _check(q, k, v, q_seg, kv_seg, prefix, "flash_attention")
-    if _tensor_cores(q):
-        _check_tma(q, k, v)
+    _check_tma(q, k, v)  # both forwards read them in 16-byte pieces
     B, H, T, hd = q.shape
     out = torch.empty((B, H, T, hd), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)

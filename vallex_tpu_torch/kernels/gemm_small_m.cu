@@ -27,12 +27,13 @@
 //   product, first launches gemm_prep_kernel (one block per activation row,
 //   256 threads, 1024 for rows longer than 2048) that holds the row in
 //   shared memory and writes its activations to scratch: bf16 for bf16 and int8
-//   weights (as the TPU kernel casts them before its MXU product), or int8
-//   codes with the row's scale for W8A8:
+//   weights (as the TPU kernel casts them before its MXU product), f32 for
+//   f32 weights, or int8 codes with the row's scale for W8A8:
 //     sx = max(max_k |a[m, k]|, 1e-6) * (1/127)
 //     xq = clip(round_half_even(a / sx), -127, 127)     (IEEE division)
-//   as the TPU kernels' `qmat`. A cast prologue in bf16 / int8 needs no prep:
-//   the product rounds the f32 rows to bf16 as it loads them.
+//   as the TPU kernels' `qmat`. A cast prologue over 16-byte aligned rows
+//   needs no prep: the product reads x itself (rounding it to bf16 as it
+//   loads it for bf16 / int8 weights).
 // * The product runs on the tensor cores (mma.sync): the weights are the
 //   16-row A side (row-major, K contiguous), the activation rows the narrow
 //   n = 8 side (one n8 tile per 8 rows, up to 3 tiles = 24 rows; more rows
@@ -66,18 +67,36 @@
 //   loads its first weight chunks. x, resid, the scratch rows and y are read
 //   or written only after the wait.
 //
-// The f32 kind (compute_dtype="float32"; the TPU kernel's f32 `mat`) stays on
-// the CUDA cores: one warp per output column with 16-byte loads along K, the
-// LayerNorm of a block's rows (at most 8, more rows along grid.y) computed by
-// each block into shared memory, f32 sums (the tensor cores would be TF32).
+// The f32 kind (compute_dtype="float32"; the TPU kernel's f32 `mat`) runs on
+// the CUDA cores (the tensor cores would round to TF32) with the same
+// structure: the prologue once per product (the prep kernel's f32 rows for a
+// LayerNorm, else x itself), then gemm_ffma_kernel: f32 FMAs, rows in groups
+// of 8 (MR = 1, 2, 4 or 8 of them computed, the rest along grid.y).
+// * A warp owns FF_BW = 4 output columns (a block of 4 warps 16) over the
+//   block's K range; each lane loads 16 weight bytes of every column per
+//   step along K, U = 4 steps (2 at MR = 8) in flight in a ring of
+//   registers (32 KB per block). The block's slice of the activation rows
+//   sits in shared memory, read by all four warps.
+// * K splits over a cluster of CS = 8, 4, 2 or 1 blocks, the largest that
+//   keeps the product within FF_MAX_BLOCKS = 2 blocks per SM (32-64 KB in
+//   flight per SM), a function of N alone. At most 128 registers a thread
+//   let four blocks share an SM, so the next product's blocks find room
+//   while this one runs: they prefetch their weights into L2 and load their
+//   first steps before their griddepcontrol.wait.
+// * Sums in a fixed order: a lane's steps in order, the warp's lanes by one
+//   shuffle tree (lane 0's), the cluster's blocks in rank order in rank 0
+//   through distributed shared memory, which runs the epilogue. No atomics:
+//   two runs are bitwise equal and each row bitwise its M = 1 product.
 #include <cooperative_groups.h>
 
 #include <type_traits>
 
 #include "common.cuh"
 
-#define GEMM_ROWS 8  // f32 kind: rows per block
-#define GEMM_WARPS 8
+#define GEMM_ROWS 8  // f32 kind: rows per row group
+#define FF_WARPS 4   // f32 kind: warps per block
+#define FF_BW 4      // f32 kind: output columns per warp
+#define FF_MAX_BLOCKS 264  // f32 kind: a product's blocks, at most (two per SM of four)
 
 #define TC_WARPS 8       // K split over the warps of a block
 #define TC_N 16          // output columns (weight rows) per block
@@ -377,12 +396,17 @@ __device__ __forceinline__ float prep_block_max(float v, float* red) {
   return s;
 }
 
+// The prep kernel's outputs (the launcher's `out`)
+#define PREP_BF16 0
+#define PREP_W8A8 1
+#define PREP_F32 2
+
 // One block per activation row m: the LayerNorm (or the f32 row itself),
-// then bf16 rows (QUANT false) or int8 codes and sx[m] (QUANT true) into
-// the scratch `act` [M, K]. Each thread keeps the same k's in every pass, so
-// the row in shared memory needs no barrier between passes. THREADS (256,
-// or 1024 for rows longer than 2048) is a function of K alone.
-template <bool QUANT, int THREADS>
+// then bf16 rows (PREP_BF16), int8 codes and sx[m] (PREP_W8A8) or f32 rows
+// (PREP_F32) into the scratch `act` [M, K]. Each thread keeps the same k's in
+// every pass, so the row in shared memory needs no barrier between passes.
+// THREADS (256, or 1024 for rows longer than 2048) is a function of K alone.
+template <int OUT, int THREADS>
 __global__ void __launch_bounds__(THREADS)
 gemm_prep_kernel(const float* __restrict__ x, int ldx, const float* __restrict__ ln_s,
                  const float* __restrict__ ln_b, int K, float eps, void* __restrict__ act,
@@ -410,7 +434,7 @@ gemm_prep_kernel(const float* __restrict__ x, int ldx, const float* __restrict__
     for (int k = threadIdx.x; k < K; k += THREADS)
       prow[k] = (prow[k] - mean) * rstd * ln_s[k] + ln_b[k];
   }
-  if constexpr (QUANT) {
+  if constexpr (OUT == PREP_W8A8) {
     float amax = 0.f;
     for (int k = threadIdx.x; k < K; k += THREADS) amax = fmaxf(amax, fabsf(prow[k]));
     const float sxm = fmaxf(prep_block_max<THREADS>(amax, red), 1e-6f) * (1.0f / 127.0f);
@@ -418,6 +442,9 @@ gemm_prep_kernel(const float* __restrict__ x, int ldx, const float* __restrict__
     for (int k = threadIdx.x; k < K; k += THREADS)
       q[k] = (int8_t)__float2int_rn(fminf(fmaxf(rintf(__fdiv_rn(prow[k], sxm)), -127.f), 127.f));
     if (threadIdx.x == 0) sx[m] = sxm;
+  } else if constexpr (OUT == PREP_F32) {
+    float* o = reinterpret_cast<float*>(act) + (size_t)m * K;
+    for (int k = threadIdx.x; k < K; k += THREADS) o[k] = prow[k];
   } else {
     __nv_bfloat16* o = reinterpret_cast<__nv_bfloat16*>(act) + (size_t)m * K;
     for (int k = threadIdx.x; k < K; k += THREADS) o[k] = __float2bfloat16_rn(prow[k]);
@@ -425,81 +452,111 @@ gemm_prep_kernel(const float* __restrict__ x, int ldx, const float* __restrict__
 }
 
 // ---- the f32 kind on the CUDA cores --------------------------------------------
-__global__ void __launch_bounds__(GEMM_WARPS * 32)
-gemm_f32_kernel(const float* __restrict__ x, int ldx, const float* __restrict__ w,
-                const float* __restrict__ wscale, const float* __restrict__ bias, const float* __restrict__ ln_s,
-                const float* __restrict__ ln_b, const float* __restrict__ resid, int ldr,
-                float* __restrict__ y, int ldy, int M, int N, int K, int relu, float eps) {
-  extern __shared__ __align__(16) float xs[];  // [rows][K] activations
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
+// grid (ceil(N / 16) * CS, ceil(M / 8)) in clusters of (CS, 1); MR rows of a
+// group computed (zeros past M). act: the prep kernel's f32 rows (lda = K)
+// or x (lda = ldx), 16-byte aligned rows.
+template <int MR, int CS>
+__global__ void __launch_bounds__(FF_WARPS * 32, 4)
+gemm_ffma_kernel(const float* __restrict__ act, int lda, const float* __restrict__ w,
+                 const float* __restrict__ wscale, const float* __restrict__ bias,
+                 const float* __restrict__ resid, int ldr, float* __restrict__ y, int ldy, int M,
+                 int N, int K, int relu) {
+  constexpr int BN = FF_WARPS * FF_BW;  // output columns of the block
+  // weight steps in flight per lane; 2 at MR = 8 keeps the accumulators
+  // and the ring within 128 registers (ptxas spills at 4 there)
+  constexpr int U = MR < 8 ? 4 : 2;
+  extern __shared__ __align__(16) float4 ff_xs[];  // [MR][kb] the block's slice of the rows
+  __shared__ float part[BN * MR];  // the warps' sums, read by cluster rank 0
 
-  // this block's row group
-  const int m0 = blockIdx.y * GEMM_ROWS;
-  x += (size_t)m0 * ldx;
-  y += (size_t)m0 * ldy;
-  if (resid != nullptr) resid += (size_t)m0 * ldr;
-  M = min(GEMM_ROWS, M - m0);
+  pdl_launch_dependents();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int rank = blockIdx.x % CS;  // the block's rank in its cluster
+  const int nb = blockIdx.x / CS * BN, n0 = nb + warp * FF_BW;
+  const int m0 = blockIdx.y * GEMM_ROWS, rows = min(GEMM_ROWS, M - m0);
+  // the block's K range in float4s: a function of K (and of CS, of N) alone
+  const int n4 = K >> 2, lo = n4 * rank / CS, kb = n4 * (rank + 1) / CS - lo;
+  const int steps = (kb + 31) >> 5;
+  const float4* wr[FF_BW];
+  bool in[FF_BW];
+#pragma unroll
+  for (int c = 0; c < FF_BW; ++c) {
+    in[c] = n0 + c < N;
+    wr[c] = reinterpret_cast<const float4*>(w + (size_t)(in[c] ? n0 + c : 0) * K) + lo;
+  }
+  auto load_w = [&](float4 (&a)[FF_BW], int st) {
+    const int k4 = lane + 32 * st;
+#pragma unroll
+    for (int c = 0; c < FF_BW; ++c)
+      a[c] = (st < steps && k4 < kb && in[c]) ? __ldg(wr[c] + k4) : make_float4(0.f, 0.f, 0.f, 0.f);
+  };
 
-  // prologue: warp m prepares activation row m
-  for (int m = warp; m < M; m += GEMM_WARPS) {
-    const float* xr = x + (size_t)m * ldx;
-    float* xo = xs + (size_t)m * K;
-    if (ln_s != nullptr) {
-      float s = 0.f;
-      for (int k = lane; k < K; k += 32) s += xr[k];
-      const float mean = vx_warp_sum(s) / (float)K;
-      float v = 0.f;
-      for (int k = lane; k < K; k += 32) {
-        const float d = xr[k] - mean;
-        v += d * d;
-      }
-      const float rstd = rsqrtf(vx_warp_sum(v) / (float)K + eps);
-      for (int k = lane; k < K; k += 32) xo[k] = (xr[k] - mean) * rstd * ln_s[k] + ln_b[k];
-    } else {
-      for (int k = lane; k < K; k += 32) xo[k] = xr[k];
-    }
+  // before the wait: the weights only (no earlier kernel writes them)
+  if (lane < FF_BW && n0 + lane < N && kb > 0)
+    prefetch_l2(w + (size_t)(n0 + lane) * K + 4 * lo, (unsigned)(kb * 16));
+  float4 wa[U][FF_BW];  // a ring: step s in wa[s % U]
+#pragma unroll
+  for (int u = 0; u < U; ++u) load_w(wa[u], u);
+  float acc[FF_BW][MR];
+#pragma unroll
+  for (int c = 0; c < FF_BW; ++c)
+#pragma unroll
+    for (int r = 0; r < MR; ++r) acc[c][r] = 0.f;
+
+  pdl_wait();  // the activations (x or the prep's rows) are written
+  const float4* x4 = reinterpret_cast<const float4*>(act);
+  for (int e = threadIdx.x; e < MR * kb; e += FF_WARPS * 32) {
+    const int r = e / kb, c = e - r * kb;
+    ff_xs[e] = r < rows ? x4[(size_t)(m0 + r) * (lda >> 2) + lo + c] : make_float4(0.f, 0.f, 0.f, 0.f);
   }
   __syncthreads();
-
-  const int n = blockIdx.x * GEMM_WARPS + warp;
-  if (n >= N) return;
-
-  float acc[GEMM_ROWS];
+  for (int s0 = 0; s0 < steps; s0 += U) {
 #pragma unroll
-  for (int m = 0; m < GEMM_ROWS; ++m) acc[m] = 0.f;
-  const float* wr = w + (size_t)n * K;
-#pragma unroll 4
-  for (int k0 = lane * 4; k0 < K; k0 += 32 * 4) {
-    const float4 wv = __ldg(reinterpret_cast<const float4*>(wr + k0));
+    for (int u = 0; u < U; ++u) {
+      const int k4 = lane + 32 * (s0 + u);
+      if (s0 + u < steps && k4 < kb) {
 #pragma unroll
-    for (int m = 0; m < GEMM_ROWS; ++m) {
-      if (m < M) {
-        const float4 xv = *reinterpret_cast<const float4*>(xs + (size_t)m * K + k0);
-        float a = acc[m];
-        a = fmaf(xv.x, wv.x, a);
-        a = fmaf(xv.y, wv.y, a);
-        a = fmaf(xv.z, wv.z, a);
-        a = fmaf(xv.w, wv.w, a);
-        acc[m] = a;
+        for (int r = 0; r < MR; ++r) {
+          const float4 xv = ff_xs[r * kb + k4];
+#pragma unroll
+          for (int c = 0; c < FF_BW; ++c) {
+            float a = acc[c][r];
+            a = fmaf(xv.x, wa[u][c].x, a);
+            a = fmaf(xv.y, wa[u][c].y, a);
+            a = fmaf(xv.z, wa[u][c].z, a);
+            acc[c][r] = fmaf(xv.w, wa[u][c].w, a);
+          }
+        }
       }
+      load_w(wa[u], s0 + u + U);  // the slot's next step
     }
   }
+
+  // each column's sum over the warp's lanes (lane 0's shuffle tree), over
+  // the cluster's blocks in rank order in rank 0, then the epilogue
 #pragma unroll
-  for (int m = 0; m < GEMM_ROWS; ++m) acc[m] = vx_warp_sum(acc[m]);
-  if (lane == 0) {
-    const float sc = wscale != nullptr ? wscale[n] : 1.f;
-    const float b = bias != nullptr ? bias[n] : 0.f;
+  for (int c = 0; c < FF_BW; ++c)
 #pragma unroll
-    for (int m = 0; m < GEMM_ROWS; ++m) {
-      if (m < M) {
-        float v = acc[m] * sc + b;
-        if (relu) v = fmaxf(v, 0.f);
-        if (resid != nullptr) v += resid[(size_t)m * ldr + n];
-        y[(size_t)m * ldy + n] = v;
-      }
+    for (int r = 0; r < MR; ++r) {
+      const float t = vx_warp_sum(acc[c][r]);
+      if (lane == 0) part[(warp * FF_BW + c) * MR + r] = t;
     }
+  namespace cg = cooperative_groups;
+  if constexpr (CS > 1) cg::this_cluster().sync();  // every block's `part` is written
+  else __syncthreads();
+  for (int e = threadIdx.x; e < rows * BN && rank == 0; e += FF_WARPS * 32) {
+    const int r = e / BN, nl = e % BN, n = nb + nl, m = m0 + r;
+    float s = part[nl * MR + r];
+    if constexpr (CS > 1) {
+#pragma unroll
+      for (int q = 1; q < CS; ++q) s += cg::this_cluster().map_shared_rank(part, q)[nl * MR + r];
+    }
+    if (n >= N) continue;
+    float v = s * (wscale != nullptr ? wscale[n] : 1.f) + (bias != nullptr ? bias[n] : 0.f);
+    if (relu) v = fmaxf(v, 0.f);
+    if (resid != nullptr) v += resid[(size_t)m * ldr + n];
+    y[(size_t)m * ldy + n] = v;
   }
+  if constexpr (CS > 1) cg::this_cluster().sync();  // rank 0 has read the others' sums
 }
 
 // ---- launchers ---------------------------------------------------------------------
@@ -581,35 +638,83 @@ static cudaError_t launch_tc_mt(const void* act, int lda, const float* sx, const
                                    relu, s);
 }
 
-// the prep kernel (LayerNorm or a cast; bf16 rows or W8A8 codes) into scratch
-template <bool QUANT, int THREADS>
+// the prep kernel (LayerNorm or a cast; bf16 rows, W8A8 codes or f32 rows)
+// into scratch
+template <int OUT, int THREADS>
 static cudaError_t launch_prep_t(const float* x, int ldx, const float* ln_s, const float* ln_b,
                                  int M, int K, float eps, void* act, float* sx, cudaStream_t s) {
   const size_t smem = (size_t)K * sizeof(float);
-  cudaError_t e = allow_smem(gemm_prep_kernel<QUANT, THREADS>, smem);
+  cudaError_t e = allow_smem(gemm_prep_kernel<OUT, THREADS>, smem);
   if (e != cudaSuccess) return e;
-  return launch_pdl(gemm_prep_kernel<QUANT, THREADS>, dim3(M), dim3(THREADS), smem, 1, s, x, ldx,
+  return launch_pdl(gemm_prep_kernel<OUT, THREADS>, dim3(M), dim3(THREADS), smem, 1, s, x, ldx,
                     ln_s, ln_b, K, eps, act, sx);
 }
-template <bool QUANT>
+template <int OUT>
 static cudaError_t launch_prep(const float* x, int ldx, const float* ln_s, const float* ln_b,
                                int M, int K, float eps, void* act, float* sx, cudaStream_t s) {
   if (K > 2048)
-    return launch_prep_t<QUANT, 1024>(x, ldx, ln_s, ln_b, M, K, eps, act, sx, s);
-  return launch_prep_t<QUANT, 256>(x, ldx, ln_s, ln_b, M, K, eps, act, sx, s);
+    return launch_prep_t<OUT, 1024>(x, ldx, ln_s, ln_b, M, K, eps, act, sx, s);
+  return launch_prep_t<OUT, 256>(x, ldx, ln_s, ln_b, M, K, eps, act, sx, s);
+}
+
+// the f32 product: MR rows a group, K over a cluster of CS blocks
+template <int MR, int CS>
+static cudaError_t launch_ffma(const float* act, int lda, const float* w, const float* wscale,
+                               const float* bias, const float* resid, int ldr, float* y, int ldy,
+                               int M, int N, int K, int relu, cudaStream_t s) {
+  const size_t smem = (size_t)MR * (((K >> 2) + CS - 1) / CS) * 16;  // the widest K range
+  if (smem + FF_WARPS * FF_BW * MR * sizeof(float) > 232448) return cudaErrorInvalidValue;
+  cudaError_t e = allow_smem(gemm_ffma_kernel<MR, CS>, smem);
+  if (e != cudaSuccess) return e;
+  const int BN = FF_WARPS * FF_BW;
+  const dim3 grid((N + BN - 1) / BN * CS, (M + GEMM_ROWS - 1) / GEMM_ROWS);
+  return launch_pdl(gemm_ffma_kernel<MR, CS>, grid, dim3(FF_WARPS * 32), smem, CS, s, act, lda, w,
+                    wscale, bias, resid, ldr, y, ldy, M, N, K, relu);
+}
+
+// CS the largest of 8, 4, 2, 1 that keeps the product within FF_MAX_BLOCKS
+// blocks per row group: a function of N alone
+template <int MR>
+static cudaError_t launch_ffma_cs(const float* act, int lda, const float* w, const float* wscale,
+                                  const float* bias, const float* resid, int ldr, float* y,
+                                  int ldy, int M, int N, int K, int relu, cudaStream_t s) {
+  const int groups = (N + FF_WARPS * FF_BW - 1) / (FF_WARPS * FF_BW);
+  if (8 * groups <= FF_MAX_BLOCKS)
+    return launch_ffma<MR, 8>(act, lda, w, wscale, bias, resid, ldr, y, ldy, M, N, K, relu, s);
+  if (4 * groups <= FF_MAX_BLOCKS)
+    return launch_ffma<MR, 4>(act, lda, w, wscale, bias, resid, ldr, y, ldy, M, N, K, relu, s);
+  if (2 * groups <= FF_MAX_BLOCKS)
+    return launch_ffma<MR, 2>(act, lda, w, wscale, bias, resid, ldr, y, ldy, M, N, K, relu, s);
+  return launch_ffma<MR, 1>(act, lda, w, wscale, bias, resid, ldr, y, ldy, M, N, K, relu, s);
+}
+
+// MR: the rows of a group, rounded up to 1, 2, 4 or 8
+static cudaError_t launch_ffma_mr(const float* act, int lda, const float* w, const float* wscale,
+                                  const float* bias, const float* resid, int ldr, float* y,
+                                  int ldy, int M, int N, int K, int relu, cudaStream_t s) {
+  const int r = min(M, GEMM_ROWS);
+  if (r == 1)
+    return launch_ffma_cs<1>(act, lda, w, wscale, bias, resid, ldr, y, ldy, M, N, K, relu, s);
+  if (r == 2)
+    return launch_ffma_cs<2>(act, lda, w, wscale, bias, resid, ldr, y, ldy, M, N, K, relu, s);
+  if (r <= 4)
+    return launch_ffma_cs<4>(act, lda, w, wscale, bias, resid, ldr, y, ldy, M, N, K, relu, s);
+  return launch_ffma_cs<8>(act, lda, w, wscale, bias, resid, ldr, y, ldy, M, N, K, relu, s);
 }
 
 // The prep kernel alone (the check of its rows): x [M, K] f32 (ldx), LayerNorm
-// with ln_s / ln_b or a cast, into act [M, K] bf16 (quant 0) or int8 codes
-// with sx [M] (quant 1).
+// with ln_s / ln_b or a cast, into act [M, K] bf16 (out 0), int8 codes with
+// sx [M] (out 1) or f32 (out 2).
 extern "C" int vx_gemm_small_m_prep(const float* x, int ldx, const float* ln_s,
-                                    const float* ln_b, int M, int K, float eps, int quant,
+                                    const float* ln_b, int M, int K, float eps, int out,
                                     void* act, float* sx, void* stream) {
-  if (M < 1 || K < 1 || (ln_s == nullptr) != (ln_b == nullptr))
+  if (M < 1 || K < 1 || (ln_s == nullptr) != (ln_b == nullptr) || out < 0 || out > 2)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const cudaError_t e = quant ? launch_prep<true>(x, ldx, ln_s, ln_b, M, K, eps, act, sx, s)
-                              : launch_prep<false>(x, ldx, ln_s, ln_b, M, K, eps, act, nullptr, s);
+  const cudaError_t e =
+      out == PREP_W8A8  ? launch_prep<PREP_W8A8>(x, ldx, ln_s, ln_b, M, K, eps, act, sx, s)
+      : out == PREP_F32 ? launch_prep<PREP_F32>(x, ldx, ln_s, ln_b, M, K, eps, act, nullptr, s)
+                        : launch_prep<PREP_BF16>(x, ldx, ln_s, ln_b, M, K, eps, act, nullptr, s);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
@@ -618,11 +723,12 @@ extern "C" int vx_gemm_small_m_prep(const float* x, int ldx, const float* ln_s,
 // w, 3 = int8 w with wscale [N] required and int8 activations (W8A8). w is
 // [N, K]. wscale, bias, ln_s/ln_b, resid may be null.
 // scratch: M * K bytes (W8A8: int8 codes, then M f32 scales at the next
-// 16-byte boundary) or 2 * M * K bytes (bf16 rows, with a LayerNorm), from
-// the caller; null where no prep runs: f32, and a bf16 / int8 cast
-// prologue whose x rows are 16-byte aligned (the product reads them). Requires M >= 1,
-// K % 64 == 0 (f32: K % 16), 16-byte aligned rows of w; the Python wrapper
-// checks these. One product is one call, whatever it launches.
+// 16-byte boundary), 2 * M * K bytes (bf16 rows) or 4 * M * K bytes (f32
+// rows), from the caller, for a LayerNorm or x rows that are not 16-byte
+// aligned; null where no prep runs: a cast prologue whose x rows are 16-byte
+// aligned (the product reads them). Requires M >= 1, K % 64 == 0 (f32:
+// K % 16), 16-byte aligned rows of w; the Python wrapper checks these. One
+// product is one call, whatever it launches.
 extern "C" int vx_gemm_small_m(const float* x, int ldx, const void* w, int w_kind,
                                const float* wscale, const float* bias, const float* ln_s,
                                const float* ln_b, const float* resid, int ldr, float* y,
@@ -632,13 +738,20 @@ extern "C" int vx_gemm_small_m(const float* x, int ldx, const void* w, int w_kin
   if (M < 1 || N < 1) return (int)cudaErrorInvalidValue;
   if (w_kind == W_F32) {
     if ((M + GEMM_ROWS - 1) / GEMM_ROWS > 65535 || K % 16) return (int)cudaErrorInvalidValue;
-    const size_t smem = (size_t)min(M, GEMM_ROWS) * K * sizeof(float);
-    const cudaError_t e = allow_smem(gemm_f32_kernel, smem);
+    const float* act = x;
+    int lda = ldx;
+    cudaError_t e = cudaSuccess;
+    if (scratch != nullptr) {  // the LayerNorm (or unaligned) rows as f32, once
+      e = launch_prep<PREP_F32>(x, ldx, ln_s, ln_b, M, K, eps, scratch, nullptr, s);
+      act = reinterpret_cast<const float*>(scratch);
+      lda = K;
+    } else if (ln_s != nullptr || reinterpret_cast<uintptr_t>(x) % 16 || ldx % 4) {
+      return (int)cudaErrorInvalidValue;
+    }
+    if (e == cudaSuccess)
+      e = launch_ffma_mr(act, lda, reinterpret_cast<const float*>(w), wscale, bias, resid, ldr, y,
+                         ldy, M, N, K, relu, s);
     if (e != cudaSuccess) return (int)e;
-    const dim3 grid((N + GEMM_WARPS - 1) / GEMM_WARPS, (M + GEMM_ROWS - 1) / GEMM_ROWS);
-    gemm_f32_kernel<<<grid, GEMM_WARPS * 32, smem, s>>>(
-        x, ldx, reinterpret_cast<const float*>(w), wscale, bias, ln_s, ln_b, resid, ldr, y, ldy, M, N, K,
-        relu, eps);
     return (int)cudaGetLastError();
   }
   if ((M + TC_ROWS - 1) / TC_ROWS > 65535 || K % 64) return (int)cudaErrorInvalidValue;
@@ -651,7 +764,7 @@ extern "C" int vx_gemm_small_m(const float* x, int ldx, const void* w, int w_kin
     case W_W8A8: {
       float* sx = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(scratch) +
                                            (((size_t)M * K + 15) / 16) * 16);
-      e = launch_prep<true>(x, ldx, ln_s, ln_b, M, K, eps, scratch, sx, s);
+      e = launch_prep<PREP_W8A8>(x, ldx, ln_s, ln_b, M, K, eps, scratch, sx, s);
       if (e == cudaSuccess)
         e = launch_tc_mt<W_W8A8, false>(scratch, K, sx, w, wscale, bias, resid, ldr, y, ldy, M,
                                         N, K, relu, s);
@@ -660,7 +773,7 @@ extern "C" int vx_gemm_small_m(const float* x, int ldx, const void* w, int w_kin
     case W_BF16:
     case W_INT8:
       if (prep) {
-        e = launch_prep<false>(x, ldx, ln_s, ln_b, M, K, eps, scratch, nullptr, s);
+        e = launch_prep<PREP_BF16>(x, ldx, ln_s, ln_b, M, K, eps, scratch, nullptr, s);
         if (e != cudaSuccess) break;
         e = w_kind == W_BF16
                 ? launch_tc_mt<W_BF16, false>(scratch, K, nullptr, w, wscale, bias, resid, ldr, y,

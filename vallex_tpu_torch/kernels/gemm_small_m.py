@@ -14,12 +14,14 @@ FFN2 and the head of the draft and batched-request steps
 M: the kernel takes the rows in groups of 24 (f32: 8), and each row is
 bitwise its M = 1 product.
 
-On the card a bf16, int8 or W8A8 product runs the prologue once (a prep
-kernel writing bf16 rows, or int8 codes and their scales, into scratch
-that this wrapper allocates; a bf16 / int8 cast prologue over 16-byte
-aligned rows needs none) and the product on the tensor cores, launched
-back to back with programmatic dependent launch (gemm_small_m.cu). One
-call counts one launch of `gemm_small_m`, whatever it launches.
+On the card every product runs the prologue once (a prep kernel writing
+bf16 rows, f32 rows, or int8 codes and their scales, into scratch that this
+wrapper allocates, `prep_scratch_bytes`; a cast prologue over 16-byte
+aligned rows needs none) and then the product, launched back to back with
+programmatic dependent launch (gemm_small_m.cu): bf16, int8 and W8A8 on the
+tensor cores, f32 on the CUDA cores in f32 FMAs. One call counts one launch
+of `gemm_small_m`, whatever it launches, and one of `gemm_small_m_prep`
+when the prep kernel runs.
 """
 
 from __future__ import annotations
@@ -53,34 +55,57 @@ def _prologue(x: torch.Tensor, ln, eps: float) -> torch.Tensor:
     return xf
 
 
-def gemm_prep_plain(x: torch.Tensor, *, ln=None, eps: float = 1e-5, act_quant: bool = False):
-    """The prologue alone, as the prep kernel writes it: bf16 rows [M, K],
-    or with act_quant the int8 codes [M, K] and their scales sx [M]."""
+PREP_OUT = {torch.bfloat16: 0, torch.float32: 2}  # the prep kernel's `out` (1: W8A8)
+
+
+def prep_scratch_bytes(M: int, K: int, w_dtype: torch.dtype, *, act_quant: bool = False,
+                       layer_norm: bool = False, x_aligned: bool = True) -> int:
+    """Bytes of scratch the prep kernel fills for one product, 0 where none
+    runs. W8A8: the int8 codes [M, K], then M f32 scales at the next 16-byte
+    boundary. A LayerNorm, or x rows the product cannot read in 16-byte
+    pieces (x_aligned False): the rows in the product's activation type,
+    bf16 for bf16 and int8 weights, f32 for f32 weights. A cast prologue over
+    aligned rows: none, the product reads x."""
+    if act_quant:
+        return -(-M * K // 16) * 16 + 4 * M
+    if not layer_norm and x_aligned:
+        return 0
+    return (4 if w_dtype == torch.float32 else 2) * M * K
+
+
+def gemm_prep_plain(x: torch.Tensor, *, ln=None, eps: float = 1e-5, act_quant: bool = False,
+                    dtype: torch.dtype = torch.bfloat16):
+    """The prologue alone, as the prep kernel writes it: rows [M, K] in
+    dtype (bf16, or f32 for the f32 product), or with act_quant the int8
+    codes [M, K] and their scales sx [M]."""
     xf = _prologue(x, ln, eps)
     if act_quant:
         xq, sx = quantize_rows(xf)
         return xq.to(torch.int8), sx[:, 0]
-    return xf.to(torch.bfloat16)
+    return xf.to(dtype)
 
 
-def gemm_prep(x: torch.Tensor, *, ln=None, eps: float = 1e-5, act_quant: bool = False):
+def gemm_prep(x: torch.Tensor, *, ln=None, eps: float = 1e-5, act_quant: bool = False,
+              dtype: torch.dtype = torch.bfloat16):
     """The prep kernel alone on CUDA tensors (plain version on the CPU): the
     rows the product reads. x [M, K] f32 with a unit last stride, K % 64 == 0."""
     if x.device.type == "cpu":
-        return gemm_prep_plain(x, ln=ln, eps=eps, act_quant=act_quant)
+        return gemm_prep_plain(x, ln=ln, eps=eps, act_quant=act_quant, dtype=dtype)
     M, K = x.shape
     if x.dtype != torch.float32 or x.stride(-1) != 1 or K % 64 or M < 1:
         raise ValueError("gemm_prep: x must be f32 [M, K] with a unit last stride, K % 64 == 0")
+    if dtype not in PREP_OUT:
+        raise TypeError(f"gemm_prep: rows are bf16 or f32, got {dtype}")
     for t in (ln if ln is not None else ()):
         if t.shape != (K,) or t.dtype != torch.float32 or t.device != x.device \
                 or not t.is_contiguous():
             raise ValueError(f"gemm_prep: ln must be two contiguous f32 [{K}] on x's device")
-    act = torch.empty((M, K), dtype=torch.int8 if act_quant else torch.bfloat16, device=x.device)
+    act = torch.empty((M, K), dtype=torch.int8 if act_quant else dtype, device=x.device)
     sx = torch.empty((M,), dtype=torch.float32, device=x.device) if act_quant else None
     rc = library().vx_gemm_small_m_prep(
         x.data_ptr(), x.stride(0), _ptr(ln[0]) if ln is not None else None,
-        _ptr(ln[1]) if ln is not None else None, M, K, ctypes.c_float(eps), int(act_quant),
-        act.data_ptr(), _ptr(sx), stream_ptr(x))
+        _ptr(ln[1]) if ln is not None else None, M, K, ctypes.c_float(eps),
+        1 if act_quant else PREP_OUT[dtype], act.data_ptr(), _ptr(sx), stream_ptr(x))
     check(rc, "gemm_prep")
     return (act, sx) if act_quant else act
 
@@ -172,12 +197,9 @@ def gemm_small_m(
     if w.device != x.device:
         raise ValueError("gemm_small_m: w and x on different devices")
     y = torch.empty((M, N), dtype=torch.float32, device=x.device)
-    scratch = None
-    if w.dtype != torch.float32 and (act_quant or ln is not None or x.data_ptr() % 16
-                                     or x.stride(0) % 4):
-        # the prep kernel's rows: int8 codes then M f32 scales (W8A8), or bf16
-        nbytes = -(-M * K // 16) * 16 + 4 * M if act_quant else 2 * M * K
-        scratch = torch.empty((nbytes,), dtype=torch.uint8, device=x.device)
+    nbytes = prep_scratch_bytes(M, K, w.dtype, act_quant=act_quant, layer_norm=ln is not None,
+                                x_aligned=x.data_ptr() % 16 == 0 and x.stride(0) % 4 == 0)
+    scratch = torch.empty((nbytes,), dtype=torch.uint8, device=x.device) if nbytes else None
     rc = library().vx_gemm_small_m(
         x.data_ptr(), x.stride(0), w.data_ptr(), W_W8A8 if act_quant else W_KINDS[w.dtype],
         _ptr(scale), _ptr(bias),
