@@ -11,11 +11,11 @@ Phases, one flushed line each with its own seconds and wall-clock limit:
      kernels' (forward, dQ, dK/dV, each at head dim 64 and 128) registers,
      shared memory and spills (ptxas; a spill fails) and their tensor-core
      instructions (HGMMA in the SASS, cuobjdump; none fails); a CUDA-core
-     flash kernel built for bf16 fails; the f32 forward's (hd 64 and 128)
-     and the f32 product's registers, shared memory and spills (a spill
-     fails), the f32 forward's resident warps per SM at each head dim
-     (under 8 fails); an old f32 forward or product kernel left in the
-     library fails
+     flash kernel built for bf16 fails; the f32 flash kernels' (forward,
+     dQ and dK/dV, each at hd 64 and 128) and the f32 product's registers,
+     shared memory and spills (a spill fails), the f32 flash kernels'
+     resident warps per SM at T = 2304 (under 8 fails); an old f32 flash or
+     product kernel left in the library fails
   3  each kernel against its plain version, at each single-request site
      (the NAR attention: the flash forward with the NAR's segments (ok, ok)
      at T = 2304, bf16 and f32); masked_attention at Tq = 16 (a verify pass at
@@ -86,8 +86,8 @@ Phases, one flushed line each with its own seconds and wall-clock limit:
      per row and four packed ones, prefix T / 0 / 128; a ragged T = 1100
      (bf16 and f32, the same prefixes); bf16 q/k/v as views of a fused QKV
      with a transposed dO; two backward runs bitwise equal; the backward
-     timed at prefix 128 and T; f32 q views that break the 16-byte rule
-     (a base off by one float, a row stride of hd + 1) raise
+     timed at prefix 128 and T (bf16 and f32); f32 q views that break the
+     16-byte rule (a base off by one float, a row stride of hd + 1) raise
   5f training at the shipped width: train_step with AdamW on a fixed batch
      of four utterances for 10 steps (the loss falls), the kernel route
      against the mask route on that batch (loss, gradient cosine per
@@ -112,6 +112,7 @@ imported.
 from __future__ import annotations
 
 import dataclasses
+import importlib
 import io
 import json
 import os
@@ -413,11 +414,12 @@ def check_flash_nar(dev, entry, g, site, x_len, audio_len, s_text, T, H=16, hd=6
 
 
 TC_KERNELS = ("flash_fwd_tc_kernel", "flash_bwd_dq_tc_kernel", "flash_bwd_dkv_tc_kernel")
-CORE_KERNELS = ("flash_fwd_ffma_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")
+CORE_KERNELS = ("flash_fwd_ffma_kernel", "flash_bwd_dq_ffma_kernel", "flash_bwd_dkv_ffma_kernel")
 TC_HEAD_DIMS = (64, 128)  # each flash kernel is a template on the head dim
-# the f32 forward and product designs that flash_fwd_ffma_kernel and
-# gemm_ffma_kernel replaced: neither may be left in the library
-OLD_F32_KERNELS = ("flash_fwd_kernel", "gemm_f32_kernel")
+# the f32 flash and product designs that the ffma kernels and gemm_ffma_kernel
+# replaced: none may be left in the library
+OLD_F32_KERNELS = ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
+                   "gemm_f32_kernel")
 
 
 def tc_kernel_report(lib) -> None:
@@ -425,13 +427,14 @@ def tc_kernel_report(lib) -> None:
     flash kernels (tensor cores) at each head dim their registers, shared
     memory, spills and any serialized wgmma ptxas reports, their dynamic
     shared memory per block, and their HGMMA count in the SASS (cuobjdump);
-    for the f32 forward (flash_fwd_ffma_kernel<hd>) and the f32 product
-    (gemm_ffma_kernel<MR, CS>) their registers, shared memory and spills,
-    and the forward's resident warps per SM. Fails if a tensor-core kernel
-    has no HGMMA instruction, ptxas reports a spill in any of these, the
-    f32 forward keeps fewer than 8 warps resident per SM, a CUDA-core
-    flash kernel is built for bf16 (those run f32 only), or an old f32
-    kernel (OLD_F32_KERNELS) is left in the library."""
+    for the f32 flash kernels (CORE_KERNELS<hd>: the forward, dQ and dK/dV)
+    and the f32 product (gemm_ffma_kernel<MR, CS>) their registers, shared
+    memory and spills, the f32 backward kernels' dynamic shared memory per
+    block, and each f32 flash kernel's resident warps per SM at T = 2304. Fails if a tensor-core kernel has no HGMMA instruction, ptxas
+    reports a spill in any of these, an f32 flash kernel keeps fewer than 8
+    warps resident per SM, a CUDA-core flash kernel is built for bf16 (those
+    run f32 only), or an old f32 kernel (OLD_F32_KERNELS) is left in the
+    library."""
     from vallex_tpu_torch.kernels import loader
 
     def instance(kernel, hd, fn_name):
@@ -451,7 +454,7 @@ def tc_kernel_report(lib) -> None:
             head = blk.split("\n")[0]
             if old_f32(head):
                 fail(f"an old f32 kernel is still built: {head.strip()[:100]}")
-            name = [f"{k}<{hd}>" for k in TC_KERNELS + ("flash_fwd_ffma_kernel",)
+            name = [f"{k}<{hd}>" for k in TC_KERNELS + CORE_KERNELS
                     for hd in TC_HEAD_DIMS if instance(k, hd, head)]
             mr_cs = re.search(r"\dgemm_ffma_kernelILi(\d+)ELi(\d+)E", head)
             if mr_cs:
@@ -469,11 +472,17 @@ def tc_kernel_report(lib) -> None:
             f" {lib_.vx_flash_attention_fwd_smem(2304, hd)}, flash_bwd_dq_tc_kernel"
             f" {lib_.vx_flash_attention_bwd_smem(2304, 0, hd)}, flash_bwd_dkv_tc_kernel"
             f" {lib_.vx_flash_attention_bwd_smem(2304, 1, hd)} bytes")
-        warps = lib_.vx_flash_attention_fwd_f32_warps(2304, hd)
-        say(f"  flash_fwd_ffma_kernel<{hd}>: {warps} warps resident per SM at T = 2304"
-            f" (cudaOccupancyMaxActiveBlocksPerMultiprocessor)")
-        if warps < 8:
-            fail(f"flash_fwd_ffma_kernel<{hd}>: {warps} resident warps per SM, want at least 8")
+        say(f"  dynamic shared memory per block at T = 2304, hd {hd}: flash_bwd_dq_ffma_kernel"
+            f" {lib_.vx_flash_attention_bwd_f32_smem(2304, 0, hd)}, flash_bwd_dkv_ffma_kernel"
+            f" {lib_.vx_flash_attention_bwd_f32_smem(2304, 1, hd)} bytes")
+        for kernel, warps in zip(CORE_KERNELS, (
+                lib_.vx_flash_attention_fwd_f32_warps(2304, hd),
+                lib_.vx_flash_attention_bwd_f32_warps(2304, 0, hd),
+                lib_.vx_flash_attention_bwd_f32_warps(2304, 1, hd))):
+            say(f"  {kernel}<{hd}>: {warps} warps resident per SM at T = 2304"
+                f" (cudaOccupancyMaxActiveBlocksPerMultiprocessor)")
+            if warps < 8:
+                fail(f"{kernel}<{hd}>: {warps} resident warps per SM, want at least 8")
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(cuobjdump):
         say("  SASS: no cuobjdump in this toolkit; tensor-core instructions not counted")
@@ -558,8 +567,10 @@ def train_kernel_checks(dev, entry, g, H=16, hd=64, suffix="") -> None:
     q/k/v as the strided views of a fused [B, T, 3 H 64] QKV product (as the
     training layers pass them) with dO a transposed view; two backward runs
     bitwise equal in every case. Times the backward at P = 128 (rows y, z)
-    and at P = T (rows yT, zT) against SDPA's whole backward. H and hd: the
-    same at head dim 128 (H = 8), its rows at the sites + suffix."""
+    and at P = T (rows yT, zT), bf16 and f32, against SDPA's whole backward,
+    with the pairs of the tiles each kernel visits (visit_tiles_plain). H
+    and hd: the same at head dim 128 (H = 8), its rows at the sites +
+    suffix."""
     import torch
     import torch.nn.functional as Fn
 
@@ -568,7 +579,10 @@ def train_kernel_checks(dev, entry, g, H=16, hd=64, suffix="") -> None:
         flash_attention_bwd_dq, flash_attention_bwd_dq_plain, flash_attention_bwd_plain,
         flash_attention_fwd, flash_attention_plain, valid_pairs,
     )
-
+    # the tile-visit rule's plain version; absent in older trees that
+    # tools/torch_flash_bench.py --root times with these checks
+    visit = getattr(importlib.import_module("vallex_tpu_torch.kernels.flash_attention"),
+                    "visit_tiles_plain", None)
     B, S = 4, 128
 
     def inputs(dt, T, fused):
@@ -636,13 +650,14 @@ def train_kernel_checks(dev, entry, g, H=16, hd=64, suffix="") -> None:
               device_ms(lambda: flash_attention_plain(q, k, v, seg, seg, P)),
               4 * n * es + row_bytes + seg_bytes, 4 * hd * pairs, lib_fwd,
               f"1 launch: {what}", in_line, rate)
-        # the backward at P = 128 in both layouts (rows y, z) and, bf16
-        # only, at P = T (rows yT, zT: the NAR's training backward; printed
-        # beside the site's row)
-        if P != S and not bf:
-            continue
+        # the backward at P = 128 in both layouts (rows y, z) and at P = T
+        # (rows yT, zT: the NAR's training backward; printed beside the
+        # site's row); the pairs of the tiles each kernel visits (own tiles
+        # of 64 rows)
         in_line = in_line and P == S
         row = "" if P == S else " (rows yT, zT)"
+        seen = [f"{int((visit(seg, seg, P, 64, side) >= 0).sum()) * 64 * 64 * H} in visited"
+                " tiles" if visit else "visited tiles not counted" for side in (True, False)]
         qr, kr, vr = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
         lib_bwd = device_ms(lambda: torch.autograd.grad(
             Fn.scaled_dot_product_attention(qr, kr, vr, attn_mask=mask), (qr, kr, vr),
@@ -653,15 +668,15 @@ def train_kernel_checks(dev, entry, g, H=16, hd=64, suffix="") -> None:
               device_ms(lambda: flash_attention_bwd_dq_plain(q, k, v, seg, seg, P, o, lse,
                                                              do)),
               6 * n * es + 2 * row_bytes + seg_bytes, 6 * hd * pairs, lib_bwd,
-              f"1 launch: dq and di, {what}; library: SDPA's whole backward{row}", in_line,
-              rate)
+              f"1 launch: dq and di, {what}, {seen[0]}; library: SDPA's"
+              f" whole backward{row}", in_line, rate)
         entry("flash_attention_bwd_dkv", "flash_attention_bwd" + suffix, max(err[1:]),
               device_ms(lambda: flash_attention_bwd_dkv(q, k, v, seg, seg, P, do, lse, di)),
               device_ms(lambda: flash_attention_bwd_dkv_plain(q, k, v, seg, seg, P, o, lse,
                                                               do)),
               6 * n * es + 2 * row_bytes + seg_bytes, 8 * hd * pairs, lib_bwd,
-              f"1 launch: dk and dv, {what}; library: SDPA's whole backward{row}", in_line,
-              rate)
+              f"1 launch: dk and dv, {what}, {seen[1]}; library: SDPA's"
+              f" whole backward{row}", in_line, rate)
         del qr, kr, vr, mask
 
 
@@ -898,8 +913,7 @@ def train_path(dev, cfg) -> None:
         by_name[name] = by_name.get(name, 0.0) + (b - a) / 1e3
     flash = {n.split("(")[0].replace("void ", ""): round(t, 3) for n, t in by_name.items()
              if "flash_" in n}
-    cuda_core_bwd = [n for n in flash if n.startswith(("flash_bwd_dq_kernel",
-                                                       "flash_bwd_dkv_kernel"))]
+    cuda_core_bwd = [n for n in flash if n.startswith(CORE_KERNELS[1:])]  # the f32 backward
     if cuda_core_bwd or not all(k in {n.split("<")[0] for n in flash} for k in TC_KERNELS):
         fail(f"5f trace of a bf16 train_step: flash kernels {flash}; want {TC_KERNELS} and no"
              " CUDA-core backward")

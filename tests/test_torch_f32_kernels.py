@@ -7,6 +7,11 @@
   dtype): the training layers' fused-QKV views and a
   transposed dO pass, a view off by one float or with a row stride of
   hd + 1 raises with the rule in its message.
+- The f32 backward kernels (kernels/flash_attention_f32_bwd.cu) read q, k,
+  v, O and dO the same way, so `flash_attention_bwd_dq` / `_dkv` hold them
+  to the rule before any launch: with the library replaced by a recorder,
+  an accepted view launches kind 0 once per wrapper, another raises naming
+  the rule and records no launch.
 - The f32 product of `gemm_small_m` reads its LayerNorm rows from the prep
   kernel's f32 scratch: `gemm_prep_plain(dtype=float32)` (the prep kernel's
   plain version) against the JAX package's LayerNorm of
@@ -15,6 +20,9 @@
   order).
 - The scratch the wrapper allocates for each kind (`prep_scratch_bytes`).
 """
+
+import collections
+import importlib
 
 import jax
 import jax.numpy as jnp
@@ -63,6 +71,53 @@ def test_f32_forward_16_byte_rule(hd, view):
         good = torch.zeros((B, H, T, hd))
         with pytest.raises(ValueError, match="16-byte"):
             _check_tma(good, t, t)
+
+
+class _Recorder:
+    """Stands in for the kernel library: records each call, launches nothing."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        def call(*args):
+            self.calls.append((name, args))
+            return 0
+        return call
+
+
+@pytest.mark.parametrize("view", list(_views(64)))
+@pytest.mark.parametrize("hd", [64, 128])
+def test_f32_backward_16_byte_rule(monkeypatch, hd, view):
+    """f32 q, k, v, O and dO in one layout through both backward wrappers:
+    the accepted views launch the f32 kernels (kind 0) once each, the others
+    raise naming the rule before any launch."""
+    fa = importlib.import_module("vallex_tpu_torch.kernels.flash_attention")
+    rec = _Recorder()
+    monkeypatch.setattr(fa, "library", lambda: rec)
+    monkeypatch.setattr(fa, "stream_ptr", lambda t: 0)
+    counts = collections.Counter()
+    monkeypatch.setattr(fa, "launch_counts", counts)
+    make, ok = _views(hd)[view]
+    q, k, v, out, dout = (make() for _ in range(5))
+    seg = torch.ones((B, T), dtype=torch.int32)
+    lse = torch.zeros((B, H, T))
+    if ok:
+        dq, di = fa.flash_attention_bwd_dq(q, k, v, seg, seg, T, out, lse, dout)
+        dk, dv = fa.flash_attention_bwd_dkv(q, k, v, seg, seg, T, dout, lse, di)
+        assert [name for name, _ in rec.calls] == ["vx_flash_attention_bwd_dq",
+                                                   "vx_flash_attention_bwd_dkv"]
+        assert rec.calls[0][1][14] == 0 and rec.calls[1][1][13] == 0  # kind: f32
+        assert rec.calls[0][1][15] == hd and rec.calls[1][1][14] == hd
+        assert sorted(counts.values()) == [1, 1]
+        for t in (dq, dk, dv):
+            assert t.shape == (B, H, T, hd) and t.dtype == torch.float32
+    else:
+        with pytest.raises(ValueError, match="float32 tensors need 16-byte"):
+            fa.flash_attention_bwd_dq(q, k, v, seg, seg, T, out, lse, dout)
+        with pytest.raises(ValueError, match="float32 tensors need 16-byte"):
+            fa.flash_attention_bwd_dkv(q, k, v, seg, seg, T, dout, lse, lse.clone())
+        assert rec.calls == [] and not counts
 
 
 def _jax_ln(x, s, b, eps=1e-5):

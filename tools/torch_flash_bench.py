@@ -7,7 +7,8 @@ build, check and time.
 Part "flash" runs the checks and timings of chip_smoke.py's phases 3e / 3f
 (the forward, dQ and dK/dV kernels against their plain versions at B = 4,
 T = 1152, H = 1024 / hd: bf16 and f32, padded and packed rows, prefix T / 0
-/ 128, a ragged T = 1100, fused-QKV views; two backward runs bitwise equal)
+/ 128, a ragged T = 1100, fused-QKV views; two backward runs bitwise equal;
+the backward of both dtypes timed at prefix 128 and T against SDPA's)
 and of phases 3 / 3b (the NAR's forward at T = 2304, B = 1 and 4, and the
 f32 NAR at B = 1) for each head dim. Part "gemm" builds the shipped model
 (random weights, seed 0) and runs phase 3's and 3c's product checks and

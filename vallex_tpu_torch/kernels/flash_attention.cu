@@ -41,11 +41,11 @@
 //       query tile of 128, K and V through a ring of cp.async stages,
 //       masked key tiles skipped (flash_attention_f32.cu, its own
 //       translation unit; its design is there);
-//     flash_bwd_dq_kernel<HD> and flash_bwd_dkv_kernel<HD>: one block of 256
-//       threads per (tile of 64, head, row); tiles in shared memory (row
-//       stride HD + 1, so a half-warp reading 16 rows hits 16 banks), each
-//       thread a 4 x 4 tile of the 64 x 64 scores and a 4 x HD/16 tile of its
-//       outputs.
+//     flash_bwd_dq_ffma_kernel<HD> then flash_bwd_dkv_ffma_kernel<HD>: the
+//       backward, one block of 256 threads per own tile of 8192 / HD rows,
+//       the other side's tiles through a ring of cp.async stages, masked
+//       tiles skipped (flash_attention_f32_bwd.cu, its own translation unit;
+//       its design is there).
 // Both forwards write O in the input type and the row log-sum-exp (f32) for
 // the backward.
 // Neither backward uses atomics: each output element is one block's sum in a
@@ -63,287 +63,6 @@
 #include <cuda.h>  // CUtensorMap and its enums (the encoder comes through the runtime)
 
 #include "flash_attention.cuh"
-
-#define FA_PLD (FA_TILE + 1)  // row stride of the CUDA-core kernels' 64 x 64 p / ds tiles
-#define FA_THREADS 256
-
-// rows [t0, t0 + 64) of one (b, h) slice into a [64][HD + 1] f32 tile,
-// zeros past T
-template <int HD>
-__device__ __forceinline__ void fa_load_tile(float* dst, const float* src, long long st, int t0,
-                                             int T_len) {
-  for (int idx = threadIdx.x; idx < FA_TILE * HD; idx += FA_THREADS) {
-    const int r = idx / HD, c = idx % HD, t = t0 + r;
-    dst[r * (HD + 1) + c] = t < T_len ? src[t * st + c] : 0.f;
-  }
-}
-
-// segment ids of rows [t0, t0 + 64); rows past T get a flag no id equals
-__device__ __forceinline__ void fa_load_seg(int* dst, const int* seg, int t0, int T_len,
-                                            int pad) {
-  for (int r = threadIdx.x; r < FA_TILE; r += FA_THREADS)
-    dst[r] = t0 + r < T_len ? seg[t0 + r] : pad;
-}
-
-
-// The f32 backward kernels on the CUDA cores, for head dim HD (64 or 128).
-// Thread (ty, tx) of the 16 x 16 grid holds query (or key) rows ty * 4 + a
-// and head columns tx + 16 j (j < HD / 16) of its outputs.
-template <int HD>
-__global__ void __launch_bounds__(FA_THREADS)
-    flash_bwd_dq_kernel(const float* __restrict__ q, FaStrides qs, const float* __restrict__ k,
-                        const float* __restrict__ v, FaStrides kvs, const float* __restrict__ o,
-                        FaStrides os, const float* __restrict__ dout, FaStrides dos,
-                        const int* __restrict__ qseg, const int* __restrict__ kvseg,
-                        const float* __restrict__ lse, float* __restrict__ di_out,
-                        float* __restrict__ dq, int H, int T_len, int P, float scale) {
-  constexpr int LD = HD + 1, NJ = HD / 16;
-  extern __shared__ float fa_smem[];
-  float* Qs = fa_smem;
-  float* dOs = Qs + FA_TILE * LD;
-  float* Ks = dOs + FA_TILE * LD;
-  float* Vs = Ks + FA_TILE * LD;
-  float* dSs = Vs + FA_TILE * LD;
-  int* segq = reinterpret_cast<int*>(dSs + FA_TILE * FA_PLD);
-  int* segk = segq + FA_TILE;
-  float* lse_s = reinterpret_cast<float*>(segk + FA_TILE);
-  float* di_s = lse_s + FA_TILE;
-
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int q0 = blockIdx.x * FA_TILE, h = blockIdx.y, b = blockIdx.z;
-  const long long bh = (long long)b * H + h;
-  const float* kb = k + b * kvs.b + h * kvs.h;
-  const float* vb = v + b * kvs.b + h * kvs.h;
-  const float* ob = o + b * os.b + h * os.h;
-  const int* ksg = kvseg + (long long)b * T_len;
-
-  fa_load_tile<HD>(Qs, q + b * qs.b + h * qs.h, qs.t, q0, T_len);
-  fa_load_tile<HD>(dOs, dout + b * dos.b + h * dos.h, dos.t, q0, T_len);
-  fa_load_seg(segq, qseg + (long long)b * T_len, q0, T_len, FA_PAD_Q);
-  // di = sum_c O[i, c] * dO[i, c] in f32, four lanes per row
-  {
-    const int r = tid >> 2, part = tid & 3, i = q0 + r;
-    __syncthreads();  // dOs is loaded
-    float acc = 0.f;
-    if (i < T_len) {
-      for (int c = part * (HD / 4); c < (part + 1) * (HD / 4); ++c)
-        acc = fmaf(ob[i * os.t + c], dOs[r * LD + c], acc);
-    }
-    acc += __shfl_xor_sync(VX_FULL_MASK, acc, 1);
-    acc += __shfl_xor_sync(VX_FULL_MASK, acc, 2);
-    if (part == 0) {
-      di_s[r] = acc;
-      lse_s[r] = i < T_len ? lse[bh * T_len + i] : 0.f;
-      if (i < T_len) di_out[bh * T_len + i] = acc;
-    }
-  }
-
-  float dqa[4][NJ];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) dqa[a][j] = 0.f;
-  const int kend = min(T_len, max(q0 + FA_TILE, P));
-  for (int k0 = 0; k0 < kend; k0 += FA_TILE) {
-    __syncthreads();
-    fa_load_tile<HD>(Ks, kb, kvs.t, k0, T_len);
-    fa_load_tile<HD>(Vs, vb, kvs.t, k0, T_len);
-    fa_load_seg(segk, ksg, k0, T_len, FA_PAD_K);
-    __syncthreads();
-
-    float s[4][4], dp[4][4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[a][j] = dp[a][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < HD; ++d) {
-      float qv[4], dov[4], kv[4], vv[4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        qv[a] = Qs[(ty * 4 + a) * LD + d];
-        dov[a] = dOs[(ty * 4 + a) * LD + d];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        kv[j] = Ks[(tx + 16 * j) * LD + d];
-        vv[j] = Vs[(tx + 16 * j) * LD + d];
-      }
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[a][j] = fmaf(qv[a], kv[j], s[a][j]);
-          dp[a][j] = fmaf(dov[a], vv[j], dp[a][j]);
-        }
-    }
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int r = ty * 4 + a, i = q0 + r;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        float ds = 0.f;
-        if (fa_valid(i, k0 + c, P, segq[r], segk[c])) {
-          const float p = expf(s[a][j] * scale - lse_s[r]);
-          ds = p * (dp[a][j] - di_s[r]) * scale;
-        }
-        dSs[r * FA_PLD + c] = ds;
-      }
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < FA_TILE; ++kk) {
-      float kv[NJ];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) kv[j] = Ks[kk * LD + tx + 16 * j];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        const float ds = dSs[(ty * 4 + a) * FA_PLD + kk];
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) dqa[a][j] = fmaf(ds, kv[j], dqa[a][j]);
-      }
-    }
-  }
-  float* dqb = dq + bh * T_len * HD;
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int i = q0 + ty * 4 + a;
-    if (i >= T_len) continue;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) dqb[(long long)i * HD + tx + 16 * j] = dqa[a][j];
-  }
-}
-
-template <int HD>
-__global__ void __launch_bounds__(FA_THREADS)
-    flash_bwd_dkv_kernel(const float* __restrict__ q, FaStrides qs, const float* __restrict__ k,
-                         const float* __restrict__ v, FaStrides kvs,
-                         const float* __restrict__ dout, FaStrides dos,
-                         const int* __restrict__ qseg, const int* __restrict__ kvseg,
-                         const float* __restrict__ lse, const float* __restrict__ di,
-                         float* __restrict__ dk, float* __restrict__ dv, int H, int T_len, int P,
-                         float scale) {
-  constexpr int LD = HD + 1, NJ = HD / 16;
-  extern __shared__ float fa_smem[];
-  float* Ks = fa_smem;
-  float* Vs = Ks + FA_TILE * LD;
-  float* Qs = Vs + FA_TILE * LD;
-  float* dOs = Qs + FA_TILE * LD;
-  float* Pts = dOs + FA_TILE * LD;       // p transposed: [key][query]
-  float* dSts = Pts + FA_TILE * FA_PLD;  // ds transposed: [key][query]
-  int* segk = reinterpret_cast<int*>(dSts + FA_TILE * FA_PLD);
-  int* segq = segk + FA_TILE;
-  float* lse_s = reinterpret_cast<float*>(segq + FA_TILE);
-  float* di_s = lse_s + FA_TILE;
-
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int k0 = blockIdx.x * FA_TILE, h = blockIdx.y, b = blockIdx.z;
-  const long long bh = (long long)b * H + h;
-  const float* qb = q + b * qs.b + h * qs.h;
-  const float* dob = dout + b * dos.b + h * dos.h;
-  const int* qsg = qseg + (long long)b * T_len;
-
-  fa_load_tile<HD>(Ks, k + b * kvs.b + h * kvs.h, kvs.t, k0, T_len);
-  fa_load_tile<HD>(Vs, v + b * kvs.b + h * kvs.h, kvs.t, k0, T_len);
-  fa_load_seg(segk, kvseg + (long long)b * T_len, k0, T_len, FA_PAD_K);
-
-  float dka[4][NJ], dva[4][NJ];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) dka[a][j] = dva[a][j] = 0.f;
-  // rows below this tile see it only through the prefix (keys j < P)
-  const int qstart = k0 < P ? 0 : k0;
-  for (int q0 = qstart; q0 < T_len; q0 += FA_TILE) {
-    __syncthreads();
-    fa_load_tile<HD>(Qs, qb, qs.t, q0, T_len);
-    fa_load_tile<HD>(dOs, dob, dos.t, q0, T_len);
-    fa_load_seg(segq, qsg, q0, T_len, FA_PAD_Q);
-    for (int r = tid; r < FA_TILE; r += FA_THREADS) {
-      const bool in = q0 + r < T_len;
-      lse_s[r] = in ? lse[bh * T_len + q0 + r] : 0.f;
-      di_s[r] = in ? di[bh * T_len + q0 + r] : 0.f;
-    }
-    __syncthreads();
-
-    // s^T and dp^T: key rows ty*4 + a, query columns tx + 16 j
-    float st[4][4], dpt[4][4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) st[a][j] = dpt[a][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < HD; ++d) {
-      float kv[4], vv[4], qv[4], dov[4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        kv[a] = Ks[(ty * 4 + a) * LD + d];
-        vv[a] = Vs[(ty * 4 + a) * LD + d];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        qv[j] = Qs[(tx + 16 * j) * LD + d];
-        dov[j] = dOs[(tx + 16 * j) * LD + d];
-      }
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          st[a][j] = fmaf(kv[a], qv[j], st[a][j]);
-          dpt[a][j] = fmaf(vv[a], dov[j], dpt[a][j]);
-        }
-    }
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int kr = ty * 4 + a;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        float p = 0.f, ds = 0.f;
-        if (fa_valid(q0 + c, k0 + kr, P, segq[c], segk[kr])) {
-          p = expf(st[a][j] * scale - lse_s[c]);
-          ds = p * (dpt[a][j] - di_s[c]) * scale;
-        }
-        Pts[kr * FA_PLD + c] = p;
-        dSts[kr * FA_PLD + c] = ds;
-      }
-    }
-    __syncthreads();
-    // dV += p^T dO, dK += ds^T Q: key rows ty*4 + a, head columns tx + 16 j
-#pragma unroll 4
-    for (int i = 0; i < FA_TILE; ++i) {
-      float dov[NJ], qv[NJ];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        dov[j] = dOs[i * LD + tx + 16 * j];
-        qv[j] = Qs[i * LD + tx + 16 * j];
-      }
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        const float p = Pts[(ty * 4 + a) * FA_PLD + i];
-        const float ds = dSts[(ty * 4 + a) * FA_PLD + i];
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-          dva[a][j] = fmaf(p, dov[j], dva[a][j]);
-          dka[a][j] = fmaf(ds, qv[j], dka[a][j]);
-        }
-      }
-    }
-  }
-  float* dkb = dk + bh * T_len * HD;
-  float* dvb = dv + bh * T_len * HD;
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int j = k0 + ty * 4 + a;
-    if (j >= T_len) continue;
-#pragma unroll
-    for (int c = 0; c < NJ; ++c) {
-      dkb[(long long)j * HD + tx + 16 * c] = dka[a][c];
-      dvb[(long long)j * HD + tx + 16 * c] = dva[a][c];
-    }
-  }
-}
 
 // ---------------------------------------------------------------------------
 // The bf16 kernels on the tensor cores (wgmma, TMA, mbarrier; sm_90a).
@@ -1213,15 +932,6 @@ __global__ void __launch_bounds__(FW_THREADS * (HD / 64))
 
 static FaStrides fa_strides(const long long* s) { return FaStrides{s[0], s[1], s[2]}; }
 
-// the CUDA-core backward kernels' dynamic shared memory: f32 tiles of
-// [64][hd + 1] (q, k, v, dO as each kernel needs them) and of [64][65] (p,
-// ds), the segment ids, lse and di of a tile
-static size_t fa_core_smem(int hd, int hd_tiles, int p_tiles) {
-  return ((size_t)hd_tiles * FA_TILE * (hd + 1) + (size_t)p_tiles * FA_TILE * FA_PLD) *
-             sizeof(float) +
-         4 * FA_TILE * sizeof(int);
-}
-
 template <typename K>
 static cudaError_t fa_allow_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -1391,43 +1101,6 @@ static int fa_bwd_dkv_tc(const void* q, const long long* qs, const void* k, cons
   return (int)cudaGetLastError();
 }
 
-template <int HD>
-static cudaError_t fa_bwd_dq_core(const void* q, const long long* qs, const void* k,
-                                  const void* v, const long long* kvs, const void* o,
-                                  const long long* os, const void* dout, const long long* dos,
-                                  const int* qseg, const int* kvseg, const float* lse, float* di,
-                                  void* dq, int B, int H, int T_len, int P, float scale,
-                                  cudaStream_t s) {
-  const size_t smem = fa_core_smem(HD, 4, 1);
-  cudaError_t e = fa_allow_smem(flash_bwd_dq_kernel<HD>, smem);
-  if (e != cudaSuccess) return e;
-  const dim3 grid((T_len + FA_TILE - 1) / FA_TILE, H, B);
-  flash_bwd_dq_kernel<HD><<<grid, FA_THREADS, smem, s>>>(
-      reinterpret_cast<const float*>(q), fa_strides(qs), reinterpret_cast<const float*>(k),
-      reinterpret_cast<const float*>(v), fa_strides(kvs), reinterpret_cast<const float*>(o),
-      fa_strides(os), reinterpret_cast<const float*>(dout), fa_strides(dos), qseg, kvseg, lse,
-      di, reinterpret_cast<float*>(dq), H, T_len, P, scale);
-  return cudaGetLastError();
-}
-
-template <int HD>
-static cudaError_t fa_bwd_dkv_core(const void* q, const long long* qs, const void* k,
-                                   const void* v, const long long* kvs, const void* dout,
-                                   const long long* dos, const int* qseg, const int* kvseg,
-                                   const float* lse, const float* di, void* dk, void* dv, int B,
-                                   int H, int T_len, int P, float scale, cudaStream_t s) {
-  const size_t smem = fa_core_smem(HD, 4, 2);
-  cudaError_t e = fa_allow_smem(flash_bwd_dkv_kernel<HD>, smem);
-  if (e != cudaSuccess) return e;
-  const dim3 grid((T_len + FA_TILE - 1) / FA_TILE, H, B);
-  flash_bwd_dkv_kernel<HD><<<grid, FA_THREADS, smem, s>>>(
-      reinterpret_cast<const float*>(q), fa_strides(qs), reinterpret_cast<const float*>(k),
-      reinterpret_cast<const float*>(v), fa_strides(kvs), reinterpret_cast<const float*>(dout),
-      fa_strides(dos), qseg, kvseg, lse, di, reinterpret_cast<float*>(dk),
-      reinterpret_cast<float*>(dv), H, T_len, P, scale);
-  return cudaGetLastError();
-}
-
 extern "C" int vx_flash_attention_fwd(const void* q, const long long* qs, const void* k,
                                       const void* v, const long long* kvs, const void* qseg,
                                       const void* kvseg, void* o, const long long* os,
@@ -1472,11 +1145,8 @@ extern "C" int vx_flash_attention_bwd_dq(const void* q, const long long* qs, con
                                        H, T_len, P, scale, s)
                     : fa_bwd_dq_tc<128>(q, qs, k, v, kvs, o, os, dout, dos, qsg, ksg, l, d, dq,
                                         B, H, T_len, P, scale, s);
-  if (hd == 64)
-    return (int)fa_bwd_dq_core<64>(q, qs, k, v, kvs, o, os, dout, dos, qsg, ksg, l, d, dq, B, H,
-                                   T_len, P, scale, s);
-  return (int)fa_bwd_dq_core<128>(q, qs, k, v, kvs, o, os, dout, dos, qsg, ksg, l, d, dq, B, H,
-                                  T_len, P, scale, s);
+  return fa_bwd_dq_f32(q, qs, k, v, kvs, o, os, dout, dos, qsg, ksg, l, d, dq, hd, B, H, T_len, P,
+                       scale, s);
 }
 
 extern "C" int vx_flash_attention_bwd_dkv(const void* q, const long long* qs, const void* k,
@@ -1496,9 +1166,6 @@ extern "C" int vx_flash_attention_bwd_dkv(const void* q, const long long* qs, co
                                         T_len, P, scale, s)
                     : fa_bwd_dkv_tc<128>(q, qs, k, v, kvs, dout, dos, qsg, ksg, l, d, dk, dv, B,
                                          H, T_len, P, scale, s);
-  if (hd == 64)
-    return (int)fa_bwd_dkv_core<64>(q, qs, k, v, kvs, dout, dos, qsg, ksg, l, d, dk, dv, B, H,
-                                    T_len, P, scale, s);
-  return (int)fa_bwd_dkv_core<128>(q, qs, k, v, kvs, dout, dos, qsg, ksg, l, d, dk, dv, B, H,
-                                   T_len, P, scale, s);
+  return fa_bwd_dkv_f32(q, qs, k, v, kvs, dout, dos, qsg, ksg, l, d, dk, dv, hd, B, H, T_len, P,
+                        scale, s);
 }

@@ -1,9 +1,10 @@
-// Shared by flash_attention.cu (the bf16 kernels on the tensor cores and the
-// f32 backward) and flash_attention_f32.cu (the f32 forward): the tile of 64
-// rows, the strides the launchers take, the mask, the 16-lane row
-// reductions, and the f32 forward's launcher. The f32 forward is its own
-// translation unit: compiled beside the bf16 backward kernels it changed how
-// nvcc compiles them (5-12% slower in an A/B run on the card).
+// Shared by flash_attention.cu (the bf16 kernels on the tensor cores) and
+// the f32 kernels on the CUDA cores, flash_attention_f32.cu (the forward) and
+// flash_attention_f32_bwd.cu (dQ and dK/dV): the tile of 64 rows, the strides
+// the launchers take, the mask, the 16-lane row reductions, and the f32
+// launchers. Each f32 source is its own translation unit: compiled beside the
+// bf16 kernels, f32 code changed how nvcc compiles them (5-12% slower in an
+// A/B run on the card).
 #pragma once
 
 #include <limits.h>
@@ -44,3 +45,17 @@ int fa_fwd_f32(const void* q, const long long* qs, const void* k, const void* v,
                const long long* kvs, const int* qseg, const int* kvseg, void* o,
                const long long* os, float* lse, int hd, int B, int H, int T_len, int P,
                float scale, cudaStream_t s);
+
+// The f32 dQ kernel (also writes di) and dK/dV kernel
+// (flash_attention_f32_bwd.cu) with the arguments of vx_flash_attention_bwd_dq
+// and vx_flash_attention_bwd_dkv; each returns a CUDA error code.
+int fa_bwd_dq_f32(const void* q, const long long* qs, const void* k, const void* v,
+                  const long long* kvs, const void* o, const long long* os, const void* dout,
+                  const long long* dos, const int* qseg, const int* kvseg, const float* lse,
+                  float* di, void* dq, int hd, int B, int H, int T_len, int P, float scale,
+                  cudaStream_t s);
+int fa_bwd_dkv_f32(const void* q, const long long* qs, const void* k, const void* v,
+                   const long long* kvs, const void* dout, const long long* dos,
+                   const int* qseg, const int* kvseg, const float* lse, const float* di,
+                   void* dk, void* dv, int hd, int B, int H, int T_len, int P, float scale,
+                   cudaStream_t s);

@@ -25,12 +25,14 @@ give a zero output, lse 0 and zero gradients.
 
 On the card each kernel is picked by dtype and head dim: bf16 runs on the
 tensor cores at hd 64 and 128 (the forward and both backward kernels; they
-read q/k/v and dO by TMA, so their base addresses and strides, and those of
-O for the dQ kernel, must be multiples of 16 bytes: the wrappers raise
-otherwise), f32 on the CUDA cores (tensor cores in f32 would round to
-TF32); the f32 forward reads q/k/v in 16-byte cp.async pieces and holds
-them to the same rule (the training layers' fused-QKV views and the NAR's
-meet it; nothing is copied quietly). `FlashAttention` is the
+read q/k/v and dO by TMA), f32 on the CUDA cores (tensor cores in f32 would
+round to TF32; the f32 kernels read q/k/v, O and dO in 16-byte cp.async
+pieces). So for both dtypes the base addresses and strides of q/k/v and dO,
+and of O for the dQ kernel, must be multiples of 16 bytes: the wrappers
+raise otherwise (the training layers' fused-QKV views and the NAR's meet
+it; nothing is copied quietly). Every kernel skips the tiles of 64 rows
+that hold no valid pair before loading them (`visit_tiles_plain` is that
+rule in plain PyTorch). `FlashAttention` is the
 autograd.Function; its backward makes the incoming gradient contiguous
 when it breaks that rule. CPU tensors take the
 plain versions, CUDA tensors launch the kernels or raise. Launch counts:
@@ -62,6 +64,48 @@ def valid_pairs(q_seg: torch.Tensor, kv_seg: torch.Tensor, prefix: int) -> torch
     bound = torch.clamp(i, min=prefix - 1)[:, None]  # max(i, prefix - 1)
     causal = i[None, :] <= bound
     return (q_seg[:, :, None] == kv_seg[:, None, :]) & causal[None]
+
+
+def visit_tiles_plain(q_seg: torch.Tensor, kv_seg: torch.Tensor, prefix: int, own_rows: int,
+                      own_is_query: bool) -> torch.Tensor:
+    """[B, own tiles, other tiles] int8: how a kernel whose block owns a
+    tile of `own_rows` queries (own_is_query: the forward, the dQ kernel) or
+    keys (the dK/dV kernel) treats each tile of 64 rows of the other side,
+    by the rule of `ff_visit` (kernels/flash_attention_f32.cuh): -1 skipped
+    (outside the tiles the block lists, or no own id equal to one of the
+    tile's ids), 0 FULL (one id on both tiles, every pair inside T and the
+    causal bound: scores used unmasked), 1 MASKED (pair by pair)."""
+    B, T = q_seg.shape
+    own_seg, other_seg = (q_seg, kv_seg) if own_is_query else (kv_seg, q_seg)
+    n_own, n_oth = -(-T // own_rows), -(-T // 64)
+
+    def tiles(seg, rows, n):
+        """ids [B, n, rows], in-T mask, per-tile min / max over the rows in T."""
+        pad = torch.zeros((B, n * rows - T), dtype=seg.dtype, device=seg.device)
+        ids = torch.cat([seg, pad], 1).view(B, n, rows)
+        inside = (torch.arange(n * rows, device=seg.device) < T).view(1, n, rows)
+        big = torch.iinfo(torch.int32)
+        lo = torch.where(inside, ids, big.max).amin(-1)
+        hi = torch.where(inside, ids, big.min).amax(-1)
+        return ids, inside, lo, hi
+
+    oid, oin, omin, omax = tiles(own_seg, own_rows, n_own)
+    xid, xin, xmin, xmax = tiles(other_seg, 64, n_oth)
+    o0 = (torch.arange(n_own, device=q_seg.device) * own_rows)[:, None]  # [own, 1]
+    x0 = (torch.arange(n_oth, device=q_seg.device) * 64)[None, :]  # [1, other]
+    if own_is_query:  # key tiles [0, ceil(min(T, max(o0 + own_rows, P)) / 64))
+        listed = x0 < torch.clamp(o0 + own_rows, min=prefix).clamp(max=T)
+        q0, k_last = o0, x0 + 63
+    else:  # query tiles from the key tile on, or from 0 when it starts below P
+        listed = (o0 < prefix) | (x0 >= o0 // 64 * 64)
+        q0, k_last = x0, o0 + own_rows - 1
+    hit = ((oid[:, :, None, :, None] == xid[:, None, :, None, :])
+           & oin[:, :, None, :, None] & xin[:, None, :, None, :]).flatten(-2).any(-1)
+    full = ((o0 + own_rows <= T) & (x0 + 64 <= T) & (k_last <= torch.clamp(q0, min=prefix - 1)))
+    full = full[None] & (omin == omax)[:, :, None] & (xmin == xmax)[:, None, :] \
+        & (xmin[:, None, :] == omin[:, :, None])
+    cls = torch.where(full, 0, 1).to(torch.int8)
+    return torch.where(listed[None] & hit, cls, torch.full_like(cls, -1))
 
 
 def _scores(q, k, ok):
@@ -219,8 +263,7 @@ def flash_attention_bwd_dq(q, k, v, q_seg, kv_seg, prefix: int, out, lse, dout
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dq, di) from the dQ kernel (CUDA tensors only)."""
     kind = _check_bwd(q, k, v, q_seg, kv_seg, prefix, lse, "flash_attention_bwd_dq", out, dout)
-    if _tensor_cores(q):
-        _check_tma(q, k, v, out, dout, name="flash_attention_bwd_dq")
+    _check_tma(q, k, v, out, dout, name="flash_attention_bwd_dq")  # read in 16-byte pieces
     B, H, T, hd = q.shape
     di = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
     dq = torch.empty((B, H, T, hd), dtype=q.dtype, device=q.device)
@@ -239,8 +282,7 @@ def flash_attention_bwd_dkv(q, k, v, q_seg, kv_seg, prefix: int, dout, lse, di
     """(dk, dv) from the dK/dV kernel (CUDA tensors only), given the dQ
     kernel's di; both on q's stream, so it runs after that kernel."""
     kind = _check_bwd(q, k, v, q_seg, kv_seg, prefix, lse, "flash_attention_bwd_dkv", dout)
-    if _tensor_cores(q):
-        _check_tma(q, k, v, dout, name="flash_attention_bwd_dkv")
+    _check_tma(q, k, v, dout, name="flash_attention_bwd_dkv")
     B, H, T, hd = q.shape
     if di.shape != (B, H, T) or di.dtype != torch.float32 or not di.is_contiguous():
         raise ValueError(f"flash_attention_bwd_dkv: di must be contiguous [{B}, {H}, {T}] f32")

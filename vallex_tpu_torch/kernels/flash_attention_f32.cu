@@ -8,7 +8,7 @@
 // prefix-causal mask), with the mask of flash_attention.cu: key j is valid
 // for query i iff q_seg[b, i] == kv_seg[b, j] and j <= max(i, P - 1).
 // Launched by vx_flash_attention_fwd (flash_attention.cu) for kind 0.
-#include "flash_attention.cuh"
+#include "flash_attention_f32.cuh"
 
 // ---------------------------------------------------------------------------
 // Every product is an f32 FMA (tensor cores in f32 would round q, k, v and p
@@ -52,105 +52,8 @@
 //    leaves in natural-log units.
 // ---------------------------------------------------------------------------
 
-#define FF_THREADS 256         // the f32 forward: 8 warps, a 16 x 16 grid of threads
-#define FF_ROWS 128            // its query tile
+#define FF_ROWS 128            // the forward's query tile
 #define FF_SLOTS 3             // its ring of K / V items of 64 keys
-#define FF_PLD (FA_TILE + 16)  // row stride of its P tile
-// key-tile classes (the low bit of a listed tile), as flash_attention.cu's
-#define FF_FULL 0
-#define FF_MASKED 1
-
-__device__ __forceinline__ void ff_cp16(float* dst, const float* src, bool in) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-               "r"(in ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void ff_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-// wait until at most N of this thread's commit groups are pending
-template <int N>
-__device__ __forceinline__ void ff_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// rows [t0, t0 + ROWS) of one (b, h) slice into a [ROWS][HD + 4] f32 tile by
-// 16-byte cp.async; rows past T are zero-filled and their source not read
-template <int HD, int ROWS>
-__device__ __forceinline__ void ff_load_tile(float* dst, const float* src, long long st, int t0,
-                                             int T_len) {
-  constexpr int C4 = HD / 4;
-#pragma unroll
-  for (int i = 0; i < ROWS * C4 / FF_THREADS; ++i) {
-    const int idx = threadIdx.x + i * FF_THREADS, r = idx / C4, c = idx % C4, t = t0 + r;
-    const bool in = t < T_len;
-    ff_cp16(dst + r * (HD + 4) + 4 * c, src + (in ? t * st : 0) + 4 * c, in);
-  }
-}
-
-// The key tiles [0, t_hi) a 128-row query tile sees, classified as fa_visit
-// classifies them for a 64-row tile (skipped, FULL, MASKED; one warp per key
-// tile), listed in order as (tile << 1 | class) in tiles[], their number in
-// *count and returned to every thread: fa_visit's rule (flash_attention.cu)
-// for 128 own rows.
-__device__ int ff_visit(const int* segq, int q0, const int* ksg, int t_hi, int T_len, int P,
-                        int* tiles, int* count) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  int omin = INT_MAX, omax = INT_MIN;
-#pragma unroll
-  for (int r = lane; r < FF_ROWS; r += 32) {
-    const bool in = q0 + r < T_len;
-    omin = min(omin, in ? segq[r] : INT_MAX);
-    omax = max(omax, in ? segq[r] : INT_MIN);
-  }
-#pragma unroll
-  for (int s = 16; s > 0; s >>= 1) {
-    omin = min(omin, __shfl_xor_sync(VX_FULL_MASK, omin, s));
-    omax = max(omax, __shfl_xor_sync(VX_FULL_MASK, omax, s));
-  }
-  const bool own_whole = q0 + FF_ROWS <= T_len && omin == omax;
-  for (int t = warp; t < t_hi; t += FF_THREADS / 32) {
-    const int k0 = t * FA_TILE;
-    const bool ia = k0 + lane < T_len, ic = k0 + lane + 32 < T_len;
-    const int xa = ia ? ksg[k0 + lane] : FA_PAD_K, xc = ic ? ksg[k0 + lane + 32] : FA_PAD_K;
-    int xmin = min(ia ? xa : INT_MAX, ic ? xc : INT_MAX);
-    int xmax = max(ia ? xa : INT_MIN, ic ? xc : INT_MIN);
-#pragma unroll
-    for (int s = 16; s > 0; s >>= 1) {
-      xmin = min(xmin, __shfl_xor_sync(VX_FULL_MASK, xmin, s));
-      xmax = max(xmax, __shfl_xor_sync(VX_FULL_MASK, xmax, s));
-    }
-    int cls = -1;  // skipped
-    if (xmax < omin || xmin > omax) {
-      cls = -1;
-    } else if (own_whole && xmin == xmax && xmin == omin && k0 + FA_TILE <= T_len &&
-               k0 + FA_TILE - 1 <= max(q0, P - 1)) {
-      cls = FF_FULL;
-    } else {
-      bool hit = false;  // the vote: any own id equal to one of this lane's ids
-      for (int r = 0; r < FF_ROWS; ++r) {
-        const int so = segq[r];
-        hit |= (so == xa) | (so == xc);
-      }
-      cls = __any_sync(VX_FULL_MASK, hit) ? FF_MASKED : -1;
-    }
-    if (lane == 0) tiles[t] = cls;
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int n = 0;
-    for (int t = 0; t < t_hi; ++t)
-      if (tiles[t] >= 0) tiles[n++] = (t << 1) | tiles[t];
-    *count = n;
-  }
-  __syncthreads();
-  return *count;
-}
-
-__device__ __forceinline__ float ff_at(const float4& v, int u) {
-  return u == 0 ? v.x : u == 1 ? v.y : u == 2 ? v.z : v.w;
-}
 
 template <int HD>
 __global__ void __launch_bounds__(FF_THREADS, 1)
@@ -185,7 +88,8 @@ __global__ void __launch_bounds__(FF_THREADS, 1)
   __syncthreads();
   // the key tiles this tile can see (up to max(q0 + 128, P)), classified
   const int kend = min(T_len, max(q0 + FF_ROWS, P));
-  const int n = ff_visit(segq, q0, ksg, (kend + FA_TILE - 1) / FA_TILE, T_len, P, tiles, count);
+  const int n = ff_visit<FF_ROWS, true>(segq, q0, ksg, 0, (kend + FA_TILE - 1) / FA_TILE, T_len,
+                                        P, tiles, count);
   const int items = 2 * n;  // item 2 i: K of visited tile i, 2 i + 1: its V
   auto issue = [&](int it) {  // into slot it % FF_SLOTS; a group even when empty
     if (it < items)

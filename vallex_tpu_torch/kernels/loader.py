@@ -25,8 +25,8 @@ from pathlib import Path
 SRC_DIR = Path(__file__).resolve().parent
 BUILD_DIR = SRC_DIR / "_build"
 SOURCES = ("gemm_small_m.cu", "masked_attention.cu", "sample_epilogue.cu",
-           "flash_attention.cu", "flash_attention_f32.cu")
-HEADERS = ("common.cuh", "flash_attention.cuh")
+           "flash_attention.cu", "flash_attention_f32.cu", "flash_attention_f32_bwd.cu")
+HEADERS = ("common.cuh", "flash_attention.cuh", "flash_attention_f32.cuh")
 NVCC_FLAGS = (
     "-O3", "-std=c++17", "-Xcompiler", "-fPIC",
     "-gencode=arch=compute_90a,code=sm_90a", "-Xptxas=-v",
@@ -63,6 +63,8 @@ _SIGNATURES = {
     "vx_flash_attention_fwd_smem": (_I, _I),
     "vx_flash_attention_fwd_f32_warps": (_I, _I),
     "vx_flash_attention_bwd_smem": (_I, _I, _I),
+    "vx_flash_attention_bwd_f32_smem": (_I, _I, _I),
+    "vx_flash_attention_bwd_f32_warps": (_I, _I, _I),
     "vx_flash_attention_bwd_dq": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                   _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
     "vx_flash_attention_bwd_dkv": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
