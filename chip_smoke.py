@@ -7,7 +7,11 @@ weights from a seed) and shows that each path went through the kernels.
 
 Phases, one flushed line each with its own seconds and wall-clock limit:
   1  card name and power limit (nvidia-smi)
-  2  kernel build (nvcc, from the sources in the checkout); the bf16 flash
+  2  kernel build (nvcc, from the sources in the checkout); the decode
+     attention's instances (k/v type x head dim x queries a group): their
+     registers, shared memory and spills (a spill fails), dynamic shared
+     memory, threads and resident clusters (none fails), and no old
+     one-block-per-query kernel left; the bf16 flash
      kernels' (forward, dQ, dK/dV, each at head dim 64 and 128) registers,
      shared memory and spills (ptxas; a spill fails) and their tensor-core
      instructions (HGMMA in the SASS, cuobjdump; none fails); a CUDA-core
@@ -19,8 +23,10 @@ Phases, one flushed line each with its own seconds and wall-clock limit:
   3  each kernel against its plain version, at each single-request site
      (the NAR attention: the flash forward with the NAR's segments (ok, ok)
      at T = 2304, bf16 and f32); masked_attention at Tq = 16 (a verify pass at
-     decode_steps = 16); the prep kernel of gemm_small_m (the LayerNorm
-     rows of one verify pass); every product run twice, bitwise equal
+     decode_steps = 16) and Tq = 40 (three query groups, the last ragged);
+     the prep kernel of gemm_small_m (the LayerNorm rows of one verify
+     pass); every product and every decode attention (here and in 3b-3d,
+     3f) run twice, bitwise equal
   3b the same at the batched sites: decode attention with per-row bounds
      (B = 4), the NAR attention at B = 4, the products of one batched step
      at M = 4 and 8 (bf16 and int8, each row equal to its M = 1 product),
@@ -420,6 +426,10 @@ TC_HEAD_DIMS = (64, 128)  # each flash kernel is a template on the head dim
 # replaced: none may be left in the library
 OLD_F32_KERNELS = ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
                    "gemm_f32_kernel")
+# the decode attention: a cluster per (row, head, query group); the one block
+# per query that it replaced may not be left in the library
+ATT_KERNEL, OLD_ATT_KERNEL = "masked_attention_split_kernel", "masked_attention_kernel"
+ATT_KV = {"13__nv_bfloat16": "bf16", "f": "f32", "a": "int8"}  # mangled k/v types
 
 
 def tc_kernel_report(lib) -> None:
@@ -430,11 +440,19 @@ def tc_kernel_report(lib) -> None:
     for the f32 flash kernels (CORE_KERNELS<hd>: the forward, dQ and dK/dV)
     and the f32 product (gemm_ffma_kernel<MR, CS>) their registers, shared
     memory and spills, the f32 backward kernels' dynamic shared memory per
-    block, and each f32 flash kernel's resident warps per SM at T = 2304. Fails if a tensor-core kernel has no HGMMA instruction, ptxas
+    block, and each f32 flash kernel's resident warps per SM at T = 2304; for
+    the decode attention (ATT_KERNEL<k/v type, hd, queries a group>) each
+    instance's registers, shared memory and spills, its dynamic shared
+    memory, threads a block and the clusters the card holds at once
+    (cudaOccupancyMaxActiveClusters). Fails if a tensor-core kernel has no HGMMA instruction, ptxas
     reports a spill in any of these, an f32 flash kernel keeps fewer than 8
     warps resident per SM, a CUDA-core flash kernel is built for bf16 (those
-    run f32 only), or an old f32 kernel (OLD_F32_KERNELS) is left in the
-    library."""
+    run f32 only), an attention instance cannot place one cluster, or an old
+    f32 kernel (OLD_F32_KERNELS) or the old decode attention (OLD_ATT_KERNEL)
+    is left in the library."""
+    import torch
+
+    from vallex_tpu_torch.kernels.masked_attention import kernel_info
     from vallex_tpu_torch.kernels import loader
 
     def instance(kernel, hd, fn_name):
@@ -444,6 +462,9 @@ def tc_kernel_report(lib) -> None:
     def old_f32(fn_name):
         return any(re.search(rf"\d{k}[A-Z]", fn_name) for k in OLD_F32_KERNELS)
 
+    def old_att(fn_name):
+        return re.search(rf"\d{OLD_ATT_KERNEL}I", fn_name) is not None
+
     report = lib.parent / ("ptxas_" + lib.name.split("_")[-1].split(".")[0] + ".txt")
     if report.exists():
         text = report.read_text()
@@ -452,13 +473,16 @@ def tc_kernel_report(lib) -> None:
                 say("  ptxas: " + line.split("ptxas info    :")[-1].strip())
         for blk in text.split("Compiling entry function")[1:]:
             head = blk.split("\n")[0]
-            if old_f32(head):
-                fail(f"an old f32 kernel is still built: {head.strip()[:100]}")
+            if old_f32(head) or old_att(head):
+                fail(f"an old kernel is still built: {head.strip()[:100]}")
             name = [f"{k}<{hd}>" for k in TC_KERNELS + CORE_KERNELS
                     for hd in TC_HEAD_DIMS if instance(k, hd, head)]
             mr_cs = re.search(r"\dgemm_ffma_kernelILi(\d+)ELi(\d+)E", head)
             if mr_cs:
                 name = [f"gemm_ffma_kernel<{mr_cs.group(1)}, {mr_cs.group(2)}>"]
+            att = re.search(rf"\d{ATT_KERNEL}I(13__nv_bfloat16|f|a)Li(\d+)ELi(\d+)E", head)
+            if att:
+                name = [f"{ATT_KERNEL}<{ATT_KV[att.group(1)]}, {att.group(2)}, {att.group(3)}>"]
             if name:
                 said = [ln.split(":", 1)[-1].strip() for ln in blk.splitlines()[1:]
                         if any(w in ln for w in ("stack frame", "Used", "wgmma", "smem"))]
@@ -483,6 +507,16 @@ def tc_kernel_report(lib) -> None:
                 f" (cudaOccupancyMaxActiveBlocksPerMultiprocessor)")
             if warps < 8:
                 fail(f"{kernel}<{hd}>: {warps} resident warps per SM, want at least 8")
+    for dt, kind in ((torch.bfloat16, "bf16"), (torch.float32, "f32"), (torch.int8, "int8")):
+        for hd in TC_HEAD_DIMS:
+            for Tq in (1, 8, 16):
+                info = kernel_info(dt, hd, Tq)
+                say(f"  {ATT_KERNEL} {kind} k/v, hd {hd}, Tq {Tq}: {info['smem_bytes']} bytes of"
+                    f" dynamic shared memory, {info['threads']} threads a block, clusters of"
+                    f" {info['cluster_blocks']}, {info['clusters']} resident at once"
+                    f" (cudaOccupancyMaxActiveClusters)")
+                if info["clusters"] < 1:
+                    fail(f"{ATT_KERNEL} {kind} hd {hd} Tq {Tq}: the card cannot place a cluster")
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(cuobjdump):
         say("  SASS: no cuobjdump in this toolkit; tensor-core instructions not counted")
@@ -509,11 +543,15 @@ def tc_kernel_report(lib) -> None:
     bf16_core = [f for f in core if "bfloat16" in f]
     if bf16_core or not core:
         fail(f"CUDA-core flash kernels in the library: {core}; want f32 instances only")
-    old = [f for f in per_fn if old_f32(f)]
+    old = [f for f in per_fn if old_f32(f) or old_att(f)]
     if old:
-        fail(f"old f32 kernels left in the library: {old}")
-    say(f"  SASS: {len(core)} CUDA-core flash kernels, all f32 (no bf16 instance); no"
-        f" {' or '.join(OLD_F32_KERNELS)}")
+        fail(f"old kernels left in the library: {old}")
+    att = [f for f in per_fn if re.search(rf"\d{ATT_KERNEL}I", f)]
+    if len(att) != 3 * len(TC_HEAD_DIMS) * 3:
+        fail(f"{ATT_KERNEL}: {len(att)} instances in the library, want 18 (3 k/v types x 2"
+             f" head dims x groups of 1, 8, 16 queries)")
+    say(f"  SASS: {len(core)} CUDA-core flash kernels, all f32 (no bf16 instance); {len(att)}"
+        f" {ATT_KERNEL} instances; no {' or '.join(OLD_F32_KERNELS + (OLD_ATT_KERNEL,))}")
 
 
 # ---------------------------------------------------------------------------
@@ -1093,6 +1131,178 @@ def check_gemm_products(entry, g, vocab, site, lw, M, unit, in_line=True, act_qu
           f"{unit}: {len(calls)} products, M={M}, {wname} weights", in_line, rate)
 
 
+# ---------------------------------------------------------------------------
+# The decode attention (phases 3-3d, 3f): module-level so that
+# tools/torch_flash_bench.py times it for another tree too.
+# ---------------------------------------------------------------------------
+
+def check_masked_attention(entry, site, q, k, v, bounds, reps_layers, in_line=True,
+                           prefix=None, beams=1, kv_scales=None, new_kv=None, slot=None):
+    """The kernel against its plain version at 2e-5 (f32 softmax and sums on
+    both sides, in another order), two runs bitwise equal; with a prefix,
+    the grouped mode (row b reads the text and prompt keys of prefix b //
+    beams); with kv_scales, int8 K/V; with new_kv and slot, the own-column
+    mode, whose written column must equal the plain version's bitwise.
+    Then its time against the plain version's and SDPA's (`entry`)."""
+    import torch
+    import torch.nn.functional as Fn
+
+    from vallex_tpu_torch.kernels import masked_attention, masked_attention_plain
+    from vallex_tpu_torch.kernels.masked_attention import valid_keys, with_prefix, write_column
+
+    B, H, Tq, hd = q.shape
+    dev = q.device
+    own = new_kv is not None
+    gk = dict(prefix=prefix, beams=beams, kv_scales=kv_scales, new_kv=new_kv, slot=slot)
+    k_run, v_run = (k.clone(), v.clone()) if own else (k, v)  # own: the kernel writes
+    outk = masked_attention(q, k_run, v_run, bounds, site="check", **gk).float()
+    k_two, v_two = (k.clone(), v.clone()) if own else (k, v)
+    again = masked_attention(q, k_two, v_two, bounds, site="check", **gk).float()
+    # the plain version in f32 on the same (bf16- or int8-valued) inputs
+    ref = masked_attention_plain(q.float(), k, v, bounds, **gk)
+    torch.cuda.synchronize()
+    if not torch.equal(outk, again):
+        fail(f"masked_attention@{site}: two runs differ (max"
+             f" {float((outk - again).abs().max())})")
+    if own:
+        kp, vp = k.clone(), v.clone()
+        write_column(kp, vp, new_kv, slot, kv_scales)
+        if not (torch.equal(k_run, kp) and torch.equal(v_run, vp)):
+            fail(f"masked_attention@{site}: the written cache differs from the plain"
+                 f" version's (k equal {torch.equal(k_run, kp)}, v equal {torch.equal(v_run, vp)})")
+    diff = (outk - ref).abs()
+    err = float(diff.max())
+    tol = torch.full_like(ref, 2e-5)  # f32 softmax and sums on both sides, in another order
+    if not bool((diff <= tol).all()):
+        i = int((diff - tol).argmax())
+        fail(f"masked_attention@{site}: err {float(diff.flatten()[i])} > "
+             f"{float(tol.flatten()[i])} at |ref| {float(ref.abs().flatten()[i])}")
+    # the same work in the batched layout: the prefix repeated per sample
+    kf, vf, bf = (k_run, v_run, bounds) if prefix is None else \
+        with_prefix(k_run, v_run, bounds, prefix, beams)
+    C_all = kf.shape[2]
+    ok = valid_keys(Tq, C_all, bf)  # [B, Tq, C]
+    if own:  # the walk stops before the slot; the new column comes on top
+        cut = slot + C_all - k.shape[2]
+        ok = ok & (torch.arange(C_all, device=dev) < cut)
+    nkeys = int(ok.sum()) + (B * Tq if own else 0)
+    ms = device_ms(lambda: [masked_attention(q, k_run, v_run, bounds, site="check", **gk)
+                            for _ in range(reps_layers)])
+    pms = device_ms(lambda: [masked_attention_plain(q, k_run, v_run, bounds, **gk)
+                             for _ in range(reps_layers)])
+    lib_ms = None  # int8 K/V: no one PyTorch call attends over int8 K/V with scales
+    if kv_scales is None:
+        # SDPA over the cache (own column: with the written column in its mask)
+        lib_mask = ok.clone()
+        if own:
+            lib_mask[..., cut] = True
+        qb, mask = q.to(kf.dtype), lib_mask[:, None]  # per-row boolean mask [B, 1, Tq, C]
+        lib_ms = device_ms(lambda: [Fn.scaled_dot_product_attention(qb, kf, vf, attn_mask=mask)
+                                    for _ in range(reps_layers)])
+    # valid key rows read: the prefix's once per request, each row's own
+    used = ok.any(1)  # [B, C]
+    P = 0 if prefix is None else prefix[0].shape[2]
+    rows = int(used[::beams, :P].sum() + used[:, P:].sum())
+    # own column: the new k/v read in f32 and written in the cache type
+    col = (2 * B * H * hd * (4 + kf.element_size())) if own else 0
+    nbytes = reps_layers * (2 * rows * H * hd * kf.element_size()
+                            + 2 * B * Tq * H * hd * q.element_size() + col)
+    ops = reps_layers * 4 * nkeys * hd * H
+    entry("masked_attention", site, err, ms, pms, nbytes, ops, lib_ms,
+          f"{reps_layers} launch(es): B={B}{f' = {B // beams} x {beams} samples' if prefix is not None else ''},"
+          f" Tq={Tq}, {rows} valid key rows read, f32 q/out, {kf.dtype} k/v"
+          f"{', own column' if own else ''}".replace("torch.", ""),
+          in_line, {torch.float32: F32_OPS_PER_S, torch.int8: INT8_OPS_PER_S}.get(
+              kf.dtype, BF16_OPS_PER_S))
+
+
+DECODE_ROWS = ("b", "b32", "b128", "e", "e16", "e32", "e128", "i", "m", "n", "p", "q", "s")
+
+
+def decode_attention_rows(entry, g, dev, names=DECODE_ROWS, NL=12) -> None:
+    """PERF.md's decode-attention rows at the shapes of phases 3-3d and 3f
+    (the shipped model: d_model 1024, 16 heads at hd 64, 8 at hd 128; a
+    "Hello world." cache C = 2184 at draft position 600, the batch of four's
+    C = 3208, best_of 1 x 5 and 4 x 5 over their prefixes, the int8 cache,
+    the own-column steps), each through check_masked_attention against its
+    plain version and SDPA. Random K/V and queries from the generator g."""
+    import torch
+
+    from vallex_tpu_torch.engine import ar as AR
+    from vallex_tpu_torch.kernels.masked_attention import attention_bounds
+
+    S_TEXT, X_LEN, POS0, T_AUDIO = 128, 50, 600, 2048
+    C = S_TEXT + T_AUDIO + 8
+    XL_B, PL_B, T_GEN, GEN = [20, 52, 90, 128], [0, 60, 400, 758], 2048, [600, 350, 1200, 90]
+    P_AUDIO = -(-(max(PL_B) + 1) // AR.ABLK) * AR.ABLK
+    C_B, BEAMS, PL1 = S_TEXT + P_AUDIO + T_GEN + 8, 5, 198  # PL1: paimon's prompt frames
+    rows_i32 = lambda v: torch.tensor(v, dtype=torch.int32, device=dev)  # noqa: E731
+    rep = lambda t: t.repeat_interleave(BEAMS)  # noqa: E731
+    bf16 = lambda *shape: torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)  # noqa: E731
+
+    def q_of(B, Tq, H=16, hd=64):  # a strided view of the QKV product, as the decode hands it
+        qkv = torch.randn((B * Tq, 3 * H * hd), generator=g, device=dev)
+        return qkv[:, :H * hd].view(B, Tq, H, hd).transpose(1, 2)
+
+    def qkv_of(B, H=16, hd=64):  # q and the new k/v [B, H, 1, hd] views
+        qkv = torch.randn((B, 3 * H * hd), generator=g, device=dev).view(B, 1, 3, H, hd)
+        return tuple(qkv[:, :, i].transpose(1, 2) for i in range(3))
+
+    def int8_pair(kc, vc):
+        k8, v8, (ks, vs) = AR.int8_caches(kc[None], vc[None])
+        return k8[0], v8[0], (ks[0].contiguous(), vs[0].contiguous())
+
+    one = attention_bounds(1, x_len=X_LEN, s_text=S_TEXT, audio_len=POS0 + 1, q_off=1, device=dev)
+    ck, cv = bf16(1, 16, C, 64), bf16(1, 16, C, 64)
+    for name in names:
+        if name in ("b", "b32", "e", "e16", "e32"):
+            Tq = {"e": 8, "e16": 16, "e32": 8}.get(name, 1)
+            f32 = name.endswith("32")
+            site = "decode_block_fused" if Tq == 1 else "decode_verify"
+            check_masked_attention(entry, site, q_of(1, Tq), ck.float() if f32 else ck,
+                                   cv.float() if f32 else cv, one, NL)
+        elif name in ("b128", "e128"):
+            k8_, v8_ = bf16(1, 8, C, 128), bf16(1, 8, C, 128)
+            Tq = 1 if name == "b128" else 8
+            site = ("decode_block_fused" if Tq == 1 else "decode_verify") + HD128
+            check_masked_attention(entry, site, q_of(1, Tq, 8, 128), k8_, v8_, one, NL)
+        elif name == "i":
+            kb, vb = bf16(4, 16, C_B, 64), bf16(4, 16, C_B, 64)
+            bb = attention_bounds(4, x_len=rows_i32(XL_B), s_text=S_TEXT,
+                                  audio_len=rows_i32(PL_B) + 1, q_off=1,
+                                  gen_lo=S_TEXT + P_AUDIO, gen_len=rows_i32(GEN) + 1, device=dev)
+            check_masked_attention(entry, "decode_block_fused_batched", q_of(4, 1), kb, vb, bb, NL)
+        elif name == "m":
+            pk, pv = bf16(1, 16, S_TEXT + 512, 64), bf16(1, 16, S_TEXT + 512, 64)
+            kg, vg = bf16(BEAMS, 16, T_AUDIO + 8, 64), bf16(BEAMS, 16, T_AUDIO + 8, 64)
+            b1 = attention_bounds(BEAMS, x_len=X_LEN, s_text=S_TEXT, audio_len=PL1 + 1, q_off=1,
+                                  gen_lo=0, gen_len=rows_i32([POS0 + 1] * BEAMS), device=dev)
+            check_masked_attention(entry, "decode_block_fused_beams", q_of(BEAMS, 1), kg, vg, b1,
+                                   NL, prefix=(pk, pv), beams=BEAMS)
+        elif name == "n":
+            pk, pv = bf16(4, 16, S_TEXT + P_AUDIO, 64), bf16(4, 16, S_TEXT + P_AUDIO, 64)
+            kg, vg = bf16(4 * BEAMS, 16, T_GEN + 8, 64), bf16(4 * BEAMS, 16, T_GEN + 8, 64)
+            b4 = attention_bounds(4 * BEAMS, x_len=rep(rows_i32(XL_B)), s_text=S_TEXT,
+                                  audio_len=rep(rows_i32(PL_B)) + 1, q_off=1, gen_lo=0,
+                                  gen_len=rep(rows_i32(GEN)) + 1, device=dev)
+            check_masked_attention(entry, "decode_block_fused_grouped", q_of(4 * BEAMS, 1), kg,
+                                   vg, b4, NL, prefix=(pk, pv), beams=BEAMS)
+        elif name == "p":
+            k8, v8, sc8 = int8_pair(ck, cv)
+            q, nk, nv = qkv_of(1)
+            check_masked_attention(entry, "decode_block_fused_int8kv", q, k8, v8, one, NL,
+                                   kv_scales=sc8, new_kv=(nk, nv), slot=S_TEXT + POS0)
+        elif name in ("q", "s"):
+            step_b = attention_bounds(1, x_len=X_LEN, s_text=S_TEXT, audio_len=POS0, q_off=0,
+                                      device=dev)
+            q, nk, nv = qkv_of(1)
+            check_masked_attention(entry, "decode_attention" if name == "q" else "decode_step_fused",
+                                   q, ck, cv, step_b, 1 if name == "q" else NL, new_kv=(nk, nv),
+                                   slot=S_TEXT + POS0)
+        else:
+            fail(f"decode_attention_rows: no row {name}")
+
+
 def main() -> None:
     import torch
 
@@ -1248,70 +1458,8 @@ def main() -> None:
               f" {'W8A8 codes and scales' if act_quant else 'f32 rows' if f32 else 'bf16 rows'}"
               f"{'; max_abs_err in codes' if act_quant else ''}", in_line, F32_OPS_PER_S)
 
-    def check_attention(site, q, k, v, bounds, reps_layers, in_line=True, prefix=None,
-                        beams=1, kv_scales=None, new_kv=None, slot=None):
-        """The kernel against its plain version; with a prefix, the grouped
-        mode (row b reads the text and prompt keys of prefix b // beams);
-        with kv_scales, int8 K/V; with new_kv and slot, the own-column mode,
-        whose written column must equal the plain version's bitwise."""
-        B, _, Tq, _ = q.shape
-        own = new_kv is not None
-        gk = dict(prefix=prefix, beams=beams, kv_scales=kv_scales, new_kv=new_kv, slot=slot)
-        k_run, v_run = (k.clone(), v.clone()) if own else (k, v)  # own: the kernel writes
-        outk = masked_attention(q, k_run, v_run, bounds, site="check", **gk).float()
-        # the plain version in f32 on the same (bf16- or int8-valued) inputs
-        ref = masked_attention_plain(q.float(), k, v, bounds, **gk)
-        torch.cuda.synchronize()
-        if own:
-            kp, vp = k.clone(), v.clone()
-            write_column(kp, vp, new_kv, slot, kv_scales)
-            if not (torch.equal(k_run, kp) and torch.equal(v_run, vp)):
-                fail(f"masked_attention@{site}: the written cache differs from the plain"
-                     f" version's (k equal {torch.equal(k_run, kp)}, v equal {torch.equal(v_run, vp)})")
-        diff = (outk - ref).abs()
-        err = float(diff.max())
-        tol = torch.full_like(ref, 2e-5)  # f32 softmax and sums on both sides, in another order
-        if not bool((diff <= tol).all()):
-            i = int((diff - tol).argmax())
-            fail(f"masked_attention@{site}: err {float(diff.flatten()[i])} > "
-                 f"{float(tol.flatten()[i])} at |ref| {float(ref.abs().flatten()[i])}")
-        # the same work in the batched layout: the prefix repeated per sample
-        kf, vf, bf = (k_run, v_run, bounds) if prefix is None else \
-            with_prefix(k_run, v_run, bounds, prefix, beams)
-        C_all = kf.shape[2]
-        ok = valid_keys(Tq, C_all, bf)  # [B, Tq, C]
-        if own:  # the walk stops before the slot; the new column comes on top
-            cut = slot + C_all - k.shape[2]
-            ok = ok & (torch.arange(C_all, device=dev) < cut)
-        nkeys = int(ok.sum()) + (B * Tq if own else 0)
-        ms = device_ms(lambda: [masked_attention(q, k_run, v_run, bounds, site="check", **gk)
-                                for _ in range(reps_layers)])
-        pms = device_ms(lambda: [masked_attention_plain(q, k_run, v_run, bounds, **gk)
-                                 for _ in range(reps_layers)])
-        lib_ms = None  # int8 K/V: no one PyTorch call attends over int8 K/V with scales
-        if kv_scales is None:
-            # SDPA over the cache (own column: with the written column in its mask)
-            lib_mask = ok.clone()
-            if own:
-                lib_mask[..., cut] = True
-            qb, mask = q.to(kf.dtype), lib_mask[:, None]  # per-row boolean mask [B, 1, Tq, C]
-            lib_ms = device_ms(lambda: [Fn.scaled_dot_product_attention(qb, kf, vf, attn_mask=mask)
-                                        for _ in range(reps_layers)])
-        # valid key rows read: the prefix's once per request, each row's own
-        used = ok.any(1)  # [B, C]
-        P = 0 if prefix is None else prefix[0].shape[2]
-        rows = int(used[::beams, :P].sum() + used[:, P:].sum())
-        # own column: the new k/v read in f32 and written in the cache type
-        col = (2 * B * H * hd * (4 + kf.element_size())) if own else 0
-        nbytes = reps_layers * (2 * rows * H * hd * kf.element_size()
-                                + 2 * B * Tq * H * hd * q.element_size() + col)
-        ops = reps_layers * 4 * nkeys * hd * H
-        entry("masked_attention", site, err, ms, pms, nbytes, ops, lib_ms,
-              f"{reps_layers} launch(es): B={B}{f' = {B // beams} x {beams} samples' if prefix is not None else ''},"
-              f" Tq={Tq}, {rows} valid key rows read, f32 q/out, {kf.dtype} k/v"
-              f"{', own column' if own else ''}".replace("torch.", ""),
-              in_line, {torch.float32: F32_OPS_PER_S, torch.int8: INT8_OPS_PER_S}.get(
-                  kf.dtype, BF16_OPS_PER_S))
+    def check_attention(site, q, k, v, bounds, reps_layers, in_line=True, **gk):
+        check_masked_attention(entry, site, q, k, v, bounds, reps_layers, in_line, **gk)
 
     def check_sample(site, rows, greedy):
         logits = torch.randn((rows, VP), generator=g, device=dev) * 3
@@ -1411,6 +1559,9 @@ def main() -> None:
                         dtype=torch.float32)
         # the verify pass at decode_steps = 16: 16 queries per head
         check_attention("decode_verify", decode_q(1, 16), cache_k[0][None], cache_v[0][None],
+                        one, NL, in_line=False)
+        # 40 queries: three query groups of the kernel's grid, the last ragged
+        check_attention("decode_verify", decode_q(1, 40), cache_k[0][None], cache_v[0][None],
                         one, NL, in_line=False)
         check_prep("decode_verify", packed, 8, False)
         check_sample("decode_block_fused", 1, False)

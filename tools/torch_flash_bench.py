@@ -2,7 +2,7 @@
 build, check and time.
 
     python3 tools/torch_flash_bench.py [--root DIR] [--label NAME] [--hd 64,128]
-                                       [--parts flash,gemm]
+                                       [--parts flash,gemm,decode]
 
 Part "flash" runs the checks and timings of chip_smoke.py's phases 3e / 3f
 (the forward, dQ and dK/dV kernels against their plain versions at B = 4,
@@ -15,7 +15,13 @@ f32 NAR at B = 1) for each head dim. Part "gemm" builds the shipped model
 timings: the int8 draft step at M = 1 (row a), the bf16 verify pass at
 M = 8 (row d) and both in f32 (rows a32, d32), then the f32 step's device
 time by kernel under torch.profiler (`breakdown {...}`: the products, the
-prep kernels, and the sum of kernel times against the step's span). Each timed row prints as one
+prep kernels, and the sum of kernel times against the step's span). Part
+"decode" runs the decode attention (masked_attention) at the shapes of
+phases 3-3d and 3f, PERF.md's rows b, b32, b128, e, e16 (Tq 16), e32, e128,
+i, m, n, p, q and s: each against its plain version at 2e-5, two runs
+bitwise equal, timed against the plain version and SDPA; the kernel's
+instances (shared memory, threads, resident clusters) where the tree has
+them. Each timed row prints as one
 JSON line (`row {...}`: kernel, site, ms, plain_ms, bound_ms, bound_by,
 library_ms, max_abs_err, unit), after the card's name and power limit and
 the flash and product kernels' ptxas lines.
@@ -72,7 +78,7 @@ def main() -> None:
     ap.add_argument("--root", default=HERE, help="tree whose vallex_tpu_torch is built and timed")
     ap.add_argument("--label", default="", help="name printed on every row")
     ap.add_argument("--hd", default="64,128", help="head dims to run (H = 1024 / hd)")
-    ap.add_argument("--parts", default="flash", help="comma-separated: flash, gemm")
+    ap.add_argument("--parts", default="flash", help="comma-separated: flash, gemm, decode")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -102,7 +108,7 @@ def main() -> None:
     if report.exists():
         for blk in report.read_text().split("Compiling entry function")[1:]:
             head = blk.split("\n")[0]
-            if "flash_" in head or "gemm_ffma" in head:
+            if "flash_" in head or "gemm_ffma" in head or "masked_attention" in head:
                 said = [ln.split(":", 1)[-1].strip() for ln in blk.splitlines()[1:]
                         if any(w in ln for w in ("spill", "Used"))]
                 cs.say(f"  ptxas {head.split(chr(39))[1][:48]}: " + "; ".join(said))
@@ -141,6 +147,17 @@ def main() -> None:
             breakdown(cs, f"{args.label} f32 step M={M}",
                       lambda: [gemm_small_m(x, w, site="check", **kw) for x, w, kw in calls])
         del bundle, packed, draft, packed32
+        torch.cuda.empty_cache()
+    if "decode" in parts:
+        from vallex_tpu_torch.kernels import masked_attention as MA
+
+        if hasattr(MA, "kernel_info"):
+            for dt in (torch.bfloat16, torch.float32, torch.int8):
+                for hd in (64, 128):
+                    for Tq in (1, 8, 16):
+                        cs.say(f"  masked_attention {dt} hd {hd} Tq {Tq}: "
+                               f"{json.dumps(MA.kernel_info(dt, hd, Tq))}")
+        cs.decode_attention_rows(entry, g, dev)
         torch.cuda.empty_cache()
     for hd in (int(x) for x in args.hd.split(",")) if "flash" in parts else ():
         H, suffix = 1024 // hd, "" if hd == 64 else "_hd128"

@@ -56,6 +56,7 @@ _SIGNATURES = {
     "vx_masked_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P,
                             _I, _I, _I, _I, _I, _I, _P, _I, _I, _I, _F,
                             _P, _P, _P, _P, _P, _I, _P),
+    "vx_masked_attention_info": (_I, _I, _I, _P),
     "vx_sample_epilogue": (_P, _I, _P, _I, _I, _I, _I, _F, _I, _I, _I, _F,
                            _P, _P, _P, _I, _P),
     "vx_flash_attention_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,

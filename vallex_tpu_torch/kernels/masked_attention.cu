@@ -10,37 +10,36 @@
 //       the grouped mode below): one query per step over the valid cache rows;
 //   vallex_tpu/ops/decode_verify.py decode_verify: K = decode_steps queries
 //       (any K), query k also seeing this pass's columns j <= k;
-//   and the single steps of the own-column mode below.
+//   vallex_tpu/ops/decode_attention.py decode_attention and the single steps
+//       of decode_step.py: the own-column mode below.
 // Row b of the batch has its own bounds, read from `lens` ([3, B] int32 on
 // the device: x_len, a1_len, a2_len), so no bound travels through the host.
-// Each query has a block of its own (grid.x = Tq, up to 65535), so any number
-// of queries runs, each with its own causal bound q_off * qi, in every mode
-// that takes more than one query (plain, per-row bounds, grouped).
 // Key c is valid for row b and query qi iff
 //   c < x_len[b]
 //   or a1_lo <= c < a1_lo + a1_len[b]                 (range 1)
 //   or a2_lo <= c < a2_lo + a2_len[b] + q_off * qi    (range 2).
 // The single-request layout of engine/ar.py leaves range 1 empty and puts
 // the audio rows in range 2 (a2_len = pos0 + 1, q_off = 1, with the new
-// columns already written into the cache). The batched layout of ar_generate_batch puts
-// each request's BOS + prompt rows in range 1 (a1_lo = s_text, a1_len =
-// prompt_len + 1) and the generated rows, shared by position, in range 2
-// (a2_lo = s_text + p_audio). Padding keys are skipped, not masked: the loop
-// walks the valid keys only. Each range is clamped into the rows it reads,
-// so a wrong bound cannot read outside them.
+// columns already written into the cache). The batched layout of
+// ar_generate_batch puts each request's BOS + prompt rows in range 1 (a1_lo =
+// s_text, a1_len = prompt_len + 1) and the generated rows, shared by
+// position, in range 2 (a2_lo = s_text + p_audio). Each range is clamped into
+// the rows it reads, so a wrong bound cannot read outside them.
+//
+// The walk runs over a row's VIRTUAL key index vk: [0, x_len) the text rows,
+// then range 1, then range 2. Query qi sees the first nkeys(qi) virtual keys
+// (range 2 is last, so its causal bound only shortens the count). Padding
+// keys are never loaded.
 //
 // Grouped mode (best_of samples, `prefix` non-null): the B = R * beams rows
 // are request-major (row b is request b / beams's sample b % beams), the text
-// and range-1 keys of row b come from the prefix [R, H, P, 64] row b / beams
+// and range-1 keys of row b come from the prefix [R, H, P, hd] row b / beams
 // -- one copy per request, shared by its samples -- and the range-2
-// (generated) keys from the row's own cache [B, H, C, 64], where a2_lo = 0.
-// The walk over the keys (tiles of 32 virtual indices) does not depend on
-// where the keys live, so the grouped mode gives results bitwise equal to
-// the prefix copied into each row's cache in front of its generated rows; it
-// reads the prefix bytes once per request instead of once per sample (the
-// reason for the TPU's grouped layout).
+// (generated) keys from the row's own cache [B, H, C, hd], where a2_lo = 0.
+// Rows are addressed one by one, so a tile that crosses from the prefix into
+// the row's cache needs no special path.
 //
-// int8 K/V (kinds 3): the int8 KV cache of decode_block_fused(kv_scales=...)
+// int8 K/V (kind 3): the int8 KV cache of decode_block_fused(kv_scales=...)
 // (vallex_tpu/ops/decode_block.py:249-266, :528-544). K/V hold
 // clip(round(x / scale)) with one static f32 scale per (layer, head) for
 // each of K and V (`ks`, `vs`: [H] for this layer). The k-scale folds into
@@ -51,25 +50,92 @@
 // Own-column mode (`nk` non-null, Tq = 1): the decode steps of
 // decode_step / decode_step_fused (vallex_tpu/ops/decode_step.py:553),
 // decode_attention (vallex_tpu/ops/decode_attention.py:207) and the int8kv
-// blocks. The kernel takes this step's new k/v in f32 ([B, H, 1, 64],
-// strides `ns`), walks the cache only up to the `slot` row (range 2 is cut
-// there), then folds the new column in unrounded, as the TPU kernels do
-// (int8 K/V: divided by the scale into cache units, unrounded). Warps 0-1 of
-// the block of (row, head) write the column into the cache row `slot`:
-// rounded to the cache type, or for int8 K/V quantized as clip(rint(x / s),
-// -127, 127). No block reads that row, so the write needs no ordering.
+// blocks. The kernel takes this step's new k/v in f32 ([B, H, 1, hd], strides
+// `ns`), walks the cache only up to the `slot` row (range 2 is cut there),
+// then folds the new column in unrounded, last, as the TPU kernels do (int8
+// K/V: divided by the scale into cache units, unrounded). Cluster rank 0
+// writes the column into the cache row `slot`: rounded to the cache type, or
+// for int8 K/V quantized as clip(rint(x / s), -127, 127). No block reads that
+// row, so the write needs no ordering.
 //
-// Bound on the H100: the K/V bytes of the valid rows (a memory stream). The
-// dot products run on the CUDA cores: a warp scores one query, lane j key j
-// of a 32-key tile against the whole query held in registers, then the
-// tile's probabilities are broadcast by shuffles into a per-lane slice of
-// HD / 32 dims (2 at head dim 64, 4 at 128) of the f32 accumulator. Each block takes one query and its 8 warps split
-// the keys, merging their (max, sum, acc) states through shared memory at
-// the end. Softmax state is f32; K/V are bf16, int8, or f32 with
-// compute_dtype="float32"; Q and the output are f32.
+// Bound on the H100: the K/V bytes of the valid rows (a memory stream; Tq <=
+// 16 FMAs per key element, far below the ridge). The design spreads those
+// bytes over many SMs and keeps copies in flight:
+// * A cluster of ATT_CLUSTER blocks takes one (row, head, group of up to
+//   ATT_QG queries); grid (ATT_CLUSTER * ceil(Tq / ATT_QG), H, B), which
+//   depends on the shapes alone. The row's virtual keys, counted for the
+//   group's last query, fall into tiles of ATT_TILE; block rank r takes the
+//   r-th run of ceil(tiles / ATT_CLUSTER) tiles (empty runs only at the end).
+//   The partition is a function of that count alone -- not of C, B, where
+//   the keys live or the other rows -- so grouped rows equal their expanded
+//   rows, and batch rows their requests alone, bitwise.
+//   kernels/masked_attention.py's split_chunks_plain is its plain version.
+// * Every query of the group shares one read of K/V: the block's warps take
+//   its tiles in turn, each warp with a slot of its own (ATT_RING) filled by
+//   16-byte cp.async copies, so every warp of the cluster has its tile in
+//   flight at once (rows 16 bytes longer than the data, so eight lanes
+//   reading eight rows at one offset hit distinct bank quads). Lane j scores
+//   key j against each query (held in shared memory, f32, scaled); the
+//   queries' maxes and sums are reduced side by side, lane qq keeping query
+//   qq's running (m, l); the tile's probabilities go through shared memory
+//   to P.V, where lane j keeps HD / 32 dims of each query's f32 sum. Query
+//   qi's own count masks inside the shared tiles. Softmax state and sums
+//   are f32.
+// * Each warp leaves its (m, l, sum) per query; the block merges its warps
+//   in warp order and pushes each dim's state into the inbox of the rank
+//   that merges that dim (HD / ATT_CLUSTER dims a rank) through distributed
+//   shared memory. After one cluster barrier each rank merges its inbox in
+//   rank order 0..ATT_CLUSTER-1 (no remote reads, so no second barrier),
+//   folds the own column in last and writes the output with the v-scale. No
+//   workspace, no atomics: two runs are bitwise equal. An empty run, or a
+//   row with no keys, leaves m = VX_NEG_BIG, l = 0 and gives output 0.
+// * Programmatic dependent launch, as gemm_small_m's: the blocks start while
+//   the kernel before runs and wait (griddepcontrol.wait) before they read
+//   anything; after the walk they let the next kernel start.
+// Each of these choices measured faster on the H100 than its alternative: a
+// cluster of 16, two slots a warp, 8 warps a block, no programmatic
+// dependent launch, the loops unrolled as at one query (PERF.md §6;
+// tools/torch_decode_variants.py times each).
+#include <cooperative_groups.h>
+
 #include "common.cuh"
 
-#define ATT_WARPS 8
+namespace cg = cooperative_groups;
+
+#define ATT_CLUSTER 8  // blocks a (row, head, query group): the keys split over them
+#define ATT_TILE 32    // keys a tile; lane j scores key j
+#define ATT_QG 16      // queries a group, sharing one read of K/V
+#define ATT_RING 1     // slots of a warp's ring: tiles in flight per warp (one:
+                       // half the shared memory of two, more resident blocks,
+                       // twice the warps at hd 128)
+
+// bytes of one K or V row in shared memory, padded by 16 bytes
+template <typename TKV, int HD>
+__host__ __device__ constexpr int att_row() { return HD * (int)sizeof(TKV) + 16; }
+// bytes of one ring slot: a tile's K rows, then its V rows
+template <typename TKV, int HD>
+__host__ __device__ constexpr int att_slot() { return 2 * ATT_TILE * att_row<TKV, HD>(); }
+// warps a block: as many as keep the rings within ~80 KB (1 to 4), so two or
+// three blocks fit an SM
+template <typename TKV, int HD>
+__host__ __device__ constexpr int att_warps() {
+  return 81920 / (ATT_RING * att_slot<TKV, HD>()) >= 4   ? 4
+         : 81920 / (ATT_RING * att_slot<TKV, HD>()) >= 2 ? 2
+                                                         : 1;
+}
+// row stride of a warp's probabilities [ATT_TILE][QP] (QMAX > 1: padded so
+// the 32 lanes' writes of one query spread over the banks, 16-byte rows)
+template <int QMAX>
+__host__ __device__ constexpr int att_qp() { return QMAX == 1 ? 1 : QMAX + 4; }
+// dynamic shared memory: the rings (after the walk: the warps' sums), the
+// queries, the warps' probabilities and (m, l), the inbox of the merge, the
+// own column's score
+template <typename TKV, int HD, int QMAX>
+__host__ __device__ constexpr int att_smem() {
+  return att_warps<TKV, HD>() * ATT_RING * att_slot<TKV, HD>() +
+         4 * (QMAX * HD + att_warps<TKV, HD>() * (ATT_TILE * att_qp<QMAX>() + 2 * QMAX) +
+              QMAX * HD + 2 * ATT_CLUSTER * QMAX + 4);
+}
 
 // one value of this step's column in the cache's type (int8: quantized
 // with the head's scale `s`)
@@ -81,47 +147,22 @@ __device__ __forceinline__ void vx_store_col(int8_t* p, float v, float s) {
   *p = (int8_t)__float2int_rn(fminf(fmaxf(rintf(__fdiv_rn(v, s)), -127.f), 127.f));
 }
 
-// q . k for one key row of HD values, 16-byte loads
-template <int HD>
-__device__ __forceinline__ float vx_dot(const float* qf, const __nv_bfloat16* kr) {
-  const uint4* p = reinterpret_cast<const uint4*>(kr);
-  float dot = 0.f;
-#pragma unroll
-  for (int j = 0; j < HD / 8; ++j) {
-    float kf[8];
-    vx_bf16x8_to_f32(__ldg(p + j), kf);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) dot = fmaf(qf[8 * j + i], kf[i], dot);
-  }
-  return dot;
+// the 16 bytes at p (shared memory) as 16 / sizeof(T) floats
+__device__ __forceinline__ void vx_chunk(const __nv_bfloat16* p, float* out) {
+  vx_bf16x8_to_f32(*reinterpret_cast<const uint4*>(p), out);
 }
-template <int HD>
-__device__ __forceinline__ float vx_dot(const float* qf, const float* kr) {
-  const float4* p = reinterpret_cast<const float4*>(kr);
-  float dot = 0.f;
-#pragma unroll
-  for (int j = 0; j < HD / 4; ++j) {
-    const float4 kv = __ldg(p + j);
-    dot = fmaf(qf[4 * j], kv.x, dot);
-    dot = fmaf(qf[4 * j + 1], kv.y, dot);
-    dot = fmaf(qf[4 * j + 2], kv.z, dot);
-    dot = fmaf(qf[4 * j + 3], kv.w, dot);
-  }
-  return dot;
+__device__ __forceinline__ void vx_chunk(const float* p, float* out) {
+  const float4 f = *reinterpret_cast<const float4*>(p);
+  out[0] = f.x;
+  out[1] = f.y;
+  out[2] = f.z;
+  out[3] = f.w;
 }
-
-template <int HD>
-__device__ __forceinline__ float vx_dot(const float* qf, const int8_t* kr) {
-  const int4* p = reinterpret_cast<const int4*>(kr);
-  float dot = 0.f;
+__device__ __forceinline__ void vx_chunk(const int8_t* p, float* out) {
+  const int4 raw = *reinterpret_cast<const int4*>(p);
+  const int8_t* c = reinterpret_cast<const int8_t*>(&raw);
 #pragma unroll
-  for (int j = 0; j < HD / 16; ++j) {
-    const int4 raw = __ldg(p + j);
-    const int8_t* kb = reinterpret_cast<const int8_t*>(&raw);
-#pragma unroll
-    for (int i = 0; i < 16; ++i) dot = fmaf(qf[16 * j + i], (float)kb[i], dot);
-  }
-  return dot;
+  for (int i = 0; i < 16; ++i) out[i] = (float)c[i];
 }
 
 // a lane's N = HD / 32 consecutive v values (2 or 4) as floats
@@ -164,176 +205,391 @@ __device__ __forceinline__ void vx_load_dims(const float* p, float* out) {
   }
 }
 
+// 16 bytes global -> shared; zero-filled, and the source not read, when !in
+__device__ __forceinline__ void att_cp16(void* dst, const void* src, bool in) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(in ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void att_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void att_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// the virtual keys query qi sees: the text and range 1, then range 2 up to
+// its causal bound
+__device__ __forceinline__ int att_nkeys(int x_a1, int a2_len0, int q_off, int a2_cap, int qi) {
+  return x_a1 + min(max(a2_len0 + q_off * qi, 0), a2_cap);
+}
+
+// virtual keys [vk0, vk0 + ATT_TILE)'s K and V rows into a warp's slot (K
+// rows, then V rows, ROW bytes apart), by 16-byte cp.async, one row at a
+// time: the text and range-1 rows from kp/vp (row stride p_row), range 2
+// from kb/vb (kv_st); rows past nk_max zero-filled, their source not read
+template <typename TKV, int HD>
+__device__ __forceinline__ void att_load_tile(unsigned char* dst, int vk0, int nk_max, int x_len,
+                                              int x_a1, int a1_lo, int a2_lo, const TKV* kp,
+                                              const TKV* vp, long long p_row, const TKV* kb,
+                                              const TKV* vb, long long kv_st, int lane) {
+  constexpr int ROW = att_row<TKV, HD>(), EPC = 16 / (int)sizeof(TKV), CPR = HD / EPC;
+  unsigned char* dv = dst + ATT_TILE * ROW;
+#pragma unroll
+  for (int u = 0; u < CPR; ++u) {  // ATT_TILE * CPR chunks, 32 a pass
+    const int r = (lane + 32 * u) / CPR, c = (lane + 32 * u) % CPR, vk = vk0 + r;
+    const bool in = vk < nk_max;
+    const bool side_p = vk < x_a1;
+    const long long row = !in ? 0
+                          : vk < x_len ? (long long)vk * p_row
+                          : side_p     ? (long long)(a1_lo + vk - x_len) * p_row
+                                       : (long long)(a2_lo + vk - x_a1) * kv_st;
+    att_cp16(dst + r * ROW + 16 * c, (side_p ? kp : kb) + row + c * EPC, in);
+    att_cp16(dv + r * ROW + 16 * c, (side_p ? vp : vb) + row + c * EPC, in);
+  }
+  att_commit();
+}
+
 // Strides are in elements; the head dim has stride 1 for q, k, v, the prefix,
 // the new column and o. pk/pv null: no prefix (every key from k/v). ks/vs
 // null: no K/V scales. nk/nv null: no own column (kw/vw, n_sb/n_sh and slot
-// unused).
-template <typename TKV, int HD>
-__global__ void __launch_bounds__(ATT_WARPS * 32)
-masked_attention_kernel(const float* __restrict__ q, long long q_sb, long long q_sh, long long q_st,
-                        const TKV* __restrict__ k, const TKV* __restrict__ v,
-                        long long kv_sb, long long kv_sh, long long kv_st,
-                        const TKV* __restrict__ pk, const TKV* __restrict__ pv,
-                        long long p_sb, long long p_sh, long long p_st, int P, int beams,
-                        float* __restrict__ o, long long o_sb, long long o_sh, long long o_st,
-                        int B, int Tq, int C, const int* __restrict__ lens, int a1_lo,
-                        int a2_lo, int q_off, float scale,
-                        const float* __restrict__ ks, const float* __restrict__ vs,
-                        const float* __restrict__ nk, const float* __restrict__ nv,
-                        long long n_sb, long long n_sh, int slot, TKV* kw, TKV* vw) {
-  __shared__ float st_m[ATT_WARPS];
-  __shared__ float st_l[ATT_WARPS];
-  __shared__ float st_acc[ATT_WARPS][HD];
-  constexpr int DPL = HD / 32;  // accumulator dims per lane
+// unused). QMAX: the queries a group holds at most (1, 8 or ATT_QG).
+template <typename TKV, int HD, int QMAX>
+__global__ void __launch_bounds__(att_warps<TKV, HD>() * 32, 1)
+masked_attention_split_kernel(const float* __restrict__ q, long long q_sb, long long q_sh,
+                              long long q_st, const TKV* __restrict__ k,
+                              const TKV* __restrict__ v, long long kv_sb, long long kv_sh,
+                              long long kv_st, const TKV* __restrict__ pk,
+                              const TKV* __restrict__ pv, long long p_sb, long long p_sh,
+                              long long p_st, int P, int beams, float* __restrict__ o,
+                              long long o_sb, long long o_sh, long long o_st, int B, int Tq,
+                              int C, const int* __restrict__ lens, int a1_lo, int a2_lo,
+                              int q_off, float scale, const float* __restrict__ ks,
+                              const float* __restrict__ vs, const float* __restrict__ nk,
+                              const float* __restrict__ nv, long long n_sb, long long n_sh,
+                              int slot, TKV* kw, TKV* vw) {
+  constexpr int NW = att_warps<TKV, HD>(), NT = NW * 32;
+  constexpr int ROW = att_row<TKV, HD>(), SLOT = att_slot<TKV, HD>();
+  constexpr int EPC = 16 / (int)sizeof(TKV);  // elements in a 16-byte chunk
+  constexpr int CPR = HD / EPC;               // 16-byte chunks a row
+  constexpr int DPL = HD / 32;                // accumulator dims a lane
+  constexpr int QP = att_qp<QMAX>();
+  constexpr int DR = HD / ATT_CLUSTER;        // output dims a rank merges
+  // 8 or 16 queries hold ILP enough in one 16-byte chunk of a key row (or two
+  // V rows); unrolled further, ptxas spills at head dim 128
+  constexpr int C_UNROLL = QMAX >= 8 ? 1 : CPR;
+  constexpr int PV_UNROLL = QMAX >= 8 ? 2 : 4;
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* rings = smem;  // [NW][ATT_RING] slots
+  float* qs = reinterpret_cast<float*>(smem + NW * ATT_RING * SLOT);  // [QMAX][HD]
+  float* pbuf = qs + QMAX * HD;                  // [NW][ATT_TILE][QP]
+  float* wml = pbuf + NW * ATT_TILE * QP;        // [NW][2][QMAX]: the warps' m, l
+  float* in_acc = wml + NW * 2 * QMAX;           // [ATT_CLUSTER][QMAX][DR]: the merge's inbox
+  float* in_ml = in_acc + QMAX * HD;             // [ATT_CLUSTER][2][QMAX]
+  float* s_own = in_ml + ATT_CLUSTER * 2 * QMAX;
+  float* wacc = reinterpret_cast<float*>(smem);  // after the walk: [NW][QMAX][HD]
+  static_assert(QMAX * HD * 4 <= ATT_RING * SLOT, "the warps' sums fit in the rings");
 
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int b = blockIdx.z;
-  const int h = blockIdx.y;
-  const int qi = blockIdx.x;  // one query per block, its keys split over the warps
-  const int split = warp;
-  const int nsplit = ATT_WARPS;
-
+  // programmatic dependent launch: q, the cache and the bounds may come
+  // from the kernel before this one
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int q0 = (blockIdx.x / ATT_CLUSTER) * ATT_QG;
+  const int nq = min(ATT_QG, Tq - q0);
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const bool own = nk != nullptr;
-  const long long n_off = b * n_sb + h * n_sh;
-  if (own && threadIdx.x < 2 * HD) {
-    // this step's column into the cache row `slot` (k by the first HD
-    // threads, v by the next HD)
-    const int d = threadIdx.x & (HD - 1);
-    const long long c_off = b * kv_sb + h * kv_sh + (long long)slot * kv_st + d;
-    if (threadIdx.x < HD)
-      vx_store_col(kw + c_off, nk[n_off + d], ks != nullptr ? ks[h] : 1.f);
-    else
-      vx_store_col(vw + c_off, nv[n_off + d], vs != nullptr ? vs[h] : 1.f);
-  }
 
-  float m = VX_NEG_BIG, l = 0.f, acc[DPL];
-  float s_own = VX_NEG_BIG, ov[DPL];  // own column: score, v
-#pragma unroll
-  for (int i = 0; i < DPL; ++i) acc[i] = ov[i] = 0.f;
-  {
-    const float* qp = q + b * q_sb + h * q_sh + (long long)qi * q_st;
-    // int8 K/V: the k-scale folds into the query (q * ks), so the scores
-    // come out of the int8 rows as they are
-    const float qscale = ks != nullptr ? ks[h] : 1.f;
-    float qf[HD];
-#pragma unroll
-    for (int d = 0; d < HD; ++d) qf[d] = qp[d] * qscale * scale;
-    if (own && split == 0) {
-      // the new key in cache units (int8 K/V: k / ks, unrounded); every lane
-      // takes the whole dot, lane j keeps v dims DPL j .. DPL j + DPL - 1
-      const float* kn = nk + n_off;
-      float dot = 0.f;
-#pragma unroll
-      for (int d = 0; d < HD; ++d)
-        dot = fmaf(qf[d], ks != nullptr ? __fdiv_rn(kn[d], ks[h]) : kn[d], dot);
-      s_own = dot;
-#pragma unroll
-      for (int i = 0; i < DPL; ++i) {
-        ov[i] = nv[n_off + DPL * lane + i];
-        if (vs != nullptr) ov[i] = __fdiv_rn(ov[i], vs[h]);
-      }
-    }
-    const TKV* kb = k + b * kv_sb + h * kv_sh;
-    const TKV* vb = v + b * kv_sb + h * kv_sh;
-    // the text and range-1 keys: the prefix row of this row's request, or
-    // the row's own cache
-    const bool grouped = pk != nullptr;
-    const long long pr = (long long)(b / beams) * p_sb + h * p_sh;
-    const int C1 = grouped ? P : C;
-    // virtual key index vk: [0, x_len) text rows, then range 1, then range 2
-    const int x_len = min(max(lens[b], 0), C1);
-    const int a1_len = min(max(lens[B + b], 0), max(C1 - a1_lo, 0));
-    // own column: the walk stops before the slot, whatever the bounds say
-    const int a2_end = own ? min(C, slot) : C;
-    const int a2_len = min(max(lens[2 * B + b] + q_off * qi, 0), max(a2_end - a2_lo, 0));
-    const int x_a1 = x_len + a1_len;
-    const TKV* kp = grouped ? pk + pr : kb;
-    const TKV* vp = grouped ? pv + pr : vb;
-    const long long p_row = grouped ? p_st : kv_st;
-    const int nkeys = x_a1 + a2_len;
-    for (int t0 = split * 32; t0 < nkeys; t0 += nsplit * 32) {
-      const int vk = t0 + lane;
-      const bool valid = vk < nkeys;
-      // row c of the prefix side (text, range 1) or of the row's own cache
-      const int c = !valid ? 0
-                    : vk < x_len ? vk
-                    : vk < x_a1 ? a1_lo + (vk - x_len)
-                                : a2_lo + (vk - x_a1);
-      const TKV* krow = vk < x_a1 ? kp + (long long)c * p_row : kb + (long long)c * kv_st;
-      const float s = valid ? vx_dot<HD>(qf, krow) : VX_NEG_BIG;
-      const float m_new = fmaxf(m, vx_warp_max(s));
-      const float p = valid ? __expf(s - m_new) : 0.f;
-      const float corr = __expf(m - m_new);
-      l = l * corr + vx_warp_sum(p);
-#pragma unroll
-      for (int i = 0; i < DPL; ++i) acc[i] *= corr;
-      m = m_new;
-      const int nvalid = min(32, nkeys - t0);
-      if (t0 + 32 <= x_a1 || t0 >= x_a1) {
-        // the whole tile on one side (warp-uniform): one base, one stride
-        const bool side_p = t0 < x_a1;
-        const TKV* vl = (side_p ? vp : vb) + DPL * lane;
-        const long long st = side_p ? p_row : kv_st;
-        for (int j = 0; j < nvalid; ++j) {
-          const float pj = __shfl_sync(VX_FULL_MASK, p, j);
-          const int cj = __shfl_sync(VX_FULL_MASK, c, j);
-          float vv[DPL];
-          vx_load_dims<DPL>(vl + (long long)cj * st, vv);
-#pragma unroll
-          for (int i = 0; i < DPL; ++i) acc[i] = fmaf(pj, vv[i], acc[i]);
-        }
-      } else {
-        // the one tile that crosses from the prefix side to the cache
-        for (int j = 0; j < nvalid; ++j) {
-          const float pj = __shfl_sync(VX_FULL_MASK, p, j);
-          const int cj = __shfl_sync(VX_FULL_MASK, c, j);
-          float vv[DPL];
-          vx_load_dims<DPL>((t0 + j < x_a1 ? vp + (long long)cj * p_row
-                                           : vb + (long long)cj * kv_st) + DPL * lane, vv);
-#pragma unroll
-          for (int i = 0; i < DPL; ++i) acc[i] = fmaf(pj, vv[i], acc[i]);
-        }
-      }
+  // the bounds: the text and range-1 keys from the prefix row of this row's
+  // request, or from the row's own cache; own column: range 2 stops before
+  // the slot, whatever the bounds say
+  const bool grouped = pk != nullptr;
+  const int C1 = grouped ? P : C;
+  const int x_len = min(max(lens[b], 0), C1);
+  const int x_a1 = x_len + min(max(lens[B + b], 0), max(C1 - a1_lo, 0));
+  const int a2_cap = max((own ? min(C, slot) : C) - a2_lo, 0);
+  const int a2_len0 = lens[2 * B + b];
+  const int nk_max = max(att_nkeys(x_a1, a2_len0, q_off, a2_cap, q0),
+                         att_nkeys(x_a1, a2_len0, q_off, a2_cap, q0 + nq - 1));
+  // this rank's tiles: a function of nk_max alone
+  const int n_tiles = (nk_max + ATT_TILE - 1) / ATT_TILE;
+  const int per_rank = (n_tiles + ATT_CLUSTER - 1) / ATT_CLUSTER;
+  const int t_begin = min(rank * per_rank, n_tiles);
+  const int t_end = min(t_begin + per_rank, n_tiles);
+
+  if (own && rank == 0) {
+    // this step's column into the cache row `slot`
+    const long long n_off = b * n_sb + h * n_sh;
+    const float ksh = ks != nullptr ? ks[h] : 1.f, vsh = vs != nullptr ? vs[h] : 1.f;
+    for (int i = threadIdx.x; i < 2 * HD; i += NT) {
+      const int d = i % HD;
+      const long long c_off = b * kv_sb + h * kv_sh + (long long)slot * kv_st + d;
+      if (i < HD)
+        vx_store_col(kw + c_off, nk[n_off + d], ksh);
+      else
+        vx_store_col(vw + c_off, nv[n_off + d], vsh);
     }
   }
+  {
+    // the group's queries, scaled; int8 K/V: the k-scale folds into the
+    // query (q * ks), so the scores come out of the int8 rows as they are
+    const float qscale = ks != nullptr ? ks[h] : 1.f;
+    const float* qb = q + b * q_sb + h * q_sh;
+    for (int i = threadIdx.x; i < QMAX * HD; i += NT) {
+      const int qi = i / HD, d = i % HD;
+      qs[i] = qi < nq ? qb[(long long)(q0 + qi) * q_st + d] * qscale * scale : 0.f;
+    }
+  }
+  __syncthreads();
+
+  // ---- the walk: warp w takes this rank's tiles t_begin + w, + NW, ... ------
+  const TKV* kb = k + b * kv_sb + h * kv_sh;
+  const TKV* vb = v + b * kv_sb + h * kv_sh;
+  const long long pr = grouped ? (long long)(b / beams) * p_sb + h * p_sh : 0;
+  const TKV* kp = grouped ? pk + pr : kb;
+  const TKV* vp = grouped ? pv + pr : vb;
+  const long long p_row = grouped ? p_st : kv_st;
+  unsigned char* ring = rings + warp * ATT_RING * SLOT;
+  float* pw = pbuf + warp * ATT_TILE * QP;
+  const int first = t_begin + warp;
+  const int mine = first < t_end ? (t_end - first + NW - 1) / NW : 0;
+
+  // lane qq keeps query qq's running max and sum; every lane DPL dims of
+  // each query's sum of p v
+  float m_q = VX_NEG_BIG, l_q = 0.f, acc[QMAX][DPL];
+#pragma unroll
+  for (int qq = 0; qq < QMAX; ++qq) {
+#pragma unroll
+    for (int i = 0; i < DPL; ++i) acc[qq][i] = 0.f;
+  }
+#pragma unroll
+  for (int i = 0; i < ATT_RING; ++i) {
+    if (i < mine)
+      att_load_tile<TKV, HD>(ring + i * SLOT, (first + i * NW) * ATT_TILE, nk_max, x_len, x_a1,
+                             a1_lo, a2_lo, kp, vp, p_row, kb, vb, kv_st, lane);
+    else
+      att_commit();  // an empty group keeps the wait count uniform
+  }
+  for (int i = 0; i < mine; ++i) {
+    att_wait<ATT_RING - 1>();
+    __syncwarp();
+    const int t = first + i * NW, vk0 = t * ATT_TILE;
+    const unsigned char* sk = ring + (i % ATT_RING) * SLOT;
+    const TKV* vt = reinterpret_cast<const TKV*>(sk + ATT_TILE * ROW);
+    // scores: lane j against key j, every query of the group
+    float s[QMAX];
+#pragma unroll
+    for (int qq = 0; qq < QMAX; ++qq) s[qq] = 0.f;
+    const TKV* krow = reinterpret_cast<const TKV*>(sk + lane * ROW);
+#pragma unroll C_UNROLL
+    for (int c = 0; c < CPR; ++c) {
+      float kf[EPC];
+      vx_chunk(krow + c * EPC, kf);
+#pragma unroll
+      for (int qq = 0; qq < QMAX; ++qq) {
+        const float4* qv = reinterpret_cast<const float4*>(qs + qq * HD + c * EPC);
+#pragma unroll
+        for (int e4 = 0; e4 < EPC / 4; ++e4) {
+          const float4 qf = qv[e4];
+          s[qq] = fmaf(qf.x, kf[4 * e4], s[qq]);
+          s[qq] = fmaf(qf.y, kf[4 * e4 + 1], s[qq]);
+          s[qq] = fmaf(qf.z, kf[4 * e4 + 2], s[qq]);
+          s[qq] = fmaf(qf.w, kf[4 * e4 + 3], s[qq]);
+        }
+      }
+    }
+    // the online softmax of each query over the keys it sees in this tile:
+    // the queries' maxes, then their sums, reduced side by side
+    unsigned valid = 0;
+    float red[QMAX];  // the tile max, then the sum of p
+#pragma unroll
+    for (int qq = 0; qq < QMAX; ++qq) {
+      if (qq < nq && vk0 + lane < att_nkeys(x_a1, a2_len0, q_off, a2_cap, q0 + qq))
+        valid |= 1u << qq;
+      red[qq] = valid >> qq & 1u ? s[qq] : VX_NEG_BIG;
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+#pragma unroll
+      for (int qq = 0; qq < QMAX; ++qq)
+        red[qq] = fmaxf(red[qq], __shfl_xor_sync(VX_FULL_MASK, red[qq], o));
+    }
+    float c_q = 1.f;
+#pragma unroll
+    for (int qq = 0; qq < QMAX; ++qq) {
+      const float m_old = __shfl_sync(VX_FULL_MASK, m_q, qq);
+      const float m_new = fmaxf(m_old, red[qq]);
+      const float p = valid >> qq & 1u ? __expf(s[qq] - m_new) : 0.f;
+      const float corr = __expf(m_old - m_new);
+#pragma unroll
+      for (int d = 0; d < DPL; ++d) acc[qq][d] *= corr;
+      pw[lane * QP + qq] = p;
+      red[qq] = p;
+      if (lane == qq) {
+        m_q = m_new;
+        c_q = corr;
+      }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+#pragma unroll
+      for (int qq = 0; qq < QMAX; ++qq) red[qq] += __shfl_xor_sync(VX_FULL_MASK, red[qq], o);
+    }
+#pragma unroll
+    for (int qq = 0; qq < QMAX; ++qq)
+      if (lane == qq) l_q = l_q * c_q + red[qq];
+    __syncwarp();
+    // P.V over the rows loaded: lane j keeps dims DPL j .. DPL j + DPL - 1
+    const int rows = min(ATT_TILE, nk_max - vk0);
+#pragma unroll PV_UNROLL
+    for (int j = 0; j < rows; ++j) {
+      float vv[DPL];
+      vx_load_dims<DPL>(vt + j * (ROW / (int)sizeof(TKV)) + DPL * lane, vv);
+      if constexpr (QMAX == 1) {
+        const float pj = pw[j];
+#pragma unroll
+        for (int d = 0; d < DPL; ++d) acc[0][d] = fmaf(pj, vv[d], acc[0][d]);
+      } else {
+#pragma unroll
+        for (int q4 = 0; q4 < QMAX; q4 += 4) {
+          const float4 p4 = *reinterpret_cast<const float4*>(pw + j * QP + q4);
+#pragma unroll
+          for (int d = 0; d < DPL; ++d) {
+            acc[q4][d] = fmaf(p4.x, vv[d], acc[q4][d]);
+            acc[q4 + 1][d] = fmaf(p4.y, vv[d], acc[q4 + 1][d]);
+            acc[q4 + 2][d] = fmaf(p4.z, vv[d], acc[q4 + 2][d]);
+            acc[q4 + 3][d] = fmaf(p4.w, vv[d], acc[q4 + 3][d]);
+          }
+        }
+      }
+    }
+    __syncwarp();  // the slot and pw are free again
+    if (i + ATT_RING < mine)
+      att_load_tile<TKV, HD>(ring + (i % ATT_RING) * SLOT, (first + (i + ATT_RING) * NW) * ATT_TILE,
+                             nk_max, x_len, x_a1, a1_lo, a2_lo, kp, vp, p_row, kb, vb, kv_st, lane);
+    else
+      att_commit();
+  }
+  // the next kernel may start its prologue; it waits for this one's end
+  // before it reads anything
+  asm volatile("griddepcontrol.launch_dependents;");
+  att_wait<0>();
+  __syncthreads();  // every warp is done with the rings
+
+  // ---- the block's state: its warps merged in warp order ---------------------
+  if (lane < QMAX) {
+    wml[warp * 2 * QMAX + lane] = m_q;
+    wml[warp * 2 * QMAX + QMAX + lane] = l_q;
+  }
+#pragma unroll
+  for (int qq = 0; qq < QMAX; ++qq) {
+#pragma unroll
+    for (int d = 0; d < DPL; ++d) wacc[(warp * QMAX + qq) * HD + DPL * lane + d] = acc[qq][d];
+  }
+  if (own && warp == 0) {
+    // the new key in cache units (int8 K/V: k / ks, unrounded)
+    const long long n_off = b * n_sb + h * n_sh;
+    const float ksh = ks != nullptr ? ks[h] : 1.f;
+    float dot = 0.f;
+#pragma unroll
+    for (int d = lane; d < HD; d += 32)
+      dot = fmaf(qs[d], ks != nullptr ? __fdiv_rn(nk[n_off + d], ksh) : nk[n_off + d], dot);
+    dot = vx_warp_sum(dot);
+    if (lane == 0) *s_own = dot;
+  }
+  __syncthreads();
+  // each (query, dim): the warps merged, then pushed into the inbox of the
+  // rank that merges that dim (rank d / DR) through distributed shared memory
+  for (int i = threadIdx.x; i < nq * HD; i += NT) {
+    const int qq = i / HD, d = i % HD;
+    float mm = VX_NEG_BIG;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) mm = fmaxf(mm, wml[w * 2 * QMAX + qq]);
+    float ll = 0.f, a = 0.f;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) {
+      const float f = __expf(wml[w * 2 * QMAX + qq] - mm);
+      ll += wml[w * 2 * QMAX + QMAX + qq] * f;
+      a += wacc[(w * QMAX + qq) * HD + d] * f;
+    }
+    const int dst = d / DR;
+    cluster.map_shared_rank(in_acc, dst)[(rank * QMAX + qq) * DR + d % DR] = a;
+    if (d % DR == 0) {
+      float* ml = cluster.map_shared_rank(in_ml, dst) + rank * 2 * QMAX;
+      ml[qq] = mm;
+      ml[QMAX + qq] = ll;
+    }
+  }
+  cluster.sync();  // every rank's state is in its inbox; nothing remote after this
+
+  // ---- rank r merges dims [r DR, r DR + DR) of every query, ranks in order --
   // int8 K/V: the v-scale folds into the output
   const float oscale = vs != nullptr ? vs[h] : 1.f;
-  // merge the key splits of the query (one per warp)
-  if (lane == 0) {
-    st_m[warp] = m;
-    st_l[warp] = l;
-  }
+  for (int i = threadIdx.x; i < nq * DR; i += NT) {
+    const int qq = i / DR, dd = i % DR, d = rank * DR + dd;
+    float mm = own ? *s_own : VX_NEG_BIG;
 #pragma unroll
-  for (int i = 0; i < DPL; ++i) st_acc[warp][DPL * lane + i] = acc[i];
-  __syncthreads();
-  if (split == 0) {
-    float mm = VX_NEG_BIG;
-    for (int s = 0; s < nsplit; ++s) mm = fmaxf(mm, st_m[s]);
-    if (own) mm = fmaxf(mm, s_own);
-    float ll = 0.f, a[DPL];
+    for (int r = 0; r < ATT_CLUSTER; ++r) mm = fmaxf(mm, in_ml[r * 2 * QMAX + qq]);
+    float ll = 0.f, a = 0.f;
 #pragma unroll
-    for (int i = 0; i < DPL; ++i) a[i] = 0.f;
-    for (int s = 0; s < nsplit; ++s) {
-      const float f = __expf(st_m[s] - mm);
-      ll += st_l[s] * f;
-#pragma unroll
-      for (int i = 0; i < DPL; ++i) a[i] += st_acc[s][DPL * lane + i] * f;
+    for (int r = 0; r < ATT_CLUSTER; ++r) {
+      const float f = __expf(in_ml[r * 2 * QMAX + qq] - mm);
+      ll += in_ml[r * 2 * QMAX + QMAX + qq] * f;
+      a += in_acc[(r * QMAX + qq) * DR + dd] * f;
     }
     if (own) {  // the new column, after the cache rows
-      const float p = __expf(s_own - mm);
+      const float p = __expf(*s_own - mm);
+      float vn = nv[b * n_sb + h * n_sh + d];
+      if (vs != nullptr) vn = __fdiv_rn(vn, vs[h]);
       ll += p;
-#pragma unroll
-      for (int i = 0; i < DPL; ++i) a[i] = fmaf(p, ov[i], a[i]);
+      a = fmaf(p, vn, a);
     }
     const float inv = ll > 0.f ? 1.f / ll : 0.f;
-    float* op = o + b * o_sb + h * o_sh + (long long)qi * o_st;
-#pragma unroll
-    for (int i = 0; i < DPL; ++i) op[DPL * lane + i] = a[i] * inv * oscale;
+    o[b * o_sb + h * o_sh + (long long)(q0 + qq) * o_st + d] = a * inv * oscale;
   }
 }
 
-template <typename TKV, int HD>
+// the instance's dynamic shared memory limit, raised once per device (a
+// host call, kept off the per-launch path)
+template <typename TKV, int HD, int QMAX>
+static cudaError_t allow_smem() {
+  static unsigned long long done = 0;  // a bit per device, for this instance
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 64 && (done >> dev & 1ull)) return cudaSuccess;
+  err = cudaFuncSetAttribute(masked_attention_split_kernel<TKV, HD, QMAX>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             att_smem<TKV, HD, QMAX>());
+  if (err == cudaSuccess && dev < 64) done |= 1ull << dev;
+  return err;
+}
+
+// one instance's launch configuration: clusters of ATT_CLUSTER blocks along
+// x, its dynamic shared memory, programmatic stream serialization (used in
+// place: cfg points at attr)
+template <typename TKV, int HD, int QMAX>
+struct AttLaunch {
+  cudaLaunchAttribute attr[2];
+  cudaLaunchConfig_t cfg = {};
+  AttLaunch(dim3 grid, cudaStream_t stream) {
+    cfg.gridDim = grid;
+    cfg.blockDim = dim3(att_warps<TKV, HD>() * 32);
+    cfg.dynamicSmemBytes = att_smem<TKV, HD, QMAX>();
+    cfg.stream = stream;
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = ATT_CLUSTER;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    attr[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attr[1].val.programmaticStreamSerializationAllowed = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 2;
+  }
+};
+
+template <typename TKV, int HD, int QMAX>
 static cudaError_t launch(const void* q, const long long* qs, const void* k, const void* v,
                           const long long* kvs, const void* pk, const void* pv,
                           const long long* ps, int P, int beams, void* o, const long long* os,
@@ -341,18 +597,69 @@ static cudaError_t launch(const void* q, const long long* qs, const void* k, con
                           int q_off, float scale, const float* ks, const float* vs,
                           const float* nk, const float* nv, const long long* ns, int slot,
                           cudaStream_t stream) {
-  // one query per block, its keys split over the 8 warps
-  const dim3 grid(Tq, H, B);
-  masked_attention_kernel<TKV, HD><<<grid, ATT_WARPS * 32, 0, stream>>>(
-      reinterpret_cast<const float*>(q), qs[0], qs[1], qs[2], reinterpret_cast<const TKV*>(k),
-      reinterpret_cast<const TKV*>(v), kvs[0], kvs[1], kvs[2],
-      reinterpret_cast<const TKV*>(pk), reinterpret_cast<const TKV*>(pv),
-      pk != nullptr ? ps[0] : 0, pk != nullptr ? ps[1] : 0, pk != nullptr ? ps[2] : 0, P,
+  cudaError_t err = allow_smem<TKV, HD, QMAX>();
+  if (err != cudaSuccess) return err;
+  AttLaunch<TKV, HD, QMAX> l(dim3(ATT_CLUSTER * ((Tq + ATT_QG - 1) / ATT_QG), H, B), stream);
+  err = cudaLaunchKernelEx(
+      &l.cfg, masked_attention_split_kernel<TKV, HD, QMAX>, reinterpret_cast<const float*>(q),
+      qs[0], qs[1], qs[2], reinterpret_cast<const TKV*>(k), reinterpret_cast<const TKV*>(v),
+      kvs[0], kvs[1], kvs[2], reinterpret_cast<const TKV*>(pk), reinterpret_cast<const TKV*>(pv),
+      pk != nullptr ? ps[0] : 0LL, pk != nullptr ? ps[1] : 0LL, pk != nullptr ? ps[2] : 0LL, P,
       beams, reinterpret_cast<float*>(o), os[0], os[1], os[2], B, Tq, C, lens, a1_lo, a2_lo,
-      q_off, scale, ks, vs, nk, nv, nk != nullptr ? ns[0] : 0,
-      nk != nullptr ? ns[1] : 0, slot, reinterpret_cast<TKV*>(const_cast<void*>(k)),
+      q_off, scale, ks, vs, nk, nv, nk != nullptr ? ns[0] : 0LL, nk != nullptr ? ns[1] : 0LL,
+      slot, reinterpret_cast<TKV*>(const_cast<void*>(k)),
       reinterpret_cast<TKV*>(const_cast<void*>(v)));
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
+}
+
+// the kernel's instance for (kinds, hd, Tq): its dynamic shared memory,
+// threads a block and the clusters the card holds at once
+template <typename TKV, int HD, int QMAX>
+static cudaError_t info(int* out) {
+  cudaError_t err = allow_smem<TKV, HD, QMAX>();
+  if (err != cudaSuccess) return err;
+  AttLaunch<TKV, HD, QMAX> l(dim3(ATT_CLUSTER), nullptr);
+  out[0] = l.cfg.dynamicSmemBytes;
+  out[1] = l.cfg.blockDim.x;
+  out[3] = ATT_CLUSTER;
+  return cudaOccupancyMaxActiveClusters(&out[2], masked_attention_split_kernel<TKV, HD, QMAX>,
+                                        &l.cfg);
+}
+
+// the instance for Tq queries: groups of 1, up to 8, or up to ATT_QG
+template <typename TKV, int HD>
+static cudaError_t launch_q(int Tq, const void* q, const long long* qs, const void* k,
+                            const void* v, const long long* kvs, const void* pk, const void* pv,
+                            const long long* ps, int P, int beams, void* o, const long long* os,
+                            int B, int H, int C, const int* lens, int a1_lo, int a2_lo,
+                            int q_off, float scale, const float* ks, const float* vs,
+                            const float* nk, const float* nv, const long long* ns, int slot,
+                            cudaStream_t stream) {
+#define VX_ATT_ARGS                                                                          \
+  q, qs, k, v, kvs, pk, pv, ps, P, beams, o, os, B, H, Tq, C, lens, a1_lo, a2_lo, q_off, scale, \
+      ks, vs, nk, nv, ns, slot, stream
+  if (Tq == 1) return launch<TKV, HD, 1>(VX_ATT_ARGS);
+  if (Tq <= 8) return launch<TKV, HD, 8>(VX_ATT_ARGS);
+  return launch<TKV, HD, ATT_QG>(VX_ATT_ARGS);
+#undef VX_ATT_ARGS
+}
+
+template <typename TKV>
+static cudaError_t launch_hd(int hd, int Tq, const void* q, const long long* qs, const void* k,
+                             const void* v, const long long* kvs, const void* pk, const void* pv,
+                             const long long* ps, int P, int beams, void* o, const long long* os,
+                             int B, int H, int C, const int* lens, int a1_lo, int a2_lo,
+                             int q_off, float scale, const float* ks, const float* vs,
+                             const float* nk, const float* nv, const long long* ns, int slot,
+                             cudaStream_t stream) {
+  if (hd == 64)
+    return launch_q<TKV, 64>(Tq, q, qs, k, v, kvs, pk, pv, ps, P, beams, o, os, B, H, C, lens,
+                             a1_lo, a2_lo, q_off, scale, ks, vs, nk, nv, ns, slot, stream);
+  if (hd == 128)
+    return launch_q<TKV, 128>(Tq, q, qs, k, v, kvs, pk, pv, ps, P, beams, o, os, B, H, C, lens,
+                              a1_lo, a2_lo, q_off, scale, ks, vs, nk, nv, ns, slot, stream);
+  return cudaErrorInvalidValue;
 }
 
 // q: [B, H, Tq, hd] with 1 <= Tq <= 65535 and hd 64 or 128; k, v: [B, H, C,
@@ -363,24 +670,8 @@ static cudaError_t launch(const void* q, const long long* qs, const void* k, con
 // a1_len, a2_len per row), contiguous. pk/pv: null, or the grouped mode's
 // prefix [B / beams, H, P, hd] of the k/v type with strides ps. nk/nv:
 // null, or the own-column mode's new k/v [B, H, 1, hd] f32 with (b, h, t)
-// strides ns, written into row `slot` of k/v (Tq must be 1).
-template <typename TKV>
-static cudaError_t launch_hd(int hd, const void* q, const long long* qs, const void* k,
-                             const void* v, const long long* kvs, const void* pk, const void* pv,
-                             const long long* ps, int P, int beams, void* o, const long long* os,
-                             int B, int H, int Tq, int C, const int* lens, int a1_lo, int a2_lo,
-                             int q_off, float scale, const float* ks, const float* vs,
-                             const float* nk, const float* nv, const long long* ns, int slot,
-                             cudaStream_t stream) {
-  if (hd == 64)
-    return launch<TKV, 64>(q, qs, k, v, kvs, pk, pv, ps, P, beams, o, os, B, H, Tq, C, lens,
-                           a1_lo, a2_lo, q_off, scale, ks, vs, nk, nv, ns, slot, stream);
-  if (hd == 128)
-    return launch<TKV, 128>(q, qs, k, v, kvs, pk, pv, ps, P, beams, o, os, B, H, Tq, C, lens,
-                            a1_lo, a2_lo, q_off, scale, ks, vs, nk, nv, ns, slot, stream);
-  return cudaErrorInvalidValue;
-}
-
+// strides ns, written into row `slot` of k/v (Tq must be 1). k/v rows (and
+// the prefix's) must start on 16-byte boundaries.
 extern "C" int vx_masked_attention(const void* q, const long long* qs, const void* k,
                                    const void* v, const long long* kvs, const void* pk,
                                    const void* pv, const long long* ps, int P, int beams,
@@ -403,18 +694,41 @@ extern "C" int vx_masked_attention(const void* q, const long long* qs, const voi
   const float* fnv = reinterpret_cast<const float*>(nv);
   switch (kinds) {
     case 0:
-      return (int)launch_hd<__nv_bfloat16>(hd, q, qs, k, v, kvs, pk, pv, ps, P, beams, o, os, B,
-                                           H, Tq, C, l, a1_lo, a2_lo, q_off, scale, fks, fvs, fnk,
+      return (int)launch_hd<__nv_bfloat16>(hd, Tq, q, qs, k, v, kvs, pk, pv, ps, P, beams, o, os,
+                                           B, H, C, l, a1_lo, a2_lo, q_off, scale, fks, fvs, fnk,
                                            fnv, ns, slot, s);
     case 2:
-      return (int)launch_hd<float>(hd, q, qs, k, v, kvs, pk, pv, ps, P, beams, o, os, B, H, Tq,
+      return (int)launch_hd<float>(hd, Tq, q, qs, k, v, kvs, pk, pv, ps, P, beams, o, os, B, H,
                                    C, l, a1_lo, a2_lo, q_off, scale, fks, fvs, fnk, fnv, ns, slot,
                                    s);
     case 3:
-      return (int)launch_hd<int8_t>(hd, q, qs, k, v, kvs, pk, pv, ps, P, beams, o, os, B, H, Tq,
+      return (int)launch_hd<int8_t>(hd, Tq, q, qs, k, v, kvs, pk, pv, ps, P, beams, o, os, B, H,
                                     C, l, a1_lo, a2_lo, q_off, scale, fks, fvs, fnk, fnv, ns,
                                     slot, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+// out[4] <- the instance for (kinds, hd, Tq): dynamic shared memory bytes,
+// threads a block, clusters resident at once (cudaOccupancyMaxActiveClusters)
+// and blocks a cluster. Returns a CUDA error code.
+extern "C" int vx_masked_attention_info(int kinds, int hd, int Tq, int* out) {
+#define VX_INFO(T)                                                                      \
+  (hd == 64    ? (Tq == 1 ? info<T, 64, 1>(out) : Tq <= 8 ? info<T, 64, 8>(out)        \
+                                                         : info<T, 64, ATT_QG>(out))  \
+   : hd == 128 ? (Tq == 1 ? info<T, 128, 1>(out) : Tq <= 8 ? info<T, 128, 8>(out)      \
+                                                          : info<T, 128, ATT_QG>(out)) \
+               : cudaErrorInvalidValue)
+  switch (kinds) {
+    case 0:
+      return (int)VX_INFO(__nv_bfloat16);
+    case 2:
+      return (int)VX_INFO(float);
+    case 3:
+      return (int)VX_INFO(int8_t);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef VX_INFO
 }

@@ -1,7 +1,9 @@
 """`masked_attention`: the decode attention — any number of queries over
 the valid keys of a [text | audio] cache, with bounds per batch row, head
-dim 64 or 128 on the card (kernel: masked_attention.cu, one block per
-query). The NAR's full-sequence attention is `flash_attention`'s.
+dim 64 or 128 on the card (kernel: masked_attention.cu, a cluster of
+SPLIT_BLOCKS blocks per (row, head, group of QUERY_GROUP queries) splitting
+the keys, merged through distributed shared memory). The NAR's
+full-sequence attention is `flash_attention`'s.
 
 Key c is valid for row b and query qi iff
     c < x_len[b]
@@ -34,6 +36,13 @@ the column is written into row `slot` of k/v, rounded to the cache type or
 quantized (`write_column`). The TPU decode kernels fold their own column
 this way (vallex_tpu/ops/decode_step.py, decode_attention.py, and
 decode_block.py with kv_scales).
+
+The kernel walks a row's virtual keys (text, then range 1, then range 2;
+`key_counts`) in tiles of SPLIT_TILE; the cluster's block r takes the r-th
+run of ceil(tiles / SPLIT_BLOCKS) tiles, counted for the group's last query
+(`split_chunks_plain`), and the blocks' softmax states merge in rank order
+(`masked_attention_split_plain`, the kernel's arithmetic in f32 torch; the
+tests and chip_smoke.py use it, the port does not).
 """
 
 from __future__ import annotations
@@ -46,7 +55,12 @@ import torch
 
 from .loader import HEAD_DIMS, check, launch_counts, library, stream_ptr
 
-MAX_QUERIES = 65535  # the grid's x extent: one block per query
+MAX_QUERIES = 65535  # the kernel's limit on Tq
+# the kernel's partition (masked_attention.cu: ATT_CLUSTER, ATT_TILE, ATT_QG)
+SPLIT_BLOCKS = 8  # blocks a cluster: a (row, head, query group)'s keys split over them
+SPLIT_TILE = 32  # keys a tile
+QUERY_GROUP = 16  # queries sharing one read of K/V
+NEG_BIG = -1e30  # the kernel's VX_NEG_BIG: the max over no keys
 
 IntOrRows = Union[int, torch.Tensor]  # one value for every row, or [B]
 
@@ -171,6 +185,135 @@ def masked_attention_plain(
     return o.to(q.dtype)
 
 
+def _text_counts(bounds: Bounds, C: int, P: Optional[int]):
+    """([B], [B]) int64: the virtual keys before range 1 (the text rows) and
+    before range 2 (text + range 1), clamped into the rows they read (the
+    prefix's P in the grouped mode, else the cache's C)."""
+    lens = bounds.lens.long()
+    c1 = C if P is None else P
+    x = lens[0].clamp(min=0).clamp(max=c1)
+    return x, x + lens[1].clamp(min=0).clamp(max=max(c1 - bounds.a1_lo, 0))
+
+
+def key_counts(bounds: Bounds, Tq: int, C: int, *, P: Optional[int] = None,
+               slot: Optional[int] = None) -> torch.Tensor:
+    """[B, Tq] int64: the virtual keys (text, range 1, then range 2) query qi
+    of row b sees, each range clamped into the rows it reads as the kernel
+    clamps it; P: the grouped mode's prefix rows (text and range 1 read
+    there), slot: the own-column mode's (range 2 stops before it)."""
+    _, x_a1 = _text_counts(bounds, C, P)
+    cap = max((C if slot is None else min(C, slot)) - bounds.a2_lo, 0)
+    qi = torch.arange(Tq, device=x_a1.device)
+    a2 = (bounds.lens[2].long()[:, None] + bounds.q_off * qi).clamp(min=0).clamp(max=cap)
+    return x_a1[:, None] + a2
+
+
+def split_chunks_plain(bounds: Bounds, Tq: int, C: int, *, P: Optional[int] = None,
+                       slot: Optional[int] = None) -> torch.Tensor:
+    """[B, G, SPLIT_BLOCKS, 2] int64, G = ceil(Tq / QUERY_GROUP): the
+    virtual keys [start, end) that cluster rank r of row b's query group g
+    walks, by the kernel's rule: the group's count n (its largest query's,
+    `key_counts`) falls into ceil(n / SPLIT_TILE) tiles, rank r takes tiles
+    [r·k, r·k + k) with k = ceil(tiles / SPLIT_BLOCKS), cut at the count. A
+    chunk starts on a tile boundary, so its tiles are the SPLIT_TILE-key
+    runs from its start. It depends on the count alone."""
+    counts = key_counts(bounds, Tq, C, P=P, slot=slot)
+    B = counts.shape[0]
+    G = -(-Tq // QUERY_GROUP)
+    out = torch.zeros((B, G, SPLIT_BLOCKS, 2), dtype=torch.int64, device=counts.device)
+    rank = torch.arange(SPLIT_BLOCKS, device=counts.device)
+    for g in range(G):
+        lo, hi = g * QUERY_GROUP, min(Tq, (g + 1) * QUERY_GROUP)
+        n = torch.maximum(counts[:, lo], counts[:, hi - 1])[:, None]  # [B, 1]
+        tiles = (n + SPLIT_TILE - 1) // SPLIT_TILE
+        per = (tiles + SPLIT_BLOCKS - 1) // SPLIT_BLOCKS
+        t0 = torch.minimum(rank * per, tiles)
+        t1 = torch.minimum(t0 + per, tiles)
+        out[:, g, :, 0] = torch.minimum(t0 * SPLIT_TILE, n)
+        out[:, g, :, 1] = torch.minimum(t1 * SPLIT_TILE, n)
+    return out
+
+
+def masked_attention_split_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    bounds: Optional[Bounds] = None, *, prefix: Optional[Prefix] = None,
+    beams: int = 1, kv_scales: Optional[Scales] = None,
+    new_kv: Optional[NewKV] = None, slot: Optional[int] = None, **layout,
+) -> torch.Tensor:
+    """`masked_attention_plain`'s function by the kernel's arithmetic, in
+    f32 torch: each cluster rank's online-softmax state (m, l, acc) over
+    its chunk of virtual keys (`split_chunks_plain`), masked per query by
+    its own count, then the ranks merged in rank order, the own column
+    folded in last and the v-scale applied. An empty chunk leaves
+    m = NEG_BIG, l = 0; a query with no key at all gives 0. Reads k/v only."""
+    B, H, Tq, hd = q.shape
+    if bounds is None:
+        bounds = attention_bounds(B, device=q.device, **layout)
+    if new_kv is not None and Tq != 1:
+        raise ValueError("masked_attention: the own-column mode takes one query")
+    C = k.shape[2]
+    P = None if prefix is None else prefix[0].shape[2]
+    counts = key_counts(bounds, Tq, C, P=P, slot=slot)  # [B, Tq]
+    chunks = split_chunks_plain(bounds, Tq, C, P=P, slot=slot)  # [B, G, S, 2]
+    # the virtual keys' rows: text and range 1 on the prefix side (the
+    # prefix row of the request, or the row's own cache), range 2 in the cache
+    dev = q.device
+    n_v = max(int(counts.max()), 1)
+    x, x_a1 = (t[:, None] for t in _text_counts(bounds, C, P))
+    vk = torch.arange(n_v, device=dev)[None, :]  # [1, V]
+    side_p = vk < x_a1
+    row = torch.where(vk < x, vk, torch.where(side_p, bounds.a1_lo + vk - x,
+                                              bounds.a2_lo + vk - x_a1))
+    kp, vp = (k, v) if prefix is None else \
+        (t.repeat_interleave(beams, dim=0) for t in prefix)
+
+    def gather(src, rows_in):  # [B, H, R, hd] at rows [B, V] -> [B, H, V, hd] f32
+        idx = row.clamp(0, rows_in - 1)[:, None, :, None].expand(B, H, n_v, hd)
+        return src.float().gather(2, idx)
+
+    keep = side_p[:, None, :, None]
+    kv_ = torch.where(keep, gather(kp, kp.shape[2]), gather(k, C))
+    vv_ = torch.where(keep, gather(vp, vp.shape[2]), gather(v, C))
+    qf = q.float()
+    if kv_scales is not None:
+        ks, vs = (t.float()[None, :, None, None] for t in kv_scales)
+        qf = qf * ks
+    qf = qf * (1.0 / math.sqrt(hd))
+    s = qf @ kv_.transpose(-1, -2)  # [B, H, Tq, V]
+    valid = vk[:, None, :] < counts[:, :, None]  # [B, Tq, V]
+    group = torch.arange(Tq, device=dev) // QUERY_GROUP
+    lo, hi = chunks[:, group, :, 0], chunks[:, group, :, 1]  # [B, Tq, S]
+    mm = torch.full((B, H, Tq, 1), NEG_BIG, device=dev)
+    states = []
+    for r in range(SPLIT_BLOCKS):  # each rank's state over its chunk
+        mask = (valid & (vk[:, None, :] >= lo[..., r:r + 1])
+                & (vk[:, None, :] < hi[..., r:r + 1]))[:, None]  # [B, 1, Tq, V]
+        m = torch.where(mask, s, NEG_BIG).amax(-1, keepdim=True)
+        p = torch.where(mask, torch.exp(s - m), 0.0)
+        states.append((m, p.sum(-1, keepdim=True), p @ vv_))
+        mm = torch.maximum(mm, m)
+    if new_kv is not None:
+        nk, nv = (t.float() for t in new_kv)  # [B, H, 1, hd]
+        if kv_scales is not None:  # cache units, unrounded
+            nk, nv = nk / ks, nv / vs
+        s_own = (qf * nk).sum(-1, keepdim=True)
+        mm = torch.maximum(mm, s_own)
+    ll = torch.zeros_like(mm)
+    acc = torch.zeros((B, H, Tq, hd), device=dev)
+    for m, l, a in states:  # rank order
+        f = torch.exp(m - mm)
+        ll = ll + l * f
+        acc = acc + a * f
+    if new_kv is not None:  # the new column, last
+        p = torch.exp(s_own - mm)
+        ll = ll + p
+        acc = acc + p * nv
+    o = torch.where(ll > 0, acc / torch.where(ll > 0, ll, 1.0), 0.0)
+    if kv_scales is not None:
+        o = o * vs
+    return o.to(q.dtype)
+
+
 def write_column(k: torch.Tensor, v: torch.Tensor, new_kv: NewKV, slot: int,
                  kv_scales: Optional[Scales] = None) -> None:
     """The own-column mode's cache write, in PyTorch: row `slot` of k/v
@@ -270,7 +413,7 @@ def masked_attention(
     for a, b in zip(kv[::2], kv[1::2]):
         if a.stride() != b.stride():
             raise ValueError("masked_attention: k and v (and the prefix pair) must share strides")
-        if any(st % align for st in a.stride()[:3]):
+        if any(st % align for st in a.stride()[:3]) or a.data_ptr() % 16 or b.data_ptr() % 16:
             raise ValueError("masked_attention: k/v rows must be 16-byte aligned")
     P, pk, pv, ps = 0, None, None, None
     if prefix is not None:
@@ -293,3 +436,14 @@ def masked_attention(
     check(rc, "masked_attention")
     launch_counts[("masked_attention", site)] += 1
     return out
+
+
+def kernel_info(dtype: torch.dtype, hd: int, Tq: int) -> dict:
+    """The kernel instance that k/v of `dtype` at head dim `hd` with Tq
+    queries launch: its dynamic shared memory, threads a block, clusters the
+    card holds at once (cudaOccupancyMaxActiveClusters) and blocks a
+    cluster. Needs the card."""
+    out = (ctypes.c_int * 4)()
+    check(library().vx_masked_attention_info(KINDS[(torch.float32, dtype)], hd, Tq, out),
+          "masked_attention_info")
+    return dict(smem_bytes=out[0], threads=out[1], clusters=out[2], cluster_blocks=out[3])
