@@ -19,20 +19,26 @@ Phases, one flushed line each with its own seconds and wall-clock limit:
      dQ and dK/dV, each at hd 64 and 128) and the f32 product's registers,
      shared memory and spills (a spill fails), the f32 flash kernels'
      resident warps per SM at T = 2304 (under 8 fails); an old f32 flash or
-     product kernel left in the library fails
+     product kernel left in the library fails; the sampling epilogue's
+     instances' registers and spills (a spill at VP 1152 fails; the old
+     block-per-row kernel left in the library fails)
   3  each kernel against its plain version, at each single-request site
      (the NAR attention: the flash forward with the NAR's segments (ok, ok)
      at T = 2304, bf16 and f32); masked_attention at Tq = 16 (a verify pass at
      decode_steps = 16) and Tq = 40 (three query groups, the last ragged);
      the prep kernel of gemm_small_m (the LayerNorm rows of one verify
      pass); every product and every decode attention (here and in 3b-3d,
-     3f) run twice, bitwise equal
+     3f) run twice, bitwise equal; the empty-launch floor of the timing
+     harness on a line of its own; the sampling wrapper refuses VP > 2048
+     and logits off 16 bytes
   3b the same at the batched sites: decode attention with per-row bounds
      (B = 4), the NAR attention at B = 4, the products of one batched step
      at M = 4 and 8 (bf16 and int8, each row equal to its M = 1 product),
      sampling over 8 rows
   3c the same for best_of and filtered sampling: the filtered epilogue
-     (top_k 10 / 50, top_p 0.9 / 0.5, 1 and 20 rows), the grouped decode
+     (top_k 10 / 50, top_p 0.9 / 0.5, 1 and 20 rows; top-p alone, top-k
+     alone, k = 200 above the kernel's sorted-candidate cap, ties at the
+     k-th value, temperature 0.7, 8 rows; two runs bitwise), the grouped decode
      attention (1 request x 5 samples, 4 x 5), the products at M = 16 and
      20, and the f32 products (M = 1, 4, 8, 20: 1e-4 of scale, bitwise rows
      and runs, the head's argmax), the f32 prep rows (1e-6 of each row's
@@ -100,9 +106,10 @@ Phases, one flushed line each with its own seconds and wall-clock limit:
      leaf), a packed batch, two stage-1 ScaledAdam steps (the NAR
      parameters stay bitwise), one use_flash="auto" step, a profiled step
      (its bf16 backward must run on the tensor-core kernels alone)
-  7  torch.profiler traces of one request and of one batch of 4: the
-     device-busy share of their AR, NAR and Vocos spans, and the AR's
-     device time by kernel and that of gemm_small_m's kernels
+  7  torch.profiler traces of one request, of one filtered request (top_k
+     50, top_p 0.9) and of one batch of 4: the device-busy share of their
+     AR, NAR and Vocos spans, and the AR's device time by kernel and that
+     of gemm_small_m's and sample_epilogue's kernels
   8  the `kernels` JSON line, then the result line.
 Launch counts are zeroed just before phase 5 and read after phase 6 (the
 single-request path), zeroed again just before phase 5b and read after
@@ -241,6 +248,15 @@ def busy_ms(intervals, lo, hi):
     return total / 1e3
 
 
+def filtered_request(api, bundle):
+    """Phase 7's filtered request (one filtered epilogue a frame):
+    "Hello world." with paimon, top_k=50, top_p=0.9 → (phase seconds,
+    frames)."""
+    api.generate_audio("Hello world.", prompt="paimon", language="en", top_k=50, top_p=0.9,
+                       max_duration=3.0, seed=0)
+    return bundle.last.seconds, len(bundle.last.codes)
+
+
 def trace_events(prof):
     """The events of a finished torch.profiler run, from its chrome trace."""
     with tempfile.TemporaryDirectory() as td:
@@ -300,6 +316,9 @@ def trace_run(label: str, run) -> None:
     out["ar_gemm_small_m_device_ms"] = round(sum(gemm.values()), 3)
     out["ar_gemm_small_m_busy_ms"] = round(busy_ms(
         [(a, b) for a, b, n in device if b > lo and a < hi and n in gemm], lo, hi), 3)
+    # the sampling epilogue's kernels (filtered sampling runs one a frame)
+    out["ar_sample_epilogue_device_ms"] = round(sum(
+        t for n, t in by_name.items() if "sample_epilogue" in n), 3)
     say("trace " + json.dumps(out))
 
 
@@ -430,6 +449,12 @@ OLD_F32_KERNELS = ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_ker
 # per query that it replaced may not be left in the library
 ATT_KERNEL, OLD_ATT_KERNEL = "masked_attention_split_kernel", "masked_attention_kernel"
 ATT_KV = {"13__nv_bfloat16": "bf16", "f": "f32", "a": "int8"}  # mangled k/v types
+# the sampling epilogue: the row in registers, unfiltered over a few warps
+# (draw), filtered in one warp (filter), each a template on the float4 chunks
+# a thread; the one block per row that it replaced may not be left
+SAMPLE_KERNEL, OLD_SAMPLE_KERNEL = r"sample_epilogue_(?:draw|filter)_kernel", "sample_epilogue_kernel"
+# the instances the repo's configurations launch (VP = 1152), held to no spill
+SAMPLE_HELD = {("sample_epilogue_draw_kernel", 3), ("sample_epilogue_filter_kernel", 9)}
 
 
 def tc_kernel_report(lib) -> None:
@@ -444,12 +469,14 @@ def tc_kernel_report(lib) -> None:
     the decode attention (ATT_KERNEL<k/v type, hd, queries a group>) each
     instance's registers, shared memory and spills, its dynamic shared
     memory, threads a block and the clusters the card holds at once
-    (cudaOccupancyMaxActiveClusters). Fails if a tensor-core kernel has no HGMMA instruction, ptxas
+    (cudaOccupancyMaxActiveClusters); for the sampling epilogue
+    (SAMPLE_KERNEL<float4 chunks a thread>) each instance's registers and
+    spills (held to none in SAMPLE_HELD, the instances at VP 1152). Fails if a tensor-core kernel has no HGMMA instruction, ptxas
     reports a spill in any of these, an f32 flash kernel keeps fewer than 8
     warps resident per SM, a CUDA-core flash kernel is built for bf16 (those
     run f32 only), an attention instance cannot place one cluster, or an old
-    f32 kernel (OLD_F32_KERNELS) or the old decode attention (OLD_ATT_KERNEL)
-    is left in the library."""
+    f32 kernel (OLD_F32_KERNELS), the old decode attention (OLD_ATT_KERNEL) or
+    the old sampling epilogue (OLD_SAMPLE_KERNEL) is left in the library."""
     import torch
 
     from vallex_tpu_torch.kernels.masked_attention import kernel_info
@@ -463,7 +490,8 @@ def tc_kernel_report(lib) -> None:
         return any(re.search(rf"\d{k}[A-Z]", fn_name) for k in OLD_F32_KERNELS)
 
     def old_att(fn_name):
-        return re.search(rf"\d{OLD_ATT_KERNEL}I", fn_name) is not None
+        return (re.search(rf"\d{OLD_ATT_KERNEL}I", fn_name) is not None
+                or re.search(rf"\d{OLD_SAMPLE_KERNEL}", fn_name) is not None)
 
     report = lib.parent / ("ptxas_" + lib.name.split("_")[-1].split(".")[0] + ".txt")
     if report.exists():
@@ -483,12 +511,18 @@ def tc_kernel_report(lib) -> None:
             att = re.search(rf"\d{ATT_KERNEL}I(13__nv_bfloat16|f|a)Li(\d+)ELi(\d+)E", head)
             if att:
                 name = [f"{ATT_KERNEL}<{ATT_KV[att.group(1)]}, {att.group(2)}, {att.group(3)}>"]
+            nc = re.search(rf"\d({SAMPLE_KERNEL})ILi(\d+)E", head)
+            if nc:
+                name = [f"{nc.group(1)}<{nc.group(2)}>"]
             if name:
                 said = [ln.split(":", 1)[-1].strip() for ln in blk.splitlines()[1:]
                         if any(w in ln for w in ("stack frame", "Used", "wgmma", "smem"))]
                 say(f"  ptxas {name[0]}: " + "; ".join(said))
                 spills = re.findall(r"(\d+) bytes spill (?:stores|loads)", blk)
-                if any(int(x) for x in spills):
+                # the other sampling instances serve widths no configuration of
+                # the repo has: printed, not held
+                unheld = nc is not None and (nc.group(1), int(nc.group(2))) not in SAMPLE_HELD
+                if any(int(x) for x in spills) and not unheld:
                     fail(f"{name[0]}: ptxas reports spills: {'; '.join(said)}")
     lib_ = loader.library()
     for hd in TC_HEAD_DIMS:
@@ -1303,6 +1337,188 @@ def decode_attention_rows(entry, g, dev, names=DECODE_ROWS, NL=12) -> None:
             fail(f"decode_attention_rows: no row {name}")
 
 
+# ---------------------------------------------------------------------------
+# The sampling epilogue (phases 3-3d): module-level so that
+# tools/torch_flash_bench.py times it for another tree too.
+# ---------------------------------------------------------------------------
+
+def empty_launch_ms(dev):
+    """The floor under every device_ms: a one-element fill_ and
+    torch.cuda._sleep(1), timed by the same harness."""
+    import torch
+
+    z = torch.empty(1, device=dev)
+    out = {"fill_": device_ms(lambda: z.fill_(0.0))}
+    if hasattr(torch.cuda, "_sleep"):
+        out["_sleep(1)"] = device_ms(lambda: torch.cuda._sleep(1))
+    return out
+
+
+def _same_bits(a, b) -> bool:
+    import torch
+
+    return a.shape == b.shape and torch.equal(a.contiguous().view(torch.uint8),
+                                              b.contiguous().view(torch.uint8))
+
+
+def _twice_bitwise(label, run) -> None:
+    """Two launches on the same inputs give the same bits in every output."""
+    first, second = run(), run()
+    if not all(_same_bits(a, b) for a, b in zip(first, second)):
+        fail(f"{label}: two runs differ")
+
+
+def check_sample_epilogue(entry, g, dev, vocab, VP, site, rows, greedy, in_line=True):
+    """The unfiltered epilogue (Gumbel or greedy) against its plain version on
+    the same uniforms: tokens equal, logprobs at 1e-4, two runs bitwise."""
+    import torch
+
+    from vallex_tpu_torch.kernels import sample_epilogue, sample_epilogue_plain
+
+    logits = torch.randn((rows, VP), generator=g, device=dev) * 3
+    u = None if greedy else torch.rand((rows, VP), generator=g, device=dev)
+    kw = dict(vocab=vocab, temperature=1.0, greedy=greedy)
+    tk, lk = sample_epilogue(logits, u, site="check", **kw)
+    tp, lp = sample_epilogue_plain(logits, u, **kw)
+    torch.cuda.synchronize()
+    if not torch.equal(tk, tp):
+        fail(f"sample_epilogue@{site}: tokens differ {tk.tolist()} vs {tp.tolist()}")
+    err = float((lk - lp).abs().max())
+    if not err <= 1e-4:
+        fail(f"sample_epilogue@{site}: logprob err {err}")
+    _twice_bitwise(f"sample_epilogue@{site}",
+                   lambda: sample_epilogue(logits, u, site="check", return_keep=True, **kw))
+    ms = device_ms(lambda: sample_epilogue(logits, u, site="check", **kw))
+    pms = device_ms(lambda: sample_epilogue_plain(logits, u, **kw))
+    nbytes = rows * VP * 4 * (1 if greedy else 2) + rows * 8
+    # library: null — no one PyTorch call computes the Gumbel-argmax (or
+    # argmax) together with the chosen token's log-softmax logprob
+    entry("sample_epilogue", site, err, ms, pms, nbytes, 4 * rows * VP, None,
+          f"1 launch: {rows} x {VP} logits, {'greedy' if greedy else 'Gumbel'}", in_line)
+
+
+def check_sample_rejects(dev) -> None:
+    """The wrapper raises, before any launch, for what the kernel does not
+    take: rows wider than VP_MAX, and logits off a 16-byte boundary."""
+    import torch
+
+    from vallex_tpu_torch.kernels.sample_epilogue import VP_MAX, sample_epilogue
+
+    wide = torch.zeros((1, VP_MAX + 128), device=dev)
+    shifted = torch.zeros((1, 1156), device=dev)[:, 1:1153]
+    for name, x in (("a row wider than VP_MAX", wide), ("logits off 16 bytes", shifted)):
+        try:
+            sample_epilogue(x, None, vocab=x.shape[1], temperature=1.0, greedy=True, site="check")
+        except ValueError:
+            continue
+        fail(f"sample_epilogue: {name} was not refused")
+
+
+def check_filtered_epilogue(entry, g, dev, vocab, VP, rows, top_k, top_p, in_line=False,
+                            temperature=1.0, ties=False, note=""):
+    """The filtered epilogue against its plain version on the same uniforms:
+    kept sets equal, except at a token whose mass above lies within 1e-5 of
+    top_p (the f32 mass sums run in another order); tokens equal and
+    logprobs at 1e-4 on every row whose kept set is equal; two runs
+    bitwise. ties: 5 more lanes of each row take its k-th largest value.
+    Returns the number of kept-set differences."""
+    import torch
+
+    from vallex_tpu_torch.kernels import sample_epilogue, sample_epilogue_plain
+    from vallex_tpu_torch.ops.sampling import topk_keep_mask
+
+    site = "decode_block_fused_filtered"
+    logits = torch.randn((rows, VP), generator=g, device=dev) * 3
+    if ties:
+        kth = logits[:, :vocab].topk(top_k, dim=-1).values[:, -1:]
+        lanes = torch.randperm(vocab, generator=g, device=dev)[:5]
+        logits[:, lanes] = kth.expand(rows, 5)
+    u = torch.rand((rows, VP), generator=g, device=dev)
+    kw = dict(vocab=vocab, temperature=temperature, greedy=False, top_k=top_k, top_p=top_p)
+    tk, lk, kk = sample_epilogue(logits, u, return_keep=True, site="check", **kw)
+    tp, lp, kp = sample_epilogue_plain(logits, u, return_keep=True, **kw)
+    torch.cuda.synchronize()
+    diff = kk[:, :vocab] != kp[:, :vocab]
+    if bool(diff.any()):
+        lanes = torch.arange(VP, device=dev)
+        scaled = torch.where(lanes < vocab, logits, -1e30) / max(temperature, 1e-6)
+        f = torch.where(topk_keep_mask(scaled, top_k), scaled, -1e9).double()
+        prob = torch.softmax(f, dim=-1)
+        for r, i in diff.nonzero().tolist():
+            above = float(prob[r][f[r] > f[r, i]].sum())
+            if abs(above - top_p) > 1e-5:
+                fail(f"sample_epilogue@{site}: row {r} token {i} kept differently, mass"
+                     f" above {above} vs top_p {top_p}")
+    boundary = int(diff.sum())
+    same = ~diff.any(1)
+    if not torch.equal(tk[same], tp[same]):
+        fail(f"sample_epilogue@{site}: tokens differ {tk.tolist()} vs {tp.tolist()}")
+    err = float((lk[same] - lp[same]).abs().max()) if bool(same.any()) else 0.0
+    if not err <= 1e-4:
+        fail(f"sample_epilogue@{site}: logprob err {err}")
+    _twice_bitwise(f"sample_epilogue@{site} top_k={top_k} top_p={top_p}",
+                   lambda: sample_epilogue(logits, u, return_keep=True, site="check", **kw))
+    ms = device_ms(lambda: sample_epilogue(logits, u, site="check", **kw))
+    pms = device_ms(lambda: sample_epilogue_plain(logits, u, **kw))
+    nbytes = rows * VP * 4 * 2 + rows * 8
+    # what the function needs per logit, not the algorithm that runs it: the
+    # scale, one pass per filter (a compare for top-k; an exp, a sum and a
+    # compare for top-p), the Gumbel draw (two logs, an add, the argmax
+    # compare) and the log-softmax's exp and sum
+    ops = rows * VP * (1 + 1 + 3 + 4 + 2)
+    # library: null — no one PyTorch call filters, draws and returns the
+    # chosen token's logprob
+    entry("sample_epilogue", site, err, ms, pms, nbytes, ops, None,
+          f"1 launch: {rows} x {VP} logits, top_k={top_k}, top_p={top_p}, T={temperature},"
+          f" Gumbel{note}; {boundary} kept-set difference(s) at the nucleus boundary", in_line,
+          F32_OPS_PER_S)
+    return boundary
+
+
+# PERF.md's filtered rows, (rows, top_k, top_p, temperature, ties): l (in the
+# kernels line), the other three settings and the 20 rows of each; then the
+# edge rows: l-p (top-p alone), top-k alone, k above the kernel's
+# sorted-candidate cap, ties at the k-th value, temperature 0.7, 8 rows.
+FILTERED_SETTINGS = tuple((rows, k, p, 1.0, False) for rows in (1, 20) for k in (10, 50)
+                          for p in (0.9, 0.5))
+FILTERED_EDGES = ((1, -100, 0.9, 1.0, False), (1, 50, 1.0, 1.0, False), (1, 200, 0.9, 1.0, False),
+                  (1, 50, 0.9, 1.0, True), (8, 50, 0.9, 0.7, False), (8, 50, 0.9, 1.0, False),
+                  (20, -100, 0.9, 1.0, False))
+FILTERED_ROWS = FILTERED_SETTINGS + FILTERED_EDGES
+
+
+# PERF.md's sample_epilogue rows by name, for tools/torch_decode_variants.py:
+# (site, rows, greedy) unfiltered, (rows, top_k, top_p) filtered
+SAMPLE_ROWS = {"c": ("decode_block_fused", 1, False), "f": ("decode_verify", 8, True),
+               "j": ("decode_block_fused_batched", 8, False), "v": ("decode_step_fused", 1, False),
+               "l": (1, 50, 0.9), "l20": (20, 50, 0.9), "l-p": (1, -100, 0.9),
+               "l-k": (1, 50, 1.0), "l200": (1, 200, 0.9)}
+
+
+def sample_rows(entry, g, dev, vocab, VP, names) -> None:
+    """The SAMPLE_ROWS named, each checked and timed."""
+    for name in names:
+        a = SAMPLE_ROWS[name]
+        if isinstance(a[0], str):
+            check_sample_epilogue(entry, g, dev, vocab, VP, *a)
+        else:
+            check_filtered_epilogue(entry, g, dev, vocab, VP, *a)
+
+
+def filtered_rows(entry, g, dev, vocab, VP, g_edges=None) -> int:
+    """Every FILTERED_ROWS check, the edge rows' inputs from g_edges when
+    given (so that they leave g's stream, which later phases draw from, as it
+    was without them); the kept-set differences in all."""
+    total = 0
+    for rows, k, p, temp, ties in FILTERED_ROWS:
+        gen = g_edges if g_edges is not None and (rows, k, p, temp, ties) in FILTERED_EDGES else g
+        total += check_filtered_epilogue(entry, gen, dev, vocab, VP, rows, k, p,
+                                         in_line=(rows, k, p, temp, ties) == (1, 50, 0.9, 1.0, False),
+                                         temperature=temp, ties=ties,
+                                         note=", ties at the k-th value" if ties else "")
+    return total
+
+
 def main() -> None:
     import torch
 
@@ -1317,7 +1533,7 @@ def main() -> None:
     from vallex_tpu_torch.engine.pipeline import SynthesisPipeline
     from vallex_tpu_torch.kernels import (
         gemm_small_m, gemm_small_m_plain, loader, masked_attention,
-        masked_attention_plain, sample_epilogue, sample_epilogue_plain,
+        masked_attention_plain,
     )
     from vallex_tpu_torch.kernels.gemm_small_m import gemm_prep, gemm_prep_plain
     from vallex_tpu_torch.kernels.masked_attention import (
@@ -1327,7 +1543,6 @@ def main() -> None:
     from vallex_tpu_torch.ops.decode_block import decode_block_fused
     from vallex_tpu_torch.ops.decode_step import decode_step, decode_step_fused, pack_layer_weights
     from vallex_tpu_torch.ops.decode_verify import decode_verify, embed
-    from vallex_tpu_torch.ops.sampling import topk_keep_mask
     from vallex_tpu_torch.server import DynamicBatcher, make_server
 
     dev = torch.device("cuda")
@@ -1462,75 +1677,7 @@ def main() -> None:
         check_masked_attention(entry, site, q, k, v, bounds, reps_layers, in_line, **gk)
 
     def check_sample(site, rows, greedy):
-        logits = torch.randn((rows, VP), generator=g, device=dev) * 3
-        u = None if greedy else torch.rand((rows, VP), generator=g, device=dev)
-        tk, lk = sample_epilogue(logits, u, vocab=vocab, temperature=1.0, greedy=greedy, site="check")
-        tp, lp = sample_epilogue_plain(logits, u, vocab=vocab, temperature=1.0, greedy=greedy)
-        torch.cuda.synchronize()
-        if not torch.equal(tk, tp):
-            fail(f"sample_epilogue@{site}: tokens differ {tk.tolist()} vs {tp.tolist()}")
-        err = float((lk - lp).abs().max())
-        if not err <= 1e-4:
-            fail(f"sample_epilogue@{site}: logprob err {err}")
-        ms = device_ms(lambda: sample_epilogue(logits, u, vocab=vocab, temperature=1.0,
-                                               greedy=greedy, site="check"))
-        pms = device_ms(lambda: sample_epilogue_plain(logits, u, vocab=vocab, temperature=1.0,
-                                                      greedy=greedy))
-        nbytes = rows * VP * 4 * (1 if greedy else 2) + rows * 8
-        # library: null — no one PyTorch call computes the Gumbel-argmax (or
-        # argmax) together with the chosen token's log-softmax logprob
-        entry("sample_epilogue", site, err, ms, pms, nbytes, 4 * rows * VP, None,
-              f"1 launch: {rows} x {VP} logits, {'greedy' if greedy else 'Gumbel'}")
-
-    boundary_total = 0
-
-    def check_filtered(rows, top_k, top_p, in_line):
-        """The filtered epilogue against its plain version on the same
-        uniforms: kept sets equal, except at a token whose mass above lies
-        within 1e-5 of top_p (the f32 mass sums run in another order);
-        tokens equal and logprobs at 1e-4 on every row whose kept set is
-        equal."""
-        nonlocal boundary_total
-        site, temp = "decode_block_fused_filtered", 1.0
-        logits = torch.randn((rows, VP), generator=g, device=dev) * 3
-        u = torch.rand((rows, VP), generator=g, device=dev)
-        kw = dict(vocab=vocab, temperature=temp, greedy=False, top_k=top_k, top_p=top_p)
-        tk, lk, kk = sample_epilogue(logits, u, return_keep=True, site="check", **kw)
-        tp, lp, kp = sample_epilogue_plain(logits, u, return_keep=True, **kw)
-        torch.cuda.synchronize()
-        diff = kk[:, :vocab] != kp[:, :vocab]
-        if bool(diff.any()):
-            lanes = torch.arange(VP, device=dev)
-            scaled = torch.where(lanes < vocab, logits, -1e30) / temp
-            f = torch.where(topk_keep_mask(scaled, top_k), scaled, -1e9).double()
-            prob = torch.softmax(f, dim=-1)
-            for r, i in diff.nonzero().tolist():
-                above = float(prob[r][f[r] > f[r, i]].sum())
-                if abs(above - top_p) > 1e-5:
-                    fail(f"sample_epilogue@{site}: row {r} token {i} kept differently, mass"
-                         f" above {above} vs top_p {top_p}")
-        boundary = int(diff.sum())
-        boundary_total += boundary
-        same = ~diff.any(1)
-        if not torch.equal(tk[same], tp[same]):
-            fail(f"sample_epilogue@{site}: tokens differ {tk.tolist()} vs {tp.tolist()}")
-        err = float((lk[same] - lp[same]).abs().max()) if bool(same.any()) else 0.0
-        if not err <= 1e-4:
-            fail(f"sample_epilogue@{site}: logprob err {err}")
-        ms = device_ms(lambda: sample_epilogue(logits, u, site="check", **kw))
-        pms = device_ms(lambda: sample_epilogue_plain(logits, u, **kw))
-        nbytes = rows * VP * 4 * 2 + rows * 8
-        # what the function needs per logit, not the bisection that runs it:
-        # the scale, one pass per filter (a compare for top-k; an exp, a sum
-        # and a compare for top-p), the Gumbel draw (two logs, an add, the
-        # argmax compare) and the log-softmax's exp and sum
-        ops = rows * VP * (1 + 1 + 3 + 4 + 2)
-        # library: null — no one PyTorch call filters, draws and returns
-        # the chosen token's logprob
-        entry("sample_epilogue", site, err, ms, pms, nbytes, ops, None,
-              f"1 launch: {rows} x {VP} logits, top_k={top_k}, top_p={top_p}, Gumbel;"
-              f" {boundary} kept-set difference(s) at the nucleus boundary", in_line,
-              F32_OPS_PER_S)
+        check_sample_epilogue(entry, g, dev, vocab, VP, site, rows, greedy)
 
     def decode_q(B, Tq):
         """Queries as the decode forward hands them over: a strided view of
@@ -1564,8 +1711,11 @@ def main() -> None:
         check_attention("decode_verify", decode_q(1, 40), cache_k[0][None], cache_v[0][None],
                         one, NL, in_line=False)
         check_prep("decode_verify", packed, 8, False)
+        # the floor of every device_ms row, on a line of its own
+        say("empty launch ms " + json.dumps({k: round(v, 4) for k, v in empty_launch_ms(dev).items()}))
         check_sample("decode_block_fused", 1, False)
         check_sample("decode_verify", 8, True)
+        check_sample_rejects(dev)
 
     # ---- phase 3b: the batched sites -----------------------------------------
     with phase("3b kernels vs plain, batched", 300):
@@ -1587,13 +1737,12 @@ def main() -> None:
 
     # ---- phase 3c: best_of, filtered sampling, more rows, f32 ----------------
     with phase("3c kernels vs plain, best_of / filtered / f32", 300):
-        for rows in (1, 20):
-            for top_k in (10, 50):
-                for top_p in (0.9, 0.5):
-                    check_filtered(rows, top_k, top_p,
-                                   in_line=(rows, top_k, top_p) == (1, 50, 0.9))
+        # the edge rows draw from a generator of their own: the later phases'
+        # random inputs stay as they were before those rows
+        boundary_total = filtered_rows(entry, g, dev, vocab, VP,
+                                       torch.Generator(device=dev).manual_seed(16))
         say(f"  filtered epilogue: {boundary_total} kept-set difference(s) at the nucleus"
-            f" boundary over the 8 checks")
+            f" boundary over the {len(FILTERED_ROWS)} checks")
         # one request x 5 samples: "Hello world." with paimon (phase 5d)
         BEAMS = 5
         pl1 = len(api._load_prompt("paimon")[0])
@@ -2486,6 +2635,8 @@ def main() -> None:
             return bundle.last.seconds, [len(c) for c, _ in bundle.last.outputs]
 
         trace_run("'Hello world.', paimon, top_k=1, max_duration 3 s", one_request)
+        trace_run("'Hello world.', paimon, top_k=50, top_p=0.9, max_duration 3 s",
+                  lambda: filtered_request(api, bundle))
         trace_run(f"generate_audio_batch {short}, no prompt, top_k=1", one_batch)
 
     with phase("8 kernels line", 30):

@@ -1,11 +1,20 @@
 """Variants of the decode attention kernel (vallex_tpu_torch/kernels/
-masked_attention.cu) on one GPU: each variant is the source with one design
-choice changed, built alone (nvcc, a library of its own) and timed on
-PERF.md's decode-attention rows through chip_smoke.py's checks.
+masked_attention.cu) or of the sampling epilogue (sample_epilogue.cu) on one
+GPU: each variant is the source with one design choice changed, built alone
+(nvcc, a library of its own) and timed on PERF.md's rows of that kernel
+through chip_smoke.py's checks.
 
-    python3 tools/torch_decode_variants.py [--variants a,b] [--rows b,e,i]
+    python3 tools/torch_decode_variants.py [--kernel attention|sample]
+                                           [--variants a,b] [--rows b,e,i]
 
-Variants: `cluster16` (16 blocks a cluster, the non-portable size),
+Sampling variants: `row_warps1`, `row_warps2`, `row_warps8` (warps a row in
+the unfiltered kernel; 4 ships), `warps1` (one filtered row a block, not 4),
+`match_any` (the radix histogram's atomics aggregated by __match_any_sync),
+`no_early` (all 4 radix passes, no exit at an exact bin), `no_sort` (top-p
+always by the register bisection, never the sorted candidates), `no_list`
+(the draw over the whole row, not the compacted kept set), `full_range` (the
+bisection over the whole int32 range, as the old kernel ran it); rows c, f,
+j, v, l, l20, l-p, l-k, l200 (chip_smoke.py's SAMPLE_ROWS). Attention variants: `cluster16` (16 blocks a cluster, the non-portable size),
 `ring2` (two slots a warp), `no_pdl` (no programmatic dependent launch),
 `warps8` (up to 8 warps a block), `unrolled` (the chunk and P.V loops
 unrolled as at one query), `walk_off` (no key walked: the launch, the
@@ -30,16 +39,31 @@ import sys
 import tempfile
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SRC = os.path.join(HERE, "vallex_tpu_torch", "kernels", "masked_attention.cu")
+KERNELS = os.path.join(HERE, "vallex_tpu_torch", "kernels")
 
 
 def _sub(old: str, new: str):
     def apply(src: str) -> str:
         if old not in src:
-            raise SystemExit(f"variant: {old[:60]!r} is not in masked_attention.cu")
+            raise SystemExit(f"variant: {old[:60]!r} is not in the source")
         return src.replace(old, new, 1)
     return apply
 
+
+SAMPLE_VARIANTS = {
+    "row_warps1": [_sub("#define SE_ROW_WARPS 4 ", "#define SE_ROW_WARPS 1 ")],
+    "row_warps2": [_sub("#define SE_ROW_WARPS 4 ", "#define SE_ROW_WARPS 2 ")],
+    "row_warps8": [_sub("#define SE_ROW_WARPS 4 ", "#define SE_ROW_WARPS 8 ")],
+    "warps1": [_sub("#define SE_WARPS 4 ", "#define SE_WARPS 1 ")],
+    "match_any": [_sub("  atomicAdd(&hist[on ? bin : 256u + lane], 1u);",
+                       "  const unsigned peers = __match_any_sync(VX_FULL_MASK, on ? bin : 256u + lane);\n"
+                       "  if (__ffs(peers) - 1 == lane) atomicAdd(&hist[on ? bin : 256u + lane],"
+                       " (unsigned)__popc(peers));")],
+    "no_early": [_sub("if (in_bin == krem && shift > 0) {", "if (false) {")],
+    "no_sort": [_sub("if (n <= SE_CAP) {", "if (false) {")],
+    "no_list": [_sub("if (listed >= 1 && listed <= SE_LIST) {", "if (false) {")],
+    "full_range": [_sub("int lo = kmin, hi = kmax;", "int lo = INT_MIN, hi = INT_MAX;")],
+}
 
 VARIANTS = {
     "cluster16": [
@@ -63,9 +87,15 @@ VARIANTS = {
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--variants", default=",".join(VARIANTS))
-    ap.add_argument("--rows", default="b,b128,e,e16,e128,i,m,n,p,q")
+    ap.add_argument("--kernel", default="attention", choices=("attention", "sample"))
+    ap.add_argument("--variants", default="")
+    ap.add_argument("--rows", default="")
     args = ap.parse_args()
+    sample = args.kernel == "sample"
+    variants = SAMPLE_VARIANTS if sample else VARIANTS
+    src = os.path.join(KERNELS, "sample_epilogue.cu" if sample else "masked_attention.cu")
+    args.variants = args.variants or ",".join(variants)
+    args.rows = args.rows or ("c,f,j,v,l,l20,l-p,l-k,l200" if sample else "b,b128,e,e16,e128,i,m,n,p,q")
     sys.path.insert(0, HERE)
     import torch
 
@@ -81,13 +111,13 @@ def main() -> None:
                          capture_output=True, text=True, timeout=30).stdout.strip()
     cs.say(f"card: {smi.splitlines()[0] if smi else 'nvidia-smi gave nothing'}")
     names = ["base"] + [v for v in args.variants.split(",") if v]
-    src0 = open(SRC).read()
+    src0 = open(src).read()
     loader.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     work = tempfile.mkdtemp(prefix="decode_variants_", dir=loader.BUILD_DIR)
     procs = {}
     for name in names:
         text = src0
-        for fn in VARIANTS.get(name, []):
+        for fn in variants.get(name, []):
             text = fn(text)
         cu = os.path.join(work, f"{name}.cu")
         with open(cu, "w") as f:
@@ -105,9 +135,12 @@ def main() -> None:
                              blk.split("\n")[0])
             said = [ln.split(":", 1)[-1].strip() for ln in blk.splitlines()[1:]
                     if "spill" in ln or "Used" in ln]
+            nc = re.search(r"\d(sample_epilogue_\w+_kernel)ILi(\d+)E", blk.split("\n")[0])
             if inst:
                 cs.say(f"  ptxas {name} <{cs.ATT_KV[inst.group(1)]}, {inst.group(2)},"
                        f" {inst.group(3)}>: {'; '.join(said)}")
+            elif nc:
+                cs.say(f"  ptxas {name} {nc.group(1)}<{nc.group(2)}>: {'; '.join(said)}")
     cs.fail = lambda msg: cs.say(f"  check (not fatal here): {msg[:120]}")
     dev = torch.device("cuda")
     rows = tuple(args.rows.split(","))
@@ -126,7 +159,11 @@ def main() -> None:
                 library_ms=None if library_ms is None else round(library_ms, 4),
                 max_abs_err=float(err), unit=unit)))
 
-        cs.decode_attention_rows(entry, torch.Generator(device=dev).manual_seed(1), dev, rows)
+        g = torch.Generator(device=dev).manual_seed(1)
+        if sample:
+            cs.sample_rows(entry, g, dev, 1025, 1152, rows)
+        else:
+            cs.decode_attention_rows(entry, g, dev, rows)
     shutil.rmtree(work, ignore_errors=True)
     cs.say("variants ok")
 

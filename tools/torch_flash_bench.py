@@ -1,8 +1,8 @@
-"""The port's flash-attention and decode-product kernels on one GPU, alone:
-build, check and time.
+"""The port's flash-attention, decode-product, decode-attention and sampling
+kernels on one GPU, alone: build, check and time.
 
     python3 tools/torch_flash_bench.py [--root DIR] [--label NAME] [--hd 64,128]
-                                       [--parts flash,gemm,decode]
+                                       [--parts flash,gemm,decode,sample,trace]
 
 Part "flash" runs the checks and timings of chip_smoke.py's phases 3e / 3f
 (the forward, dQ and dK/dV kernels against their plain versions at B = 4,
@@ -21,7 +21,14 @@ phases 3-3d and 3f, PERF.md's rows b, b32, b128, e, e16 (Tq 16), e32, e128,
 i, m, n, p, q and s: each against its plain version at 2e-5, two runs
 bitwise equal, timed against the plain version and SDPA; the kernel's
 instances (shared memory, threads, resident clusters) where the tree has
-them. Each timed row prints as one
+them. Part "sample" runs the sampling epilogue's checks of phases 3-3d
+(PERF.md's rows c, f, j, v and the filtered rows: l, the other settings, 20
+rows, top-p alone (l-p), top-k alone, k = 200, ties at the k-th value,
+temperature 0.7, 8 rows): tokens equal to the plain version's, logprobs at
+1e-4, kept sets equal but at the nucleus boundary, two runs bitwise equal;
+after the empty-launch floor (`empty launch ms {...}`). Part "trace" builds
+the shipped model and traces phase 7's filtered request (`trace {...}`,
+with the epilogue's device ms in the AR span). Each timed row prints as one
 JSON line (`row {...}`: kernel, site, ms, plain_ms, bound_ms, bound_by,
 library_ms, max_abs_err, unit), after the card's name and power limit and
 the flash and product kernels' ptxas lines.
@@ -78,7 +85,8 @@ def main() -> None:
     ap.add_argument("--root", default=HERE, help="tree whose vallex_tpu_torch is built and timed")
     ap.add_argument("--label", default="", help="name printed on every row")
     ap.add_argument("--hd", default="64,128", help="head dims to run (H = 1024 / hd)")
-    ap.add_argument("--parts", default="flash", help="comma-separated: flash, gemm, decode")
+    ap.add_argument("--parts", default="flash",
+                    help="comma-separated: flash, gemm, decode, sample, trace")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -108,7 +116,7 @@ def main() -> None:
     if report.exists():
         for blk in report.read_text().split("Compiling entry function")[1:]:
             head = blk.split("\n")[0]
-            if "flash_" in head or "gemm_ffma" in head or "masked_attention" in head:
+            if any(w in head for w in ("flash_", "gemm_ffma", "masked_attention", "sample_epilogue")):
                 said = [ln.split(":", 1)[-1].strip() for ln in blk.splitlines()[1:]
                         if any(w in ln for w in ("spill", "Used"))]
                 cs.say(f"  ptxas {head.split(chr(39))[1][:48]}: " + "; ".join(said))
@@ -158,6 +166,27 @@ def main() -> None:
                         cs.say(f"  masked_attention {dt} hd {hd} Tq {Tq}: "
                                f"{json.dumps(MA.kernel_info(dt, hd, Tq))}")
         cs.decode_attention_rows(entry, g, dev)
+        torch.cuda.empty_cache()
+    if "sample" in parts:
+        from vallex_tpu_torch.config import ModelConfig
+        from vallex_tpu_torch.ops.decode_step import VOCAB_PAD
+
+        vocab = ModelConfig().num_audio_tokens + 1
+        VP = -(-vocab // VOCAB_PAD) * VOCAB_PAD
+        cs.say(f"{args.label} empty launch ms "
+               + json.dumps({k: round(v, 4) for k, v in cs.empty_launch_ms(dev).items()}))
+        for site, rows, greedy in (("decode_block_fused", 1, False), ("decode_verify", 8, True),
+                                   ("decode_block_fused_batched", 8, False),
+                                   ("decode_step_fused", 1, False)):
+            cs.check_sample_epilogue(entry, g, dev, vocab, VP, site, rows, greedy)
+        cs.filtered_rows(entry, g, dev, vocab, VP)
+    if "trace" in parts:
+        from vallex_tpu_torch import api
+
+        bundle = api.preload_models(random_weights=True, seed=0, device=dev)
+        cs.trace_run(f"{args.label} 'Hello world.', paimon, top_k=50, top_p=0.9",
+                     lambda: cs.filtered_request(api, bundle))
+        del bundle
         torch.cuda.empty_cache()
     for hd in (int(x) for x in args.hd.split(",")) if "flash" in parts else ():
         H, suffix = 1024 // hd, "" if hd == 64 else "_hd128"
