@@ -106,6 +106,18 @@ Phases, one flushed line each with its own seconds and wall-clock limit:
      leaf), a packed batch, two stage-1 ScaledAdam steps (the NAR
      parameters stay bitwise), one use_flash="auto" step, a profiled step
      (its bf16 backward must run on the tensor-core kernels alone)
+  5g checkpoint files, continual, make_prompt and Whisper: the random
+     full-width trees written with save_native and read by
+     preload_models(checkpoint_dir) (greedy codes bitwise the params=
+     route's); continual on 1200 tiled preset frames (t_audio 2048: the NAR
+     through the flash forward, its launches counted at its site) in bf16,
+     and in f32 against the same call on the CPU (codes equal); make_prompt
+     of a 3 s WAV (codes equal to the CPU's EnCodec, or parted at a near
+     tie), the npz as a prompt of generate_audio, the CLI's make-prompt in
+     a subprocess; a random Whisper of medium's shape, greedy (ids equal to
+     the CPU's) and sampled (best_of 5); the card's times of the checkpoint
+     load, EnCodec encode of 3 s and 10 s, continual, Whisper encode and
+     decode, each beside the card's name and power limit
   7  torch.profiler traces of one request, of one filtered request (top_k
      50, top_p 0.9) and of one batch of 4: the device-busy share of their
      AR, NAR and Vocos spans, and the AR's device time by kernel and that
@@ -116,7 +128,9 @@ single-request path), zeroed again just before phase 5b and read after
 phase 5c (the batched path), and once more just before phase 5d and read
 after it (best_of and filtered sampling), and once more just before phase
 5e and read after it (int8kv, w8a8, single steps, pallas), and once more
-just before phase 5f and read after it (training). The NAR at C >= 1536
+just before phase 5f and read after it (training), and once more just
+before phase 5g and read after it (continual's flash forwards, the
+prompt's requests). The NAR at C >= 1536
 must launch the flash forward at its sites and masked_attention never
 there. Any failure exits non-zero before the result line. No JAX is
 imported.
@@ -1006,6 +1020,226 @@ def train_path(dev, cfg) -> None:
         "device_ms_by_kernel": top}))
     del state, model, opt, batch, pb
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# Checkpoint files, continual, make_prompt and Whisper (phase 5g):
+# module-level so each step reads only what it is handed.
+# ---------------------------------------------------------------------------
+
+CONTINUAL_T = 1200  # frames: t_audio bucket 2048, so the NAR runs the flash forward
+RVQ_TIE = 1e-5  # tests/test_torch_encodec.py's tie rule
+
+
+def card_time(label: str, secs: float, card: str) -> None:
+    say(f"  time {label}: {secs:.4f} s  [{card}]")
+
+
+def synced(dev, fn):
+    """(fn(), host seconds to the end of its device work)."""
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return out, time.perf_counter() - t0
+
+
+def rvq_parted(codes, ref, latents, codebooks, tie=RVQ_TIE) -> int:
+    """Frames whose codes differ from `ref`'s; each must part at a near tie:
+    at its first differing stage the reference residual's distances
+    ‖e‖² − 2 r·e to the two codes within `tie` of their magnitude."""
+    import numpy as np
+
+    codes, ref = np.asarray(codes).reshape(-1, 8), np.asarray(ref).reshape(-1, 8)
+    lat = np.asarray(latents, np.float64).reshape(len(ref), -1)
+    cb = np.asarray(codebooks, np.float64)
+    parted = 0
+    for t in np.nonzero(np.any(codes != ref, axis=1))[0]:
+        q = int(np.argmax(codes[t] != ref[t]))
+        r = lat[t] - sum(cb[j][ref[t, j]] for j in range(q))
+        d = (cb[q] ** 2).sum(-1) - 2 * cb[q] @ r
+        a, b = d[ref[t, q]], d[codes[t, q]]
+        if abs(a - b) > tie * max(abs(a), abs(b), 1.0):
+            fail(f"5g make_prompt: frame {t} stage {q}: code {codes[t, q]} on the card,"
+                 f" {ref[t, q]} on the CPU, distances {b:.6g} / {a:.6g} (not a tie)")
+        parted += 1
+    return parted
+
+
+def prompt_paths(dev, api, bundle, card: str, flash_site=("flash_attention_fwd",
+                                                          "flash_attention")) -> None:
+    """Phase 5g on the model of `bundle` (random weights from seed 0): a
+    checkpoint directory written with save_native read back by
+    preload_models (greedy codes bitwise the params= route's); continual on
+    CONTINUAL_T frames in bf16 (the flash forward counted at its site) and
+    f32 against the CPU; make_prompt of a 3 s WAV against the CPU's
+    EnCodec, used as a prompt, and the CLI's make-prompt; a random Whisper of
+    medium's shape, greedy (ids equal to the CPU's) and sampled."""
+    import numpy as np
+    import torch
+
+    from vallex_tpu_torch.asr import whisper as W
+    from vallex_tpu_torch.codec import encodec as EC
+    from vallex_tpu_torch.codec.vocos import init_vocos
+    from vallex_tpu_torch.convert import load_tree
+    from vallex_tpu_torch.kernels import loader
+    from vallex_tpu_torch.models.vallex import init_vallex
+    from vallex_tpu_torch.utils import checkpoint as CK
+    from vallex_tpu_torch.utils.audio import load_wav, save_wav
+
+    cfg, ecfg = bundle.cfg, bundle.ecfg
+    trees = dict(params=init_vallex(cfg, torch.Generator().manual_seed(0)),
+                 vocos_params=init_vocos(torch.Generator().manual_seed(1)),
+                 encodec_params=EC.init_encodec(torch.Generator().manual_seed(2)))
+    td = tempfile.mkdtemp(prefix="vallex-5g-")
+    try:
+        # ---- checkpoint files -> preload_models -> the params= route
+        t0 = time.perf_counter()
+        for name, key in (("vallex", "params"), ("vocos", "vocos_params"),
+                          ("encodec", "encodec_params")):
+            CK.save_native(os.path.join(td, f"{name}-jax.npz"), trees[key])
+        mb = sum(os.path.getsize(os.path.join(td, f)) for f in os.listdir(td)) / 2**20
+        say(f"  wrote vallex / vocos / encodec -jax.npz ({mb:.1f} MiB) in"
+            f" {time.perf_counter() - t0:.2f} s")
+        greedy = dict(text="Hello world.", prompt="paimon", language="en", top_k=1,
+                      max_duration=2.0)
+        ck, t_load = synced(dev, lambda: api.preload_models(td, device=dev, cfg=cfg, ecfg=ecfg))
+        card_time("preload_models(checkpoint_dir) at full width", t_load, card)
+        api.generate_audio(**greedy)
+        codes_ck = ck.last.codes
+        pb = api.preload_models(device=dev, cfg=cfg, ecfg=ecfg, checkpoint_dir=td, **trees)
+        api.generate_audio(**greedy)
+        if ck.encodec is None or ck.vocos is None:
+            fail("5g: preload_models(checkpoint_dir) left Vocos or EnCodec out")
+        if not np.array_equal(codes_ck, pb.last.codes):
+            fail(f"5g: greedy codes from the checkpoint files {codes_ck.shape} differ from the"
+                 f" params= route's {pb.last.codes.shape}")
+        say(f"  checkpoint round trip: greedy codes ({len(codes_ck)} frames) bitwise the"
+            f" params= route's")
+        del ck, pb
+        for name in os.listdir(td):
+            os.remove(os.path.join(td, name))
+
+        # ---- continual, bf16 on the card (the flash forward) and f32 against the CPU
+        api._bundle = bundle
+        audio, _, _ = api._load_prompt("paimon")
+        src = np.tile(audio, (-(-CONTINUAL_T // len(audio)), 1))[:CONTINUAL_T]
+        text = "The quick brown fox jumps over the lazy dog."
+        before = loader.launch_counts.get(flash_site, 0)
+        api.continual(text, src, language="en")  # warm
+        out, t_c = synced(dev, lambda: api.continual(text, src, language="en"))
+        n_flash = (loader.launch_counts.get(flash_site, 0) - before) // 2
+        prefix = min(CONTINUAL_T // 2, 225)
+        if out.shape != (CONTINUAL_T - prefix, 8) or not np.array_equal(out[:, 0], src[prefix:, 0]):
+            fail(f"5g continual: shape {out.shape}, codebook 0 kept:"
+                 f" {out.shape[0] == CONTINUAL_T - prefix and np.array_equal(out[:, 0], src[prefix:, 0])}")
+        if out.min() < 0 or out.max() >= 1024 or n_flash == 0:
+            fail(f"5g continual: codes in [{out.min()}, {out.max()}], {n_flash} flash launches")
+        card_time(f"continual T={CONTINUAL_T} (bf16, {n_flash} flash forwards a call)", t_c, card)
+        e32 = dataclasses.replace(ecfg, compute_dtype="float32")
+        api.preload_models(device=dev, cfg=cfg, ecfg=e32, checkpoint_dir=td,
+                           params=trees["params"])
+        out32, t_c32 = synced(dev, lambda: api.continual(text, src, language="en"))
+        api.preload_models(device="cpu", cfg=cfg, ecfg=e32, checkpoint_dir=td,
+                           params=trees["params"])
+        t0 = time.perf_counter()
+        cpu32 = api.continual(text, src, language="en")
+        t_cpu = time.perf_counter() - t0
+        if not np.array_equal(out32, cpu32):
+            diff = np.argwhere(out32 != cpu32)
+            fail(f"5g continual f32: {len(diff)} codes differ from the CPU's, first at {diff[0]}")
+        say(f"  continual f32: codes on the card equal the CPU's ({out32.shape}; the CPU took"
+            f" {t_cpu:.1f} s)")
+        card_time(f"continual T={CONTINUAL_T} (f32)", t_c32, card)
+        api._bundle = bundle
+
+        # ---- make_prompt of a 3 s WAV on the card, against the CPU's EnCodec
+        t = np.arange(3 * 24000) / 24000.0
+        clip = (0.3 * np.sin(2 * np.pi * 220 * t) + 0.1 * np.sin(2 * np.pi * 1250 * t)
+                + 0.02 * np.random.RandomState(0).randn(len(t))).astype(np.float32)
+        wav_path = os.path.join(td, "clip.wav")
+        save_wav(wav_path, clip)
+        if bundle.encodec is None:
+            fail("5g: the random bundle has no EnCodec")
+        out_path, t_mp = synced(dev, lambda: api.make_prompt(
+            "smoke", wav_path, transcript="Hello world, this is a test.", out_dir=td))
+        card_time("make_prompt of 3 s (WAV read, G2P, EnCodec encode)", t_mp, card)
+        data = np.load(out_path)
+        gpu_codes = data["audio_tokens"]
+        if gpu_codes.shape != (1, 225, 8) or gpu_codes.dtype != np.int64 \
+                or data["text_tokens"].dtype != np.int64 or int(data["lang_code"]) != 2:
+            fail(f"5g make_prompt npz: {gpu_codes.shape} {gpu_codes.dtype}"
+                 f" {data['text_tokens'].dtype} lang {int(data['lang_code'])}")
+        wav24, _ = load_wav(wav_path)
+        enc_cpu = EC.encodec_from_tree(trees["encodec_params"], device="cpu")
+        x = torch.from_numpy(wav24[None])
+        cpu_codes = EC.encode(enc_cpu, x).numpy()
+        lat = EC.encode_latent(enc_cpu, x).numpy()
+        parted = rvq_parted(gpu_codes, cpu_codes, lat, enc_cpu.codebooks.numpy())
+        say(f"  make_prompt: {gpu_codes.shape[1]} frames, codes on the card equal the CPU's"
+            f" but {parted} frames parted at a near tie (rel {RVQ_TIE})")
+        for secs in (3, 10):
+            w = torch.from_numpy(np.tile(wav24, 4)[: secs * 24000][None]).to(dev)
+            EC.encode(bundle.encodec, w)
+            ts = [synced(dev, lambda: EC.encode(bundle.encodec, w))[1] for _ in range(3)]
+            card_time(f"EnCodec encode of {secs} s (median of 3)", statistics.median(ts), card)
+        a, txt, lang = api._load_prompt(out_path)
+        if a.shape != (225, 8) or lang != "en":
+            fail(f"5g: the npz loads as a prompt of {a.shape}, {lang}")
+        wave = api.generate_audio("Hi.", prompt=out_path, language="en", top_k=1,
+                                  max_duration=2.0)
+        if not (wave.ndim == 1 and len(wave) > 0 and np.isfinite(wave).all()):
+            fail(f"5g: generate_audio with the made prompt: {wave.shape}")
+        say(f"  generate_audio(prompt=<made npz>): {len(wave) / 24000:.2f} s of audio")
+        t0 = time.perf_counter()
+        cli = subprocess.run(
+            [sys.executable, "-m", "vallex_tpu_torch.cli", "make-prompt", "cli", wav_path,
+             "--random-weights", "--transcript", "Hello world.", "--out-dir", td,
+             "--checkpoints", os.path.join(td, "none")],
+            cwd=REPO, capture_output=True, text=True, timeout=240)
+        if cli.returncode != 0 or not os.path.exists(os.path.join(td, "cli.npz")):
+            fail(f"5g CLI make-prompt: rc {cli.returncode}: {cli.stderr[-1500:]}")
+        say(f"  python -m vallex_tpu_torch.cli make-prompt: rc 0 in"
+            f" {time.perf_counter() - t0:.2f} s (a process of its own)")
+
+        # ---- Whisper of medium's shape, random weights
+        wcfg = W.WhisperConfig()
+        tree = W.init_whisper(wcfg, torch.Generator(device=dev).manual_seed(0))
+        wm = load_tree(W.Whisper(wcfg), tree, dtype=torch.float32, device=dev)
+        wav16, _ = load_wav(wav_path, target_sr=W.SAMPLE_RATE)
+        mel = W.log_mel_spectrogram(torch.from_numpy(W.pad_or_trim(wav16)).to(dev))
+        W.encode(wm, mel)
+        enc, t_enc = synced(dev, lambda: W.encode(wm, mel))
+        card_time("Whisper (medium shape) encode of 30 s", t_enc, card)
+        lang_id = W.detect_language(wm, enc)
+        pre = torch.tensor([wcfg.sot, lang_id, wcfg.transcribe, wcfg.no_timestamps], device=dev)
+        buf, t_dec = synced(dev, lambda: W.greedy_decode(wm, enc, pre, max_len=24))
+        card_time("Whisper greedy decode, 20 tokens", t_dec, card)
+        (ids, lang), t_g = synced(dev, lambda: W.transcribe_ids(wm, wav16, max_len=24))
+        (ids_s, lang_s), t_s = synced(dev, lambda: W.transcribe_ids(
+            wm, wav16, temperature=1.0, best_of=5, sample_len=16, seed=0))
+        if not (len(ids) > 0 and len(ids_s) > 0
+                and all(0 <= i < wcfg.vocab for i in np.concatenate([ids, ids_s]))):
+            fail(f"5g Whisper: greedy {len(ids)} ids, sampled {len(ids_s)} ids")
+        card_time(f"Whisper transcribe_ids greedy ({len(ids)} ids)", t_g, card)
+        card_time(f"Whisper transcribe_ids best_of 5 ({len(ids_s)} ids of the best lane)", t_s,
+                  card)
+        wm_cpu = load_tree(W.Whisper(wcfg), tree, dtype=torch.float32, device="cpu")
+        del tree
+        t0 = time.perf_counter()
+        ids_cpu, lang_cpu = W.transcribe_ids(wm_cpu, wav16, max_len=24)
+        if lang_cpu != lang or not np.array_equal(ids_cpu, ids):
+            fail(f"5g Whisper greedy: card {lang} {ids.tolist()} vs CPU {lang_cpu}"
+                 f" {ids_cpu.tolist()}")
+        say(f"  Whisper greedy: {len(ids)} ids and language {lang!r} on the card equal the"
+            f" CPU's ({time.perf_counter() - t0:.1f} s on the CPU)")
+    finally:
+        shutil.rmtree(td, ignore_errors=True)
+        api._bundle = bundle
 
 
 # ---------------------------------------------------------------------------
@@ -2622,6 +2856,12 @@ def main() -> None:
         train_path(dev, cfg)
     counts_slice5 = dict(loader.launch_counts)
 
+    # ---- phase 5g: checkpoint files, continual, make_prompt, Whisper ---------
+    loader.reset_launch_counts()
+    with phase("5g checkpoints / continual / make_prompt / whisper", 270):
+        prompt_paths(dev, api, bundle, smi.splitlines()[0])
+    counts_slice6 = dict(loader.launch_counts)
+
     with phase("7 trace", 300):
         def one_request():
             api.generate_audio("Hello world.", prompt="paimon", language="en", top_k=1,
@@ -2665,6 +2905,7 @@ def main() -> None:
         say(f"  phase 5d launches by site: {json.dumps({f'{k}@{s}': n for (k, s), n in sorted(counts_slice3.items())})}")
         say(f"  phase 5e launches by site: {json.dumps({f'{k}@{s}': n for (k, s), n in sorted(counts_slice4.items())})}")
         say(f"  phase 5f launches by site: {json.dumps({f'{k}@{s}': n for (k, s), n in sorted(counts_slice5.items())})}")
+        say(f"  phase 5g launches by site: {json.dumps({f'{k}@{s}': n for (k, s), n in sorted(counts_slice6.items())})}")
         say(json.dumps({"kernels": [{k: v for k, v in e.items() if k != "unit"} for e in entries]}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

@@ -1,8 +1,9 @@
 """The port's command line (vallex_tpu_torch/cli.py) on the CPU at toy width:
 list-presets prints the JAX package's CLI's names; synthesize and long-text
 write 24 kHz WAVs with --device cpu --random-weights --config <tiny>, with
-the sampling knobs and --quantize (the JAX CLI's four values); make-prompt
-and ui exit non-zero naming their ROADMAP item.
+the sampling knobs and --quantize (the JAX CLI's four values); ui exits
+non-zero naming its ROADMAP item; --checkpoints with no checkpoint in it
+raises as the JAX CLI does (make-prompt: tests/test_torch_encodec.py).
 """
 
 import json
@@ -111,7 +112,7 @@ def test_long_text_writes_a_wav(tiny, tmp_path):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["make-prompt", "me", "clip.wav"], "§1 item 6"), (["ui"], "§1 item 5"),
+    pytest.param(["ui"], "§1 item 5", id="argv1-§1 item 5"),
 ])
 def test_unported_commands_exit_nonzero(capsys, argv, item):
     assert tcli.main(argv) != 0
@@ -119,5 +120,8 @@ def test_unported_commands_exit_nonzero(capsys, argv, item):
 
 
 def test_checkpoints_not_ported_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 4"):
+    """--checkpoints naming a directory with no checkpoint (and no
+    --random-weights) raises FileNotFoundError with the JAX package's
+    wording; reading checkpoints: tests/test_torch_checkpoint.py."""
+    with pytest.raises(FileNotFoundError, match="No checkpoint in .*random_weights=True"):
         tcli.main(["synthesize", "Hi.", "--device", "cpu", "--checkpoints", str(tmp_path)])

@@ -1,7 +1,7 @@
 """Public synthesis API (port of vallex_tpu/api.py: preload_models,
 generate_audio, generate_audio_batch, generate_audio_from_long_text,
-stream_audio_from_long_text, _prepare_text, the prompt loaders and
-codes_to_wave).
+stream_audio_from_long_text, make_prompt, continual, _prepare_text, the
+prompt loaders and codes_to_wave).
 
 Runs on `cuda` unless the caller passes `device="cpu"`; with no GPU and no
 explicit CPU device it raises rather than falling back. Voice prompts use
@@ -20,19 +20,24 @@ from typing import Any, Iterator, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from .codec import encodec as EC
 from .codec import vocos as VC
 from .config import (
     ENCODEC_FRAME_RATE as FRAME_RATE,
     NUM_QUANTIZERS,
+    SAMPLE_RATE,
     EngineConfig,
     ModelConfig,
     code2lang,
+    lang2code,
     lang2token,
     langdropdown2token,
     model_language_id,
     token2lang,
 )
 from .convert import load_tree
+from .engine.ar import bucket
+from .engine.nar import nar_generate
 from .engine.pipeline import (
     DTYPES,
     BatchSynthesisResult,
@@ -65,6 +70,7 @@ class ModelBundle:
     collater: Any = field(default_factory=get_text_token_collater)
     # the latest synthesis (generate_audio or generate_audio_batch), with timings
     last: Optional[Union[SynthesisResult, BatchSynthesisResult]] = None
+    encodec: Optional[EC.EnCodec] = None  # make_prompt's codec
 
 
 _bundle: Optional[ModelBundle] = None
@@ -81,7 +87,7 @@ def resolve_device(device=None) -> torch.device:
 
 
 def preload_models(
-    checkpoint_dir: Optional[str] = None,
+    checkpoint_dir: str = "./checkpoints",
     *,
     random_weights: bool = False,
     cfg: Optional[ModelConfig] = None,
@@ -90,26 +96,60 @@ def preload_models(
     device=None,
     params=None,
     vocos_params=None,
+    encodec_params=None,
 ) -> ModelBundle:
     """Build the model stack on `device`.
 
-    Weights: `params` / `vocos_params` — parameter trees in the JAX
-    package's layout (numpy or torch leaves, e.g. from
-    `jax.tree.map(np.asarray, params)`) — or, with random_weights=True, a
-    random init drawn from torch.Generator(seed) (Vocos from seed + 1).
-    Reading checkpoint files is not ported yet (ROADMAP.md §1 item 4)."""
+    VALL-E weights, in the JAX package's order: `params` (a parameter tree
+    in the JAX package's layout, numpy or torch leaves, e.g.
+    `jax.tree.map(np.asarray, params)`) → `checkpoint_dir/vallex-jax.npz`
+    → `checkpoint_dir/vallex-checkpoint.pt` (the reference's, converted,
+    and the tree written beside it as `vallex-jax.npz`) → with
+    random_weights=True a random init from torch.Generator(seed) → else
+    FileNotFoundError. Vocos: `vocos_params` → `vocos-jax.npz` → random at
+    seed + 1 when the VALL-E weights are random → none. EnCodec (for
+    make_prompt): `encodec_params` → `encodec-jax.npz` → random at seed + 2
+    when the VALL-E weights are random → none."""
+    from .utils import checkpoint as CK
+
     global _bundle
     cfg = cfg or ModelConfig()
     ecfg = ecfg or EngineConfig()
     dev = resolve_device(device)
-    if params is None:
-        if not random_weights:
-            raise NotImplementedError(
-                f"loading checkpoints (from {checkpoint_dir!r}) is not ported"
-                " yet (ROADMAP.md §1 item 4, slice 6); pass random_weights=True"
-                " or params=<tree>")
+
+    def path(name: str) -> Optional[str]:
+        p = os.path.join(checkpoint_dir, name)
+        return p if os.path.exists(p) else None
+
+    rand = False
+    if params is not None:
+        pass
+    elif path("vallex-jax.npz"):
+        params = CK.load_native(path("vallex-jax.npz"))
+    elif path("vallex-checkpoint.pt"):
+        logger.info("converting torch checkpoint %s", path("vallex-checkpoint.pt"))
+        params = CK.load_torch_checkpoint(path("vallex-checkpoint.pt"), cfg)
+        CK.save_native(os.path.join(checkpoint_dir, "vallex-jax.npz"), params)
+    elif random_weights:
+        logger.warning("no checkpoint found — using RANDOM weights")
         params = init_vallex(cfg, torch.Generator().manual_seed(seed))
-        vocos_params = VC.init_vocos(torch.Generator().manual_seed(seed + 1))
+        rand = True
+    else:
+        raise FileNotFoundError(
+            f"No checkpoint in {checkpoint_dir}. Place the reference's "
+            "vallex-checkpoint.pt there (see README) or pass "
+            "random_weights=True for a structure-only run.")
+    if vocos_params is None:
+        if path("vocos-jax.npz"):
+            vocos_params = CK.load_native(path("vocos-jax.npz"))
+        elif rand:
+            vocos_params = VC.init_vocos(torch.Generator().manual_seed(seed + 1))
+    if encodec_params is None:
+        if path("encodec-jax.npz"):
+            encodec_params = CK.load_native(path("encodec-jax.npz"))
+        elif rand:
+            encodec_params = EC.init_encodec(torch.Generator().manual_seed(seed + 2))
+
     model = load_tree(VALLE(cfg), params, dtype=DTYPES[ecfg.compute_dtype], device=dev)
     vocos = (None if vocos_params is None
              else load_tree(VC.Vocos(), vocos_params, dtype=torch.float32, device=dev))
@@ -117,6 +157,8 @@ def preload_models(
         model=model, cfg=cfg, ecfg=ecfg,
         pipeline=SynthesisPipeline(model, cfg, ecfg, vocos),
         vocos=vocos, device=dev,
+        encodec=(None if encodec_params is None
+                 else EC.encodec_from_tree(encodec_params, device=dev)),
     )
     return _bundle
 
@@ -419,3 +461,88 @@ def stream_audio_from_long_text(
     for codes, wave in _long_text(text, prompt, language, accent, mode, best_of, seed,
                                   stream=True):
         yield wave if wave is not None else codes_to_wave(bundle, codes)
+
+
+# ---------------------------------------------------------------------------
+# Prompt making and continuation (reference: utils/prompt_making.py,
+# models/vallex.py:688-787)
+# ---------------------------------------------------------------------------
+
+def make_prompt(
+    name: str,
+    audio_prompt_path: str,
+    transcript: Optional[str] = None,
+    *,
+    out_dir: str = "./customs",
+) -> str:
+    """Enrollment clip → `out_dir/name.npz` voice prompt (reference:
+    prompt_making.py:57-84), in the JAX package's format: `audio_tokens`
+    int64 [1, T, 8], `text_tokens` int64 [1, S], `lang_code` int32. EnCodec
+    encodes on the bundle's device. Without a transcript, Whisper
+    transcribes the clip (utils/whisper_transcribe.py), which needs local
+    Whisper weights; without them it asks for `transcript=`."""
+    bundle = _require_bundle()
+    if bundle.encodec is None:
+        raise RuntimeError(
+            "EnCodec weights unavailable (convert encodec_24khz to "
+            "checkpoints/encodec-jax.npz)")
+    from .utils.audio import load_wav
+
+    wav, _ = load_wav(audio_prompt_path, target_sr=SAMPLE_RATE)
+    if len(wav) / SAMPLE_RATE > 15:
+        raise ValueError("Prompt too long, expect length below 15 seconds")
+
+    if transcript is None:
+        from .utils.whisper_transcribe import transcribe
+
+        transcript, lang = transcribe(audio_prompt_path, device=bundle.device)
+        text = f"{lang2token[lang]}{transcript}{lang2token[lang]}"
+    else:
+        lang = classify(transcript)
+        lang_token = lang2token[lang]
+        text = lang_token + transcript.replace("\n", "") + lang_token
+
+    codes = EC.encode(bundle.encodec, torch.from_numpy(wav[None]).to(bundle.device))
+    phone_tokens, _ = bundle.tokenizer.tokenize(text=f"_{text}".strip())
+    text_ids, _ = bundle.collater([phone_tokens])
+
+    os.makedirs(out_dir, exist_ok=True)
+    out = os.path.join(out_dir, f"{name}.npz")
+    np.savez(
+        out,
+        audio_tokens=codes.cpu().numpy().astype(np.int64),
+        text_tokens=np.asarray(text_ids).astype(np.int64),
+        lang_code=np.int32(lang2code[lang]),
+    )
+    return out
+
+
+@torch.inference_mode()
+def continual(
+    text: str,
+    audio_codes: np.ndarray,  # [T, 8] full EnCodec codes of the utterance
+    language: str = "auto",
+) -> np.ndarray:
+    """Acoustic continuation: keep codebook 0, re-render codebooks 1..7 of
+    the suffix conditioned on a prefix of min(T/2, 225) frames, without
+    language embeddings (reference: models/vallex.py:688-787). At
+    s_text + t_audio >= 1536 the NAR's attention is the flash forward.
+    → codes [T − prefix, 8] int64 of the suffix."""
+    bundle = _require_bundle()
+    text_ids, _ = _prepare_text(bundle, text, np.zeros((0,), np.int32), None, language,
+                                "no-accent")
+    T = len(audio_codes)
+    prefix_len = min(T // 2, 3 * FRAME_RATE)
+    e, dev = bundle.ecfg, bundle.device
+    s_text = bucket(len(text_ids), e.text_buckets)
+    t_audio = bucket(T, e.audio_buckets)
+
+    text_pad = torch.zeros((1, s_text), dtype=torch.int64)
+    text_pad[0, : len(text_ids)] = torch.from_numpy(text_ids.astype(np.int64))
+    codes_in = torch.zeros((1, t_audio, NUM_QUANTIZERS), dtype=torch.int64)
+    codes_in[0, :T] = torch.from_numpy(np.asarray(audio_codes, np.int64))
+    text_pad, codes_in = text_pad.to(dev), codes_in.to(dev)
+    out = nar_generate(bundle.model, bundle.cfg, text_pad, torch.zeros_like(text_pad),
+                       len(text_ids), codes_in, T, prefix_len,
+                       dtype=bundle.pipeline.dtype, add_lang=False)
+    return out[0, prefix_len:T].cpu().numpy()

@@ -1,18 +1,21 @@
 """Command-line surface of the port (vallex_tpu/cli.py on PyTorch): synthesize,
-long-text, list-presets and serve run; make-prompt and ui are not ported yet
-and exit non-zero naming their ROADMAP.md item.
+long-text, make-prompt, list-presets and serve run; ui is not ported yet and
+exits non-zero naming its ROADMAP.md item.
 
 Usage:
   python -m vallex_tpu_torch.cli synthesize "Hello world." --prompt paimon -o out.wav
   python -m vallex_tpu_torch.cli synthesize "Hi." --device cpu --random-weights \\
       --config tiny.json --top-k 1 -o out.wav
   python -m vallex_tpu_torch.cli long-text "Para one. Para two." --mode fixed-prompt
+  python -m vallex_tpu_torch.cli make-prompt me clip.wav --transcript "Hello there."
   python -m vallex_tpu_torch.cli list-presets
   python -m vallex_tpu_torch.cli serve --port 8000 --random-weights --quantize int8kv
 
 Runs on the GPU (`--device cuda`, the default) or, with `--device cpu`, on
-the CPU through the kernels' plain versions. Until checkpoint files can be
-read (ROADMAP.md §1 item 4), `--random-weights` is needed.
+the CPU through the kernels' plain versions. Weights come from
+`--checkpoints` (`vallex-jax.npz`, else the reference's
+`vallex-checkpoint.pt`, converted; `vocos-jax.npz`, `encodec-jax.npz`), or
+with `--random-weights` and no checkpoint there, from a random init.
 """
 
 from __future__ import annotations
@@ -22,7 +25,6 @@ import logging
 import sys
 
 NOT_PORTED = {
-    "make-prompt": "prompt making needs EnCodec, fbank and Whisper: ROADMAP.md §1 item 6",
     "ui": "the gradio UI is not ported yet: ROADMAP.md §1 item 5",
 }
 
@@ -51,10 +53,9 @@ def _load(args, **engine):
 
 
 def _write_wav(path: str, wave) -> None:
-    from .server import wav_bytes
+    from .utils.audio import save_wav
 
-    with open(path, "wb") as f:
-        f.write(wav_bytes(wave))
+    save_wav(path, wave)
     print(f"wrote {path} ({len(wave) / 24000:.2f}s)")
 
 
@@ -121,7 +122,7 @@ def main(argv=None) -> int:
     _add_common(p)
     _add_quantize(p)
 
-    p = sub.add_parser("make-prompt", help="enrollment clip → .npz voice (not ported)")
+    p = sub.add_parser("make-prompt", help="enrollment clip → .npz voice")
     p.add_argument("name")
     p.add_argument("audio", help="wav file, 3-10 s")
     p.add_argument("--transcript", default=None)
@@ -203,6 +204,13 @@ def main(argv=None) -> int:
             accent=args.accent, mode=args.mode,
         )
         _write_wav(args.output, wave)
+        return 0
+
+    if args.cmd == "make-prompt":
+        _load(args)
+        out = api.make_prompt(args.name, args.audio, transcript=args.transcript,
+                              out_dir=args.out_dir)
+        print(f"wrote {out}")
         return 0
 
     if args.cmd == "serve":

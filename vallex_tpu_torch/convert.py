@@ -2,9 +2,10 @@
 
 `params_from_jax(tree)` takes the JAX package's parameters as a nested dict
 of numpy arrays — `jax.tree.map(np.asarray, params)` of `init_vallex` /
-`init_vocos` or a loaded checkpoint — and returns the port's `VALLE` or
-`Vocos` module holding the same values. Module paths mirror the tree: a
-stacked leaf `[NL, ...]` under `layers` (or `blocks`) feeds the NL
+`init_vocos` / `init_encodec` / `init_whisper` or a loaded checkpoint — and
+returns the port's `VALLE`, `Vocos`, `EnCodec` or `Whisper` module holding
+the same values. Module paths mirror the tree (EnCodec's aside, whose
+module holds torch's layouts): a stacked leaf `[NL, ...]` under `layers` (or `blocks`) feeds the NL
 per-layer modules `layers.<i>.…`. The random inits of this package build
 the same tree, so one loader serves both.
 
@@ -17,7 +18,7 @@ by the leaf they came from.
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -95,16 +96,27 @@ def load_tree(module: nn.Module, tree: Dict[str, Any], *,
 
 
 def params_from_jax(
-    tree: Dict[str, Any], *, cfg: Optional[ModelConfig] = None,
-    device="cpu", dtype: torch.dtype = torch.float32,
+    tree: Dict[str, Any], *, cfg=None, device="cpu", dtype: torch.dtype = torch.float32,
 ) -> nn.Module:
-    """JAX parameter tree (numpy leaves) → `VALLE` of `cfg` (default: the
-    shipped config) in the compute `dtype`, or `Vocos` (always f32, as the
-    JAX package runs it)."""
+    """JAX parameter tree (numpy leaves) → the module it belongs to, told
+    apart by its leaves: `VALLE` of `cfg` (a ModelConfig, default the
+    shipped one) in the compute `dtype`; `Vocos`, `EnCodec` and `Whisper`
+    (of `cfg`, a WhisperConfig, default medium's) in f32, as the JAX
+    package runs them. EnCodec's module holds torch's conv and LSTM
+    layouts, so its tree goes through `encodec.encodec_from_tree`."""
     if "codebook_weights" in tree:
         from .codec.vocos import Vocos
 
         return load_tree(Vocos(), tree, dtype=torch.float32, device=device)
+    if "codebooks" in tree:
+        from .codec.encodec import encodec_from_tree
+
+        return encodec_from_tree(tree, device=device)
+    if "tok_emb" in tree:
+        from .asr.whisper import Whisper, WhisperConfig
+
+        return load_tree(Whisper(cfg or WhisperConfig()), tree, dtype=torch.float32,
+                         device=device)
     from .models.vallex import VALLE
 
     return load_tree(VALLE(cfg or ModelConfig()), tree, dtype=dtype,

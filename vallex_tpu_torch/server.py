@@ -24,38 +24,20 @@ and the streaming route default to this package's ``api`` functions.
 from __future__ import annotations
 
 import base64
-import io
 import json
 import logging
 import queue
 import threading
 import time
-import wave as wave_mod
 from concurrent.futures import Future
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from .utils.audio import pcm16, wav_bytes
+
 log = logging.getLogger(__name__)
-
-
-def pcm16(wav: np.ndarray) -> bytes:
-    """Mono float waveform → raw 16-bit little-endian PCM bytes (the one
-    clip/scale conversion both the WAV and streaming outputs share)."""
-    pcm = np.clip(np.asarray(wav), -1.0, 1.0)
-    return (pcm * 32767.0).astype("<i2").tobytes()
-
-
-def wav_bytes(wav: np.ndarray, sr: int = 24000) -> bytes:
-    """Mono float waveform → 16-bit PCM WAV container bytes."""
-    buf = io.BytesIO()
-    with wave_mod.open(buf, "wb") as f:
-        f.setnchannels(1)
-        f.setsampwidth(2)
-        f.setframerate(sr)
-        f.writeframes(pcm16(wav))
-    return buf.getvalue()
 
 
 class Metrics:

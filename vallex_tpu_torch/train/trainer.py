@@ -4,8 +4,11 @@ train step, on one GPU (or the CPU with --device cpu).
     python -m vallex_tpu_torch.train.trainer --data-dir data --exp-dir exp \\
         --num-epochs 10 --train-stage 1
 
-- model: random init from --seed (models/vallex.py::init_vallex), f32
-  parameters, compute in --dtype (bfloat16 by default, as the JAX trainer);
+- model: random init from --seed (models/vallex.py::init_vallex), or with
+  --init-checkpoint the weights of a native `.npz` (utils/checkpoint.py
+  load_native) or of the reference's torch checkpoint (any other suffix,
+  converted); f32 parameters, compute in --dtype (bfloat16 by default, as
+  the JAX trainer);
 - attention: --flash-attn auto is the flash kernels for batches of 800 or
   more frames on the card (the JAX package's routing) and the mask path on
   the CPU; on / off force either;
@@ -22,8 +25,7 @@ train step, on one GPU (or the CPU with --device cpu).
 
 Not ported yet, each raising NotImplementedError: --dp / --tp above 1 and
 --init-distributed (multi-GPU training, ROADMAP §1 items 7-8),
---init-checkpoint (§1 item 4), --visualize-dir and --model-name VALL-F
-(§1 item 9).
+--visualize-dir and --model-name VALL-F (§1 item 9).
 """
 
 from __future__ import annotations
@@ -80,7 +82,7 @@ def get_parser() -> argparse.ArgumentParser:
     g.add_argument("--resume", action="store_true")
     g.add_argument(
         "--init-checkpoint", type=str, default=None,
-        help="warm-start params from a .npz/.pt checkpoint (not ported yet)",
+        help="warm-start params from a .npz/.pt checkpoint",
     )
     g.add_argument(
         "--visualize-dir", type=str, default=None,
@@ -99,9 +101,6 @@ def _unported(args) -> None:
         raise NotImplementedError(
             "multi-GPU training (--dp/--tp above 1, --init-distributed) is not ported to"
             " vallex_tpu_torch yet (ROADMAP §1 items 7-8)")
-    if args.init_checkpoint:
-        raise NotImplementedError(
-            "--init-checkpoint: reading checkpoint files is not ported yet (ROADMAP §1 item 4)")
     if args.visualize_dir:
         raise NotImplementedError(
             "--visualize-dir: utils/visualizer.py is not ported yet (ROADMAP §1 item 9)")
@@ -152,6 +151,7 @@ def run(args) -> dict:
     from ..kernels import check_head_dim
     from ..models import get_model, model_config_from_args
     from ..models.vallex import VALLE
+    from ..utils.checkpoint import load_native, load_torch_checkpoint
     from .loss import total_loss
     from .scaled_adam import format_grad_diagnostics, grad_diagnostics
     from .step import init_train_state, leaf_grads, model_leaves, train_step
@@ -163,8 +163,13 @@ def run(args) -> dict:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: pass --device cpu to train on the CPU")
     init_fn, _module = get_model(args.model_name, cfg)
-    model = load_tree(VALLE(cfg), init_fn(cfg, torch.Generator().manual_seed(args.seed)),
-                      dtype=torch.float32, device=device)
+    if not args.init_checkpoint:
+        tree = init_fn(cfg, torch.Generator().manual_seed(args.seed))
+    elif args.init_checkpoint.endswith(".npz"):
+        tree = load_native(args.init_checkpoint)
+    else:  # the reference's vallex-checkpoint.pt ({"model": state_dict})
+        tree = load_torch_checkpoint(args.init_checkpoint, cfg)
+    model = load_tree(VALLE(cfg), tree, dtype=torch.float32, device=device)
     dtype = getattr(torch, args.dtype)
 
     use_flash = {"on": True, "off": False,
