@@ -118,10 +118,36 @@ Phases, one flushed line each with its own seconds and wall-clock limit:
      the CPU's) and sampled (best_of 5); the card's times of the checkpoint
      load, EnCodec encode of 3 s and 10 s, continual, Whisper encode and
      decode, each beside the card's name and power limit
+  5h long text overlapped on two CUDA streams, VALL-F and the Transformer
+     TTS: 4 sentences with fuxuan's prompt tiled to 1980 frames (C = 2304:
+     every fixed-prompt tail runs the flash forward on the pipeline's tail
+     stream; <= 66 frames a sentence), default sampling; seed 0 (no coin
+     slides): after an untimed sequential run and POST, seven pairs of the
+     script's sequential loop (pipeline.synthesize per sentence) and the
+     overlapped stream for stream_audio_from_long_text and seven for POST
+     /synthesize-long (the sequential loop as the server's stream_fn),
+     each pair's order the other way round from the last; seed 3 (sentence
+     3 on sentence 2's codes) the stream against the sequential loop; the
+     overlapped batch loop in fixed-prompt mode; all codes bitwise the
+     sequential loop's; first- and last-wave times, their medians, and
+     sentence 0's dispatch parts, with the GC pauses before the first wave
+     and the caching allocator's new device allocations (a route's median
+     paired first-wave
+     difference, overlapped less sequential, may not exceed the spread of
+     its sequential first waves);
+     the host time to enqueue a tail; one torch.profiler trace of the
+     overlapped loop (the card's busy share over the call, the tail kernels
+     off the AR's stream, flash forwards among them or the phase fails, and
+     each tail's device time inside the next sentence's AR span). VALL-F
+     (AR greedy and sampled over a 512-frame buffer, NAR) and the
+     Transformer TTS (inference of 200 frames, forward) at the shipped
+     width in bf16, timed; both in f32 at a short cap against the CPU
+     (greedy tokens, NAR codes, frame counts equal; mels at 1e-4 of scale)
   7  torch.profiler traces of one request, of one filtered request (top_k
      50, top_p 0.9) and of one batch of 4: the device-busy share of their
-     AR, NAR and Vocos spans, and the AR's device time by kernel and that
-     of gemm_small_m's and sample_epilogue's kernels
+     AR, NAR and Vocos spans (the tail's spans read up to the device end of
+     the kernels launched inside them), and the AR's device time by kernel
+     and that of gemm_small_m's and sample_epilogue's kernels
   8  the `kernels` JSON line, then the result line.
 Launch counts are zeroed just before phase 5 and read after phase 6 (the
 single-request path), zeroed again just before phase 5b and read after
@@ -130,7 +156,8 @@ after it (best_of and filtered sampling), and once more just before phase
 5e and read after it (int8kv, w8a8, single steps, pallas), and once more
 just before phase 5f and read after it (training), and once more just
 before phase 5g and read after it (continual's flash forwards, the
-prompt's requests). The NAR at C >= 1536
+prompt's requests), and once more just before phase 5h and read after it
+(the long texts' requests and tails). The NAR at C >= 1536
 must launch the flash forward at its sites and masked_attention never
 there. Any failure exits non-zero before the result line. No JAX is
 imported.
@@ -281,13 +308,34 @@ def trace_events(prof):
     return trace["traceEvents"] if isinstance(trace, dict) else trace
 
 
+def device_events(events):
+    """(start µs, end µs, name, stream, correlation) of each kernel, copy
+    and memset of a trace."""
+    return [(float(e["ts"]), float(e["ts"]) + float(e["dur"]), e["name"],
+             e.get("args", {}).get("stream"), e.get("args", {}).get("correlation"))
+            for e in events
+            if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e]
+
+
+def launched_in(events, device, lo, hi):
+    """The device events whose launch (a CUDA runtime or driver call,
+    matched by correlation id) lies on the host inside [lo, hi)."""
+    ids = {e.get("args", {}).get("correlation") for e in events
+           if e.get("cat") in ("cuda_runtime", "cuda_driver")
+           and lo <= float(e.get("ts", -1)) < hi}
+    ids.discard(None)
+    return [d for d in device if d[4] in ids]
+
+
 def trace_run(label: str, run) -> None:
     """run() does one synthesis and returns (phase seconds, frames). Run it
     plainly (twice) and under torch.profiler, and report for each pipeline
     span the share of its wall time in which the card ran a kernel or a
     copy. Kernel times do not depend on the profiler; the host does more
     under it, so the share is also given against the unprofiled span's
-    host-clock seconds."""
+    seconds. The tail's spans (nar, vocos) close once their work is
+    enqueued on the tail stream: each is read up to the device end of the
+    kernels launched inside it."""
     from torch.profiler import ProfilerActivity, profile
 
     plain_s = {}
@@ -301,14 +349,18 @@ def trace_run(label: str, run) -> None:
     spans = {e["name"][len("vallex."):]: (float(e["ts"]), float(e["ts"]) + float(e["dur"]))
              for e in events
              if e.get("cat") == "user_annotation" and str(e.get("name", "")).startswith("vallex.")}
-    device = [(float(e["ts"]), float(e["ts"]) + float(e["dur"]), e["name"]) for e in events
-              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e]
+    device = device_events(events)
     if not device or "ar" not in spans:
         say(f"  trace: not measured ({len(device)} device events, spans {sorted(spans)})")
         return
+    for name in ("nar", "vocos"):
+        if name in spans:
+            lo, hi = spans[name]
+            ends = [b for _, b, *_ in launched_in(events, device, lo, hi)]
+            spans[name] = (lo, max([hi] + ends))
     out = {"request": f"{label}, {frames} frames"}
     for name, (lo, hi) in sorted(spans.items()):
-        inside = [(a, b) for a, b, _ in device if b > lo and a < hi]
+        inside = [(a, b) for a, b, *_ in device if b > lo and a < hi]
         busy = busy_ms(inside, lo, hi)
         wall = (hi - lo) / 1e3
         row = {"wall_ms_traced": round(wall, 3), "device_busy_ms": round(busy, 3),
@@ -319,7 +371,7 @@ def trace_run(label: str, run) -> None:
         out[name] = row
     lo, hi = spans["ar"]
     by_name = {}
-    for a, b, n in device:
+    for a, b, n, *_ in device:
         if b > lo and a < hi:
             by_name[n] = by_name.get(n, 0.0) + (b - a) / 1e3
     out["ar_device_ms_by_kernel"] = {n[:80]: round(t, 3) for n, t in
@@ -329,7 +381,7 @@ def trace_run(label: str, run) -> None:
     gemm = {n: t for n, t in by_name.items() if n.replace("void ", "").startswith("gemm_")}
     out["ar_gemm_small_m_device_ms"] = round(sum(gemm.values()), 3)
     out["ar_gemm_small_m_busy_ms"] = round(busy_ms(
-        [(a, b) for a, b, n in device if b > lo and a < hi and n in gemm], lo, hi), 3)
+        [(a, b) for a, b, n, *_ in device if b > lo and a < hi and n in gemm], lo, hi), 3)
     # the sampling epilogue's kernels (filtered sampling runs one a frame)
     out["ar_sample_epilogue_device_ms"] = round(sum(
         t for n, t in by_name.items() if "sample_epilogue" in n), 3)
@@ -1240,6 +1292,455 @@ def prompt_paths(dev, api, bundle, card: str, flash_site=("flash_attention_fwd",
     finally:
         shutil.rmtree(td, ignore_errors=True)
         api._bundle = bundle
+
+
+# ---------------------------------------------------------------------------
+# Long text overlapped on two streams, VALL-F and the Transformer TTS (phase
+# 5h): module-level so each step reads only what it is handed.
+# ---------------------------------------------------------------------------
+
+LONG_5H = ("The quick brown fox jumps over the lazy dog. It was a bright cold day in April."
+           " Speech turns text into sound. We go home.")
+PROMPT_5H = "fuxuan"
+# fuxuan's 758 frames tiled to 1980 (its 129 text tokens kept): the audio
+# bucket stays 2048 (C = 256 + 2048 = 2304, every fixed-prompt tail through
+# the flash forward) and leaves a sentence <= 66 frames, where fuxuan
+# itself leaves 1288 and random weights run most of them (~5 ms a frame)
+PROMPT_5H_FRAMES = 1980
+# pairs of sequential and overlapped runs a route: the host's bursts in
+# sentence 0's AR (the same call in both arms; 0.33-0.67 s for a 0.45 s
+# median) ran three pairs in a row once, which five pairs cannot outvote
+PAIRS_5H = 7
+SLIDE_SEED = 3  # coins keep, keep, slide: sentence 3 runs on sentence 2's codes
+
+
+def tiled_prompt(api, out_dir: str) -> str:
+    """PROMPT_5H with its audio tiled to PROMPT_5H_FRAMES frames, written
+    as a prompt npz under out_dir → its path."""
+    import numpy as np
+
+    src = np.load(api._find_prompt(PROMPT_5H))
+    audio = np.asarray(src["audio_tokens"]).reshape(-1, 8)
+    reps = -(-PROMPT_5H_FRAMES // len(audio))
+    path = os.path.join(out_dir, f"{PROMPT_5H}_tiled.npz")
+    np.savez(path, audio_tokens=np.tile(audio, (reps, 1))[None, :PROMPT_5H_FRAMES].astype(np.int64),
+             text_tokens=np.asarray(src["text_tokens"]), lang_code=np.asarray(src["lang_code"]))
+    return path
+
+
+def sequential_waves(api, bundle, text: str, prompt: str, mode: str, seed: int):
+    """The long-text loop with nothing overlapped, as the port streamed
+    before the overlap: pipeline.synthesize per sentence, each fetched
+    before the next starts, with the JAX package's pre-drawn coins and
+    seeds seed + i. Yields each sentence's wave."""
+    import numpy as np
+
+    fixed = api._load_prompt(prompt)
+    rng = np.random.RandomState(seed)
+    cur = fixed
+    for i, sent in enumerate(api.split_text_into_sentences(text)):
+        audio, text_prompt, lang_pr = cur
+        ids, langs = api._prepare_text(bundle, sent, text_prompt, lang_pr, "en")
+        res = bundle.pipeline.synthesize(ids, langs, audio if len(audio) else None,
+                                         seed=seed + i)
+        yield res.wave
+        coin = rng.rand() if mode == "sliding-window" else 1.0
+        if coin < 0.5:
+            cur = api._slid_prompt_triple(bundle, sent, res.codes, "en")
+        elif mode == "sliding-window":
+            cur = fixed
+
+
+@contextmanager
+def dispatches(bundle):
+    """bundle.pipeline.synthesize_async recorded for the block (synthesize
+    goes through it too): a list of (host clock at the call, at its return,
+    the handle) per sentence."""
+    pipe, calls = bundle.pipeline, []
+    orig = pipe.synthesize_async
+
+    def rec(*args, **kwargs):
+        t = time.perf_counter()
+        h = orig(*args, **kwargs)
+        calls.append((t, time.perf_counter(), h))
+        return h
+
+    pipe.synthesize_async = rec
+    try:
+        yield calls
+    finally:
+        del pipe.synthesize_async
+
+
+def server_waves(long_text: str, prompt: str, stream_fn=None):
+    """POST /synthesize-long of long_text on a fresh server (stream_fn as
+    make_server takes it; None: the port's stream) → an iterator of the
+    PCM parts as they arrive."""
+    from vallex_tpu_torch.server import DynamicBatcher, make_server
+
+    batcher = DynamicBatcher(max_batch=4, max_wait_ms=50)
+    srv = make_server("127.0.0.1", 0, batcher=batcher, stream_fn=stream_fn)
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    try:
+        body = json.dumps({"text": long_text, "prompt": prompt, "language": "en",
+                           "seed": 0}).encode()
+        url = f"http://127.0.0.1:{srv.server_address[1]}/synthesize-long"
+        with urllib.request.urlopen(urllib.request.Request(url, data=body), timeout=240) as r:
+            if r.status != 200:
+                fail(f"5h /synthesize-long: status {r.status}")
+            while True:
+                part = r.read1(1 << 16)
+                if not part:
+                    break
+                yield part
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        batcher.shutdown()
+        th.join(30)
+
+
+def timed_run(bundle, label: str, waves) -> dict:
+    """Drain `waves` (an iterator of waves or PCM parts) → host seconds to
+    the first and the last item, the samples, every sentence's codes (from
+    the recorded handles) and the first wave's parts: the seconds before
+    sentence 0's dispatch, its dispatch (AR + tail enqueue), and from
+    there to the first wave; then the seconds of GC pauses before the
+    first wave and the caching allocator's device allocations in the run."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    pauses = []
+
+    def gc_clock(_phase, _info):
+        pauses.append(time.perf_counter())
+
+    allocs = torch.cuda.memory_stats().get("num_device_alloc", 0)
+    gc.callbacks.append(gc_clock)
+    try:
+        with dispatches(bundle) as calls:
+            t0 = time.perf_counter()
+            marks, samples = [], 0
+            for w in waves:
+                marks.append(time.perf_counter() - t0)
+                if isinstance(w, bytes):  # PCM s16le, parted anywhere
+                    samples += len(w) / 2
+                elif np.isfinite(w).all():
+                    samples += len(w)
+                else:
+                    fail(f"5h {label}: a wave that is not finite")
+    finally:
+        gc.callbacks.remove(gc_clock)
+    first = marks[0] if marks else float("inf")
+    gc_s = sum(b - a for a, b in zip(pauses[::2], pauses[1::2]) if b - t0 < first)
+    allocs = torch.cuda.memory_stats().get("num_device_alloc", 0) - allocs
+    codes = [h.result().codes for _, _, h in calls]
+    if not calls or samples != sum(len(c) for c in codes) * 320:
+        fail(f"5h {label}: {samples} samples for {[len(c) for c in codes]} frames")
+    (a, b, _) = calls[0]
+    return {"first": marks[0], "last": marks[-1], "codes": codes,
+            "enqueue": [h.result().seconds["enqueue"] for *_, h in calls],
+            "parts": (a - t0, b - a, marks[0] - (b - t0), gc_s, allocs)}
+
+
+def same_codes(label, got, want) -> None:
+    import numpy as np
+
+    if len(got) != len(want) or not all(np.array_equal(a, b) for a, b in zip(got, want)):
+        first = next((i for i, (a, b) in enumerate(zip(got, want))
+                      if not np.array_equal(a, b)), min(len(got), len(want)))
+        fail(f"5h {label}: codes differ from the sequential loop's at sentence {first}"
+             f" ({[len(c) for c in got]} vs {[len(c) for c in want]} frames)")
+
+
+def overlap_trace(api, bundle, sentences, prompt: str, card: str):
+    """One torch.profiler trace of the overlapped batch loop (fixed-prompt,
+    seed 0; the kernel path's batched route bypassed): the card's busy
+    share over the call, the tail kernels on the second
+    stream (flash forwards among them), and the share of each tail's device
+    time that lies inside the next sentence's AR span → its codes."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    fixed = api._load_prompt(prompt)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function("vallex.long_text"):
+            codes = api._long_text_codes(bundle, sentences, fixed, "en", "no-accent",
+                                         "fixed-prompt", None, 0)
+        torch.cuda.synchronize()
+    events = trace_events(prof)
+    device = device_events(events)
+    ann = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]), e["name"]) for e in events
+                 if e.get("cat") == "user_annotation"
+                 and str(e.get("name", "")).startswith("vallex."))
+    call = [(a, b) for a, b, n in ann if n == "vallex.long_text"]
+    ars = [(a, b) for a, b, n in ann if n == "vallex.ar"]
+    nars = [(a, b) for a, b, n in ann if n == "vallex.nar"]
+    if not device or not call or len(ars) != len(sentences) or len(nars) != len(sentences):
+        fail(f"5h trace: {len(device)} device events, spans {len(call)} / {len(ars)} /"
+             f" {len(nars)}")
+    lo, hi = call[0]
+    busy = busy_ms([(a, b) for a, b, *_ in device], lo, hi)
+    tails = [launched_in(events, device, a, b) for a, b in nars]
+    ar_streams = {d[3] for a, b in ars for d in launched_in(events, device, a, b)}
+    tail_streams = {d[3] for t in tails for d in t}
+    flash_tail = [d for t in tails for d in t if "flash_fwd" in d[2]]
+    if not flash_tail or {d[3] for d in flash_tail} & ar_streams:
+        fail(f"5h trace: flash forwards on the tail stream {len(flash_tail)}, tail streams"
+             f" {sorted(map(str, tail_streams))}, AR streams {sorted(map(str, ar_streams))}")
+    inside = []
+    for i, t in enumerate(tails[:-1]):
+        dev_ms = sum(b - a for a, b, *_ in t) / 1e3
+        nxt = ars[i + 1]
+        hid = sum(max(0.0, min(b, nxt[1]) - max(a, nxt[0])) for a, b, *_ in t) / 1e3
+        inside.append((round(hid, 3), round(dev_ms, 3)))
+    say("trace " + json.dumps({
+        "request": f"overlapped long text, {len(sentences)} sentences, {PROMPT_5H} tiled to"
+                   f" {PROMPT_5H_FRAMES} frames, fixed-prompt, seed 0,"
+                   f" {sum(len(c) for c in codes)} frames",
+        "wall_ms_traced": round((hi - lo) / 1e3, 3), "device_busy_ms": round(busy, 3),
+        "busy_share_traced": round(busy / ((hi - lo) / 1e3), 4),
+        "tail_kernels": sum(len(t) for t in tails),
+        "tail_kernels_off_the_ar_stream": sum(d[3] not in ar_streams for t in tails for d in t),
+        "flash_fwd_on_tail_stream": len(flash_tail),
+        "streams": {"ar": sorted(map(str, ar_streams)), "tail": sorted(map(str, tail_streams))},
+        "tail_ms_inside_next_ar_of_tail_ms": inside}) + f"  [{card}]")
+    return codes
+
+
+def long_text_overlap(api, bundle, card: str) -> None:
+    """Phase 5h, long text: 4 sentences with fuxuan's prompt tiled to 1980
+    frames (C = 2304, every fixed-prompt tail runs the flash forward),
+    default sampling. Seed 0 (no coin slides, so both modes keep the
+    prompt): the overlapped stream against the script's sequential loop,
+    PAIRS_5H pairs each for stream_audio_from_long_text and for POST
+    /synthesize-long (there the sequential loop is the server's stream_fn),
+    the pairs' order alternated; the overlapped batch loop in fixed-prompt
+    mode, and the same under torch.profiler. Seed 3 (sentence 3 on
+    sentence 2's codes): the stream against the sequential loop. One
+    sequential run and one POST come first, untimed. Every
+    overlapped run's codes equal the sequential loop's, bitwise. A route's
+    overlapped first wave may not come later than its sequential one by
+    more than the spread of its sequential first waves (the median of the
+    paired differences)."""
+    import numpy as np
+
+    sentences = api.split_text_into_sentences(LONG_5H)
+    if len(sentences) < 4:
+        fail(f"5h: {len(sentences)} sentences")
+    coins = np.random.RandomState(0).rand(len(sentences))
+    if (coins < 0.5).any():
+        fail(f"5h: seed 0 draws coins {coins.tolist()}")
+    slides = np.random.RandomState(SLIDE_SEED).rand(len(sentences))[:-1] < 0.5
+    if not slides.any():
+        fail(f"5h: seed {SLIDE_SEED} slides at no sentence")
+    med = statistics.median
+    r4 = lambda xs: [round(x, 4) for x in xs]  # noqa: E731
+    td = tempfile.mkdtemp(prefix="vallex-5h-")
+    try:
+        prompt = tiled_prompt(api, td)
+        routes = {
+            "stream_audio_from_long_text": (
+                lambda: sequential_waves(api, bundle, LONG_5H, prompt, "sliding-window", 0),
+                lambda: api.stream_audio_from_long_text(LONG_5H, prompt, language="en",
+                                                        mode="sliding-window", seed=0)),
+            "POST /synthesize-long": (
+                lambda: server_waves(LONG_5H, prompt, lambda text, **kw: sequential_waves(
+                    api, bundle, text, kw["prompt"], kw["mode"], kw["seed"])),
+                lambda: server_waves(LONG_5H, prompt)),
+        }
+        # untimed, each run's first use: the tail stream's allocations, a
+        # server's handler thread, the stream's worker thread
+        ref = timed_run(bundle, "warm-up, sequential loop", routes[
+            "stream_audio_from_long_text"][0]())["codes"]
+        same_codes("warm-up, POST /synthesize-long", timed_run(
+            bundle, "warm-up", routes["POST /synthesize-long"][1]())["codes"], ref)
+        enq = []
+        for route, (seq_fn, ovl_fn) in routes.items():
+            pairs = []
+            for k in range(PAIRS_5H):
+                runs = {}
+                for kind in (("seq", "ovl") if k % 2 == 0 else ("ovl", "seq")):
+                    runs[kind] = timed_run(bundle, f"{route} ({kind})",
+                                           (seq_fn if kind == "seq" else ovl_fn)())
+                    same_codes(f"{route} ({kind}, pair {k})", runs[kind]["codes"], ref)
+                    enq += runs[kind]["enqueue"]
+                pairs.append((runs["seq"], runs["ovl"]))
+            seq, ovl = [p[0] for p in pairs], [p[1] for p in pairs]
+            diff = [o["first"] - s["first"] for s, o in pairs]
+            noise = max(s["first"] for s in seq) - min(s["first"] for s in seq)
+            say(f"  long text, {len(sentences)} sentences, {PROMPT_5H} tiled to"
+                f" {PROMPT_5H_FRAMES} frames, seed 0 ({sum(len(c) for c in ref)} frames, codes"
+                f" bitwise equal), {route}, {PAIRS_5H} pairs, seq/ovl then ovl/seq in turn:"
+                f" sequential first wave {med([s['first'] for s in seq]):.4f} s (runs"
+                f" {r4([s['first'] for s in seq])}), last {med([s['last'] for s in seq]):.4f} s"
+                f" (runs {r4([s['last'] for s in seq])}); overlapped first wave"
+                f" {med([o['first'] for o in ovl]):.4f} s (runs {r4([o['first'] for o in ovl])}),"
+                f" last {med([o['last'] for o in ovl]):.4f} s (runs"
+                f" {r4([o['last'] for o in ovl])}); first wave overlapped - sequential by pair"
+                f" {r4(diff)}, median {med(diff):.4f} s, noise (the sequential first waves'"
+                f" spread) {noise:.4f} s  [{card}]")
+            say(f"  {route}, sentence 0 (seconds before its dispatch, its AR + tail enqueue,"
+                f" from there to the first wave; GC pauses before it, s; device allocations in"
+                f" the run): sequential {[r4(s['parts']) for s in seq]},"
+                f" overlapped {[r4(o['parts']) for o in ovl]}")
+            if med(diff) > noise:
+                fail(f"5h {route}: the overlapped first wave came later than the sequential"
+                     f" loop's by {r4(diff)} s (median {med(diff):.4f}), beyond the noise"
+                     f" {noise:.4f} s")
+        slid = {kind: timed_run(bundle, f"seed {SLIDE_SEED} ({kind})", fn()) for kind, fn in (
+            ("seq", lambda: sequential_waves(api, bundle, LONG_5H, prompt, "sliding-window",
+                                             SLIDE_SEED)),
+            ("ovl", lambda: api.stream_audio_from_long_text(
+                LONG_5H, prompt, language="en", mode="sliding-window", seed=SLIDE_SEED)))}
+        same_codes(f"stream_audio_from_long_text, sliding-window, seed {SLIDE_SEED}",
+                   slid["ovl"]["codes"], slid["seq"]["codes"])
+        t0 = time.perf_counter()
+        codes = api._long_text_codes(bundle, sentences, api._load_prompt(prompt), "en",
+                                     "no-accent", "fixed-prompt", None, 0)
+        t_batch = time.perf_counter() - t0
+        same_codes("batch loop, fixed-prompt", codes, ref)
+        say(f"  sliding-window, seed {SLIDE_SEED} (slides after sentences"
+            f" {np.flatnonzero(slides).tolist()}; {[len(c) for c in slid['seq']['codes']]}"
+            f" frames, codes bitwise equal): sequential loop last wave"
+            f" {slid['seq']['last']:.4f} s, overlapped stream {slid['ovl']['last']:.4f} s;"
+            f" overlapped batch loop, fixed-prompt, seed 0: {t_batch:.4f} s  [{card}]")
+        say(f"  host time to enqueue a tail (NAR + Vocos, C = 2304): median"
+            f" {med(enq) * 1e3:.3f} ms, max {max(enq) * 1e3:.3f} ms over {len(enq)} sentences"
+            f"  [{card}]")
+        same_codes("traced batch loop, fixed-prompt",
+                   overlap_trace(api, bundle, sentences, prompt, card), ref)
+    finally:
+        shutil.rmtree(td, ignore_errors=True)
+
+
+ZOO_AR_CAP, ZOO_TTS_FRAMES = 512, 200  # bf16 at full width, timed
+ZOO_F32_CAP, ZOO_F32_MELS = 64, 16  # f32 on the card against the CPU
+
+
+def model_zoo(dev, card: str) -> None:
+    """Phase 5h, the rest of the model zoo at the shipped width (d 1024,
+    12 + 12 layers, 16 heads, FFN 4096; random weights from seed 0):
+    VALL-F's AR (greedy and sampled over a 512-frame buffer, a 384-frame
+    prompt) and its NAR,
+    the Transformer TTS's inference (up to 200 frames) in bf16, timed; then
+    f32 (TF32 off) at a short cap against the same calls on the CPU: greedy
+    tokens, NAR codes and mel frame counts equal, mels at 1e-4 of their
+    scale."""
+    import numpy as np
+    import torch
+
+    from vallex_tpu_torch.config import ModelConfig
+    from vallex_tpu_torch.models import get_model
+    from vallex_tpu_torch.models import transformer_tts as TT
+    from vallex_tpu_torch.models import vallf as VF
+
+    cfg = ModelConfig()
+    rng = np.random.RandomState(0)
+    # a 384-frame prompt: the AR generates up to 127 frames into the buffer
+    S, TP = 60, ZOO_AR_CAP * 3 // 4
+    text = np.zeros((1, 128), np.int64)
+    text[0, :S] = rng.randint(5, 500, S)
+    prompt = rng.randint(0, 1024, (ZOO_AR_CAP, 8))
+
+    def nar_input(y, gl, tp, t_audio):
+        codes = np.zeros((1, t_audio, 8), np.int64)
+        codes[0, :tp] = prompt[:tp]
+        codes[0, tp:tp + gl, 0] = y[0, tp + 1:tp + 1 + gl].cpu().numpy()
+        return codes
+
+    init_f, _ = get_model("VALL-F", cfg)
+    tree = init_f(cfg, torch.Generator().manual_seed(0))
+    m = VF.build(tree, cfg, device=dev, dtype=torch.bfloat16)
+    cb0 = prompt[None, :TP, 0]
+    VF.vallf_ar_generate(m, cfg, text, S, cb0, TP, t_audio=TP + 8, dtype=torch.bfloat16)  # warm
+    (y, gl), t_ar = synced(dev, lambda: VF.vallf_ar_generate(
+        m, cfg, text, S, cb0, TP, t_audio=ZOO_AR_CAP, dtype=torch.bfloat16))
+    gen = y[0, TP + 1:TP + 1 + gl]
+    if not (gl > 0 and int(gen.min()) >= 0 and int(gen.max()) <= cfg.eos_id):
+        fail(f"5h VALL-F greedy AR: {gl} frames, tokens in [{int(gen.min())}, {int(gen.max())}]")
+    card_time(f"VALL-F AR greedy, bf16, {gl} frames over a {ZOO_AR_CAP}-frame buffer"
+              f" ({gl / t_ar:.1f} frames/s)", t_ar, card)
+    g = torch.Generator(device=dev).manual_seed(0)
+    (ys, gls), t_s = synced(dev, lambda: VF.vallf_ar_generate(
+        m, cfg, text, S, cb0, TP, t_audio=ZOO_AR_CAP, greedy=False, generator=g,
+        dtype=torch.bfloat16))
+    if not (0 < gls <= ZOO_AR_CAP - 1 - TP and ys.shape == (1, ZOO_AR_CAP)):
+        fail(f"5h VALL-F sampled AR: {gls} frames, buffer {tuple(ys.shape)}")
+    card_time(f"VALL-F AR sampled, bf16, {gls} frames", t_s, card)
+    glc = min(gl, ZOO_AR_CAP - TP - 1)
+    codes_in = nar_input(y, glc, TP, ZOO_AR_CAP)
+    codes, t_nar = synced(dev, lambda: VF.vallf_nar_generate(
+        m, cfg, text, S, codes_in, TP + glc, TP, dtype=torch.bfloat16))
+    c = codes.cpu().numpy()
+    if not (c.shape == (1, ZOO_AR_CAP, 8) and np.array_equal(c[0, :TP], prompt[:TP])
+            and c.min() >= 0 and c.max() < 1024 + 1):
+        fail(f"5h VALL-F NAR: codes {c.shape} in [{c.min()}, {c.max()}]")
+    card_time(f"VALL-F NAR, bf16, 7 stages over {ZOO_AR_CAP} frames", t_nar, card)
+
+    # f32, TF32 off (main() turns it off), against the CPU
+    tp32 = 32
+    m32 = VF.build(tree, cfg, device=dev, dtype=torch.float32)
+    mc = VF.build(tree, cfg, device="cpu", dtype=torch.float32)
+    del m, tree
+    cb32 = prompt[None, :tp32, 0]
+    (yg, glg), t_g = synced(dev, lambda: VF.vallf_ar_generate(
+        m32, cfg, text, S, cb32, tp32, t_audio=ZOO_F32_CAP))
+    t0 = time.perf_counter()
+    yc, glc32 = VF.vallf_ar_generate(mc, cfg, text, S, cb32, tp32, t_audio=ZOO_F32_CAP)
+    t_cpu = time.perf_counter() - t0
+    if glg != glc32 or not np.array_equal(yg.cpu().numpy(), yc.numpy()):
+        diff = np.nonzero(yg.cpu().numpy()[0] != yc.numpy()[0])[0]
+        fail(f"5h VALL-F f32 greedy: {glg} frames on the card, {glc32} on the CPU, first"
+             f" differing position {diff[:1].tolist()}")
+    n_in = nar_input(yc, glc32, tp32, ZOO_F32_CAP)
+    ng = VF.vallf_nar_generate(m32, cfg, text, S, n_in, tp32 + glc32, tp32).cpu().numpy()
+    nc = VF.vallf_nar_generate(mc, cfg, text, S, n_in, tp32 + glc32, tp32).numpy()
+    if not np.array_equal(ng, nc):
+        fail(f"5h VALL-F f32 NAR: {int((ng != nc).sum())} codes differ from the CPU's")
+    say(f"  VALL-F f32 (buffer {ZOO_F32_CAP}, prompt {tp32}): greedy tokens ({glg} frames) and"
+        f" NAR codes on the card equal the CPU's ({t_g:.3f} s on the card, AR {t_cpu:.1f} s"
+        f" on the CPU)")
+    del m32, mc
+
+    # the Transformer TTS: random weights fire the stop head within a frame
+    # or two, so the timed run (and one f32 check) also takes a copy whose
+    # stop bias is -100, which runs every frame
+    init_t, _ = get_model("Transformer", cfg)
+    tree = init_t(cfg, torch.Generator().manual_seed(0))
+    quiet = dict(tree, stop_layer={"w": tree["stop_layer"]["w"], "b": torch.full((1,), -100.0)})
+    tts = TT.build(quiet, cfg, device=dev, dtype=torch.bfloat16)
+    TT.inference(tts, cfg, text, S, max_frames=8, dtype=torch.bfloat16)  # warm
+    (mels, n), t_tts = synced(dev, lambda: TT.inference(
+        tts, cfg, text, S, max_frames=ZOO_TTS_FRAMES, dtype=torch.bfloat16))
+    if not (n == ZOO_TTS_FRAMES and torch.isfinite(mels).all()):
+        fail(f"5h Transformer TTS: {n} frames, finite {bool(torch.isfinite(mels).all())}")
+    card_time(f"Transformer TTS inference, bf16, {n} frames (stop bias -100)", t_tts, card)
+    mel_t = torch.from_numpy(rng.randn(2, ZOO_TTS_FRAMES, 100).astype(np.float32))
+    (loss, parts), t_fwd = synced(dev, lambda: TT.forward(
+        tts, cfg, np.repeat(text, 2, 0), np.array([S, S - 10]), mel_t,
+        np.array([ZOO_TTS_FRAMES, ZOO_TTS_FRAMES - 40]), dtype=torch.bfloat16))
+    if not torch.isfinite(loss):
+        fail(f"5h Transformer TTS forward: loss {float(loss)}")
+    card_time(f"Transformer TTS forward (batch 2, {ZOO_TTS_FRAMES} frames), loss"
+              f" {float(loss):.4f}", t_fwd, card)
+    del tts
+    for label, t in (("random stop head", tree), ("stop bias -100", quiet)):
+        mg, n_g = TT.inference(TT.build(t, cfg, device=dev), cfg, text, S,
+                               max_frames=ZOO_F32_MELS)
+        mc, n_c = TT.inference(TT.build(t, cfg, device="cpu"), cfg, text, S,
+                               max_frames=ZOO_F32_MELS)
+        mg, mc = mg.cpu().numpy(), mc.numpy()
+        scale = float(np.abs(mc).max())
+        err = float(np.abs(mg - mc).max())
+        if n_g != n_c or err > 1e-4 * scale:
+            fail(f"5h Transformer TTS f32, {label}: {n_g} frames on the card, {n_c} on the"
+                 f" CPU, mels {err:.3e} apart (scale {scale:.3e})")
+        say(f"  Transformer TTS f32, {label}: {n_g} of {ZOO_F32_MELS} frames on the card and"
+            f" the CPU, mels within {err:.3e} (1e-4 of their scale {scale:.3e})")
 
 
 # ---------------------------------------------------------------------------
@@ -2862,6 +3363,16 @@ def main() -> None:
         prompt_paths(dev, api, bundle, smi.splitlines()[0])
     counts_slice6 = dict(loader.launch_counts)
 
+    # ---- phase 5h: long text overlapped on two streams, VALL-F, Transformer TTS
+    loader.reset_launch_counts()
+    with phase("5h long-text overlap / VALL-F / Transformer TTS", 150):
+        api._bundle = bundle
+        long_text_overlap(api, bundle, smi.splitlines()[0])
+        model_zoo(dev, smi.splitlines()[0])
+    counts_slice7 = dict(loader.launch_counts)
+    if not counts_slice7.get(("flash_attention_fwd", "flash_attention"), 0):
+        fail("5h: no flash forward launched at the NAR's site")
+
     with phase("7 trace", 300):
         def one_request():
             api.generate_audio("Hello world.", prompt="paimon", language="en", top_k=1,
@@ -2906,6 +3417,7 @@ def main() -> None:
         say(f"  phase 5e launches by site: {json.dumps({f'{k}@{s}': n for (k, s), n in sorted(counts_slice4.items())})}")
         say(f"  phase 5f launches by site: {json.dumps({f'{k}@{s}': n for (k, s), n in sorted(counts_slice5.items())})}")
         say(f"  phase 5g launches by site: {json.dumps({f'{k}@{s}': n for (k, s), n in sorted(counts_slice6.items())})}")
+        say(f"  phase 5h launches by site: {json.dumps({f'{k}@{s}': n for (k, s), n in sorted(counts_slice7.items())})}")
         say(json.dumps({"kernels": [{k: v for k, v in e.items() if k != "unit"} for e in entries]}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

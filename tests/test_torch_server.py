@@ -518,7 +518,7 @@ def real_server():
     b.shutdown()
 
 
-def test_http_synthesize_long_not_ported_answers_501(real_server):
+def test_http_synthesize_long_port_streams_200_pcm(real_server):
     """The default stream_fn is now the port's stream_audio_from_long_text:
     POST /synthesize-long answers 200 and streams 24 kHz PCM whose length
     is the sentences' frames · 320 (greedy, so it equals the batch API's

@@ -1,8 +1,9 @@
 """The port's trainer CLI (vallex_tpu_torch/train/trainer.py) on the CPU at
 toy width, over a synthetic HDF5 set made as tests/test_train.py:96-145
 makes one: one epoch of stage-1 ScaledAdam with a checkpoint, --resume, a
-packed run, and the flags that are not ported yet (--init-checkpoint:
-tests/test_torch_checkpoint.py)."""
+packed run, and the flags that are not ported yet. --init-checkpoint is
+tested in tests/test_torch_checkpoint.py, --visualize-dir and --model-name
+in tests/test_torch_vallf.py."""
 
 import os
 
@@ -85,8 +86,6 @@ def test_trainer_packed(tmp_path, monkeypatch):
     pytest.param(["--dp", "2"], "§1 items 7-8", id="flags0-§1 items 7-8"),
     pytest.param(["--tp", "2"], "§1 items 7-8", id="flags1-§1 items 7-8"),
     pytest.param(["--init-distributed"], "§1 items 7-8", id="flags2-§1 items 7-8"),
-    pytest.param(["--visualize-dir", "viz"], "§1 item 9", id="flags4-§1 item 9"),
-    pytest.param(["--model-name", "VALL-F"], "§1 item 9", id="flags5-§1 item 9"),
 ])
 def test_trainer_unported_flags_raise(tmp_path, flags, item):
     args = trainer.get_parser().parse_args(

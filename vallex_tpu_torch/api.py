@@ -14,6 +14,8 @@ from __future__ import annotations
 import functools
 import logging
 import os
+import queue
+import threading
 from dataclasses import dataclass, field
 from typing import Any, Iterator, List, Optional, Tuple, Union
 
@@ -41,12 +43,14 @@ from .engine.nar import nar_generate
 from .engine.pipeline import (
     DTYPES,
     BatchSynthesisResult,
+    PendingSynthesis,
     SynthesisPipeline,
     SynthesisResult,
 )
 from .frontend import PhonemeTokenizer, get_text_token_collater, split_text_into_sentences
 from .frontend.langid import classify
 from .models.vallex import VALLE, init_vallex
+from .utils.device import resolve_device
 
 logger = logging.getLogger(__name__)
 
@@ -74,16 +78,6 @@ class ModelBundle:
 
 
 _bundle: Optional[ModelBundle] = None
-
-
-def resolve_device(device=None) -> torch.device:
-    """`cuda` unless told otherwise; a CUDA request without a GPU raises."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device: the port runs on the GPU; pass device='cpu' to"
-            " run the plain PyTorch path on the CPU")
-    return dev
 
 
 def preload_models(
@@ -334,17 +328,23 @@ def _long_text_batch_size(ecfg: EngineConfig) -> int:
     return 8 if ecfg.quantize == "int8kv" else 4
 
 
-def _synthesize_sentence(bundle: ModelBundle, sent: str, prompt: Prompt, language: str,
-                         accent: str, *, best_of: Optional[int], seed: int,
-                         return_wave: bool):
-    """One sentence through the single-request pipeline → (codes, wave)."""
+def _synthesize_async(bundle: ModelBundle, sent: str, prompt: Prompt, language: str,
+                      accent: str, *, best_of: Optional[int], seed: int,
+                      return_wave: bool) -> PendingSynthesis:
+    """Dispatch one sentence through the single-request pipeline and
+    return its PendingSynthesis without waiting for the tail
+    (vallex_tpu/api.py:316)."""
     audio, text_prompt, lang_pr = prompt
     text_ids, lang_ids = _prepare_text(bundle, sent, text_prompt, lang_pr, language, accent)
-    res = bundle.pipeline.synthesize(
+    return bundle.pipeline.synthesize_async(
         text_ids, lang_ids, audio if len(audio) else None, best_of=best_of, seed=seed,
         return_wave=return_wave and bundle.vocos is not None)
+
+
+def _fetch(bundle: ModelBundle, handle: PendingSynthesis) -> SynthesisResult:
+    res = handle.result()
     bundle.last = res
-    return res.codes, res.wave
+    return res
 
 
 def _fixed_prompt_batches(bundle: ModelBundle, sentences: List[str], prompt: Prompt,
@@ -379,41 +379,56 @@ def _fixed_prompt_batches(bundle: ModelBundle, sentences: List[str], prompt: Pro
             yield from res.outputs
 
 
-def _long_text(text: str, prompt: Optional[str], language: str, accent: str, mode: str,
-               best_of: Optional[int], seed: int, *, stream: bool):
-    """The sentence loop shared by both long-text entry points: yields
-    (codes, wave) per sentence. Fixed-prompt sentences on the kernel path
-    go through the batched path; otherwise one sentence after the other,
-    with the sliding window's p = 0.5 coin pre-drawn from
-    np.random.RandomState(seed) as in the JAX package, so the prompts (and
-    the token streams) follow the same draws. The JAX package overlaps
-    sentence i + 1's dispatch with sentence i's fetch; this loop runs them
-    in turn, which gives the same tokens."""
-    bundle = _require_bundle()
-    if prompt is None:
-        mode = "sliding-window"
-    sentences = split_text_into_sentences(text)
-    fixed = _load_prompt(prompt)
-    if (mode == "fixed-prompt" and len(sentences) > 1
-            and (best_of or bundle.ecfg.best_of) == 1
-            and bundle.pipeline.decode_mode == "megakernel"):
-        yield from _fixed_prompt_batches(bundle, sentences, fixed, language, accent,
-                                         seed=seed, return_wave=stream,
-                                         first_alone=stream)
-        return
+def _dispatch_sentences(bundle: ModelBundle, sentences: List[str], fixed: Prompt,
+                        language: str, accent: str, mode: str, best_of: Optional[int],
+                        seed: int, *, return_wave: bool) -> Iterator[PendingSynthesis]:
+    """The sentence loop of both long-text entry points: dispatches each
+    sentence (seed + i) and yields its handle at once. The sliding
+    window's p = 0.5 coin is pre-drawn from np.random.RandomState(seed)
+    per sentence in the JAX package's order (vallex_tpu/api.py:553-585).
+    Below 0.5 the next prompt needs this sentence's codes, so its handle
+    is fetched here before the next dispatch; otherwise the next sentence
+    is dispatched while this one's tail may still run. The tokens are
+    those of a loop that fetches each sentence before the next."""
     rng = np.random.RandomState(seed)
     cur = fixed
     for i, sent in enumerate(sentences):
         logger.info("synthesize sentence %d/%d", i + 1, len(sentences))
-        codes, wave = _synthesize_sentence(bundle, sent, cur, language, accent,
-                                           best_of=best_of, seed=seed + i,
-                                           return_wave=stream)
+        h = _synthesize_async(bundle, sent, cur, language, accent, best_of=best_of,
+                              seed=seed + i, return_wave=return_wave)
         coin = rng.rand() if mode == "sliding-window" else 1.0
-        yield codes, wave
+        yield h
         if coin < 0.5:
-            cur = _slid_prompt_triple(bundle, sent, codes, language)
+            cur = _slid_prompt_triple(bundle, sent, h.result().codes, language)
         elif mode == "sliding-window":
             cur = fixed
+
+
+def _batched_route(bundle: ModelBundle, sentences: List[str], mode: str,
+                   best_of: Optional[int]) -> bool:
+    """Fixed-prompt sentences on the kernel path go through the batched
+    path (_fixed_prompt_batches), as in the JAX package."""
+    return (mode == "fixed-prompt" and len(sentences) > 1
+            and (best_of or bundle.ecfg.best_of) == 1
+            and bundle.pipeline.decode_mode == "megakernel")
+
+
+def _long_text_codes(bundle: ModelBundle, sentences: List[str], fixed: Prompt,
+                     language: str, accent: str, mode: str, best_of: Optional[int],
+                     seed: int) -> List[np.ndarray]:
+    """Each sentence's codes through the double-buffered loop of the JAX
+    package (vallex_tpu/api.py:553-585): sentence i + 1 is dispatched
+    before sentence i is fetched, unless i's coin says its codes make the
+    next prompt."""
+    codes, pending = [], None
+    for h in _dispatch_sentences(bundle, sentences, fixed, language, accent, mode, best_of,
+                                 seed, return_wave=False):
+        if pending is not None:
+            codes.append(_fetch(bundle, pending).codes)
+        pending = h
+    if pending is not None:
+        codes.append(_fetch(bundle, pending).codes)
+    return codes
 
 
 def generate_audio_from_long_text(
@@ -432,10 +447,85 @@ def generate_audio_from_long_text(
     mode='sliding-window': with p = 0.5 per sentence, the prompt is replaced
     by the previous sentence's generated codes + text
     (generation.py:264-269). The sampling settings are the EngineConfig's.
+    Sentence i + 1's AR runs while sentence i's NAR runs on the pipeline's
+    tail stream (_long_text_codes).
     → one waveform @ 24 kHz, vocoded over the concatenated codes."""
-    codes = [c for c, _ in _long_text(text, prompt, language, accent, mode, best_of,
-                                      seed, stream=False)]
-    return codes_to_wave(_require_bundle(), np.concatenate(codes, axis=0))
+    bundle = _require_bundle()
+    if prompt is None:
+        mode = "sliding-window"
+    sentences = split_text_into_sentences(text)
+    fixed = _load_prompt(prompt)
+    if _batched_route(bundle, sentences, mode, best_of):
+        codes = [c for c, _ in _fixed_prompt_batches(bundle, sentences, fixed, language,
+                                                     accent, seed=seed, return_wave=False,
+                                                     first_alone=False)]
+    else:
+        codes = _long_text_codes(bundle, sentences, fixed, language, accent, mode, best_of,
+                                 seed)
+    return codes_to_wave(bundle, np.concatenate(codes, axis=0))
+
+
+_DONE = object()
+
+
+def _put(q: queue.Queue, item, stop: threading.Event) -> bool:
+    """q.put that gives up once `stop` is set → whether the item went in."""
+    while not stop.is_set():
+        try:
+            q.put(item, timeout=0.05)
+            return True
+        except queue.Full:
+            pass
+    return False
+
+
+def _overlapped_stream(bundle: ModelBundle, sentences: List[str], fixed: Prompt,
+                       language: str, accent: str, mode: str, best_of: Optional[int],
+                       seed: int) -> Iterator[np.ndarray]:
+    """Each sentence's wave as soon as its tail is done, while the next
+    sentence's AR runs. Sentence 0 is dispatched, fetched and handed out on
+    the calling thread, as a loop of one sentence at a time would: until
+    the first wave is out, no other thread shares the host. When the reader
+    asks for the next wave, a worker thread runs the rest of
+    _dispatch_sentences and hands the handles over a queue of one, and this
+    generator fetches and yields. (The JAX order, dispatch i + 1 then fetch
+    i, would hold each wave back by one AR here: the port's AR runs on the
+    host, so dispatching a sentence means running its AR.) Closing the
+    generator stops the worker after the sentence it is on and joins it."""
+    handles = _dispatch_sentences(bundle, sentences, fixed, language, accent, mode, best_of,
+                                  seed, return_wave=True)
+    first = next(handles, None)
+    if first is None:
+        return
+    q: queue.Queue = queue.Queue(maxsize=1)
+    stop = threading.Event()
+
+    def work():
+        try:
+            for h in handles:
+                if not _put(q, h, stop):
+                    return
+        except BaseException as exc:  # noqa: BLE001 (handed to the reader)
+            _put(q, exc, stop)
+        _put(q, _DONE, stop)
+
+    def wave(res: SynthesisResult) -> np.ndarray:
+        return res.wave if res.wave is not None else codes_to_wave(bundle, res.codes)
+
+    yield wave(_fetch(bundle, first))
+    worker = threading.Thread(target=work, name="vallex-long-text", daemon=True)
+    worker.start()
+    try:
+        while True:
+            item = q.get()
+            if item is _DONE:
+                return
+            if isinstance(item, BaseException):
+                raise item
+            yield wave(_fetch(bundle, item))
+    finally:
+        stop.set()
+        worker.join()
 
 
 def stream_audio_from_long_text(
@@ -454,13 +544,23 @@ def stream_audio_from_long_text(
     and mode (greedy always; sampled ones also in sliding-window mode — the
     fixed-prompt batches are cut differently); only the vocoder runs per
     sentence, so waveforms can differ within its receptive field at
-    sentence boundaries."""
+    sentence boundaries. Sentence i's wave comes while sentence i + 1's AR
+    runs (_overlapped_stream); close the generator to stop early."""
     bundle = _require_bundle()
     if bundle.vocos is None:
         raise RuntimeError("streaming synthesis needs the Vocos vocoder weights")
-    for codes, wave in _long_text(text, prompt, language, accent, mode, best_of, seed,
-                                  stream=True):
-        yield wave if wave is not None else codes_to_wave(bundle, codes)
+    if prompt is None:
+        mode = "sliding-window"
+    sentences = split_text_into_sentences(text)
+    fixed = _load_prompt(prompt)
+    if _batched_route(bundle, sentences, mode, best_of):
+        for codes, wave in _fixed_prompt_batches(bundle, sentences, fixed, language, accent,
+                                                 seed=seed, return_wave=True,
+                                                 first_alone=True):
+            yield wave if wave is not None else codes_to_wave(bundle, codes)
+        return
+    yield from _overlapped_stream(bundle, sentences, fixed, language, accent, mode, best_of,
+                                  seed)
 
 
 # ---------------------------------------------------------------------------

@@ -2,8 +2,9 @@
 
 `params_from_jax(tree)` takes the JAX package's parameters as a nested dict
 of numpy arrays — `jax.tree.map(np.asarray, params)` of `init_vallex` /
-`init_vocos` / `init_encodec` / `init_whisper` or a loaded checkpoint — and
-returns the port's `VALLE`, `Vocos`, `EnCodec` or `Whisper` module holding
+`init_vallf` / `init_transformer_tts` / `init_vocos` / `init_encodec` /
+`init_whisper` or a loaded checkpoint — and returns the port's `VALLE`,
+`VALLF`, `TransformerTTS`, `Vocos`, `EnCodec` or `Whisper` module holding
 the same values. Module paths mirror the tree (EnCodec's aside, whose
 module holds torch's layouts): a stacked leaf `[NL, ...]` under `layers` (or `blocks`) feeds the NL
 per-layer modules `layers.<i>.…`. The random inits of this package build
@@ -99,11 +100,12 @@ def params_from_jax(
     tree: Dict[str, Any], *, cfg=None, device="cpu", dtype: torch.dtype = torch.float32,
 ) -> nn.Module:
     """JAX parameter tree (numpy leaves) → the module it belongs to, told
-    apart by its leaves: `VALLE` of `cfg` (a ModelConfig, default the
-    shipped one) in the compute `dtype`; `Vocos`, `EnCodec` and `Whisper`
-    (of `cfg`, a WhisperConfig, default medium's) in f32, as the JAX
-    package runs them. EnCodec's module holds torch's conv and LSTM
-    layouts, so its tree goes through `encodec.encodec_from_tree`."""
+    apart by its leaves: `VALLE`, `VALLF` or `TransformerTTS` of `cfg` (a
+    ModelConfig, default the shipped one) in the compute `dtype`; `Vocos`,
+    `EnCodec` and `Whisper` (of `cfg`, a WhisperConfig, default medium's)
+    in f32, as the JAX package runs them. EnCodec's module holds torch's
+    conv and LSTM layouts, so its tree goes through
+    `encodec.encodec_from_tree`."""
     if "codebook_weights" in tree:
         from .codec.vocos import Vocos
 
@@ -117,6 +119,15 @@ def params_from_jax(
 
         return load_tree(Whisper(cfg or WhisperConfig()), tree, dtype=torch.float32,
                          device=device)
+    if "decoder_prenet" in tree:
+        from .models.transformer_tts import TransformerTTS
+
+        return load_tree(TransformerTTS(cfg or ModelConfig()), tree, dtype=dtype,
+                         device=device)
+    if "cross_attn" in tree["ar_decoder"]["layers"]:
+        from .models.vallf import VALLF
+
+        return load_tree(VALLF(cfg or ModelConfig()), tree, dtype=dtype, device=device)
     from .models.vallex import VALLE
 
     return load_tree(VALLE(cfg or ModelConfig()), tree, dtype=dtype,

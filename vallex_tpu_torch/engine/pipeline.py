@@ -1,7 +1,13 @@
 """Synthesis pipeline: AR → NAR → Vocos for one utterance or a batch of
 requests (port of vallex_tpu/engine/pipeline.py: _assemble_nar_input(_batch),
-_shift_out_prompt(_batch), _nar_tail(_batch), SynthesisPipeline.synthesize
-and synthesize_batch).
+_shift_out_prompt(_batch), _nar_tail(_batch), PendingSynthesis,
+SynthesisPipeline.synthesize, synthesize_async and synthesize_batch).
+
+`synthesize_async` splits one utterance into dispatch and fetch, as the JAX
+package does: it runs the AR, enqueues the tail (NAR, then Vocos) on the
+pipeline's own CUDA stream and returns a `PendingSynthesis`, whose
+`result()` waits for the tail and copies codes and wave to the host. Long
+text runs sentence i + 1's AR while sentence i's tail runs (api.py).
 
 Every sampling knob of the reference runs: best_of > 1 (samples of one
 request, or of each batched request, and the best picked), filtered
@@ -12,6 +18,8 @@ every decode_mode.
 
 from __future__ import annotations
 
+import contextlib
+import threading
 import time
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
@@ -23,6 +31,7 @@ from ..config import EngineConfig, ModelConfig
 from ..kernels import check_head_dim
 from ..models import vallex as V
 from ..ops.decode_step import pack_layer_weights, quantize_weights
+from ..utils.profiling import DeviceSpan, PhaseTimer
 from .ar import (
     ARResult,
     BatchARResult,
@@ -105,7 +114,10 @@ class SynthesisResult(NamedTuple):
     codes: np.ndarray  # [T_gen, 8]
     wave: Optional[np.ndarray]  # [T_gen * 320] or None
     ar: ARResult
-    seconds: Dict[str, float]  # host-clock phase times, device-synchronized
+    # "ar": host clock; "nar", "vocos": CUDA events on the tail stream (host
+    # clock on the CPU); "enqueue": host time to enqueue the tail; "sync":
+    # result()'s wait and copies
+    seconds: Dict[str, float]
 
 
 class BatchSynthesisResult(NamedTuple):
@@ -114,11 +126,60 @@ class BatchSynthesisResult(NamedTuple):
     seconds: Dict[str, float]  # host-clock phase times of the whole batch
 
 
+def _on(stream):
+    """torch.cuda.stream(stream), or nothing on the CPU (stream None)."""
+    return contextlib.nullcontext() if stream is None else torch.cuda.stream(stream)
+
+
+class PendingSynthesis:
+    """A synthesis whose AR has run and whose tail (NAR, then Vocos) may
+    still run on the pipeline's tail stream. It holds device tensors only;
+    `result()` waits for the tail's end event, copies codes (and wave) to
+    the host on the tail stream and returns the SynthesisResult, the same
+    one each call (a long text's worker and its reader may both ask)."""
+
+    __slots__ = ("_ar", "_codes", "_wave", "_done", "_stream", "_spans", "_seconds",
+                 "_timer", "_lock", "_result")
+
+    def __init__(self, ar: ARResult, gen_codes: torch.Tensor, wave: Optional[torch.Tensor],
+                 done, stream, spans: List[DeviceSpan], seconds: Dict[str, float],
+                 timer: PhaseTimer):
+        self._ar, self._codes, self._wave = ar, gen_codes, wave
+        self._done, self._stream, self._spans = done, stream, spans
+        self._seconds, self._timer = seconds, timer
+        self._lock = threading.Lock()
+        self._result: Optional[SynthesisResult] = None
+
+    def result(self) -> SynthesisResult:
+        with self._lock:
+            if self._result is None:
+                from ..codec.vocos import HOP
+
+                gl = self._ar.gen_len
+                dev = [self._codes[0, :gl]]
+                if self._wave is not None:
+                    dev.append(self._wave[0, : gl * HOP])
+                t0 = time.perf_counter()
+                if self._done is not None:
+                    self._done.synchronize()
+                with _on(self._stream):  # the tail stream the tensors were made on
+                    host = [t.cpu().numpy() for t in dev]
+                self._seconds["sync"] = time.perf_counter() - t0
+                self._timer.add("sync", self._seconds["sync"])
+                for span in self._spans:
+                    self._seconds[span.name] = span.seconds()
+                self._result = SynthesisResult(host[0], host[1] if len(host) > 1 else None,
+                                               self._ar, self._seconds)
+                self._codes = self._wave = self._done = None
+            return self._result
+
+
 class SynthesisPipeline:
     """AR + NAR (+ Vocos) on one device. decode_mode "auto" runs the
     hand-written kernels on CUDA and the per-token loop on the CPU. Each
-    phase is a profiler span ("vallex.ar", "vallex.nar", "vallex.vocos")
-    that a torch.profiler trace reads its device-busy share from."""
+    phase is a profiler span ("vallex.ar", "vallex.nar", "vallex.vocos";
+    the tail's two close when their work is enqueued) and a phase of
+    `timer`."""
 
     def __init__(self, model: V.VALLE, cfg: ModelConfig, ecfg: EngineConfig,
                  vocos=None):
@@ -137,6 +198,8 @@ class SynthesisPipeline:
         self.decode_mode = mode
         self._packed: Optional[Dict] = None
         self._draft: Optional[Dict] = None
+        self._tail: Optional[torch.cuda.Stream] = None
+        self.timer = PhaseTimer()
 
     def packed_weights(self, need_draft: bool):
         """bf16 packed decode weights and the int8 draft, prepared once."""
@@ -158,6 +221,15 @@ class SynthesisPipeline:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def tail_stream(self) -> Optional[torch.cuda.Stream]:
+        """The stream the NAR + Vocos tail of `synthesize_async` runs on
+        (None on the CPU)."""
+        if self.device.type != "cuda":
+            return None
+        if self._tail is None:
+            self._tail = torch.cuda.Stream(self.device)
+        return self._tail
+
     @torch.inference_mode()
     def synthesize(
         self,
@@ -173,6 +245,36 @@ class SynthesisPipeline:
         return_wave: bool = True,
         max_gen_frames: Optional[int] = None,
     ) -> SynthesisResult:
+        """→ SynthesisResult: `synthesize_async(...).result()`.
+        max_gen_frames caps the generated length (75 frames/s) and
+        right-sizes the audio bucket."""
+        return self.synthesize_async(
+            text_ids, lang_ids, prompt_codes, best_of=best_of, top_k=top_k, top_p=top_p,
+            temperature=temperature, seed=seed, return_wave=return_wave,
+            max_gen_frames=max_gen_frames).result()
+
+    @torch.inference_mode()
+    def synthesize_async(
+        self,
+        text_ids: np.ndarray,  # [S]
+        lang_ids: np.ndarray,  # [S]
+        prompt_codes: Optional[np.ndarray] = None,  # [Tp, 8]
+        *,
+        best_of: Optional[int] = None,
+        top_k: Optional[int] = None,
+        top_p: Optional[float] = None,
+        temperature: Optional[float] = None,
+        seed: int = 0,
+        return_wave: bool = True,
+        max_gen_frames: Optional[int] = None,
+    ) -> "PendingSynthesis":
+        """Run the AR, enqueue the tail (NAR, then Vocos when a wave is
+        asked for) and return without waiting for it (PendingSynthesis):
+        a caller that knows its next utterance can run that one's AR while
+        this tail runs. On the card the AR runs on the current stream and
+        ends with its own host read of the tokens; the tail runs on
+        `tail_stream()`, after `wait_stream` on the current one. On the CPU
+        the tail runs eagerly here and `result()` only slices."""
         e, cfg, dev = self.ecfg, self.cfg, self.device
         best_of = best_of or e.best_of
         top_k = e.top_k if top_k is None else top_k
@@ -214,7 +316,9 @@ class SynthesisPipeline:
                              else (self.serving_weights(), None))
         generator = torch.Generator(device=dev)
         generator.manual_seed(int(seed) & 0x7FFFFFFF)
-        with record_function("vallex.ar"):
+        with self.timer.phase("ar"), record_function("vallex.ar"):
+            # ends with a host read of the tokens: the current stream is
+            # idle when it returns
             ar = ar_generate(
                 self.model, cfg, text_pad, lang_pad, S, prompt_pad, Tp,
                 generator=generator, top_k=top_k, temperature=temperature,
@@ -224,35 +328,46 @@ class SynthesisPipeline:
                 packed=packed, packed_draft=draft, top_p=top_p, beams=best_of,
                 length_penalty=e.length_penalty, quantize=e.quantize,
             )
-            self._sync()
         seconds["ar"] = time.perf_counter() - t0
 
         t1 = time.perf_counter()
         gl = ar.gen_len
-        with record_function("vallex.nar"):
-            codes_pad = torch.zeros((1, t_audio, cfg.num_quantizers), dtype=torch.int64, device=dev)
-            codes_pad[0, :Tp] = torch.from_numpy(np.array(prompt, np.int64)).to(dev)
-            codes_in = assemble_nar_input(
-                torch.as_tensor(ar.tokens, device=dev), codes_pad, t_audio, cfg.eos_id)
-            codes = nar_generate(
-                self.model, cfg, torch.as_tensor(text_pad, device=dev)[None],
-                torch.as_tensor(lang_pad, device=dev)[None], S, codes_in, Tp + gl, Tp,
-                dtype=self.dtype,
-            )
-            gen_codes = shift_out_prompt(codes, Tp, gl)
-            self._sync()
-        seconds["nar"] = time.perf_counter() - t1
-
+        # the tail's inputs, uploaded on the current stream (a pageable
+        # upload on the tail stream would wait for the previous tail)
+        codes_pad = torch.zeros((1, t_audio, cfg.num_quantizers), dtype=torch.int64)
+        codes_pad[0, :Tp] = torch.from_numpy(np.array(prompt, np.int64))
+        inputs = [t.to(dev) for t in (torch.from_numpy(ar.tokens.astype(np.int64)),
+                                      codes_pad, torch.from_numpy(text_pad)[None],
+                                      torch.from_numpy(lang_pad)[None])]
+        tail = self.tail_stream()
+        if tail is not None:
+            tail.wait_stream(torch.cuda.current_stream(dev))
+            for t in inputs:  # the allocator may not hand them out while the tail reads
+                t.record_stream(tail)
+        tokens, codes_pad, text_d, lang_d = inputs
         wave = None
-        if return_wave and self.vocos is not None:
-            from ..codec.vocos import HOP, vocos_decode
+        with _on(tail):
+            with self.timer.device_phase("nar", tail) as nar_span, \
+                    record_function("vallex.nar"):
+                codes_in = assemble_nar_input(tokens, codes_pad, t_audio, cfg.eos_id)
+                codes = nar_generate(self.model, cfg, text_d, lang_d, S, codes_in,
+                                     Tp + gl, Tp, dtype=self.dtype)
+                gen_codes = shift_out_prompt(codes, Tp, gl)
+            spans = [nar_span]
+            if return_wave and self.vocos is not None:
+                from ..codec.vocos import vocos_decode
 
-            t2 = time.perf_counter()
-            with record_function("vallex.vocos"):
-                w = vocos_decode(self.vocos, gen_codes, bandwidth_id=2, t_len=gl)
-                wave = w[0, : gl * HOP].cpu().numpy()
-            seconds["vocos"] = time.perf_counter() - t2
-        return SynthesisResult(gen_codes[0, :gl].cpu().numpy(), wave, ar, seconds)
+                with self.timer.device_phase("vocos", tail) as vocos_span, \
+                        record_function("vallex.vocos"):
+                    wave = vocos_decode(self.vocos, gen_codes, bandwidth_id=2, t_len=gl)
+                spans.append(vocos_span)
+            done = None
+            if tail is not None:
+                done = torch.cuda.Event(blocking=True)
+                done.record(tail)
+        seconds["enqueue"] = time.perf_counter() - t1
+        return PendingSynthesis(ar, gen_codes, wave, done, tail, spans, seconds,
+                                self.timer)
 
     @torch.inference_mode()
     def synthesize_batch(

@@ -1,9 +1,9 @@
-"""VALL-E X model: layers and the forward functions of its two stacks.
+"""Model zoo: VALL-E X (the flagship), VALL-F (its decoder variant) and the
+debug Transformer TTS, with their layers and the scaling toolkit.
 
 `get_model` mirrors the JAX package's factory (vallex_tpu/models/__init__.py):
 a name → (init_fn(cfg, generator) → parameter tree, module with the forward
-functions). VALL-F and the debug Transformer TTS are not ported yet
-(ROADMAP §1 item 9).
+and generate functions).
 """
 
 from __future__ import annotations
@@ -14,15 +14,16 @@ from ..config import ModelConfig
 
 
 def get_model(model_name: str = "VALL-E", cfg: Optional[ModelConfig] = None):
-    """→ (init_fn, module) for `model_name`."""
-    from . import vallex
+    """→ (init_fn, module) for `model_name`: VALL-E, VALL-F or Transformer."""
+    from . import transformer_tts, vallex, vallf
 
     name = model_name.lower().replace("-", "")
     if name == "valle":
         return vallex.init_vallex, vallex
-    if name in ("vallf", "transformer"):
-        raise NotImplementedError(
-            f"model {model_name!r} is not ported to vallex_tpu_torch yet (ROADMAP §1 item 9)")
+    if name == "vallf":
+        return vallf.init_vallf, vallf
+    if name == "transformer":
+        return transformer_tts.init_transformer_tts, transformer_tts
     raise ValueError(f"unknown model {model_name!r}")
 
 

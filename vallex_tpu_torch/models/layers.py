@@ -8,6 +8,8 @@ Numerical conventions follow the JAX package so the two agree in fp32:
 - AdaptiveLayerNorm: (W·e) ⊙ LN(x) + (b·e) for a stage embedding e;
 - FFN is Linear → ReLU → Linear.
 Attention inputs and outputs keep the [B, H, T, hd] layout of the JAX code.
+`DecoderLayer` / `DecoderStack` (self-attention, cross-attention to a text
+memory, FFN) serve VALL-F and the debug Transformer TTS.
 
 Training (the JAX package's `segments` / `prefix_flash` / `remat`
 arguments): `segments` = (q_seg, kv_seg) [B, T] int32 routes self-attention
@@ -180,6 +182,18 @@ class MultiheadAttention(nn.Module):
         y = merge_heads(attn)
         return y @ self.out_w.to(y.dtype) + self.out_b.to(y.dtype)
 
+    def cross(self, q_in, kv_in, mask=None) -> torch.Tensor:
+        """cross_mha_apply: q from the first D columns of the packed
+        in-projection, k and v from the rest (torch's _in_projection_packed;
+        reference: modules/activation.py:12-65)."""
+        D = q_in.shape[-1]
+        w, b = self.in_proj_w.to(q_in.dtype), self.in_proj_b.to(q_in.dtype)
+        q = q_in @ w[:, :D] + b[:D]
+        k, v = (kv_in @ w[:, D:] + b[D:]).chunk(2, dim=-1)
+        H = self.num_heads
+        return self.out(attention_core(split_heads(q, H), split_heads(k, H),
+                                       split_heads(v, H), mask))
+
     def forward(self, x, mask=None, attention: Optional[AttentionFn] = None,
                 segments=None, prefix_flash: Optional[int] = None):
         """mha_apply."""
@@ -260,4 +274,46 @@ class EncoderStack(nn.Module):
         for layer in self.layers:
             args = (x, mask, stage_emb, attention, segments, prefix_flash)
             x = checkpoint(layer, *args, use_reentrant=False) if remat else layer(*args)
+        return self.norm(x, stage_emb)
+
+
+class DecoderLayer(nn.Module):
+    """Pre-norm transformer decoder layer: self-attention, cross-attention
+    to a memory, FFN (reference: modules/transformer.py:476-668; VALL-F and
+    the debug Transformer TTS); AdaLN norms `norm0`-`norm2` when
+    `adaptive`. Masks are additive f32; attention is the plain core."""
+
+    def __init__(self, dim: int, num_heads: int, ffn_dim: int, adaptive: bool):
+        super().__init__()
+        norm = AdaptiveLayerNorm if adaptive else LayerNorm
+        self.self_attn = MultiheadAttention(dim, num_heads)
+        self.cross_attn = MultiheadAttention(dim, num_heads)
+        self.linear1 = Linear(dim, ffn_dim)
+        self.linear2 = Linear(ffn_dim, dim)
+        self.norm0 = norm(dim)
+        self.norm1 = norm(dim)
+        self.norm2 = norm(dim)
+
+    def forward(self, x, memory, self_mask=None, cross_mask=None,
+                stage_emb=None) -> torch.Tensor:
+        """decoder_layer_apply: x [B, T, D], memory [B, S, D]."""
+        x = x + self.self_attn(self.norm0(x, stage_emb), self_mask)
+        x = x + self.cross_attn.cross(self.norm1(x, stage_emb), memory, cross_mask)
+        h = self.norm2(x, stage_emb)
+        return x + self.linear2(torch.relu(self.linear1(h)))
+
+
+class DecoderStack(nn.Module):
+    def __init__(self, num_layers: int, dim: int, num_heads: int, ffn_dim: int,
+                 adaptive: bool):
+        super().__init__()
+        self.layers = nn.ModuleList(
+            DecoderLayer(dim, num_heads, ffn_dim, adaptive) for _ in range(num_layers))
+        self.norm = AdaptiveLayerNorm(dim) if adaptive else LayerNorm(dim)
+
+    def forward(self, x, memory, self_mask=None, cross_mask=None,
+                stage_emb=None) -> torch.Tensor:
+        """decoder_stack_apply."""
+        for layer in self.layers:
+            x = layer(x, memory, self_mask, cross_mask, stage_emb)
         return self.norm(x, stage_emb)

@@ -88,6 +88,54 @@ def _kaiming(g, shape):  # torch nn.Linear default on an [in, out] kernel
     return _uniform(g, shape, 1.0 / math.sqrt(shape[-2]))
 
 
+def _norm_tree(g, NL: Optional[int], D: int, adaptive: bool) -> Dict:
+    """LayerNorm leaves (ones, zeros), with AdaLN's projection when
+    `adaptive`; stacked [NL, ...] unless NL is None."""
+    lead = () if NL is None else (NL,)
+    n = {"scale": torch.ones(*lead, D), "bias": torch.zeros(*lead, D)}
+    if adaptive:
+        n["w"] = _kaiming(g, (*lead, D, 2 * D))
+        n["b"] = _uniform(g, (*lead, 2 * D), 1.0 / math.sqrt(D))
+    return n
+
+
+def _attn_tree(g, NL: int, D: int) -> Dict:
+    return {"in_proj_w": _xavier(g, (NL, D, 3 * D)), "in_proj_b": torch.zeros(NL, 3 * D),
+            "out_w": _kaiming(g, (NL, D, D)), "out_b": torch.zeros(NL, D)}
+
+
+def _ffn_tree(g, NL: int, D: int, F: int) -> Dict:
+    return {"linear1": {"w": _kaiming(g, (NL, D, F)),
+                        "b": _uniform(g, (NL, F), 1.0 / math.sqrt(D))},
+            "linear2": {"w": _kaiming(g, (NL, F, D)),
+                        "b": _uniform(g, (NL, D), 1.0 / math.sqrt(F))}}
+
+
+def stack_tree(g, NL: int, D: int, F: int, adaptive: bool, decoder: bool = False) -> Dict:
+    """A random encoder stack (`EncoderStack`), or with `decoder` a decoder
+    stack (`DecoderStack`: cross_attn, norm0-norm2), torch's default inits."""
+    final = _norm_tree(g, None, D, adaptive)
+    layers = {"self_attn": _attn_tree(g, NL, D)}
+    if decoder:
+        layers["cross_attn"] = _attn_tree(g, NL, D)
+    layers.update(_ffn_tree(g, NL, D, F))
+    for i in ((0, 1, 2) if decoder else (1, 2)):
+        layers[f"norm{i}"] = _norm_tree(g, NL, D, adaptive)
+    return {"layers": layers, "norm": final}
+
+
+def nar_tables(g, cfg: ModelConfig):
+    """The NAR's 8 audio embeddings and 7 predict heads (heads 0-5 tied to
+    embeddings 2-7, the last its own)."""
+    D, q, A = cfg.d_model, cfg.num_quantizers, cfg.num_audio_tokens
+    nar_audio = torch.zeros(q, A + 1, D)
+    nar_audio[0] = torch.randn(A + 1, D, generator=g)
+    nar_audio[1:, :A] = torch.randn(q - 1, A, D, generator=g)
+    nar_predict = torch.cat(
+        [nar_audio[2:, :A].transpose(1, 2), _xavier(g, (1, D, A))], dim=0)
+    return nar_audio, nar_predict
+
+
 def init_vallex(cfg: ModelConfig, generator: torch.Generator) -> Dict:
     """Random parameter tree with the JAX package's names and shapes."""
     g = generator
@@ -95,40 +143,9 @@ def init_vallex(cfg: ModelConfig, generator: torch.Generator) -> Dict:
     A = cfg.num_audio_tokens
 
     def stack(adaptive: bool) -> Dict:
-        def norm():
-            n = {"scale": torch.ones(NL, D), "bias": torch.zeros(NL, D)}
-            if adaptive:
-                n["w"] = _kaiming(g, (NL, D, 2 * D))
-                n["b"] = _uniform(g, (NL, 2 * D), 1.0 / math.sqrt(D))
-            return n
+        return stack_tree(g, NL, D, F, adaptive)
 
-        final = {"scale": torch.ones(D), "bias": torch.zeros(D)}
-        if adaptive:
-            final["w"] = _kaiming(g, (D, 2 * D))
-            final["b"] = _uniform(g, (2 * D,), 1.0 / math.sqrt(D))
-        return {
-            "layers": {
-                "self_attn": {
-                    "in_proj_w": _xavier(g, (NL, D, 3 * D)),
-                    "in_proj_b": torch.zeros(NL, 3 * D),
-                    "out_w": _kaiming(g, (NL, D, D)),
-                    "out_b": torch.zeros(NL, D),
-                },
-                "linear1": {"w": _kaiming(g, (NL, D, F)),
-                            "b": _uniform(g, (NL, F), 1.0 / math.sqrt(D))},
-                "linear2": {"w": _kaiming(g, (NL, F, D)),
-                            "b": _uniform(g, (NL, D), 1.0 / math.sqrt(F))},
-                "norm1": norm(),
-                "norm2": norm(),
-            },
-            "norm": final,
-        }
-
-    nar_audio = torch.zeros(q, A + 1, D)
-    nar_audio[0] = torch.randn(A + 1, D, generator=g)
-    nar_audio[1:, :A] = torch.randn(q - 1, A, D, generator=g)
-    nar_predict = torch.cat(
-        [nar_audio[2:, :A].transpose(1, 2), _xavier(g, (1, D, A))], dim=0)
+    nar_audio, nar_predict = nar_tables(g, cfg)
     one = lambda: {"alpha": torch.ones(())}  # noqa: E731
     return {
         "ar_text_embedding": {"weight": torch.randn(cfg.num_text_tokens, D, generator=g)},

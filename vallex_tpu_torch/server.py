@@ -574,6 +574,7 @@ def make_server(
                     503, {"error": f"at capacity ({max_streams} streams)"}
                 )
                 return
+            stream = None
             try:
                 stream = stream_fn(data["text"], **kwargs)
                 try:
@@ -612,6 +613,9 @@ def make_server(
                     self.close_connection = True
                     log.exception("mid-stream synthesis failure")
             finally:
+                # a client gone mid-stream: closing the generator ends its
+                # sentence loop (and the loop's worker thread)
+                getattr(stream, "close", lambda: None)()
                 stream_slots.release()
 
     class Server(socketserver.ThreadingMixIn, http.server.HTTPServer):

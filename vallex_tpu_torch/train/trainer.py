@@ -21,11 +21,15 @@ train step, on one GPU (or the CPU with --device cpu).
   the newest in --exp-dir;
 - observability: loss and grad-norm lines every --log-interval steps,
   gradient-norm quartiles and the dominant leaf every --diag-interval
-  steps, the validation loss every --valid-interval steps.
+  steps, the validation loss every --valid-interval steps, and with
+  --visualize-dir heatmap PNGs of the first validation batch's
+  activations (train/loss.py::debug_activations, utils/visualizer.py).
 
-Not ported yet, each raising NotImplementedError: --dp / --tp above 1 and
---init-distributed (multi-GPU training, ROADMAP §1 items 7-8),
---visualize-dir and --model-name VALL-F (§1 item 9).
+The losses are VALL-E's: --model-name VALL-F or Transformer raises when the
+trainer is built (the JAX trainer builds them and then fails inside
+total_loss, which reads VALL-E's parameters). Not ported yet, raising
+NotImplementedError: --dp / --tp above 1 and --init-distributed (multi-GPU
+training, ROADMAP §1 items 7-8).
 """
 
 from __future__ import annotations
@@ -86,7 +90,7 @@ def get_parser() -> argparse.ArgumentParser:
     )
     g.add_argument(
         "--visualize-dir", type=str, default=None,
-        help="dump validation heatmap PNGs here (not ported yet)",
+        help="dump validation heatmap PNGs here (needs matplotlib)",
     )
     g.add_argument(
         "--init-distributed", action="store_true",
@@ -96,14 +100,16 @@ def get_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def _unported(args) -> None:
+def _check_args(args) -> None:
     if args.init_distributed or args.dp > 1 or args.tp > 1:
         raise NotImplementedError(
             "multi-GPU training (--dp/--tp above 1, --init-distributed) is not ported to"
             " vallex_tpu_torch yet (ROADMAP §1 items 7-8)")
-    if args.visualize_dir:
-        raise NotImplementedError(
-            "--visualize-dir: utils/visualizer.py is not ported yet (ROADMAP §1 item 9)")
+    if args.model_name.lower().replace("-", "") != "valle":
+        raise ValueError(
+            f"--model-name {args.model_name}: the training losses (train/loss.py) are"
+            " VALL-E's; VALL-F and the Transformer TTS have no training objective here (the"
+            " JAX trainer fails inside total_loss for them)")
 
 
 def _make_optimizer(args, model, leaves):
@@ -152,11 +158,11 @@ def run(args) -> dict:
     from ..models import get_model, model_config_from_args
     from ..models.vallex import VALLE
     from ..utils.checkpoint import load_native, load_torch_checkpoint
-    from .loss import total_loss
+    from .loss import debug_activations, total_loss
     from .scaled_adam import format_grad_diagnostics, grad_diagnostics
     from .step import init_train_state, leaf_grads, model_leaves, train_step
 
-    _unported(args)
+    _check_args(args)
     device = torch.device(args.device)
     cfg = model_config_from_args(args)
     check_head_dim(cfg.head_dim, device)
@@ -252,9 +258,15 @@ def run(args) -> dict:
                     for i, vb in enumerate(datamodule.valid_dataloaders()):
                         if i >= 20:
                             break
+                        tb = to_device(vb, device)
                         losses.append(float(total_loss(
-                            model, cfg, to_device(vb, device), step_generator(step_rng),
+                            model, cfg, tb, step_generator(step_rng),
                             dtype, cfg.prefix_mode, use_flash)[0]))
+                        if i == 0 and args.visualize_dir:
+                            from ..utils.visualizer import visualize
+
+                            visualize(debug_activations(model, cfg, tb, dtype), vb,
+                                      args.visualize_dir)
                 if losses:
                     log.info("valid loss %.4f (%d batches)", float(np.mean(losses)),
                              len(losses))

@@ -1,0 +1,129 @@
+"""Observability: per-phase synthesis timing and torch.profiler traces (port
+of vallex_tpu/utils/profiling.py).
+
+- `PhaseTimer`: phase accounting. `phase(name)` times a host-clock span;
+  `device_phase(name, stream)` times work enqueued on a CUDA stream by a
+  pair of CUDA events recorded on it, read only when the caller fetches
+  the result (`DeviceSpan.seconds()`), so timing never blocks the host.
+  On the CPU there is no stream to time and the span is the host clock
+  around the (eager) work. The synthesis pipeline records "ar", "nar",
+  "vocos" and "sync" into it.
+- `trace(log_dir)`: a torch.profiler trace of a code region (CPU ops and,
+  on the card, CUDA kernels), written as `trace.json` under log_dir; the
+  pipeline's `vallex.ar`, `vallex.nar` and `vallex.vocos` spans mark its
+  phases in it.
+- `synthesis_report`: RTF and latency summary from a PhaseTimer.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import os
+import threading
+import time
+from collections import defaultdict
+from typing import Dict, Iterator, Optional
+
+
+class DeviceSpan:
+    """One phase's time: a pair of CUDA events on a stream, or the host
+    clock when there is no stream. `seconds()` reads it once the work is
+    done (it waits for the end event) and adds it to the timer once."""
+
+    __slots__ = ("name", "_timer", "_start", "_end", "_host", "_seconds")
+
+    def __init__(self, name: str, timer: "PhaseTimer", stream=None):
+        self.name, self._timer, self._seconds = name, timer, None
+        self._start = self._end = None
+        self._host = time.perf_counter()
+        if stream is not None:
+            import torch
+
+            self._start = torch.cuda.Event(enable_timing=True)
+            self._end = torch.cuda.Event(enable_timing=True)
+            self._start.record(stream)
+
+    def _close(self, stream) -> None:
+        if self._end is not None:
+            self._end.record(stream)
+        else:
+            self._host = time.perf_counter() - self._host
+
+    def seconds(self) -> float:
+        if self._seconds is None:
+            if self._end is None:
+                self._seconds = self._host
+            else:
+                self._end.synchronize()
+                self._seconds = self._start.elapsed_time(self._end) / 1e3
+            self._timer.add(self.name, self._seconds)
+        return self._seconds
+
+
+class PhaseTimer:
+    def __init__(self) -> None:
+        self.totals: Dict[str, float] = defaultdict(float)
+        self.counts: Dict[str, int] = defaultdict(int)
+        self._lock = threading.Lock()  # a stream's worker and its reader share one
+
+    def add(self, name: str, seconds: float) -> None:
+        with self._lock:
+            self.totals[name] += seconds
+            self.counts[name] += 1
+
+    @contextlib.contextmanager
+    def phase(self, name: str) -> Iterator[None]:
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.add(name, time.perf_counter() - t0)
+
+    @contextlib.contextmanager
+    def device_phase(self, name: str, stream=None) -> Iterator[DeviceSpan]:
+        """Time the work enqueued inside on `stream` (a torch.cuda.Stream)
+        by CUDA events; with stream=None by the host clock."""
+        span = DeviceSpan(name, self, stream)
+        try:
+            yield span
+        finally:
+            span._close(stream)
+
+    def report(self) -> Dict[str, float]:
+        with self._lock:
+            return dict(self.totals)
+
+    def reset(self) -> None:
+        with self._lock:
+            self.totals.clear()
+            self.counts.clear()
+
+
+@contextlib.contextmanager
+def trace(log_dir: str = "vallex-trace") -> Iterator[object]:
+    """Profile a code region with torch.profiler (CPU ops, and CUDA kernels
+    and copies when a GPU is present) and write `log_dir/trace.json`
+    (chrome://tracing or Perfetto). Yields the profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts) as prof:
+        yield prof
+    os.makedirs(log_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+def synthesis_report(timer: PhaseTimer, audio_seconds: Optional[float] = None) -> str:
+    totals = timer.report()
+    lines = []
+    total = sum(totals.values())
+    for name, t in sorted(totals.items(), key=lambda kv: -kv[1]):
+        lines.append(f"  {name:<12} {t * 1000:8.1f} ms ({t / max(total, 1e-9):5.1%})")
+    head = f"synthesis wall {total * 1000:.1f} ms"
+    if audio_seconds:
+        head += (f", audio {audio_seconds:.2f} s, RTF {total / audio_seconds:.4f}"
+                 f" ({audio_seconds / max(total, 1e-9):.1f}x real-time)")
+    return head + "\n" + "\n".join(lines)
