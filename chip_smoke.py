@@ -2,6 +2,10 @@
 hand-written kernels, holds each against its plain PyTorch version at full
 width, then drives the port's entry points at the shipped width (random
 weights from a seed) and shows that each path went through the kernels.
+Phases 3-6, 3f, 5f, 5i's training ranks and 7 run the shipped depth (12
+layers a stack); 5b-5i drive the other entry points on a model of the
+shipped width cut to LATER_LAYERS (4) layers a stack, so that the whole run
+stays well inside its time limit.
 
     python3 chip_smoke.py
 
@@ -83,15 +87,17 @@ Phases, one flushed line each with its own seconds and wall-clock limit:
      16 against the batch of its first 4; long text in both modes; an f32
      greedy request through the kernels against the plain path on the CPU,
      also at decode_steps=16 (64 frames); bf16 requests at decode_steps=16;
-     POST /synthesize-long and a best_of=2 POST; the CLI in a subprocess
+     POST /synthesize-long and a best_of=2 POST; the CLI (shipped depth) in
+     a subprocess started with the phase and read in it
   5e the int8 KV cache, w8a8, decode_steps=1 and decode_mode="pallas":
      generate_audio in w8a8 and int8kv (greedy, sampled; int8kv best_of=5);
      the batch of 4 in both modes, each greedy w8a8 row bitwise its request
      alone in w8a8; fixed-prompt long text in int8kv as one batch of 8
      sentences; a server with quantize="int8kv" answering 4 concurrent
-     POSTs; the CLI with --quantize w8a8; decode_steps=1 greedy, sampled
-     and filtered; decode_mode="pallas" greedy; f32 greedy requests with
-     decode_steps=1 and with "pallas" against the CPU plain path
+     POSTs; the CLI with --quantize w8a8 (a subprocess beside the phase's
+     work); decode_steps=1 greedy, sampled and filtered; decode_mode="pallas"
+     greedy; f32 greedy requests with decode_steps=1 and with "pallas"
+     against 5d's CPU plain path on the same request
   3e the training attention (kernels/flash_attention.cu): the forward, dQ
      and dK/dV kernels against their plain versions at B = 4, H = 16,
      T = 1152 (text 128 + audio 1024), bf16 and f32, one padded segment
@@ -114,8 +120,9 @@ Phases, one flushed line each with its own seconds and wall-clock limit:
      and in f32 against the same call on the CPU (codes equal); make_prompt
      of a 3 s WAV (codes equal to the CPU's EnCodec, or parted at a near
      tie), the npz as a prompt of generate_audio, the CLI's make-prompt in
-     a subprocess; a random Whisper of medium's shape, greedy (ids equal to
-     the CPU's) and sampled (best_of 5); the card's times of the checkpoint
+     a subprocess beside the rest of the phase; a random Whisper of
+     medium's width (LATER_LAYERS layers a stack), greedy (ids equal to the
+     CPU's) and sampled (best_of 5); the card's times of the checkpoint
      load, EnCodec encode of 3 s and 10 s, continual, Whisper encode and
      decode, each beside the card's name and power limit
   5h long text overlapped on two CUDA streams, VALL-F and the Transformer
@@ -141,8 +148,26 @@ Phases, one flushed line each with its own seconds and wall-clock limit:
      each tail's device time inside the next sentence's AR span). VALL-F
      (AR greedy and sampled over a 512-frame buffer, NAR) and the
      Transformer TTS (inference of 200 frames, forward) at the shipped
-     width in bf16, timed; both in f32 at a short cap against the CPU
+     width (LATER_LAYERS layers) in bf16, timed; both in f32 at a short cap against the CPU
      (greedy tokens, NAR codes, frame counts equal; mels at 1e-4 of scale)
+  5i the gradio UI, multi-GPU serving and dp × tp training: the UI's four
+     tab callbacks (best_of 5) through a stub gradio on the later phases'
+     bundle (finite waves, the .npz, launch got the port);
+     batch_synthesize on two worker processes sharing the card, greedy:
+     2 requests at per_chip=1 bitwise equal to pipeline.synthesize here at
+     the batch's buckets, 4 at per_chip=2 bitwise equal to this process's
+     batched route on each chunk, the same workers for both calls, each
+     worker's launches by site (gemm_small_m, masked_attention and
+     sample_epilogue in every worker); training from the shipped-depth
+     model's weights on 5f's batch: one NCCL rank (a world of 1, through the launcher)
+     takes the single-process f32 and bf16 steps, then (dp 2, tp 1) and
+     (dp 1, tp 2), two gloo ranks each, both meshes at once, are held to
+     it (losses, gradient cosines, the AdamW update of the same f32
+     gradients, worked out on each rank's own slices; see train_ranks),
+     each rank's host seconds by stage, its flash forward and backward
+     launched, 215,266,308 parameters a rank at tp 2, replicated leaves
+     bitwise equal across the tp ranks, each rank's peak memory; every
+     time beside the card's name and power limit
   7  torch.profiler traces of one request, of one filtered request (top_k
      50, top_p 0.9) and of one batch of 4: the device-busy share of their
      AR, NAR and Vocos spans (the tail's spans read up to the device end of
@@ -157,7 +182,9 @@ after it (best_of and filtered sampling), and once more just before phase
 just before phase 5f and read after it (training), and once more just
 before phase 5g and read after it (continual's flash forwards, the
 prompt's requests), and once more just before phase 5h and read after it
-(the long texts' requests and tails). The NAR at C >= 1536
+(the long texts' requests and tails), and once more just before phase 5i
+and read after it (this process's UI requests and the in-process serving
+routes; the workers and ranks count their own and report them). The NAR at C >= 1536
 must launch the flash forward at its sites and masked_attention never
 there. Any failure exits non-zero before the result line. No JAX is
 imported.
@@ -215,6 +242,12 @@ TPU = {  # TPU kernel each main-path site stands for (file:line of the function)
 }
 # the same kernels at head dim 128 (phase 3f; their launches are counted there)
 HD128 = "_hd128"
+# layers a stack of the model that phases 5b-5i drive (the shipped width,
+# random weights from seed 0): those phases drive the other entry points
+# again and spend their time in per-layer launches, while the run has to
+# stay well inside its limit. Phases 3-6, 3f, 5f, 5i's training ranks and 7
+# keep the shipped 12.
+LATER_LAYERS = 4
 TPU.update({site + HD128: TPU[site] for site in (
     "decode_block_fused", "decode_verify", "flash_attention", "flash_attention_batched",
     "flash_attention_prefix", "flash_attention_train", "flash_attention_bwd")})
@@ -232,12 +265,65 @@ def say(msg: str) -> None:
     print(msg, flush=True)
 
 
+CHILDREN: list = []  # processes started beside a phase's work, ended on any exit
+
+
+def descendants(pid: int) -> list:
+    """Every live process below `pid` (read from /proc)."""
+    kids = []
+    for d in os.listdir("/proc"):
+        if d.isdigit():
+            try:
+                with open(f"/proc/{d}/stat") as f:
+                    if int(f.read().rsplit(")", 1)[1].split()[1]) == pid:
+                        kids.append(int(d))
+            except (OSError, IndexError, ValueError):
+                pass
+    return kids + [k for kid in kids for k in descendants(kid)]
+
+
+def stop_children() -> None:
+    """End every process this one started (the CLI runs, serving workers,
+    training ranks, compilers) before a failing exit."""
+    for proc in CHILDREN:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    for pid in descendants(os.getpid()):
+        try:
+            os.kill(pid, 9)
+        except OSError:
+            pass
+
+
+class Beside:
+    """A command run as a process of its own beside the phase's other work
+    (a CLI's start is mostly its interpreter's and the model's set-up):
+    started now, read with `wait`."""
+
+    def __init__(self, argv):
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(argv, cwd=REPO, stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE, text=True)
+        CHILDREN.append(self.proc)
+
+    def wait(self, timeout: float):
+        """→ (return code, standard error, seconds from its start to its end)."""
+        try:
+            _, err = self.proc.communicate(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            _, err = self.proc.communicate()
+        return self.proc.returncode, err, time.perf_counter() - self.t0
+
+
 @contextmanager
 def phase(name: str, limit_s: float):
     """Time a phase; a watchdog ends the process if it outlives its limit
     (a hung launch blocks in C, where no Python exception can reach)."""
     def expire():
         print(f"FAIL phase {name}: over its {limit_s:.0f} s limit", file=sys.stderr, flush=True)
+        stop_children()
         os._exit(124)
 
     timer = threading.Timer(limit_s, expire)
@@ -253,6 +339,7 @@ def phase(name: str, limit_s: float):
 
 def fail(msg: str) -> None:
     print("FAIL " + msg, file=sys.stderr, flush=True)
+    stop_children()
     sys.exit(1)
 
 
@@ -1130,7 +1217,8 @@ def prompt_paths(dev, api, bundle, card: str, flash_site=("flash_attention_fwd",
     CONTINUAL_T frames in bf16 (the flash forward counted at its site) and
     f32 against the CPU; make_prompt of a 3 s WAV against the CPU's
     EnCodec, used as a prompt, and the CLI's make-prompt; a random Whisper of
-    medium's shape, greedy (ids equal to the CPU's) and sampled."""
+    medium's width (LATER_LAYERS layers a stack), greedy (ids equal to the
+    CPU's) and sampled."""
     import numpy as np
     import torch
 
@@ -1215,6 +1303,9 @@ def prompt_paths(dev, api, bundle, card: str, flash_site=("flash_attention_fwd",
                 + 0.02 * np.random.RandomState(0).randn(len(t))).astype(np.float32)
         wav_path = os.path.join(td, "clip.wav")
         save_wav(wav_path, clip)
+        cli = Beside([sys.executable, "-m", "vallex_tpu_torch.cli", "make-prompt", "cli",
+                      wav_path, "--random-weights", "--transcript", "Hello world.", "--out-dir",
+                      td, "--checkpoints", os.path.join(td, "none")])
         if bundle.encodec is None:
             fail("5g: the random bundle has no EnCodec")
         out_path, t_mp = synced(dev, lambda: api.make_prompt(
@@ -1247,26 +1338,17 @@ def prompt_paths(dev, api, bundle, card: str, flash_site=("flash_attention_fwd",
         if not (wave.ndim == 1 and len(wave) > 0 and np.isfinite(wave).all()):
             fail(f"5g: generate_audio with the made prompt: {wave.shape}")
         say(f"  generate_audio(prompt=<made npz>): {len(wave) / 24000:.2f} s of audio")
-        t0 = time.perf_counter()
-        cli = subprocess.run(
-            [sys.executable, "-m", "vallex_tpu_torch.cli", "make-prompt", "cli", wav_path,
-             "--random-weights", "--transcript", "Hello world.", "--out-dir", td,
-             "--checkpoints", os.path.join(td, "none")],
-            cwd=REPO, capture_output=True, text=True, timeout=240)
-        if cli.returncode != 0 or not os.path.exists(os.path.join(td, "cli.npz")):
-            fail(f"5g CLI make-prompt: rc {cli.returncode}: {cli.stderr[-1500:]}")
-        say(f"  python -m vallex_tpu_torch.cli make-prompt: rc 0 in"
-            f" {time.perf_counter() - t0:.2f} s (a process of its own)")
 
-        # ---- Whisper of medium's shape, random weights
-        wcfg = W.WhisperConfig()
+        # ---- Whisper of medium's width, LATER_LAYERS layers a stack, random weights
+        wcfg = W.WhisperConfig(encoder_layers=LATER_LAYERS, decoder_layers=LATER_LAYERS)
         tree = W.init_whisper(wcfg, torch.Generator(device=dev).manual_seed(0))
         wm = load_tree(W.Whisper(wcfg), tree, dtype=torch.float32, device=dev)
         wav16, _ = load_wav(wav_path, target_sr=W.SAMPLE_RATE)
         mel = W.log_mel_spectrogram(torch.from_numpy(W.pad_or_trim(wav16)).to(dev))
         W.encode(wm, mel)
         enc, t_enc = synced(dev, lambda: W.encode(wm, mel))
-        card_time("Whisper (medium shape) encode of 30 s", t_enc, card)
+        card_time(f"Whisper (medium width, {LATER_LAYERS} + {LATER_LAYERS} layers) encode of 30 s",
+                  t_enc, card)
         lang_id = W.detect_language(wm, enc)
         pre = torch.tensor([wcfg.sot, lang_id, wcfg.transcribe, wcfg.no_timestamps], device=dev)
         buf, t_dec = synced(dev, lambda: W.greedy_decode(wm, enc, pre, max_len=24))
@@ -1289,6 +1371,11 @@ def prompt_paths(dev, api, bundle, card: str, flash_site=("flash_attention_fwd",
                  f" {ids_cpu.tolist()}")
         say(f"  Whisper greedy: {len(ids)} ids and language {lang!r} on the card equal the"
             f" CPU's ({time.perf_counter() - t0:.1f} s on the CPU)")
+        rc, err, secs = cli.wait(240)
+        if rc != 0 or not os.path.exists(os.path.join(td, "cli.npz")):
+            fail(f"5g CLI make-prompt: rc {rc}: {err[-1500:]}")
+        say(f"  python -m vallex_tpu_torch.cli make-prompt: rc 0 in {secs:.2f} s (a process"
+            f" of its own, beside the phase's card work since make_prompt)")
     finally:
         shutil.rmtree(td, ignore_errors=True)
         api._bundle = bundle
@@ -1623,7 +1710,8 @@ ZOO_F32_CAP, ZOO_F32_MELS = 64, 16  # f32 on the card against the CPU
 
 def model_zoo(dev, card: str) -> None:
     """Phase 5h, the rest of the model zoo at the shipped width (d 1024,
-    12 + 12 layers, 16 heads, FFN 4096; random weights from seed 0):
+    16 heads, FFN 4096) cut to LATER_LAYERS layers a stack (random weights
+    from seed 0):
     VALL-F's AR (greedy and sampled over a 512-frame buffer, a 384-frame
     prompt) and its NAR,
     the Transformer TTS's inference (up to 200 frames) in bf16, timed; then
@@ -1638,7 +1726,7 @@ def model_zoo(dev, card: str) -> None:
     from vallex_tpu_torch.models import transformer_tts as TT
     from vallex_tpu_torch.models import vallf as VF
 
-    cfg = ModelConfig()
+    cfg = dataclasses.replace(ModelConfig(), num_layers=LATER_LAYERS)
     rng = np.random.RandomState(0)
     # a 384-frame prompt: the AR generates up to 127 frames into the buffer
     S, TP = 60, ZOO_AR_CAP * 3 // 4
@@ -1741,6 +1829,381 @@ def model_zoo(dev, card: str) -> None:
                  f" CPU, mels {err:.3e} apart (scale {scale:.3e})")
         say(f"  Transformer TTS f32, {label}: {n_g} of {ZOO_F32_MELS} frames on the card and"
             f" the CPU, mels within {err:.3e} (1e-4 of their scale {scale:.3e})")
+
+
+# ---------------------------------------------------------------------------
+# The gradio UI, multi-GPU serving and dp × tp training (phase 5i):
+# module-level so each step reads only what it is handed.
+# ---------------------------------------------------------------------------
+
+UI_PORT = 7861
+TP2_PARAMS = 215_266_308  # per rank at tp = 2, as each JAX device holds (PERF.md §6)
+
+
+def stub_gradio():
+    """A stand-in `gradio` (not installed on the card) that records the
+    UI's clicks and its launch → the record."""
+    import types
+
+    rec = {"clicks": {}, "launch": None, "tab": None}
+
+    class Comp:
+        def __init__(self, *args, **kwargs):
+            self.args = args
+
+        def click(self, fn, inputs, outputs):
+            rec["clicks"][rec["tab"]] = (fn, len(inputs), len(outputs))
+
+    class Ctx(Comp):
+        def __enter__(self):
+            if self.args and isinstance(self.args[0], str):
+                rec["tab"] = self.args[0]
+            return self
+
+        def __exit__(self, *exc):
+            rec["tab"] = None
+            return False
+
+        def launch(self, **kwargs):
+            rec["launch"] = kwargs
+
+    gr = types.ModuleType("gradio")
+    gr.Blocks = gr.Tab = Ctx
+    for name in ("Markdown", "TextArea", "Audio", "Dropdown", "File", "Button"):
+        setattr(gr, name, Comp)
+    sys.modules["gradio"] = gr
+    return rec
+
+
+def ui_paths(dev, api, bundle, card: str, td: str) -> None:
+    """The four tabs' callbacks of vallex_tpu_torch/ui.py (best_of 5) on the
+    full-width bundle, through a stub gradio: each returns (24000, a finite
+    wave), "Make prompt" its .npz, and launch got the port."""
+    import numpy as np
+
+    from vallex_tpu_torch.ui import launch_ui
+    from vallex_tpu_torch.utils.audio import save_wav
+
+    rec = stub_gradio()
+    try:
+        launch_ui(port=UI_PORT)
+    finally:
+        sys.modules.pop("gradio", None)
+    if rec["launch"] != {"server_port": UI_PORT} or len(rec["clicks"]) != 4:
+        fail(f"5i UI: launch {rec['launch']}, {len(rec['clicks'])} tabs wired")
+    t = np.arange(3 * 24000) / 24000.0
+    clip = (0.3 * np.sin(2 * np.pi * 220 * t) + 0.1 * np.sin(2 * np.pi * 1250 * t)
+            + 0.02 * np.random.RandomState(0).randn(len(t))).astype(np.float32)
+    wav = os.path.join(td, "ui_clip.wav")
+    save_wav(wav, clip)
+    said = "Hello world, this is a test."
+    calls = [("Infer from prompt", ("Hello world.", "paimon", "en", "no-accent")),
+             ("Infer from audio", ("Hello world.", wav, said, "auto-detect", "no-accent")),
+             ("Long text", ("One sentence here. Another one there.", "paimon", "fixed-prompt")),
+             ("Make prompt", ("smoke_ui", wav, said))]
+    cwd = os.getcwd()
+    os.chdir(td)  # "Make prompt" writes ./customs
+    try:
+        for tab, args in calls:
+            fn, n_in, n_out = rec["clicks"][tab]
+            if n_in != len(args) or n_out != 1:
+                fail(f"5i UI {tab}: {n_in} inputs, {n_out} outputs")
+            out, secs = synced(dev, lambda: fn(*args))
+            if tab == "Make prompt":
+                if not (isinstance(out, str) and os.path.exists(out)):
+                    fail(f"5i UI {tab}: {out!r}")
+                desc = os.path.relpath(out, td)
+            else:
+                sr, wave = out
+                if sr != 24000 or wave.ndim != 1 or not len(wave) or not np.isfinite(wave).all():
+                    fail(f"5i UI {tab}: rate {sr}, wave {wave.shape}, finite "
+                         f"{bool(np.isfinite(wave).all())}")
+                desc = f"{len(wave) / 24000:.2f} s of audio"
+            card_time(f"5i UI '{tab}' ({desc})", secs, card)
+    finally:
+        os.chdir(cwd)
+    say(f"  UI: 4 tabs wired, launch(server_port={UI_PORT}); every callback ran (best_of 5)")
+
+
+KERNELS = ("gemm_small_m", "masked_attention", "sample_epilogue")  # in every serving worker
+TRAIN_FLASH = ("flash_attention_fwd@", "flash_attention_bwd_dq@",
+               "flash_attention_bwd_dkv@")  # in every training rank
+
+
+def serving_paths(dev, api, bundle, card: str) -> None:
+    """batch_synthesize on a mesh of two worker processes that share the
+    card, at full width, greedy: per_chip=1 (paimon's prompt and none)
+    bitwise equal to pipeline.synthesize in this process at the batch's
+    buckets; per_chip=2 (4 requests) bitwise equal to this process's batched
+    route on each chunk; each worker's launches by site."""
+    import dataclasses
+
+    import numpy as np
+
+    from vallex_tpu_torch.engine import batch as BT
+    from vallex_tpu_torch.parallel.mesh import make_mesh
+
+    cfg, ecfg = bundle.cfg, dataclasses.replace(bundle.ecfg, top_k=1, decode_mode="auto")
+
+    def request(text, prompt):
+        audio, text_prompt, lang = api._load_prompt(prompt)
+        ids, langs = api._prepare_text(bundle, text, text_prompt, lang, "en", "no-accent")
+        return ids, langs, (audio if len(audio) else None)
+
+    def launched(tag, launches):
+        for w, counts in enumerate(launches):
+            missing = [k for k in KERNELS if not any(s.startswith(k + "@") for s in counts)]
+            if missing:
+                fail(f"5i serving {tag}: worker {w} launched no {missing}: {counts}")
+            say(f"  serving {tag}, worker {w} launches by site: {json.dumps(dict(sorted(counts.items())))}")
+
+    reqs = [request("Hello world.", "paimon"), request("Hello world.", None)]
+    with make_mesh(2, 1, [str(dev)] * 2) as mesh:
+        got, t_first = synced(dev, lambda: BT.batch_synthesize(
+            bundle.model, cfg, ecfg, mesh, reqs, decode_mode="auto"))
+        launched("per_chip=1", mesh.serving.last_launches)
+        worker_s = list(mesh.serving.last_seconds)
+        pids = [c.proc.pid for c in mesh.serving.children]
+        pb = BT.pad_batch(cfg, ecfg, reqs)
+        buckets = (pb["s_text"], pb["p_audio"], pb["t_audio"])
+
+        def parent():
+            return [bundle.pipeline.synthesize(t, lg, p, top_k=1, seed=i, return_wave=False,
+                                               buckets=buckets).codes
+                    for i, (t, lg, p) in enumerate(reqs)]
+
+        want, t_parent = synced(dev, parent)
+        for i, (g, w) in enumerate(zip(got, want)):
+            if g.shape != w.shape or not (g == w).all():
+                fail(f"5i serving per_chip=1 request {i}: {g.shape} vs this process's {w.shape}")
+        say(f"  serving per_chip=1: 2 requests ({[len(g) for g in got]} frames) bitwise equal to"
+            f" pipeline.synthesize here at the batch's buckets {buckets}")
+        card_time("5i batch_synthesize per_chip=1, 2 workers (the call starts the pool)",
+                  t_first, card)
+        card_time(f"5i   (the two workers' own seconds: {[round(s, 4) for s in worker_s]})",
+                  max(worker_s), card)
+        card_time("5i pipeline.synthesize of the same 2 requests in this process", t_parent,
+                  card)
+
+        reqs4 = [request("Hello world.", "paimon"), request("Good morning.", None),
+                 request("Thank you very much.", "paimon"), request("See you soon.", None)]
+        got4, t4 = synced(dev, lambda: BT.batch_synthesize(
+            bundle.model, cfg, ecfg, mesh, reqs4, per_chip=2, decode_mode="auto"))
+        launched("per_chip=2", mesh.serving.last_launches)
+        if [c.proc.pid for c in mesh.serving.children] != pids:
+            fail("5i serving: the second call did not reuse the workers")
+        worker_s4 = list(mesh.serving.last_seconds)
+        pb4 = BT.pad_batch(cfg, ecfg, reqs4, per_chip=2)
+        local = BT.make_chunked_synthesis(
+            bundle.model, cfg, ecfg, make_mesh(1, 1, [str(dev)]), s_text=pb4["s_text"],
+            p_audio=pb4["p_audio"], t_gen=pb4["t_gen"], t_audio=pb4["t_audio"], per_chip=2)
+        keys = ("text", "lang", "x_lens", "prompt_cb0", "prompt_codes", "prompt_lens", "caps",
+                "seeds")
+
+        def chunks():
+            out = []
+            for c in (0, 1):
+                codes, gl = local(*[pb4[k][2 * c: 2 * c + 2] for k in keys])
+                out += [codes[r, p: p + n] for r, (p, n) in enumerate(
+                    zip(pb4["prompt_lens"][2 * c: 2 * c + 2], gl))]
+            return out
+
+        want4, t_local = synced(dev, chunks)
+        for i, (g, w) in enumerate(zip(got4, want4)):
+            if g.shape != w.shape or not (g == w).all():
+                fail(f"5i serving per_chip=2 request {i}: {g.shape} vs this process's {w.shape}")
+        say(f"  serving per_chip=2: 4 requests ({[len(g) for g in got4]} frames) bitwise equal to"
+            " this process's batched route on each chunk of 2")
+        card_time("5i batch_synthesize per_chip=2, 2 workers x 2 requests (the same workers)",
+                  t4, card)
+        card_time(f"5i   (the two workers' own seconds: {[round(s, 4) for s in worker_s4]})",
+                  max(worker_s4), card)
+        card_time("5i the batched route of both chunks in this process", t_local, card)
+        procs = [c.proc for c in mesh.serving.children]
+    if any(p.poll() is None for p in procs):
+        fail("5i serving: a worker outlived its mesh")
+    say("  (two workers share one card: no speedup over one process is expected)")
+
+
+def gib(n) -> str:
+    return "not measured" if n is None else f"{n / 2**30:.3f} GiB"
+
+
+def train_ranks(dev, model, cfg, card: str, td: str):
+    """A generator: its first step takes the single-process steps in this
+    process and starts the launches held to them, its second joins the
+    launches and holds them. dp × tp training at full width from `model`'s
+    weights (as f32), on 5f's batch (T = 1024, flash kernels): the
+    single-process steps (a world of one here: f32 with TF32 off, then
+    bf16, written to files) against (dp 2, tp 1) and (dp 1, tp 2), each
+    two gloo ranks sharing the card, and one NCCL rank (a world of 1
+    through the launcher: its f32 step), the three launches at once and
+    beside the caller's other work. bf16: loss within 1e-2 (5f's route
+    tolerance); at dp 2 every gradient leaf's cosine to the single
+    process's bf16 one >= 0.999; at both meshes every leaf's cosine to the
+    single process's f32 gradient no more than 1e-4 below the single
+    process's own bf16 one (at tp 2 the product halves round apart, and
+    12 + 12 layers carry that as far as bf16's own rounding carries the
+    single process from f32: PERF.md §6). f32: loss within 1e-5
+    relative, and the AdamW update of the single process's gradients
+    within 1e-5 of the tree's largest parameter; the NCCL rank's loss
+    within 1e-6 relative and its gradients' cosines >= 1 - 1e-6."""
+    import torch
+
+    from vallex_tpu_torch.convert import tree_from_module
+    from vallex_tpu_torch.data.dataset import collate
+    from vallex_tpu_torch.kernels import loader
+    from vallex_tpu_torch.parallel.collectives import Group, TensorParallel
+    from vallex_tpu_torch.parallel.launch import run_ranks
+    from vallex_tpu_torch.parallel.mesh import Ranks, make_mesh
+    from vallex_tpu_torch.train.distributed import StepJob, calls, step_job
+
+    batch = {k: v for k, v in collate(utterances(0, TRAIN_TEXT, TRAIN_AUDIO)).items()
+             if k != "utt_ids"}
+    opt = dict(optimizer="adamw", base_lr=1e-4)
+    f32 = dict(dtype="float32", use_flash=True, draws=(3, 40, None), **opt)
+    bf = dict(f32, dtype="bfloat16")
+    ref_32, ref_bf = os.path.join(td, "ref-f32.pt"), os.path.join(td, "ref-bf16.pt")
+    tree = os.path.join(td, "tree.pt")  # every rank reads it memory-mapped
+
+    def tensors(node):
+        return {k: tensors(v) if isinstance(v, dict) else torch.from_numpy(v)
+                for k, v in node.items()}
+
+    torch.save(tensors(tree_from_module(model)), tree)
+    # the single process: a world of one in this process (its groups hold
+    # one rank, so no collective runs); this process's launch counts kept
+    t0 = time.perf_counter()
+    counts = dict(loader.launch_counts)
+    one = Ranks(make_mesh(1, 1, [str(dev)]), 0, dev, Group(None, 1, 0),
+                TensorParallel(None, 1, 0))
+    ref = calls(one, [(step_job, StepJob(cfg, tree, batch, save_to=ref_32, **f32)),
+                      (step_job, StepJob(cfg, tree, batch, save_to=ref_bf, save=("grads",),
+                                         compare_to=ref_32, **bf))])
+    loader.launch_counts.clear()
+    loader.launch_counts.update(counts)
+    torch.cuda.empty_cache()
+    t_ref = time.perf_counter() - t0
+    l32, lbf = ref[0]["metrics"]["loss"], ref[1]["metrics"]["loss"]
+    own = ref[1]["compare"]["grads"]  # the single process's bf16 gradients against its f32
+    say(f"  the single process (this one): f32 loss {l32:.6f}, bf16 loss {lbf:.5f}; its bf16"
+        f" gradients' cosine to its f32 ones >= {min(c for c, _, _ in own.values()):.6f}; host"
+        f" seconds by stage (f32, bf16 jobs)"
+        f" {[{k: round(v, 2) for k, v in j['seconds'].items()} for j in ref]}")
+    card_time("5i the single-process f32 and bf16 steps here, files written", t_ref, card)
+    scale = max(float(t.abs().max())
+                for t in torch.load(ref_32, mmap=True, weights_only=True)["params"].values())
+    nccl = "nccl" if dev.type == "cuda" else "gloo"
+    meshes = ((2, 1), (1, 2))
+    runs = {}
+
+    def launch(key, mesh, todo, backend):
+        t0 = time.perf_counter()
+        runs[key] = run_ranks(mesh, calls, todo, backend=backend, threads=2, timeout=150)
+        runs[key + ("s",)] = time.perf_counter() - t0
+
+    launches = [threading.Thread(target=launch, args=(
+        (dp, tp), make_mesh(dp, tp, [str(dev)] * 2),
+        [(step_job, StepJob(cfg, tree, batch, compare_to=[ref_bf, ref_32], **bf)),
+         (step_job, StepJob(cfg, tree, batch, compare_to=ref_32, **f32)),
+         (step_job, StepJob(cfg, tree, {}, grads=ref_32, compare_to=ref_32, **opt))],
+        "gloo")) for dp, tp in meshes]
+    launches.append(threading.Thread(target=launch, args=(
+        (1, 1), make_mesh(1, 1, [str(dev)]),
+        [(step_job, StepJob(cfg, tree, batch, compare_to=ref_32, **f32))], nccl)))
+    t0 = time.perf_counter()
+    for t in launches:
+        t.start()
+    yield  # the caller's other work runs beside the launches
+    for t in launches:
+        t.join()
+    t_all = time.perf_counter() - t0
+    if (1, 1) not in runs:
+        fail("5i: the world of 1 did not finish")
+    ((w1,),) = runs[(1, 1)]
+    g1 = w1["compare"]["grads"]
+    w_g1 = min(g1, key=lambda k: g1[k][0])
+    if abs(w1["metrics"]["loss"] - l32) > 1e-6 * abs(l32) or g1[w_g1][0] < 1 - 1e-6:
+        fail(f"5i the {nccl} world of 1: f32 loss {w1['metrics']['loss']} vs {l32} here,"
+             f" gradient cosine {g1[w_g1][0]} ({w_g1})")
+    say(f"  one {nccl} rank (world of 1) through the launcher: f32 loss"
+        f" {w1['metrics']['loss']:.6f} (here {l32:.6f}), gradient cosine to this process's >="
+        f" {g1[w_g1][0]:.8f}; host seconds by stage {[{k: round(v, 2) for k, v in w1['seconds'].items()}]}")
+    card_time("5i the world of 1: start, an f32 step, compare (beside the rest)",
+              runs[(1, 1, "s")], card)
+    for dp, tp in meshes:
+        tag = f"(dp {dp}, tp {tp})"
+        if (dp, tp) not in runs:
+            fail(f"5i {tag}: the launch did not finish")
+        outs = runs[(dp, tp)]
+        c_bf, c_32, c_up = outs[0]
+        if abs(c_bf["metrics"]["loss"] - lbf) > 1e-2 * abs(lbf):
+            fail(f"5i {tag} bf16 loss {c_bf['metrics']['loss']} vs the single process's {lbf}")
+        if abs(c_32["metrics"]["loss"] - l32) > 1e-5 * abs(l32):
+            fail(f"5i {tag} f32 loss {c_32['metrics']['loss']} vs the single process's {l32}")
+        to_bf, to_32 = (c["grads"] for c in c_bf["compare"])
+        w_bf = min(to_bf, key=lambda k: to_bf[k][0])
+        if dp == 2 and to_bf[w_bf][0] < 0.999:
+            fail(f"5i {tag} bf16 gradient cosine {to_bf[w_bf][0]} ({w_bf})")
+        lag = {k: own[k][0] - to_32[k][0] for k in own}
+        w_lag = max(lag, key=lag.get)
+        if lag[w_lag] > 1e-4:
+            fail(f"5i {tag} bf16 gradient of {w_lag}: cosine {to_32[w_lag][0]} to the single"
+                 f" process's f32 one, the single process's bf16 {own[w_lag][0]}")
+        g32 = c_32["compare"]["grads"]
+        w32 = min(g32, key=lambda k: g32[k][0])
+        upd = c_up["compare"]["params"]
+        w_up = max(upd, key=lambda k: upd[k][1])
+        if upd[w_up][1] > 1e-5 * scale:
+            fail(f"5i {tag} AdamW update of the same gradients: {w_up} {upd[w_up][1]:.3e} apart"
+                 f" (1e-5 of {scale:.3e})")
+        for r, per in enumerate(outs):
+            counts = per[0]["launches"]
+            if not all(any(k.startswith(n) for k in counts) for n in TRAIN_FLASH):
+                fail(f"5i {tag} rank {r}: flash forward / backward not launched: {counts}")
+            if tp == 2 and per[0]["local_params"] != TP2_PARAMS:
+                fail(f"5i {tag} rank {r} holds {per[0]['local_params']} parameters, not"
+                     f" {TP2_PARAMS}")
+            say(f"  {tag} rank {r}: {per[0]['local_params']} parameters, peak"
+                f" {gib(per[0]['peak_bytes'])} (bf16 step), {gib(per[1]['peak_bytes'])} (f32"
+                f" step), launches by site {json.dumps(dict(sorted(counts.items())))}; host"
+                f" seconds by stage (bf16, f32, AdamW jobs)"
+                f" {[{k: round(v, 2) for k, v in j['seconds'].items()} for j in per]}  [{card}]")
+        if tp == 2 and outs[0][0]["replicated"] != outs[1][0]["replicated"]:
+            fail(f"5i {tag}: replicated leaves differ between the tp ranks")
+        say(f"  {tag}: bf16 loss {c_bf['metrics']['loss']:.5f} (single {lbf:.5f}); bf16 gradient"
+            f" cosine to the single process's bf16 >= {to_bf[w_bf][0]:.6f} ({w_bf}), to its f32"
+            f" at most {lag[w_lag]:.2e} below the single process's bf16 ({w_lag}:"
+            f" {to_32[w_lag][0]:.6f} vs {own[w_lag][0]:.6f}); f32 loss"
+            f" {c_32['metrics']['loss']:.6f} (single {l32:.6f}), gradient cosine >="
+            f" {g32[w32][0]:.8f} ({w32}); the AdamW update of the single process's f32"
+            f" gradients within {upd[w_up][1]:.3e} ({w_up}; 1e-5 of {scale:.3e})")
+        card_time(f"5i {tag}: start two ranks, three steps, compare (beside the rest)",
+                  runs[(dp, tp, "s")], card)
+    card_time("5i the three launches, from their start (beside the UI and serving)", t_all,
+              card)
+
+
+def multi_paths(dev, api, bundle, model, card: str) -> None:
+    """Phase 5i (see ui_paths, serving_paths, train_ranks): the UI and
+    serving on `bundle`, the training from `model` (the shipped depth);
+    the training's launches run beside the UI and serving parts (their
+    time is mostly their processes' start; the UI and serving times carry
+    that load)."""
+    with tempfile.TemporaryDirectory() as td:
+        t0 = time.perf_counter()
+        training = train_ranks(dev, model, model.cfg, card, td)
+        next(training)
+        t1 = time.perf_counter()
+        ui_paths(dev, api, bundle, card, td)
+        t2 = time.perf_counter()
+        serving_paths(dev, api, bundle, card)
+        t3 = time.perf_counter()
+        next(training, None)
+        t4 = time.perf_counter()
+    card_time(f"5i parts: the single-process steps {t1 - t0:.2f} s, UI {t2 - t1:.2f} s,"
+              f" serving {t3 - t2:.2f} s, the rest of training {t4 - t3:.2f} s; whole",
+              t4 - t0, card)
 
 
 # ---------------------------------------------------------------------------
@@ -2265,6 +2728,8 @@ def main() -> None:
 
     from vallex_tpu_torch import api
     from vallex_tpu_torch.engine import ar as AR
+    from vallex_tpu_torch.codec.encodec import init_encodec
+    from vallex_tpu_torch.codec.vocos import init_vocos
     from vallex_tpu_torch.engine.pipeline import SynthesisPipeline
     from vallex_tpu_torch.kernels import (
         gemm_small_m, gemm_small_m_plain, loader, masked_attention,
@@ -2277,6 +2742,7 @@ def main() -> None:
     from vallex_tpu_torch.ops.decode_attention import decode_attention
     from vallex_tpu_torch.ops.decode_block import decode_block_fused
     from vallex_tpu_torch.ops.decode_step import decode_step, decode_step_fused, pack_layer_weights
+    from vallex_tpu_torch.models.vallex import init_vallex
     from vallex_tpu_torch.ops.decode_verify import decode_verify, embed
     from vallex_tpu_torch.server import DynamicBatcher, make_server
 
@@ -2946,13 +3412,27 @@ def main() -> None:
     counts_single = dict(loader.launch_counts)
     frames_single = frames_total
 
+    # ---- the later phases' model (LATER_LAYERS layers a stack) --------------
+    full = bundle
+    later_cfg = dataclasses.replace(cfg, num_layers=LATER_LAYERS)
+    # the trees preload_models(random_weights=True, seed=0) draws, drawn once
+    later_trees = dict(params=init_vallex(later_cfg, torch.Generator().manual_seed(0)),
+                       vocos_params=init_vocos(torch.Generator().manual_seed(1)),
+                       encodec_params=init_encodec(torch.Generator().manual_seed(2)))
+
+    def later(ecfg=None, device=dev):
+        """A bundle of the later phases' weights under `ecfg`, as api's."""
+        return api.preload_models(device=device, cfg=later_cfg, ecfg=ecfg, **later_trees)
+
+    bundle = later()
+
     # ---- phases 5b and 5c: the batched path ----------------------------------
     base_ecfg, base_pipe = bundle.ecfg, bundle.pipeline
 
     def use(**changes):
         """Serve with another EngineConfig on the same model and weights."""
         e = dataclasses.replace(base_ecfg, **changes)
-        p = SynthesisPipeline(bundle.model, cfg, e, bundle.vocos)
+        p = SynthesisPipeline(bundle.model, later_cfg, e, bundle.vocos)
         p._packed, p._draft = base_pipe.packed_weights(True)
         bundle.ecfg, bundle.pipeline = e, p
 
@@ -3061,7 +3541,11 @@ def main() -> None:
 
     # ---- phase 5d: best_of, filtered sampling, long text, 16 rows, f32 -------
     loader.reset_launch_counts()
+    cli_dir = tempfile.mkdtemp(prefix="vallex-cli-")
     with phase("5d best_of / filtered / long text / f32", 600):
+        cli_wav = os.path.join(cli_dir, "cli.wav")
+        cli = Beside([sys.executable, "-m", "vallex_tpu_torch.cli", "synthesize", "Hi.",
+                      "--random-weights", "--top-k", "1", "-o", cli_wav])
         use()
         run("best_of=5, sampled", text="Hello world.", prompt="paimon", language="en",
             best_of=5, seed=0)
@@ -3153,19 +3637,13 @@ def main() -> None:
             b.shutdown()
             th.join(30)
 
-        with tempfile.TemporaryDirectory() as td:
-            out_wav = os.path.join(td, "cli.wav")
-            t0 = time.perf_counter()
-            cli = subprocess.run(
-                [sys.executable, "-m", "vallex_tpu_torch.cli", "synthesize", "Hi.",
-                 "--random-weights", "--top-k", "1", "-o", out_wav],
-                cwd=REPO, capture_output=True, text=True, timeout=300)
-            if cli.returncode != 0 or not os.path.exists(out_wav):
-                fail(f"5d CLI: rc {cli.returncode}: {cli.stderr[-1500:]}")
-            with wave_mod.open(out_wav) as f:
-                n = f.getnframes()
-            say(f"  python -m vallex_tpu_torch.cli synthesize: rc 0, {n / 24000:.2f} s WAV in"
-                f" {time.perf_counter() - t0:.2f} s (a process of its own)")
+        rc, err, secs = cli.wait(300)
+        if rc != 0 or not os.path.exists(cli_wav):
+            fail(f"5d CLI: rc {rc}: {err[-1500:]}")
+        with wave_mod.open(cli_wav) as f:
+            n = f.getnframes()
+        say(f"  python -m vallex_tpu_torch.cli synthesize: rc 0, {n / 24000:.2f} s WAV in"
+            f" {secs:.2f} s (a process of its own, beside the phase's work since its start)")
 
         # compute_dtype="float32" through the f32 kernels, against the plain
         # path on the CPU (the per-token loop, which never speculates): once
@@ -3176,7 +3654,7 @@ def main() -> None:
         gpu32 = {}
         for spec in ("off", "auto"):
             e32 = dataclasses.replace(base_ecfg, compute_dtype="float32", speculative=spec)
-            api.preload_models(random_weights=True, seed=0, device=dev, ecfg=e32)
+            later(e32)
             before = loader.launch_counts.get(("gemm_small_m", "decode_verify"), 0)
             t0 = time.perf_counter()
             api.generate_audio(**req)
@@ -3185,7 +3663,7 @@ def main() -> None:
         if gpu32["auto"][2] == 0 or gpu32["off"][2] != 0:
             fail(f"5d f32: verify products launched {gpu32['off'][2]} times without speculation"
                  f" and {gpu32['auto'][2]} times with it")
-        api.preload_models(random_weights=True, seed=0, device="cpu", ecfg=e32)
+        later(e32, "cpu")
         api.generate_audio(**req)
         cpu32 = api._bundle.last
         for spec, (res, t_gpu, n_verify) in gpu32.items():
@@ -3203,7 +3681,7 @@ def main() -> None:
         # per-token loop, which never speculates: cpu32 is its reference
         # too), at the 64-frame cap of the f32 checks above
         e16 = dataclasses.replace(base_ecfg, compute_dtype="float32", decode_steps=16)
-        api.preload_models(random_weights=True, seed=0, device=dev, ecfg=e16)
+        later(e16)
         before = loader.launch_counts.get(("masked_attention", "decode_verify"), 0)
         t0 = time.perf_counter()
         api.generate_audio(**req)
@@ -3278,6 +3756,9 @@ def main() -> None:
 
     loader.reset_launch_counts()
     with phase("5e int8kv / w8a8 / decode_steps=1 / pallas", 600):
+        cli_wav = os.path.join(cli_dir, "cli-w8a8.wav")
+        cli = Beside([sys.executable, "-m", "vallex_tpu_torch.cli", "synthesize", "Hi.",
+                      "--random-weights", "--top-k", "1", "--quantize", "w8a8", "-o", cli_wav])
         hello = dict(text="Hello world.", prompt="paimon", language="en")
         for q in ("w8a8", "int8kv"):
             use(quantize=q)
@@ -3304,20 +3785,6 @@ def main() -> None:
             f" audio in {secs:.2f} s, RTF {secs / (len(w) / 24000):.4f}")
         serve_four("server with quantize=int8kv")
 
-        with tempfile.TemporaryDirectory() as td:
-            out_wav = os.path.join(td, "cli.wav")
-            t0 = time.perf_counter()
-            cli = subprocess.run(
-                [sys.executable, "-m", "vallex_tpu_torch.cli", "synthesize", "Hi.",
-                 "--random-weights", "--top-k", "1", "--quantize", "w8a8", "-o", out_wav],
-                cwd=REPO, capture_output=True, text=True, timeout=300)
-            if cli.returncode != 0 or not os.path.exists(out_wav):
-                fail(f"5e CLI --quantize w8a8: rc {cli.returncode}: {cli.stderr[-1500:]}")
-            with wave_mod.open(out_wav) as f:
-                n = f.getnframes()
-            say(f"  python -m vallex_tpu_torch.cli synthesize --quantize w8a8: rc 0,"
-                f" {n / 24000:.2f} s WAV in {time.perf_counter() - t0:.2f} s")
-
         use(decode_steps=1)
         run("decode_steps=1, greedy", top_k=1, **hello)
         run("decode_steps=1, sampled", seed=0, **hello)
@@ -3332,14 +3799,11 @@ def main() -> None:
         for name, change in (("decode_steps=1", dict(decode_steps=1)),
                              ('decode_mode="pallas"', dict(decode_mode="pallas"))):
             e32 = dataclasses.replace(base_ecfg, compute_dtype="float32", **change)
-            api.preload_models(random_weights=True, seed=0, device=dev, ecfg=e32)
+            later(e32)
             t0 = time.perf_counter()
             api.generate_audio(**req)
             gpu32[name] = (api._bundle.last, time.perf_counter() - t0)
-        api.preload_models(random_weights=True, seed=0, device="cpu",
-                           ecfg=dataclasses.replace(base_ecfg, compute_dtype="float32"))
-        api.generate_audio(**req)
-        cpu32 = api._bundle.last
+        # cpu32: 5d's CPU plain path on the same request (the per-token loop)
         for name, (res, t_gpu) in gpu32.items():
             if not (len(res.codes) == 64 and np.array_equal(res.codes, cpu32.codes)):
                 fail(f"5e f32, {name}: codes {res.codes.shape} on the card vs"
@@ -3349,6 +3813,14 @@ def main() -> None:
                 f" {res.ar.iterations} steps")
         api._bundle = bundle
         use()
+        rc, err, secs = cli.wait(300)
+        if rc != 0 or not os.path.exists(cli_wav):
+            fail(f"5e CLI --quantize w8a8: rc {rc}: {err[-1500:]}")
+        with wave_mod.open(cli_wav) as f:
+            n = f.getnframes()
+        say(f"  python -m vallex_tpu_torch.cli synthesize --quantize w8a8: rc 0,"
+            f" {n / 24000:.2f} s WAV in {secs:.2f} s (beside the phase's work since its start)")
+    shutil.rmtree(cli_dir, ignore_errors=True)
     counts_slice4 = dict(loader.launch_counts)
 
     # ---- phase 5f: training --------------------------------------------------
@@ -3373,6 +3845,14 @@ def main() -> None:
     if not counts_slice7.get(("flash_attention_fwd", "flash_attention"), 0):
         fail("5h: no flash forward launched at the NAR's site")
 
+    # ---- phase 5i: the gradio UI, multi-GPU serving, dp x tp training ---------
+    loader.reset_launch_counts()
+    with phase("5i UI / multi-GPU serving / dp x tp training", 150):
+        api._bundle = bundle
+        multi_paths(dev, api, bundle, full.model, smi.splitlines()[0])
+    counts_slice8 = dict(loader.launch_counts)
+
+    bundle = api._bundle = full
     with phase("7 trace", 300):
         def one_request():
             api.generate_audio("Hello world.", prompt="paimon", language="en", top_k=1,
@@ -3418,6 +3898,7 @@ def main() -> None:
         say(f"  phase 5f launches by site: {json.dumps({f'{k}@{s}': n for (k, s), n in sorted(counts_slice5.items())})}")
         say(f"  phase 5g launches by site: {json.dumps({f'{k}@{s}': n for (k, s), n in sorted(counts_slice6.items())})}")
         say(f"  phase 5h launches by site: {json.dumps({f'{k}@{s}': n for (k, s), n in sorted(counts_slice7.items())})}")
+        say(f"  phase 5i launches by site (this process; the workers' and ranks' are above): {json.dumps({f'{k}@{s}': n for (k, s), n in sorted(counts_slice8.items())})}")
         say(json.dumps({"kernels": [{k: v for k, v in e.items() if k != "unit"} for e in entries]}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

@@ -1,7 +1,8 @@
 """The port's trainer CLI (vallex_tpu_torch/train/trainer.py) on the CPU at
 toy width, over a synthetic HDF5 set made as tests/test_train.py:96-145
 makes one: one epoch of stage-1 ScaledAdam with a checkpoint, --resume, a
-packed run, and the flags that are not ported yet. --init-checkpoint is
+packed run, and --dp / --tp / --init-distributed (the multi-rank runs
+against the single process: tests/test_torch_train_parallel.py). --init-checkpoint is
 tested in tests/test_torch_checkpoint.py, --visualize-dir and --model-name
 in tests/test_torch_vallf.py."""
 
@@ -87,9 +88,28 @@ def test_trainer_packed(tmp_path, monkeypatch):
     pytest.param(["--tp", "2"], "§1 items 7-8", id="flags1-§1 items 7-8"),
     pytest.param(["--init-distributed"], "§1 items 7-8", id="flags2-§1 items 7-8"),
 ])
-def test_trainer_unported_flags_raise(tmp_path, flags, item):
+def test_trainer_unported_flags_raise(tmp_path, flags, item, monkeypatch):
+    """The flags of ROADMAP §1 items 7-8, now ported: --dp 2 and --tp 2 train
+    one epoch on two CPU rank processes and rank 0 writes the checkpoint;
+    --init-distributed raises naming torchrun without its environment, and
+    with it (a world of one) joins and trains."""
+    from vallex_tpu_torch.parallel.launch import free_port
+
+    d = _data(tmp_path, [24 + i for i in range(4)])
+    exp = tmp_path / "exp"
     args = trainer.get_parser().parse_args(
-        ["--data-dir", str(tmp_path), "--exp-dir", str(tmp_path / "exp"), *TOY, *flags])
-    with pytest.raises(NotImplementedError, match=item):
-        trainer.run(args)
-    assert not os.path.exists(tmp_path / "exp")
+        ["--data-dir", str(d), "--exp-dir", str(exp), "--num-epochs", "1", "--log-interval",
+         "1", "--max-duration", "2.0", "--max-cut-duration", "2.0", "--dtype", "float32",
+         *TOY, *flags])
+    if args.init_distributed:
+        for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE"):
+            monkeypatch.delenv(k, raising=False)
+        with pytest.raises(RuntimeError, match="RANK is not set.*torchrun"):
+            trainer.run(args)
+        for k, v in (("RANK", "0"), ("WORLD_SIZE", "1"), ("LOCAL_RANK", "0"),
+                     ("MASTER_ADDR", "127.0.0.1"), ("MASTER_PORT", str(free_port()))):
+            monkeypatch.setenv(k, v)
+    out = trainer.run(args)
+    assert item == "§1 items 7-8" and out["step"] >= 1
+    assert np.isfinite(out["metrics"]["loss"])
+    assert os.path.exists(exp / f"state-{out['step']:08d}")

@@ -1,6 +1,6 @@
 """Command-line surface of the port (vallex_tpu/cli.py on PyTorch): synthesize,
-long-text, make-prompt, list-presets and serve run; ui is not ported yet and
-exits non-zero naming its ROADMAP.md item.
+long-text, make-prompt, list-presets, ui (the gradio web UI, when gradio is
+installed) and serve.
 
 Usage:
   python -m vallex_tpu_torch.cli synthesize "Hello world." --prompt paimon -o out.wav
@@ -9,6 +9,7 @@ Usage:
   python -m vallex_tpu_torch.cli long-text "Para one. Para two." --mode fixed-prompt
   python -m vallex_tpu_torch.cli make-prompt me clip.wav --transcript "Hello there."
   python -m vallex_tpu_torch.cli list-presets
+  python -m vallex_tpu_torch.cli ui --port 7860
   python -m vallex_tpu_torch.cli serve --port 8000 --random-weights --quantize int8kv
 
 Runs on the GPU (`--device cuda`, the default) or, with `--device cpu`, on
@@ -23,11 +24,6 @@ from __future__ import annotations
 import argparse
 import logging
 import sys
-
-NOT_PORTED = {
-    "ui": "the gradio UI is not ported yet: ROADMAP.md §1 item 5",
-}
-
 
 def _load(args, **engine):
     """preload_models with the --config overrides (+ `engine` fields, and
@@ -131,7 +127,7 @@ def main(argv=None) -> int:
 
     sub.add_parser("list-presets", help="list bundled voice prompts")
 
-    p = sub.add_parser("ui", help="launch the gradio web UI (not ported)")
+    p = sub.add_parser("ui", help="launch the gradio web UI")
     p.add_argument("--port", type=int, default=7860)
     _add_common(p)
 
@@ -165,10 +161,6 @@ def main(argv=None) -> int:
     _add_quantize(p)
 
     args = parser.parse_args(argv)
-
-    if args.cmd in NOT_PORTED:
-        print(f"{args.cmd}: {NOT_PORTED[args.cmd]}", file=sys.stderr)
-        return 2
 
     if args.cmd == "list-presets":
         import os
@@ -211,6 +203,13 @@ def main(argv=None) -> int:
         out = api.make_prompt(args.name, args.audio, transcript=args.transcript,
                               out_dir=args.out_dir)
         print(f"wrote {out}")
+        return 0
+
+    if args.cmd == "ui":
+        from .ui import launch_ui
+
+        _load(args)
+        launch_ui(port=args.port)
         return 0
 
     if args.cmd == "serve":

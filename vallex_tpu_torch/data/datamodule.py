@@ -4,8 +4,10 @@ of vallex_tpu/data/datamodule.py).
 The reference's datamodule (data/datamodule.py:62-419) is inert upstream
 (its lhotse/icefall imports are commented out); this is the JAX package's
 functional equivalent over the HDF5 pipeline in dataset.py, with its flags
-and defaults. One process reads every batch (shard (0, 1)) until
-multi-GPU training is ported (ROADMAP §1 items 7-8).
+and defaults. The stream of global batches is shard `args.data_shard`
+((node index, node count) under the trainer's --init-distributed, as the
+JAX package shards by (process_index, process_count); else (0, 1)): every
+dp rank reads it and takes its own rows (parallel/mesh.py::dp_batch).
 """
 
 from __future__ import annotations
@@ -57,7 +59,7 @@ class TtsDataModule:
             num_buckets=self.args.num_buckets,
             shuffle=shuffle,
             seed=self.args.seed + epoch,
-            shard=(0, 1),
+            shard=getattr(self.args, "data_shard", (0, 1)),
             pack=pack,
         )
 

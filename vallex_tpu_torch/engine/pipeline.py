@@ -244,14 +244,16 @@ class SynthesisPipeline:
         seed: int = 0,
         return_wave: bool = True,
         max_gen_frames: Optional[int] = None,
+        buckets: Optional[Tuple[int, int, int]] = None,
     ) -> SynthesisResult:
         """→ SynthesisResult: `synthesize_async(...).result()`.
         max_gen_frames caps the generated length (75 frames/s) and
-        right-sizes the audio bucket."""
+        right-sizes the audio bucket; `buckets` = (s_text, p_audio,
+        t_audio) replaces the request's own (a batch's, engine/batch.py)."""
         return self.synthesize_async(
             text_ids, lang_ids, prompt_codes, best_of=best_of, top_k=top_k, top_p=top_p,
             temperature=temperature, seed=seed, return_wave=return_wave,
-            max_gen_frames=max_gen_frames).result()
+            max_gen_frames=max_gen_frames, buckets=buckets).result()
 
     @torch.inference_mode()
     def synthesize_async(
@@ -267,6 +269,7 @@ class SynthesisPipeline:
         seed: int = 0,
         return_wave: bool = True,
         max_gen_frames: Optional[int] = None,
+        buckets: Optional[Tuple[int, int, int]] = None,
     ) -> "PendingSynthesis":
         """Run the AR, enqueue the tail (NAR, then Vocos when a wave is
         asked for) and return without waiting for it (PendingSynthesis):
@@ -295,6 +298,8 @@ class SynthesisPipeline:
         t_audio = bucket(min(Tp + 1 + want + 1, e.audio_buckets[-1]),
                          e.audio_buckets, granularity=512)
         p_audio = min(p_audio, t_audio)
+        if buckets is not None:
+            s_text, p_audio, t_audio = buckets
 
         text_pad = np.zeros((s_text,), np.int64)
         text_pad[:S] = text_ids
@@ -370,6 +375,48 @@ class SynthesisPipeline:
                                 self.timer)
 
     @torch.inference_mode()
+    def decode_padded_batch(self, pb: Dict, prompt_codes_pad: np.ndarray, *, best_of: int,
+                            top_k: int, top_p: float, temperature: float, seed: int):
+        """The AR and NAR of a padded batch (`pad_batched_requests`'s dict,
+        or a slice of a larger batch's with its buckets; prompt_codes_pad
+        [R, t_audio, 8]) → (BatchARResult, generated codes [R, t_audio, 8]
+        on the device, gen lens [R] int64, host-clock phase seconds)."""
+        e, cfg, dev = self.ecfg, self.cfg, self.device
+        seconds = {}
+        t0 = time.perf_counter()
+        t_audio = prompt_codes_pad.shape[1]
+        generator = torch.Generator(device=dev)
+        generator.manual_seed(int(seed) & 0x7FFFFFFF)
+        with record_function("vallex.ar"):
+            ar = ar_generate_batch(
+                self.model, cfg, pb["text"], pb["lang"], pb["x_lens"], pb["prompt_pad"],
+                pb["prompt_lens"], pb["caps"], generator=generator, top_k=top_k,
+                temperature=temperature, s_text=pb["s_text"], p_audio=pb["p_audio"],
+                t_gen=pb["t_gen"], dtype=self.dtype, decode_steps=max(2, e.decode_steps),
+                packed=self.serving_weights(), beams=best_of, top_p=top_p,
+                length_penalty=e.length_penalty, quantize=e.quantize)
+            self._sync()
+        seconds["ar"] = time.perf_counter() - t0
+
+        t1 = time.perf_counter()
+        lens = ar.gen_len.astype(np.int64)
+        with record_function("vallex.nar"):
+            plens = torch.as_tensor(pb["prompt_lens"].astype(np.int64), device=dev)
+            gl = torch.as_tensor(lens, device=dev)
+            codes_in = assemble_nar_input_batch(
+                torch.as_tensor(ar.y_gen, device=dev),
+                torch.as_tensor(prompt_codes_pad, device=dev), plens, t_audio)
+            codes = nar_generate(
+                self.model, cfg, torch.as_tensor(pb["text"], device=dev).long(),
+                torch.as_tensor(pb["lang"], device=dev).long(),
+                torch.as_tensor(pb["x_lens"], device=dev), codes_in, plens + gl, plens,
+                dtype=self.dtype)
+            gen_codes = shift_out_prompt_batch(codes, plens, gl)
+            self._sync()
+        seconds["nar"] = time.perf_counter() - t1
+        return ar, gen_codes, lens, seconds
+
+    @torch.inference_mode()
     def synthesize_batch(
         self,
         requests,  # list of (text_ids [S], lang_ids [S], prompt [Tp, 8] | None)
@@ -403,11 +450,8 @@ class SynthesisPipeline:
                                   temperature=temperature, seed=seed,
                                   return_wave=return_wave)
             return BatchSynthesisResult([(res.codes, res.wave)], None, res.seconds)
-        seconds = {}
-        t0 = time.perf_counter()
         pb = pad_batched_requests(requests, cfg.eos_id, cfg.num_quantizers,
                                   e.text_buckets, e.audio_buckets)
-        s_text, p_audio, t_gen = pb["s_text"], pb["p_audio"], pb["t_gen"]
         prompts = pb["prompts"]
         Tp_max = max(len(p) for p in prompts)
         t_audio = bucket(min(Tp_max + 1 + 16 * int(max(pb["x_lens"])) + 1,
@@ -415,35 +459,10 @@ class SynthesisPipeline:
         prompt_codes_pad = np.zeros((R, t_audio, cfg.num_quantizers), np.int64)
         for r, pr in enumerate(prompts):
             prompt_codes_pad[r, : len(pr)] = pr
-        generator = torch.Generator(device=dev)
-        generator.manual_seed(int(seed) & 0x7FFFFFFF)
-        with record_function("vallex.ar"):
-            ar = ar_generate_batch(
-                self.model, cfg, pb["text"], pb["lang"], pb["x_lens"], pb["prompt_pad"],
-                pb["prompt_lens"], pb["caps"], generator=generator, top_k=top_k,
-                temperature=temperature, s_text=s_text, p_audio=p_audio, t_gen=t_gen,
-                dtype=self.dtype, decode_steps=max(2, e.decode_steps),
-                packed=self.serving_weights(), beams=best_of, top_p=top_p,
-                length_penalty=e.length_penalty, quantize=e.quantize)
-            self._sync()
-        seconds["ar"] = time.perf_counter() - t0
-
-        t1 = time.perf_counter()
-        lens = ar.gen_len.astype(np.int64)
-        with record_function("vallex.nar"):
-            plens = torch.as_tensor(pb["prompt_lens"].astype(np.int64), device=dev)
-            gl = torch.as_tensor(lens, device=dev)
-            codes_in = assemble_nar_input_batch(
-                torch.as_tensor(ar.y_gen, device=dev),
-                torch.as_tensor(prompt_codes_pad, device=dev), plens, t_audio)
-            codes = nar_generate(
-                self.model, cfg, torch.as_tensor(pb["text"], device=dev).long(),
-                torch.as_tensor(pb["lang"], device=dev).long(),
-                torch.as_tensor(pb["x_lens"], device=dev), codes_in, plens + gl, plens,
-                dtype=self.dtype)
-            gen_codes = shift_out_prompt_batch(codes, plens, gl)
-            self._sync()
-        seconds["nar"] = time.perf_counter() - t1
+        ar, gen_codes, lens, seconds = self.decode_padded_batch(
+            pb, prompt_codes_pad, best_of=best_of, top_k=top_k, top_p=top_p,
+            temperature=temperature, seed=seed)
+        gl = torch.as_tensor(lens, device=dev)
 
         waves = None
         if return_wave and self.vocos is not None:

@@ -60,7 +60,13 @@ class LayerNorm(nn.Module):
 
 
 class Linear(nn.Module):
-    """y = x·w + b with w stored [in, out] (the JAX layout)."""
+    """y = x·w + b with w stored [in, out] (the JAX layout). Under tensor
+    parallelism (parallel/mesh.py::shard_params) `tp_mode` "col" holds a
+    column slice (and its bias slice), "row" a row slice whose products
+    the ranks sum before the replicated bias (parallel/collectives.py)."""
+
+    tp = None
+    tp_mode = None
 
     def __init__(self, d_in: int, d_out: int, bias: bool = True):
         super().__init__()
@@ -68,7 +74,13 @@ class Linear(nn.Module):
         self.b = _param(d_out) if bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = x @ self.w.to(x.dtype)
+        w = self.w.to(x.dtype)
+        if self.tp_mode == "col":
+            y = self.tp.col_product(x, w)
+        elif self.tp_mode == "row":
+            y = self.tp.row_product(x, w)
+        else:
+            y = x @ w
         if self.b is not None:
             y = y + self.b.to(x.dtype)
         return y
@@ -162,7 +174,13 @@ def attention_core_flash_prefix(q, k, v, q_seg, kv_seg, text_len: int) -> torch.
 
 
 class MultiheadAttention(nn.Module):
-    """Fused-QKV self-attention (reference: modules/activation.py:142-167)."""
+    """Fused-QKV self-attention (reference: modules/activation.py:142-167).
+    Under tensor parallelism the layer holds its rank's heads (Q, K and V
+    columns of `num_heads` heads, the matching rows of out_w): a
+    column-parallel in-projection, a row-parallel out-projection summed
+    over the ranks before the replicated bias."""
+
+    tp = None
 
     def __init__(self, dim: int, num_heads: int):
         super().__init__()
@@ -173,14 +191,18 @@ class MultiheadAttention(nn.Module):
         self.out_b = _param(dim)
 
     def qkv(self, x: torch.Tensor):
-        qkv = x @ self.in_proj_w.to(x.dtype) + self.in_proj_b.to(x.dtype)
+        w = self.in_proj_w.to(x.dtype)
+        qkv = (x @ w if self.tp is None else self.tp.col_product(x, w)) + self.in_proj_b.to(
+            x.dtype)
         q, k, v = qkv.chunk(3, dim=-1)
         H = self.num_heads
         return split_heads(q, H), split_heads(k, H), split_heads(v, H)
 
     def out(self, attn: torch.Tensor) -> torch.Tensor:
         y = merge_heads(attn)
-        return y @ self.out_w.to(y.dtype) + self.out_b.to(y.dtype)
+        w = self.out_w.to(y.dtype)
+        y = y @ w if self.tp is None else self.tp.row_product(y, w)
+        return y + self.out_b.to(y.dtype)
 
     def cross(self, q_in, kv_in, mask=None) -> torch.Tensor:
         """cross_mha_apply: q from the first D columns of the packed

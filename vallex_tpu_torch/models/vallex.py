@@ -27,13 +27,31 @@ NEG_INF = -1e9  # additive-mask value (f32-safe; softmax in f32)
 
 
 class Embedding(nn.Module):
+    """A lookup table; under tensor parallelism (parallel/mesh.py) it holds
+    the rows [vocab_start, vocab_start + rows) of the vocabulary: ids
+    outside look up zeros, and `tp.reduce` sums the ranks' rows."""
+
+    tp = None
+    vocab_start = 0
+
     def __init__(self, vocab: int, dim: int):
         super().__init__()
         self.weight = nn.Parameter(torch.zeros(vocab, dim), requires_grad=False)
 
     def forward(self, ids: torch.Tensor, dtype=None) -> torch.Tensor:
-        w = self.weight if dtype is None else self.weight.to(dtype)
-        return w[ids]
+        # gather, then cast: the values of the JAX package's cast-then-take,
+        # and a backward that sums each row's gradient in the table's f32
+        # (a bf16 table's scatter-add would round at every position)
+        w = self.weight
+        if self.tp is None:
+            rows = w[ids]
+        else:
+            local = ids - self.vocab_start
+            mine = (local >= 0) & (local < w.shape[0])
+            rows = w[local.clamp(0, w.shape[0] - 1)]
+            rows = torch.where(mine[..., None], rows, torch.zeros_like(rows))
+        rows = rows if dtype is None else rows.to(dtype)
+        return rows if self.tp is None else self.tp.reduce(rows)
 
 
 class _Tensor(nn.Module):
@@ -46,6 +64,14 @@ class _Tensor(nn.Module):
 
 
 class VALLE(nn.Module):
+    # tensor parallelism (parallel/mesh.py::shard_params): the tp group, the
+    # first NAR codebook this rank holds and the first input row of its NAR
+    # head slice; `par` is the rank's groups (dp and tp), None alone
+    tp = None
+    par = None
+    nar_codebook_start = 0
+    nar_head_rows = 0
+
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         D, q = cfg.d_model, cfg.num_quantizers
@@ -199,8 +225,39 @@ def nar_forward_stage(m: VALLE, xy, stage_idx: int, mask=None,
 
 
 def nar_logits(m: VALLE, h: torch.Tensor, stage_idx: int) -> torch.Tensor:
+    """[.., D] → f32 logits [.., 1024]; a tp rank holding the head's input
+    rows [r0, r0 + n) multiplies its slice of h and all-reduces."""
     w = m.nar_predict_layers.w[stage_idx].to(h.dtype)
+    if m.tp is not None and w.shape[0] != h.shape[-1]:
+        h = m.tp.copy(h)[..., m.nar_head_rows: m.nar_head_rows + w.shape[0]]
+        return m.tp.reduce(h.float() @ w.float())
     return h.float() @ w.float()
+
+
+def nar_codebook_sum(m: VALLE, codes: torch.Tensor, coef, dtype) -> torch.Tensor:
+    """Σ_j coef(j) · emb[j][codes[..., j]] over the NAR audio embeddings,
+    j in codebook order, summed in the tables' f32 and rounded once to
+    `dtype`; coef(j) is None (skip), 1 (as is) or a 0/1 mask to multiply.
+    A tp rank holding codebooks [j0, j0 + n) sums its own, then the ranks'
+    sums add (parallel/mesh.py)."""
+    emb = m.nar_audio_embeddings.weight
+    j0 = m.nar_codebook_start
+    y = None
+    for jl in range(emb.shape[0]):
+        j = j0 + jl
+        c = coef(j)
+        if c is None:
+            continue
+        e = emb[jl][codes[..., j]]
+        if not (isinstance(c, int) and c == 1):
+            e = e * c.to(e.dtype)
+        y = e if y is None else y + e
+    if y is None:
+        y = torch.zeros((*codes.shape[:-1], emb.shape[-1]), dtype=emb.dtype,
+                        device=codes.device)
+    if m.tp is not None and emb.shape[0] != m.cfg.num_quantizers:
+        y = m.tp.reduce(y)
+    return y.to(dtype)
 
 
 def ar_forward(m: VALLE, xy, mask, remat: bool = True, segments=None,

@@ -18,6 +18,16 @@ a loss, so the losses equal the JAX package's on either route.
 
 `rng` is a CPU torch.Generator. The stage and the prompt draws follow the
 reference's distributions (`sample_nar_prompt`), not JAX's bits.
+
+Data parallelism (a model sharded by parallel/mesh.py, `m.par` with a dp
+group of more than one rank): each rank holds some rows of the global
+batch, and the objective stays the global one, as GSPMD computes it. Each
+masked mean's count is all-reduced over dp, so a rank's term is its rows'
+sum over the global count (summed over dp, the gradients are the global
+batch's whatever the split); every rank draws the stage and the prefix from
+the same generator, with the global batch's shortest utterance (an
+all-reduce MIN) and, in prefix mode 2, window starts drawn for the whole
+batch and then sliced. A rank with no rows joins the same collectives.
 """
 
 from __future__ import annotations
@@ -35,11 +45,20 @@ PROMPT_FRAMES = 225  # 24000/320 · 3 s (reference: models/vallex.py:323)
 FLASH_AUTO_FRAMES = 800  # the JAX package's "auto" crossover (loss.py:400-404)
 
 
-def _ce(logits: torch.Tensor, targets: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """Masked mean cross-entropy; logits [..., V] f32."""
+def _dp(m: V.VALLE):
+    """The model's dp group when it spans more than one rank, else None."""
+    par = m.par
+    return par.dp if par is not None and par.dp.size > 1 else None
+
+
+def _ce(logits: torch.Tensor, targets: torch.Tensor, mask: torch.Tensor, dp=None
+        ) -> torch.Tensor:
+    """Masked mean cross-entropy; logits [..., V] f32. With a dp group the
+    count is the global batch's (this rank's share of the global mean)."""
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, targets.long()[..., None])[..., 0]
-    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    count = mask.sum() if dp is None else dp.sum(mask.sum())
+    return (nll * mask).sum() / torch.clamp(count, min=1.0)
 
 
 def _arange(n: int, like: torch.Tensor) -> torch.Tensor:
@@ -79,7 +98,7 @@ def ar_loss(
         text_seg = _arange(S, x)[None] < text_lens[:, None]
         seg = torch.cat([text_seg, pos_t <= lens], dim=1).int().contiguous()
         h = V.ar_forward(m, xy, None, remat=remat, segments=(seg, seg), prefix_flash=S)
-        return _ce(V.ar_logits(m, h[:, S:]), targets, loss_mask)
+        return _ce(V.ar_logits(m, h[:, S:]), targets, loss_mask, _dp(m))
 
     total = S + T + 1
     rows = _arange(total, x)[None, :, None]
@@ -90,15 +109,24 @@ def ar_loss(
     ok = (col_text_ok | col_audio_ok) & causal
     mask = torch.where(ok, 0.0, V.NEG_INF).float()[:, None]
     h = V.ar_forward(m, xy, mask, remat=remat)
-    return _ce(V.ar_logits(m, h[:, S:]), targets, loss_mask)
+    return _ce(V.ar_logits(m, h[:, S:]), targets, loss_mask, _dp(m))
 
 
-def _sum_codebook_embs(emb: torch.Tensor, codes: torch.Tensor, upto: int, dtype) -> torch.Tensor:
+def _sum_codebook_embs(m: V.VALLE, codes: torch.Tensor, upto: int, dtype) -> torch.Tensor:
     """emb[0][codes[..., 0]] + Σ_{1 <= j < upto} emb[j][codes[..., j]]."""
-    y = emb[0][codes[..., 0]].to(dtype)
-    for j in range(1, min(upto, codes.shape[-1])):
-        y = y + emb[j][codes[..., j]].to(dtype)
-    return y
+    return V.nar_codebook_sum(m, codes, lambda j: 1 if j < upto else None, dtype)
+
+
+def _prefix_codebook_embs(m: V.VALLE, codes: torch.Tensor, in_prefix: torch.Tensor,
+                          stage: int, dtype) -> torch.Tensor:
+    """Prefix mode 1: the frames in the prefix sum every codebook, the
+    others those below the stage."""
+    def coef(j):
+        if j == 0:
+            return 1
+        return (in_prefix | (~in_prefix & (j < stage)))[..., None].to(dtype)
+
+    return V.nar_codebook_sum(m, codes, coef, dtype)
 
 
 def _sine_pe(m: V.VALLE, x: torch.Tensor, offset: int = 0) -> torch.Tensor:
@@ -127,23 +155,19 @@ def nar_prepare(
     logits come from h[:, S + y_start:]."""
     B, T = codes.shape[:2]
     codes = codes.long()
-    emb = m.nar_audio_embeddings.weight  # [8, 1025, D]
     pos_t = _arange(T, codes)[None, :]
     valid = pos_t < audio_lens[:, None]  # [B, T]
     targets = codes[..., stage]
 
     if prefix_mode in (0, 1):
         if prefix_mode == 0:
-            y_emb = _sum_codebook_embs(emb, codes, stage, dtype)
+            y_emb = _sum_codebook_embs(m, codes, stage, dtype)
             loss_mask = valid
         else:
             # the first prefix_len frames sum every codebook, the suffix
             # those below the stage; loss over the suffix
             in_prefix = pos_t < prefix_len
-            y_emb = emb[0][codes[..., 0]].to(dtype)
-            for j in range(1, cfg.num_quantizers):
-                add = in_prefix | (~in_prefix & (j < stage))
-                y_emb = y_emb + emb[j][codes[..., j]].to(dtype) * add[..., None].to(dtype)
+            y_emb = _prefix_codebook_embs(m, codes, in_prefix, stage, dtype)
             loss_mask = ~in_prefix & valid
         y_emb = y_emb * valid[..., None].to(dtype)
         return _sine_pe(m, y_emb), valid, loss_mask.float(), targets, 0
@@ -159,9 +183,9 @@ def nar_prepare(
         idx = prompt_starts.long()[:, None] + _arange(P, codes)[None]  # [B, P]
         window = torch.gather(padded, 1, idx[..., None].expand(B, P, codes.shape[-1]))
         prompt_valid = _arange(P, codes)[None] < prefix_len  # [1, P]
-        prompt_emb = _sum_codebook_embs(emb, window, cfg.num_quantizers, dtype)
+        prompt_emb = _sum_codebook_embs(m, window, cfg.num_quantizers, dtype)
         prompt_pos = _sine_pe(m, prompt_emb * prompt_valid[..., None].to(dtype))
-        y_emb = _sum_codebook_embs(emb, codes, stage, dtype) * valid[..., None].to(dtype)
+        y_emb = _sum_codebook_embs(m, codes, stage, dtype) * valid[..., None].to(dtype)
         y_pos = _sine_pe(m, y_emb, prefix_len)
         starts = prompt_starts.long()[:, None]
         in_window = (pos_t >= starts) & (pos_t < starts + prefix_len)
@@ -174,9 +198,9 @@ def nar_prepare(
         if prompt_codes is None:
             raise ValueError("prefix_mode 4 needs prompt_codes [B, P, 8]")
         P = prompt_codes.shape[1]
-        prompt_pos = _sine_pe(m, _sum_codebook_embs(emb, prompt_codes.long(),
+        prompt_pos = _sine_pe(m, _sum_codebook_embs(m, prompt_codes.long(),
                                                     cfg.num_quantizers, dtype))
-        y_emb = _sum_codebook_embs(emb, codes, stage, dtype) * valid[..., None].to(dtype)
+        y_emb = _sum_codebook_embs(m, codes, stage, dtype) * valid[..., None].to(dtype)
         y_pos = _sine_pe(m, y_emb, P)
         col_valid = torch.cat([torch.ones_like(valid[:, :1]).expand(B, P), valid], dim=1)
         return torch.cat([prompt_pos, y_pos], dim=1), col_valid, valid.float(), targets, P
@@ -217,11 +241,11 @@ def nar_loss(
         mask = torch.where(ok, 0.0, V.NEG_INF).float()[:, None, None, :]
         h = V.nar_forward_stage(m, xy, stage - 1, mask, remat=remat)
     logits = V.nar_logits(m, h[:, S + y_start: S + y_start + T], stage - 1)
-    return _ce(logits, targets, loss_mask)
+    return _ce(logits, targets, loss_mask, _dp(m))
 
 
-def sample_nar_prompt(rng: torch.Generator, audio_lens: torch.Tensor, prefix_mode: int
-                      ) -> Tuple[int, Optional[torch.Tensor]]:
+def sample_nar_prompt(rng: torch.Generator, audio_lens: torch.Tensor, prefix_mode: int,
+                      dp=None) -> Tuple[int, Optional[torch.Tensor]]:
     """(prefix_len, prompt_starts) by the reference's samplers.
 
     mode 1: prefix_len ~ U[0, 2·⌊min_len/4⌋), then capped at 225
@@ -229,18 +253,26 @@ def sample_nar_prompt(rng: torch.Generator, audio_lens: torch.Tensor, prefix_mod
     mode 2: prefix_len = min(225, ⌊min_len/4⌋); per-utterance window start
             ~ U[0, len_b − prefix_len], inclusive (models/vallex.py:339-342,
             random.Random.randint);
-    modes 0/4: (0, None), nothing drawn."""
-    min_len = int(audio_lens.min())
+    modes 0/4: (0, None), nothing drawn.
+    With a dp group, min_len is the global batch's and mode 2 draws the
+    starts of every row of the global batch, then keeps this rank's."""
+    if prefix_mode not in (1, 2):
+        return 0, None
+    if dp is None:
+        min_len = int(audio_lens.min())
+    else:
+        local = (audio_lens.min() if audio_lens.numel()
+                 else torch.tensor(2 ** 31 - 1, device=audio_lens.device))
+        min_len = int(dp.min(local.long()))
     if prefix_mode == 1:
         hi = max((min_len // 4) * 2, 1)
         return min(int(torch.randint(0, hi, (), generator=rng)), PROMPT_FRAMES), None
-    if prefix_mode == 2:
-        prefix_len = min(min_len // 4, PROMPT_FRAMES)
-        hi = torch.clamp(audio_lens.cpu().long() - prefix_len + 1, min=1)
-        u = torch.rand(hi.shape, generator=rng, dtype=torch.float64)
-        starts = torch.minimum((u * hi).long(), hi - 1)
-        return prefix_len, starts.to(audio_lens.device)
-    return 0, None
+    prefix_len = min(min_len // 4, PROMPT_FRAMES)
+    lens, first = (audio_lens, 0) if dp is None else dp.gather_rows(audio_lens.long())
+    hi = torch.clamp(lens.cpu().long() - prefix_len + 1, min=1)
+    u = torch.rand(hi.shape, generator=rng, dtype=torch.float64)
+    starts = torch.minimum((u * hi).long(), hi - 1)[first: first + audio_lens.shape[0]]
+    return prefix_len, starts.to(audio_lens.device)
 
 
 def _use_flash(use_flash, batch: Batch) -> bool:
@@ -254,6 +286,23 @@ def _draw_stage(rng: torch.Generator, cfg: ModelConfig) -> int:
     return int(torch.randint(1, cfg.num_quantizers, (), generator=rng))
 
 
+def draw_step(rng: torch.Generator, cfg: ModelConfig, audio_lens: torch.Tensor,
+              prefix_mode: int, dp=None) -> Tuple[int, int, Optional[torch.Tensor]]:
+    """A step's draws: (NAR stage, prefix_len, this rank's prompt_starts)."""
+    stage = _draw_stage(rng, cfg)
+    return (stage, *sample_nar_prompt(rng, audio_lens, prefix_mode, dp))
+
+
+def _no_rows(m: V.VALLE, like: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """A dp rank holding no rows: zero terms, after joining the two count
+    all-reduces that the AR and NAR terms make on the other ranks (its tp
+    peers hold no rows either, so no forward collective is owed)."""
+    zero = torch.zeros((), device=like.device)
+    for _ in range(2):
+        _dp(m).sum(zero)
+    return zero, {"loss": zero, "ar_loss": zero, "nar_loss": zero}
+
+
 def total_loss(
     m: V.VALLE,
     cfg: ModelConfig,
@@ -263,13 +312,18 @@ def total_loss(
     prefix_mode: int = 1,
     use_flash=False,
     remat: bool = True,
+    draws: Optional[Tuple[int, int, Optional[torch.Tensor]]] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """AR + NAR objective over a collated batch (tensors on the model's
     device). prefix_mode 4 reads batch["prompt_codes"] [B, P, 8];
-    use_flash True, False or "auto" (flash from 800 frames on)."""
+    use_flash True, False or "auto" (flash from 800 frames on). `draws`
+    fixes (stage, prefix_len, prompt_starts) instead of drawing them
+    (`draw_step`). Under dp the terms are this rank's shares."""
     use_flash = _use_flash(use_flash, batch)
-    stage = _draw_stage(rng, cfg)
-    prefix_len, prompt_starts = sample_nar_prompt(rng, batch["audio_lens"], prefix_mode)
+    stage, prefix_len, prompt_starts = draws or draw_step(
+        rng, cfg, batch["audio_lens"], prefix_mode, _dp(m))
+    if batch["codes"].shape[0] == 0:
+        return _no_rows(m, batch["codes"])
     l_ar = ar_loss(
         m, cfg, batch["text_ids"], batch["lang_ids"], batch["text_lens"],
         batch["codes"][..., 0], batch["audio_lens"], dtype, use_flash=use_flash, remat=remat)
@@ -318,7 +372,8 @@ def ar_loss_packed(m: V.VALLE, cfg: ModelConfig, batch: Batch, dtype=torch.bfloa
     seg = torch.cat([batch["p_text_seg"], batch["p_audio_seg"]], dim=1).int().contiguous()
     h = V.ar_forward(m, torch.cat([x, y], dim=1), None, remat=remat, segments=(seg, seg),
                      prefix_flash=Ws)
-    return _ce(V.ar_logits(m, h[:, Ws:]), batch["p_targets"], batch["p_loss_mask"].float())
+    return _ce(V.ar_logits(m, h[:, Ws:]), batch["p_targets"], batch["p_loss_mask"].float(),
+               _dp(m))
 
 
 def nar_loss_packed(m: V.VALLE, cfg: ModelConfig, batch: Batch, stage: int, prefix_len: int,
@@ -333,17 +388,13 @@ def nar_loss_packed(m: V.VALLE, cfg: ModelConfig, batch: Batch, stage: int, pref
     pos = batch["p_codes_pos"].long()
     seg = batch["p_codes_seg"]
     valid = seg > 0
-    emb = m.nar_audio_embeddings.weight
     targets = codes[..., stage]
     if prefix_mode == 0:
-        y_emb = _sum_codebook_embs(emb, codes, stage, dtype)
+        y_emb = _sum_codebook_embs(m, codes, stage, dtype)
         loss_mask = valid
     else:
         in_prefix = pos < prefix_len
-        y_emb = emb[0][codes[..., 0]].to(dtype)
-        for j in range(1, cfg.num_quantizers):
-            add = in_prefix | (~in_prefix & (j < stage))
-            y_emb = y_emb + emb[j][codes[..., j]].to(dtype) * add[..., None].to(dtype)
+        y_emb = _prefix_codebook_embs(m, codes, in_prefix, stage, dtype)
         loss_mask = ~in_prefix & valid
     y_emb = y_emb * valid[..., None].to(dtype)
     pe = m.pe[pos].to(y_emb.dtype)
@@ -355,16 +406,20 @@ def nar_loss_packed(m: V.VALLE, cfg: ModelConfig, batch: Batch, stage: int, pref
     seg_full = torch.cat([batch["p_text_seg"], seg], dim=1).int().contiguous()
     h = V.nar_forward_stage(m, torch.cat([x, y_pos], dim=1), stage - 1,
                             segments=(seg_full, seg_full), remat=remat)
-    return _ce(V.nar_logits(m, h[:, Ws:], stage - 1), targets, loss_mask.float())
+    return _ce(V.nar_logits(m, h[:, Ws:], stage - 1), targets, loss_mask.float(), _dp(m))
 
 
 def total_loss_packed(m: V.VALLE, cfg: ModelConfig, batch: Batch, rng: torch.Generator,
-                      dtype=torch.bfloat16, prefix_mode: int = 1, remat: bool = True
+                      dtype=torch.bfloat16, prefix_mode: int = 1, remat: bool = True,
+                      draws: Optional[Tuple[int, int, None]] = None
                       ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """AR + NAR objective over a packed batch (collate_packed). The NAR
-    prefix length draws from the shortest real utterance, as unpacked."""
-    stage = _draw_stage(rng, cfg)
-    prefix_len, _ = sample_nar_prompt(rng, batch["audio_lens"], prefix_mode)
+    prefix length draws from the shortest real utterance, as unpacked;
+    `draws` fixes (stage, prefix_len, None)."""
+    stage, prefix_len, _ = draws or draw_step(rng, cfg, batch["audio_lens"], prefix_mode,
+                                              _dp(m))
+    if batch["p_codes"].shape[0] == 0:
+        return _no_rows(m, batch["p_codes"])
     l_ar = ar_loss_packed(m, cfg, batch, dtype, remat=remat)
     l_nar = nar_loss_packed(m, cfg, batch, stage, prefix_len, dtype,
                             prefix_mode=prefix_mode, remat=remat)

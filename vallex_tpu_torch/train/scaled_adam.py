@@ -11,6 +11,7 @@ vallex_tpu/train/scaled_adam.py), on the leaves of train/step.py.
   schedule is evaluated at Adam's count after its increment.
 - grad_diagnostics / format_grad_diagnostics: per-leaf gradient norms, their
   quartiles and the dominant leaf.
+Under tp every whole-leaf reduction is the whole leaf's (train/step.py).
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ from typing import Dict, Sequence
 
 import torch
 
-from .step import Grads, Leaf, Optimizer, Schedule, _f32, global_norm, leaf_rms
+from .step import Grads, Leaf, Optimizer, Schedule, _f32, global_norm, leaf_rms, leaf_sq_sums
 
 
 def eden_schedule(base_lr: float = 0.05, lr_batches: float = 5000.0, lr_epochs: float = 4.0,
@@ -65,8 +66,8 @@ class ScaledAdam(Optimizer):
     def apply(self, leaves, grads, state):
         count = state["count"] + 1
         lr = _lr(self.lr, count)
-        clip = torch.clamp(self.clipping_scale / torch.clamp(global_norm(grads), min=1e-12),
-                           max=1.0)
+        clip = torch.clamp(
+            self.clipping_scale / torch.clamp(global_norm(grads, leaves), min=1e-12), max=1.0)
         c1 = 1.0 - float(_f32(self.b1) ** count)
         c2 = 1.0 - float(_f32(self.b2) ** count)
         for leaf, gs, ms, vs in zip(leaves, grads, state["mu"], state["nu"]):
@@ -120,8 +121,7 @@ def eve(learning_rate, **kw) -> Eve:
 def grad_diagnostics(leaves: Sequence[Leaf], grads: Grads) -> Dict:
     """Per-leaf gradient norms, their total, quartiles and the dominant leaf
     (the ScaledAdam reports of modules/optim.py:370-420)."""
-    norms = torch.stack([torch.sqrt(sum(g.float().square().sum() for g in gs))
-                         for gs in grads])
+    norms = torch.sqrt(leaf_sq_sums(leaves, grads))
     total = torch.sqrt((norms ** 2).sum())
     quart = torch.quantile(norms, torch.tensor([0.0, 0.25, 0.5, 0.75, 1.0],
                                                device=norms.device))

@@ -19,6 +19,13 @@ decoupled (added to the Adam direction before the learning rate).
 the inner transform, its clipping norm included, sees only the trained
 leaves; the others never move. `train_step`'s metrics["grad_norm"] is the
 norm of every gradient before clipping.
+
+dp × tp (a model sharded by parallel/mesh.py): a leaf that tp splits
+carries its `split` and its tp group, and every whole-leaf reduction here
+(the global norm, a leaf's RMS) sums its squares over tp, counting a
+replicated leaf once, so each rank sees the single-process value;
+`train_step` sums the gradients and the metrics over dp (the losses are
+each rank's share of the global objective, train/loss.py).
 """
 
 from __future__ import annotations
@@ -39,13 +46,18 @@ class Leaf(NamedTuple):
     name: str  # the JAX tree path, dotted
     params: Tuple[torch.Tensor, ...]  # one, or the NL pieces of a stacked leaf
     ndim: int  # the JAX array's ndim
+    split: Any = None  # parallel/mesh.py::Split when tp splits the leaf
+    tp: Any = None  # and its tp group
 
 
 def model_leaves(module: torch.nn.Module) -> List[Leaf]:
     """The module's parameters as the JAX tree's leaves, in its (sorted) order."""
+    specs = getattr(module, "tp_specs", {})
     out = []
     for name, (params, stacked) in sorted(jax_leaves(module).items()):
-        out.append(Leaf(name, tuple(params), params[0].ndim + int(stacked)))
+        split = specs.get(name)
+        out.append(Leaf(name, tuple(params), params[0].ndim + int(stacked), split,
+                        module.tp if split is not None else None))
     return out
 
 
@@ -55,15 +67,35 @@ def leaf_grads(leaves: Sequence[Leaf]) -> Grads:
             for leaf in leaves]
 
 
-def global_norm(grads: Grads) -> torch.Tensor:
-    """sqrt(Σ g²) over every tensor, f32, on the tensors' device."""
-    return torch.sqrt(sum(g.float().square().sum() for gs in grads for g in gs))
+def _sq(ts) -> torch.Tensor:
+    return sum(t.float().square().sum() for t in ts)
+
+
+def leaf_sq_sums(leaves: Optional[Sequence[Leaf]], grads: Grads) -> torch.Tensor:
+    """[Σ g² per leaf], f32; a split leaf's over its tp group (one all-reduce
+    for all of them)."""
+    sums = torch.stack([_sq(gs) for gs in grads])
+    tp = next((leaf.tp for leaf in leaves or () if leaf.tp is not None), None)
+    if tp is None:
+        return sums
+    split = torch.tensor([leaf.tp is not None for leaf in leaves], device=sums.device)
+    return torch.where(split, tp.sum(torch.where(split, sums, 0.0)), sums)
+
+
+def global_norm(grads: Grads, leaves: Optional[Sequence[Leaf]] = None) -> torch.Tensor:
+    """sqrt(Σ g²) over every tensor, f32, on the tensors' device (the whole
+    model's under tp, given the leaves)."""
+    if leaves is None or all(leaf.tp is None for leaf in leaves):
+        return torch.sqrt(sum(g.float().square().sum() for gs in grads for g in gs))
+    return torch.sqrt(leaf_sq_sums(leaves, grads).sum())
 
 
 def leaf_rms(leaf: Leaf) -> torch.Tensor:
-    """sqrt(mean(p²)) over the whole (stacked) leaf."""
+    """sqrt(mean(p²)) over the whole (stacked) leaf, all its tp slices."""
     n = sum(p.numel() for p in leaf.params)
-    return torch.sqrt(sum(p.float().square().sum() for p in leaf.params) / n)
+    if leaf.tp is None:
+        return torch.sqrt(_sq(leaf.params) / n)
+    return torch.sqrt(leaf.tp.sum(_sq(leaf.params)) / (n * leaf.tp.size))
 
 
 def _f32(x: float) -> torch.Tensor:
@@ -98,10 +130,15 @@ class Optimizer:
               ) -> Dict[str, Any]:
         raise NotImplementedError
 
+    def state_leaves(self, leaves: Sequence[Leaf]) -> List[Leaf]:
+        """The leaves the state's per-leaf lists follow."""
+        return list(leaves)
 
-def clip_by_global_norm(grads: Grads, max_norm: float) -> Grads:
+
+def clip_by_global_norm(grads: Grads, max_norm: float,
+                        leaves: Optional[Sequence[Leaf]] = None) -> Grads:
     """optax.clip_by_global_norm: g, or g / ‖g‖ · max_norm when ‖g‖ >= max_norm."""
-    gn = global_norm(grads)
+    gn = global_norm(grads, leaves)
     keep = gn < max_norm
     return [[torch.where(keep, g, g / gn * max_norm) for g in gs] for gs in grads]
 
@@ -119,7 +156,7 @@ class AdamW(Optimizer):
     @torch.no_grad()
     def apply(self, leaves, grads, state):
         if self.clip_norm is not None:
-            grads = clip_by_global_norm(grads, self.clip_norm)
+            grads = clip_by_global_norm(grads, self.clip_norm, leaves)
         count = state["count"]
         lr = self.lr(count)
         c1 = 1.0 - float(_f32(self.b1) ** (count + 1))
@@ -154,6 +191,9 @@ class Masked(Optimizer):
     def init(self, leaves):
         return self.inner.init(self._pick(leaves))
 
+    def state_leaves(self, leaves):
+        return self._pick(leaves)
+
     def apply(self, leaves, grads, state):
         return self.inner.apply(self._pick(leaves), self._pick(grads), state)
 
@@ -174,6 +214,17 @@ def init_train_state(model: torch.nn.Module, optimizer: Optimizer) -> TrainState
     return TrainState(model, leaves, optimizer.init(leaves), 0)
 
 
+def dp_sum_grads(dp, grads: Grads) -> Grads:
+    """Σ over the dp group of every gradient, as one flat all-reduce a dtype."""
+    flat = [g for gs in grads for g in gs]
+    out = {}
+    for dtype in {g.dtype for g in flat}:
+        same = [g for g in flat if g.dtype == dtype]
+        buf = dp.sum_(torch.cat([g.reshape(-1) for g in same]))
+        out.update(zip(map(id, same), buf.split([g.numel() for g in same])))
+    return [[out[id(g)].view_as(g) for g in gs] for gs in grads]
+
+
 def train_step(
     state: TrainState,
     batch: Dict[str, torch.Tensor],
@@ -186,24 +237,37 @@ def train_step(
     use_flash=False,
     remat: bool = True,
     packed: bool = False,
+    draws=None,
 ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
     """One optimizer step: loss, backward, update (in place). packed=True
-    takes a collate_packed batch through total_loss_packed. The metrics
-    are detached device scalars."""
-    from .loss import total_loss, total_loss_packed
+    takes a collate_packed batch through total_loss_packed; `draws` fixes
+    the step's (stage, prefix_len, prompt_starts). The metrics are detached
+    device scalars, the global batch's under dp, where each parameter's
+    .grad is left holding the global batch's gradient (summed over dp)."""
+    from .loss import _dp, total_loss, total_loss_packed
 
     model, dt = state.model, getattr(torch, dtype)
     for leaf in state.leaves:
         for p in leaf.params:
             p.grad = None
     if packed:
-        loss, metrics = total_loss_packed(model, cfg, batch, rng, dt, prefix_mode, remat)
+        loss, metrics = total_loss_packed(model, cfg, batch, rng, dt, prefix_mode, remat,
+                                          draws=draws)
     else:
-        loss, metrics = total_loss(model, cfg, batch, rng, dt, prefix_mode, use_flash, remat)
-    loss.backward()
+        loss, metrics = total_loss(model, cfg, batch, rng, dt, prefix_mode, use_flash, remat,
+                                   draws=draws)
+    if loss.requires_grad:  # a dp rank with no rows has no graph: its gradients are zeros
+        loss.backward()
     grads = leaf_grads(state.leaves)
+    dp = _dp(model)
+    if dp is not None:
+        grads = dp_sum_grads(dp, grads)
+        for leaf, gs in zip(state.leaves, grads):  # .grad: the whole batch's gradient
+            for p, g in zip(leaf.params, gs):
+                p.grad = g
+        metrics = dict(zip(metrics, dp.sum(torch.stack(list(metrics.values())).detach())))
     metrics = {k: v.detach() for k, v in metrics.items()}
-    metrics["grad_norm"] = global_norm(grads)
+    metrics["grad_norm"] = global_norm(grads, state.leaves)
     state.opt_state = optimizer.apply(state.leaves, grads, state.opt_state)
     state.step += 1
     return state, metrics
