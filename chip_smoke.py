@@ -168,6 +168,17 @@ Phases, one flushed line each with its own seconds and wall-clock limit:
      launched, 215,266,308 parameters a rank at tp 2, replicated leaves
      bitwise equal across the tp ranks, each rank's peak memory; every
      time beside the card's name and power limit
+  5j the native host runtime (native.py, no kernel): the C++ library built
+     by g++ from a clean _build/ (its seconds); tokenize against the dict
+     lookup on an English, a Chinese and a Japanese sentence (the Chinese
+     one's phonemes written in where jieba is absent); a 3 s float32 44.1
+     kHz stereo clip and a 3 s 16-bit 16 kHz clip decoded against the plain
+     versions (int bitwise the stdlib path, float the double mean) and
+     resampled within 1e-6 of the numpy formula; make_prompt of both on the
+     later phases' bundle, EnCodec on the card (225 frames, codes equal to
+     the same call on the CPU under the tie rule); host times of
+     _prepare_text a language, encode through the C++ and the lookup, and
+     load_wav of 10 s at 44.1 kHz through the C++ and wave + resample_poly
   7  torch.profiler traces of one request, of one filtered request (top_k
      50, top_p 0.9) and of one batch of 4: the device-busy share of their
      AR, NAR and Vocos spans (the tail's spans read up to the device end of
@@ -184,7 +195,9 @@ before phase 5g and read after it (continual's flash forwards, the
 prompt's requests), and once more just before phase 5h and read after it
 (the long texts' requests and tails), and once more just before phase 5i
 and read after it (this process's UI requests and the in-process serving
-routes; the workers and ranks count their own and report them). The NAR at C >= 1536
+routes; the workers and ranks count their own and report them), and once
+more just before phase 5j and read after it (none expected: host code and
+EnCodec). The NAR at C >= 1536
 must launch the flash forward at its sites and masked_attention never
 there. Any failure exits non-zero before the result line. No JAX is
 imported.
@@ -200,6 +213,7 @@ import os
 import re
 import shutil
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
@@ -1187,7 +1201,7 @@ def synced(dev, fn):
     return out, time.perf_counter() - t0
 
 
-def rvq_parted(codes, ref, latents, codebooks, tie=RVQ_TIE) -> int:
+def rvq_parted(codes, ref, latents, codebooks, tie=RVQ_TIE, label="5g make_prompt") -> int:
     """Frames whose codes differ from `ref`'s; each must part at a near tie:
     at its first differing stage the reference residual's distances
     ‖e‖² − 2 r·e to the two codes within `tie` of their magnitude."""
@@ -1203,7 +1217,7 @@ def rvq_parted(codes, ref, latents, codebooks, tie=RVQ_TIE) -> int:
         d = (cb[q] ** 2).sum(-1) - 2 * cb[q] @ r
         a, b = d[ref[t, q]], d[codes[t, q]]
         if abs(a - b) > tie * max(abs(a), abs(b), 1.0):
-            fail(f"5g make_prompt: frame {t} stage {q}: code {codes[t, q]} on the card,"
+            fail(f"{label}: frame {t} stage {q}: code {codes[t, q]} on the card,"
                  f" {ref[t, q]} on the CPU, distances {b:.6g} / {a:.6g} (not a tie)")
         parted += 1
     return parted
@@ -2207,6 +2221,186 @@ def multi_paths(dev, api, bundle, model, card: str) -> None:
 
 
 # ---------------------------------------------------------------------------
+# The native host runtime (phase 5j): module-level so it runs alone too.
+# ---------------------------------------------------------------------------
+
+HOST_SENTENCES = {
+    "en": "Hello world, this is the native tokenizer on the card.",
+    "zh": "你好，这是显卡上的原生分词器。",
+    "ja": "こんにちは、これはカードの上のトークナイザーです。",
+}
+# the Chinese sentence's phonemes (the port's cje_cleaners with jieba), for
+# a machine without jieba, where Chinese G2P cannot run
+ZH_PHONEMES = ("ni↓↑xɑʊ↓↑,_ts`⁼ə↓s`ɹ`↓_ʃjɛn↓↑kʰa↓↑_s`ɑŋ↓_t⁼ə_ɥæn↑s`əŋ→_fən→tsʰɹ↑tʃʰi↓.")
+
+
+def write_float_wav(path: str, samples, sr: int) -> None:
+    """samples [n, channels] float32 as an IEEE-float RIFF/WAVE (format tag
+    3), which the stdlib `wave` module cannot write or read."""
+    import numpy as np
+
+    data = np.ascontiguousarray(samples, "<f4")
+    n_ch = data.shape[1]
+    fmt = struct.pack("<HHIIHH", 3, n_ch, sr, sr * n_ch * 4, n_ch * 4, 32)
+    body = b"WAVEfmt " + struct.pack("<I", len(fmt)) + fmt + b"data" + struct.pack(
+        "<I", data.nbytes) + data.tobytes()
+    with open(path, "wb") as f:
+        f.write(b"RIFF" + struct.pack("<I", len(body)) + body)
+
+
+def host_median(fn, reps=20) -> float:
+    """Median host seconds of fn over reps (after one untimed call)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times)
+
+
+def host_ms(label: str, secs: float, card: str) -> None:
+    say(f"  time {label}: {secs * 1e3:.4f} ms  [{card}]")
+
+
+def native_host_paths(dev, api, bundle, card: str) -> None:
+    """Phase 5j, the native host runtime (vallex_tpu_torch/native.py): the
+    library built from a clean _build/ (its build seconds); tokenize against
+    the plain lookup on an English, a Chinese and a Japanese sentence; a 3 s
+    float32 44.1 kHz stereo clip and a 3 s 16-bit 16 kHz clip decoded
+    against the plain versions (int: bitwise the stdlib path; float: the
+    double mean in numpy; the resampler within 1e-6 of its numpy formula)
+    and made into prompts with EnCodec on the card (225 frames, codes equal
+    to the same make_prompt on the CPU under rvq_parted's tie rule); host
+    times: _prepare_text a language (median of 20), encode through the C++
+    and through the lookup, load_wav of a 10 s 44.1 kHz clip through the
+    C++ and through wave + resample_poly."""
+    import copy
+    import importlib.util
+
+    import numpy as np
+    import torch
+    from scipy.signal import resample_poly
+
+    from vallex_tpu_torch import native
+    from vallex_tpu_torch.codec import encodec as EC
+    from vallex_tpu_torch.frontend.cleaners import cje_cleaners
+    from vallex_tpu_torch.frontend.tokenizer import lookup_ids
+    from vallex_tpu_torch.utils.audio import load_wav, read_wav_plain, resample_plain, save_wav
+
+    # ---- the build, from a clean _build/
+    shutil.rmtree(native.BUILD_DIR, ignore_errors=True)
+    native._lib = None
+    t0 = time.perf_counter()
+    native.library()
+    t_build = time.perf_counter() - t0
+    gxx = subprocess.run([native.CXX, "--version"], capture_output=True, text=True).stdout
+    card_time(f"native library built from a clean _build/ ({gxx.splitlines()[0]},"
+              f" {' '.join(native.CXX_FLAGS)})", t_build, card)
+
+    # ---- tokenize against the plain lookup; _prepare_text and encode times
+    has_jieba = importlib.util.find_spec("jieba") is not None
+    _, text_prompt, lang_pr = api._load_prompt("paimon")
+    for lang, text in HOST_SENTENCES.items():
+        if lang == "zh" and not has_jieba:
+            phonemes = ZH_PHONEMES
+        else:
+            marked = f"[{lang.upper()}]{text}[{lang.upper()}]"
+            phonemes = cje_cleaners(marked)[0].replace(" ", "_")
+        ids = native.tokenize(phonemes)
+        if ids.tolist() != lookup_ids(phonemes):
+            fail(f"5j tokenize ({lang}): {ids.tolist()} vs the lookup's {lookup_ids(phonemes)}")
+        t_cpp = host_median(lambda: bundle.tokenizer.encode(phonemes))
+        t_py = host_median(lambda: lookup_ids(phonemes))
+        say(f"  tokenize ({lang}, {len(phonemes)} phonemes): equal to the lookup")
+        host_ms(f"encode ({lang}, {len(phonemes)} phonemes) through the C++, median of 20",
+                t_cpp, card)
+        host_ms(f"encode ({lang}) through the dict lookup, median of 20", t_py, card)
+        if lang == "zh" and not has_jieba:
+            say(f"  _prepare_text (zh): not measured (no jieba here) [{card}]")
+            continue
+        t_prep = host_median(lambda: api._prepare_text(bundle, text, text_prompt, lang_pr, lang))
+        host_ms(f"_prepare_text ({lang}, paimon's prompt text), median of 20", t_prep, card)
+
+    td = tempfile.mkdtemp(prefix="vallex-5j-")
+    try:
+        # ---- two 3 s clips against the plain versions
+        rng = np.random.RandomState(5)
+
+        def tones(sr, secs, ch):
+            t = np.arange(int(sr * secs)) / sr
+            x = [0.3 * np.sin(2 * np.pi * (220 + 110 * c) * t) + 0.1 * np.sin(2 * np.pi * 1250 * t)
+                 + 0.02 * rng.randn(len(t)) for c in range(ch)]
+            return np.stack(x, 1).astype(np.float32)
+
+        x44 = tones(44100, 3, 2)
+        p44 = os.path.join(td, "float-44k-stereo.wav")
+        write_float_wav(p44, x44, 44100)
+        p16 = os.path.join(td, "int16-16k.wav")
+        save_wav(p16, tones(16000, 3, 1)[:, 0], 16000)
+        d44, sr44 = native.load_wav(p44)
+        if sr44 != 44100 or not np.array_equal(
+                d44, (x44.astype(np.float64).sum(1) / 2).astype(np.float32)):
+            fail(f"5j load_wav float32 stereo: rate {sr44}, samples differ from the double mean")
+        d16, sr16 = native.load_wav(p16)
+        plain16, _ = read_wav_plain(p16)
+        if sr16 != 16000 or not np.array_equal(d16.view(np.int32), plain16.view(np.int32)):
+            fail(f"5j load_wav int16: rate {sr16}, samples not bitwise the stdlib path's")
+        for label, d, sr in (("float32 44.1 kHz stereo", d44, 44100), ("int16 16 kHz", d16, 16000)):
+            got = native.resample(d, sr, 24000)
+            want = resample_plain(d, sr, 24000)
+            err = float(np.abs(got - want).max())
+            if got.shape != (72000,) or want.shape != (72000,) or err > 1e-6:
+                fail(f"5j resample ({label}): {got.shape} / {want.shape}, max err {err:.3e}")
+            say(f"  load_wav ({label}, 3 s): decoded as the plain version; resampled to 72000"
+                f" samples, max abs err {err:.3e} to the numpy formula")
+
+        # ---- make_prompt on the card, then the same call on the CPU
+        enc_cpu = copy.deepcopy(bundle.encodec).to("cpu")
+        cpu_bundle = dataclasses.replace(bundle, encodec=enc_cpu, device=torch.device("cpu"))
+        for name, path in (("float44", p44), ("int16", p16)):
+            api._bundle = bundle
+            out_gpu, t_mp = synced(dev, lambda: api.make_prompt(
+                f"gpu-{name}", path, transcript="Hello world, this is a test.", out_dir=td))
+            api._bundle = cpu_bundle
+            out_cpu = api.make_prompt(f"cpu-{name}", path, transcript="Hello world, this is a"
+                                      " test.", out_dir=td)
+            G, C = np.load(out_gpu), np.load(out_cpu)
+            if G["audio_tokens"].shape != (1, 225, 8) or not np.array_equal(
+                    G["text_tokens"], C["text_tokens"]):
+                fail(f"5j make_prompt ({name}): {G['audio_tokens'].shape},"
+                     f" text ids equal {np.array_equal(G['text_tokens'], C['text_tokens'])}")
+            x = torch.from_numpy(load_wav(path)[0][None])
+            lat = EC.encode_latent(enc_cpu, x).numpy()
+            parted = rvq_parted(G["audio_tokens"], C["audio_tokens"], lat,
+                                enc_cpu.codebooks.detach().numpy(),
+                                label=f"5j make_prompt ({name})")
+            say(f"  make_prompt ({name}): 225 frames, codes on the card equal the CPU call's"
+                f" but {parted} frames parted at a near tie (rel {RVQ_TIE})")
+            host_ms(f"make_prompt of 3 s ({name}: load_wav, G2P, EnCodec on the card)", t_mp,
+                    card)
+        api._bundle = bundle
+
+        # ---- load_wav of 10 s at 44.1 kHz: the C++ against wave + resample_poly
+        p10 = os.path.join(td, "int16-44k-10s.wav")
+        save_wav(p10, tones(44100, 10, 1)[:, 0], 44100)
+
+        def stdlib_poly():
+            d, sr = read_wav_plain(p10)
+            return resample_poly(d, 80, 147).astype(np.float32)
+
+        if load_wav(p10)[0].shape != stdlib_poly().shape:
+            fail("5j load_wav of 10 s: the C++ and resample_poly give different lengths")
+        host_ms("load_wav of 10 s at 44.1 kHz (16-bit) through the C++, median of 5",
+                host_median(lambda: load_wav(p10), reps=5), card)
+        host_ms("the same through wave + resample_poly, median of 5",
+                host_median(stdlib_poly, reps=5), card)
+    finally:
+        api._bundle = bundle
+        shutil.rmtree(td, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
 # The decode products (phases 3-3d): module-level so that
 # tools/torch_flash_bench.py times them for another tree too.
 # ---------------------------------------------------------------------------
@@ -2867,9 +3061,12 @@ def main() -> None:
                      for x, ln, a in runs)
         ops = sum(x.numel() * (8 if ln is not None else 1) + (x.numel() * 3 if a else 0)
                   for x, ln, a in runs)
-        # library: null -- no one PyTorch call normalizes, rounds (or
-        # quantizes with a per-row scale) and writes the product's rows
-        entry("gemm_small_m_prep", site, err, ms, pms, nbytes, ops, None,
+        # library: F.layer_norm on the same f32 rows where every prologue is
+        # a LayerNorm (it leaves out the rounding to bf16); null for W8A8,
+        # whose per-row int8 codes and scales no PyTorch call makes
+        lib_ms = None if act_quant else device_ms(lambda: [
+            Fn.layer_norm(x, (x.shape[1],), ln[0], ln[1], 1e-5) for x, ln, _ in runs])
+        entry("gemm_small_m_prep", site, err, ms, pms, nbytes, ops, lib_ms,
               f"{len(runs)} launches: the prologues of one step, M={M},"
               f" {'W8A8 codes and scales' if act_quant else 'f32 rows' if f32 else 'bf16 rows'}"
               f"{'; max_abs_err in codes' if act_quant else ''}", in_line, F32_OPS_PER_S)
@@ -3852,6 +4049,12 @@ def main() -> None:
         multi_paths(dev, api, bundle, full.model, smi.splitlines()[0])
     counts_slice8 = dict(loader.launch_counts)
 
+    # ---- phase 5j: the native host runtime (no kernel: host code and EnCodec)
+    loader.reset_launch_counts()
+    with phase("5j native host runtime", 60):
+        native_host_paths(dev, api, bundle, smi.splitlines()[0])
+    counts_slice9 = dict(loader.launch_counts)
+
     bundle = api._bundle = full
     with phase("7 trace", 300):
         def one_request():
@@ -3899,6 +4102,7 @@ def main() -> None:
         say(f"  phase 5g launches by site: {json.dumps({f'{k}@{s}': n for (k, s), n in sorted(counts_slice6.items())})}")
         say(f"  phase 5h launches by site: {json.dumps({f'{k}@{s}': n for (k, s), n in sorted(counts_slice7.items())})}")
         say(f"  phase 5i launches by site (this process; the workers' and ranks' are above): {json.dumps({f'{k}@{s}': n for (k, s), n in sorted(counts_slice8.items())})}")
+        say(f"  phase 5j launches by site: {json.dumps({f'{k}@{s}': n for (k, s), n in sorted(counts_slice9.items())})}")
         say(json.dumps({"kernels": [{k: v for k, v in e.items() if k != "unit"} for e in entries]}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

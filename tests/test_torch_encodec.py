@@ -7,13 +7,15 @@ Tolerances: latents and waveforms within 1e-4 of their scale; RVQ codes
 equal, or where a code differs, the JAX residual's distances to the two
 codes within 1e-5 of their magnitude (a near tie); `rvq_decode` and the
 converted trees bitwise; WAV reading bitwise against the JAX package's
-Python path where no resampling happens (the JAX package prefers its C++
-decoder and resampler when that builds: not a bitwise reference), and
-against `scipy.signal.resample_poly` where it does; the fbank within 1e-4.
+Python path where no resampling happens (its C++ decoder reads 24-bit PCM
+as silence), and against its load_wav with its library where it does (the
+port resamples through its own native runtime, the same arithmetic); the
+fbank within 1e-4.
 """
 
 import json
 import os
+import struct
 import wave
 
 import jax
@@ -21,7 +23,6 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from scipy.signal import resample_poly
 
 from vallex_tpu import api as japi
 from vallex_tpu import native as jnative
@@ -239,17 +240,33 @@ def test_load_wav_matches_jax(tmp_path, monkeypatch, width, ch):
     assert got.shape == (4800,) and np.array_equal(got, want)
 
 
+@pytest.fixture(scope="module")
+def jlib():
+    """The JAX package's native library: its load_wav resamples through it."""
+    if jnative.get_lib() is None:
+        pytest.skip("the JAX package's native library does not build here")
+
+
 @pytest.mark.parametrize("sr", [16000, 44100])
-def test_load_wav_resamples_with_resample_poly(tmp_path, sr):
-    """Another rate: the 16-bit samples through resample_poly to 24 kHz."""
+def test_load_wav_resamples_as_jax(tmp_path, jlib, sr):
+    """Another rate: 16-bit samples through the native resampler to 24 kHz,
+    bitwise the JAX package's load_wav with its library."""
     pcm = (np.random.RandomState(sr).randn(sr // 2) * 3000).astype(np.int16)
     p = str(tmp_path / "x.wav")
     _write(p, pcm.tobytes(), sr, 2, 1)
     got, out_sr = TAU.load_wav(p)
-    g = np.gcd(sr, 24000)
-    want = resample_poly(pcm.astype(np.float32) / 32768.0, 24000 // g, sr // g).astype(np.float32)
+    want, _ = JAU.load_wav(p)
     assert out_sr == 24000 and got.shape == want.shape == (12000,)
-    np.testing.assert_array_equal(got, want)
+    assert np.array_equal(got.view(np.int32), want.view(np.int32))
+
+
+def _write_float(path, wav, sr):
+    """Mono float32 samples as an IEEE-float RIFF/WAVE (format tag 3)."""
+    data = np.asarray(wav, "<f4").tobytes()
+    fmt = struct.pack("<HHIIHH", 3, 1, sr, sr * 4, 4, 32)
+    body = b"WAVEfmt " + struct.pack("<I", 16) + fmt + b"data" + struct.pack("<I", len(data))
+    with open(path, "wb") as f:
+        f.write(b"RIFF" + struct.pack("<I", len(body) + len(data)) + body + data)
 
 
 def test_save_wav_bytes_equal_jax(tmp_path, clip):
@@ -302,13 +319,25 @@ def bundles(tmp_path_factory, enc):
     return jb, tb
 
 
-def test_make_prompt_matches_jax(tmp_path, bundles, clip):
+@pytest.mark.parametrize("kind", ["24k-int16", "16k-int16", "44k-float32"])
+def test_make_prompt_matches_jax(tmp_path, request, bundles, clip, kind):
     """The same npz as vallex_tpu.api.make_prompt: keys, dtypes, shapes,
     text ids and language equal, codes under the tie rule; each package's
-    prompt loads in the other's _load_prompt; generate_audio runs with it."""
+    prompt loads in the other's _load_prompt; generate_audio runs with it.
+    The clip: 1 s of 16-bit PCM at 24 or 16 kHz, or of float32 at 44.1 kHz
+    (the last two resampled, which needs the JAX package's library)."""
     jb, tb = bundles
     p = str(tmp_path / "clip.wav")
-    TAU.save_wav(p, clip)
+    if kind == "24k-int16":
+        TAU.save_wav(p, clip)
+    else:
+        request.getfixturevalue("jlib")
+        sr = 16000 if kind == "16k-int16" else 44100
+        x = np.interp(np.arange(sr) * 24000 / sr, np.arange(24000), clip).astype(np.float32)
+        if kind == "16k-int16":
+            TAU.save_wav(p, x, sr)
+        else:
+            _write_float(p, x, sr)
     japi._bundle, tapi._bundle = jb, tb
     jout = japi.make_prompt("v", p, transcript="Hello there.", out_dir=str(tmp_path / "j"))
     tout = tapi.make_prompt("v", p, transcript="Hello there.", out_dir=str(tmp_path / "t"))

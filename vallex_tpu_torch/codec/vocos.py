@@ -9,12 +9,14 @@ vallex_tpu/codec/vocos.py, the `charactr/vocos-encodec-24khz` architecture).
       (n_fft 1280, hop 320, Hann, "same" padding ⇒ T frames → T·320 samples)
 
 Tensors are channels-last [B, T, C] as in the JAX code. Runs in f32.
+`convert_vocos_state_dict` reads the public checkpoint's state dict.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Union
+from typing import Any, Dict, Optional, Union
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -206,3 +208,51 @@ def vocos_decode(v: Vocos, codes: torch.Tensor, bandwidth_id: int = 2,
         feats = torch.where(fv[..., None], feats, 0.0)
     x = backbone_apply(v, feats, bandwidth_id, t_len=t_len)
     return head_apply(v, x, frame_valid=fv)
+
+
+def convert_vocos_state_dict(sd: Dict[str, Any]) -> Dict[str, Any]:
+    """The `charactr/vocos-encodec-24khz` state dict (numpy or torch leaves,
+    torch layouts) → the tree `load_tree(Vocos(), ...)` takes, f32 numpy
+    leaves: Conv1d [Cout, Cin, K] → [K, Cin, Cout], the depthwise conv
+    [C, 1, K] → [K, 1, C], Linear [out, in] → [in, out]; AdaLayerNorm's
+    scale and shift stay [num_bandwidths, C] tables; the 8 blocks stacked."""
+
+    def g(key):
+        a = sd[key]
+        if isinstance(a, torch.Tensor):
+            a = a.detach().to("cpu", torch.float32).numpy()
+        return np.ascontiguousarray(a, np.float32)
+
+    def conv(key):
+        return {"w": np.ascontiguousarray(g(f"{key}.weight").transpose(2, 1, 0)),
+                "b": g(f"{key}.bias")}
+
+    def lin(key):
+        return {"w": np.ascontiguousarray(g(f"{key}.weight").T), "b": g(f"{key}.bias")}
+
+    def ada(key):
+        return {"scale": g(f"{key}.scale.weight"), "shift": g(f"{key}.shift.weight")}
+
+    blocks = [{"dwconv": conv(f"backbone.convnext.{i}.dwconv"),
+               "norm": ada(f"backbone.convnext.{i}.norm"),
+               "pwconv1": lin(f"backbone.convnext.{i}.pwconv1"),
+               "pwconv2": lin(f"backbone.convnext.{i}.pwconv2"),
+               "gamma": g(f"backbone.convnext.{i}.gamma")} for i in range(NUM_LAYERS)]
+
+    def stack(nodes):
+        if isinstance(nodes[0], dict):
+            return {k: stack([n[k] for n in nodes]) for k in nodes[0]}
+        return np.stack(nodes)
+
+    return {
+        # the EnCodec quantizer's codebooks, stored under the feature extractor
+        "codebook_weights": np.stack([
+            g(f"feature_extractor.encodec.quantizer.vq.layers.{q}._codebook.embed")
+            for q in range(NUM_CODEBOOKS)]),
+        "embed": conv("backbone.embed"),
+        "norm": ada("backbone.norm"),
+        "blocks": stack(blocks),
+        "final_norm": {"scale": g("backbone.final_layer_norm.weight"),
+                       "bias": g("backbone.final_layer_norm.bias")},
+        "head": lin("head.out"),
+    }

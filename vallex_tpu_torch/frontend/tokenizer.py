@@ -3,8 +3,10 @@
 Replacement for the reference's `PhonemeBpeTokenizer`
 (utils/g2p/__init__.py:11-25, backed by the Rust HF `tokenizers` BPE) and
 `TextTokenCollater` (data/collation.py:10-120). Because the production vocab
-has zero merges, encoding is an exact char→id lookup; the invariant
-``len(tokens) == len(langs)`` (one language tag per phoneme char) is preserved.
+has zero merges, encoding is an exact char→id lookup, done by the native
+host runtime (native.py) as in the JAX package; `lookup_ids` is its plain
+version. The invariant ``len(tokens) == len(langs)`` (one language tag per
+phoneme char) is preserved.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from typing import List, Sequence, Tuple
 
 import numpy as np
 
+from .. import native
 from .cleaners import cje_cleaners
 from .symbols import UNK_ID, char_to_id, id_to_char
 
@@ -30,11 +33,16 @@ class PhonemeTokenizer:
         return tokens, langs
 
     def encode(self, phonemes: str) -> List[int]:
-        """Char→id encode: an exact dict lookup (the vocab has no merges)."""
-        return [char_to_id.get(ch, UNK_ID) for ch in phonemes]
+        """Char→id encode through the native host runtime."""
+        return native.tokenize(phonemes).tolist()
 
     def decode(self, ids: Sequence[int]) -> str:
         return "".join(id_to_char.get(int(i), "[UNK]") for i in ids)
+
+
+def lookup_ids(phonemes: str) -> List[int]:
+    """The plain version of `PhonemeTokenizer.encode`: a dict lookup."""
+    return [char_to_id.get(ch, UNK_ID) for ch in phonemes]
 
 
 class TextTokenCollater:

@@ -1,10 +1,11 @@
 """WAV I/O without libsndfile or torchaudio (port of vallex_tpu/utils/audio.py).
 
-Enrollment clips are read with the stdlib `wave` module (8-, 16-, 24- and
-32-bit PCM), stereo is downmixed to mono (reference:
-utils/prompt_making.py:62-64), and another rate is resampled with scipy's
-polyphase resampler. The JAX package prefers its C++ resampler when that
-builds; the port always takes `resample_poly`. Output is 16-bit PCM.
+Enrollment clips are decoded and resampled by the native host runtime
+(native.py: 8/16/24/32-bit PCM and 32-bit float, stereo downmixed to
+mono as the reference does, utils/prompt_making.py:62-64; a windowed-sinc
+resampler), in the JAX package's order. `read_wav_plain` (the stdlib
+`wave` module, integer PCM) and `resample_plain` (the resampler's formula
+in numpy) are their plain versions, for the tests. Output is 16-bit PCM.
 """
 
 from __future__ import annotations
@@ -16,9 +17,21 @@ from typing import Tuple
 
 import numpy as np
 
+from .. import native
+
 
 def load_wav(path: str, target_sr: int = 24000) -> Tuple[np.ndarray, int]:
     """→ (mono float32 waveform in [-1, 1] at target_sr, target_sr)."""
+    data, sr = native.load_wav(path)
+    if sr != target_sr:
+        data = native.resample(data, sr, target_sr)
+    return data, target_sr
+
+
+def read_wav_plain(path: str) -> Tuple[np.ndarray, int]:
+    """The plain version of the native decoder for integer PCM: → (mono
+    float32 samples, the file's rate), each sample scaled in f32, then an
+    f32 mean over the channels."""
     with wave.open(path, "rb") as f:
         sr = f.getframerate()
         n_ch = f.getnchannels()
@@ -41,12 +54,38 @@ def load_wav(path: str, target_sr: int = 24000) -> Tuple[np.ndarray, int]:
 
     if n_ch > 1:
         data = data.reshape(-1, n_ch).mean(axis=1)
-    if sr != target_sr:
-        from scipy.signal import resample_poly
+    return data, sr
 
-        g = gcd(sr, target_sr)
-        data = resample_poly(data, target_sr // g, sr // g).astype(np.float32)
-    return data, target_sr
+
+def resample_plain(wav: np.ndarray, sr_in: int, sr_out: int) -> np.ndarray:
+    """The plain version of the native resampler, in numpy float64: output
+    m at input time m·down/up, a Hann-windowed sinc low-passed at
+    min(sr_in, sr_out)/2 over 16 zero crossings each side, the taps that
+    fall inside the input normalised by their sum."""
+    wav = np.asarray(wav, np.float32)
+    if sr_in == sr_out:
+        return wav.copy()
+    g = gcd(sr_in, sr_out)
+    up, down = sr_out // g, sr_in // g
+    n_out = len(wav) * up // down
+    zc = 16
+    cutoff = 0.5 * (up / down if up < down else 1.0)
+    k = np.arange(-zc, zc + 1)
+    block = 1 << 16  # output samples a pass: bounds the [block, 33] temporaries
+    out = np.empty(n_out, np.float32)
+    for lo in range(0, n_out, block):
+        num = np.arange(lo, min(lo + block, n_out), dtype=np.int64) * down
+        idx = (num // up)[:, None] + k
+        x = k - (num % up / up)[:, None]
+        arg = 2 * np.pi * cutoff * x
+        s = np.where(x == 0, 1.0, np.sin(arg) / np.where(x == 0, 1.0, arg))
+        h = 2 * cutoff * s * 0.5 * (1 + np.cos(np.pi * x / (zc + 1)))
+        h = np.where((idx >= 0) & (idx < len(wav)), h, 0.0)
+        acc = (wav[np.clip(idx, 0, len(wav) - 1)] * h).sum(-1)
+        wsum = h.sum(-1)
+        out[lo: lo + len(num)] = np.where(wsum > 1e-9, acc / np.where(wsum > 1e-9, wsum, 1.0),
+                                          acc)
+    return out
 
 
 def pcm16(wav: np.ndarray) -> bytes:
