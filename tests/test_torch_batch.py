@@ -303,7 +303,7 @@ def test_generate_audio_batch_matches_jax_per_request(jax_waves):
                         device="cpu", cfg=CFG, ecfg=EngineConfig(**BUCKETS))
     waves = tapi.generate_audio_batch(TEXTS, PROMPTS, language="en", top_k=1)
     res = tapi._bundle.last
-    assert res.ar is not None and set(res.seconds) == {"ar", "nar", "vocos"}
+    assert res.ar is not None and set(res.seconds) == {"ar", "nar", "vocos", *TAR.SECONDS}
     for r, (w, want) in enumerate(zip(waves, jax_waves["waves"])):
         assert w.shape == want.shape == (len(res.outputs[r][0]) * 320,), r
         np.testing.assert_allclose(w, want, atol=1e-4, rtol=1e-4, err_msg=f"request {r}")

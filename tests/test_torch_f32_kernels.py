@@ -30,6 +30,7 @@ import numpy as np
 import pytest
 import torch
 
+from vallex_tpu_torch.kernels import loader
 from vallex_tpu_torch.kernels.flash_attention import _check_tma, _tma_ok
 from vallex_tpu_torch.kernels.gemm_small_m import gemm_prep_plain, prep_scratch_bytes
 
@@ -96,8 +97,9 @@ def test_f32_backward_16_byte_rule(monkeypatch, hd, view):
     rec = _Recorder()
     monkeypatch.setattr(fa, "library", lambda: rec)
     monkeypatch.setattr(fa, "stream_ptr", lambda t: 0)
-    counts = collections.Counter()
-    monkeypatch.setattr(fa, "launch_counts", counts)
+    counts, seconds = collections.Counter(), collections.Counter()
+    monkeypatch.setattr(loader, "launch_counts", counts)  # where count_launch counts
+    monkeypatch.setattr(loader, "launch_seconds", seconds)
     make, ok = _views(hd)[view]
     q, k, v, out, dout = (make() for _ in range(5))
     seg = torch.ones((B, T), dtype=torch.int32)
@@ -109,7 +111,7 @@ def test_f32_backward_16_byte_rule(monkeypatch, hd, view):
                                                    "vx_flash_attention_bwd_dkv"]
         assert rec.calls[0][1][14] == 0 and rec.calls[1][1][13] == 0  # kind: f32
         assert rec.calls[0][1][15] == hd and rec.calls[1][1][14] == hd
-        assert sorted(counts.values()) == [1, 1]
+        assert sorted(counts.values()) == [1, 1] and set(seconds) == set(counts)
         for t in (dq, dk, dv):
             assert t.shape == (B, H, T, hd) and t.dtype == torch.float32
     else:
@@ -117,7 +119,7 @@ def test_f32_backward_16_byte_rule(monkeypatch, hd, view):
             fa.flash_attention_bwd_dq(q, k, v, seg, seg, T, out, lse, dout)
         with pytest.raises(ValueError, match="float32 tensors need 16-byte"):
             fa.flash_attention_bwd_dkv(q, k, v, seg, seg, T, dout, lse, lse.clone())
-        assert rec.calls == [] and not counts
+        assert rec.calls == [] and not counts and not seconds
 
 
 def _jax_ln(x, s, b, eps=1e-5):

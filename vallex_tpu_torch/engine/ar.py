@@ -59,19 +59,22 @@ ops/decode_block.py (kernels on CUDA, their plain versions on the CPU).
 from __future__ import annotations
 
 import logging
+import time
 from typing import Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from ..config import ModelConfig
-from ..kernels import sample_epilogue, sample_epilogue_plain
+from ..kernels import loader, sample_epilogue, sample_epilogue_plain
 from ..models import vallex as V
 from ..ops.decode_attention import decode_attention
 from ..ops.decode_block import decode_block_fused
 from ..ops.decode_step import decode_step, decode_step_fused
 from ..ops.decode_verify import decode_verify, embed
 from ..ops.sampling import speculative_accept, topk_sampling
+from ..utils.profiling import DeviceSpan
 
 logger = logging.getLogger(__name__)
 
@@ -418,10 +421,10 @@ def ar_generate(
             rows = lambda v: torch.full((beams,), v, dtype=torch.int32, device=dev)  # noqa: E731
             NL, _, H, _, hd = cache_k.shape
             gen = torch.zeros((NL, beams, H, t_audio + K, hd), dtype=cache_k.dtype, device=dev)
-            y_gen, sum_lp, iterations = _block_loop(
+            y_gen, sum_lp, iterations, _ = _block_loop(
                 cur_tok, cur_lp, packed, gen, gen.clone(), model.pe, (cache_k, cache_v),
                 x_lens=rows(x_len), plens=rows(prompt_len), max_gen=rows(max_gen),
-                beams=beams, s_text=s_text, p_audio=p_audio, t_gen=t_audio, K=K,
+                last=max_gen, beams=beams, s_text=s_text, p_audio=p_audio, t_gen=t_audio, K=K,
                 temperature=temperature, vocab=vocab, eos=eos, greedy=greedy,
                 generator=generator, filt=filt, quant=quant)
             n = t_audio + K - (prompt_len + 1)
@@ -579,36 +582,57 @@ class BatchARResult(NamedTuple):
     gen_len: np.ndarray  # [R] frames before each request's first EOS, capped
     iterations: int  # K-step blocks run
     scores: Optional[np.ndarray] = None  # [R, beams] length-normalized logprobs
+    seconds: Optional[Dict[str, float]] = None  # ar_generate_batch's SECONDS
+
+
+# ar_generate_batch's `seconds`, each taken without a synchronize of its own
+SECONDS = (
+    "ar_prefill",  # the prefill span: CUDA events on the current stream (CPU: host clock)
+    "ar_decode",  # host clock from the first block's enqueue to the last block's read
+    "ar_wait",  # host clock inside the blocks' reads: the host waiting for the device
+    "ar_wrappers",  # host seconds in the kernels' wrappers during the blocks (launch_seconds)
+)
 
 
 def _block_loop(cur_tok, cur_lp, packed, cache_k, cache_v, pe, prefix, *, x_lens, plens,
-                max_gen, beams, s_text, p_audio, t_gen, K, temperature, vocab, eos,
+                max_gen, last, beams, s_text, p_audio, t_gen, K, temperature, vocab, eos,
                 greedy, generator, filt, quant):
     """K-step batched blocks over RB rows (R requests × beams samples,
-    request-major) until every row is done or the longest cap is reached;
-    one host read per block. `prefix` None: the batched layout; else the
-    grouped one (caches hold generated rows only). `quant`: the blocks'
-    act_quant / kv_scales. → (y_gen [RB, t_gen + K], sum_logprobs [RB],
-    blocks run)."""
+    request-major) until every row is done or `last` (the longest cap)
+    steps have run; one host read per block. `prefix` None: the batched
+    layout; else the grouped one (caches hold generated rows only).
+    `quant`: the blocks' act_quant / kv_scales. Each block is a
+    `vallex.ar.block` span (its launches) and a `vallex.ar.read` span (its
+    host read). → (y_gen [RB, t_gen + K], sum_logprobs [RB], blocks run,
+    {"ar_decode", "ar_wait", "ar_wrappers": seconds})."""
     RB, dev = cur_tok.shape[0], cur_tok.device
     done = torch.zeros((RB,), dtype=torch.bool, device=dev)
     sum_lp = torch.zeros((RB,), dtype=torch.float32, device=dev)
     y_gen = torch.full((RB, t_gen + K), eos, dtype=torch.int64, device=dev)
-    step, iterations, last = 0, 0, int(max_gen.max())
+    step, iterations, wait = 0, 0, 0.0
+    wrappers = sum(loader.launch_seconds.values())
+    t0 = time.perf_counter()
     while step < last:
         iterations += 1
-        r = decode_block_fused(
-            cur_tok, cur_lp, done, sum_lp, packed, cache_k, cache_v, pe,
-            x_len=x_lens, audio_pos=step, remaining=max_gen - step,
-            temperature=temperature, steps=K, s_text=s_text, vocab=vocab, eos=eos,
-            stochastic=not greedy, generator=generator, prompt_len=plens,
-            batched=True, p_audio=p_audio, prefix=prefix, beams=beams, **filt, **quant)
-        y_gen[:, step: step + K] = r.fed.T.long()
+        with record_function("vallex.ar.block"):
+            r = decode_block_fused(
+                cur_tok, cur_lp, done, sum_lp, packed, cache_k, cache_v, pe,
+                x_len=x_lens, audio_pos=step, remaining=max_gen - step,
+                temperature=temperature, steps=K, s_text=s_text, vocab=vocab, eos=eos,
+                stochastic=not greedy, generator=generator, prompt_len=plens,
+                batched=True, p_audio=p_audio, prefix=prefix, beams=beams, **filt, **quant)
+            y_gen[:, step: step + K] = r.fed.T.long()
         cur_tok, cur_lp, done, sum_lp = r.next_tok, r.next_logp, r.done, r.sum_logprobs
         step += K
-        if bool(done.all()):
+        with record_function("vallex.ar.read"):
+            tr = time.perf_counter()
+            finished = bool(done.all())
+            wait += time.perf_counter() - tr
+        if finished:
             break
-    return y_gen, sum_lp, iterations
+    seconds = dict(ar_decode=time.perf_counter() - t0, ar_wait=wait,
+                   ar_wrappers=sum(loader.launch_seconds.values()) - wrappers)
+    return y_gen, sum_lp, iterations, seconds
 
 
 def ar_generate_batch(
@@ -646,7 +670,11 @@ def ar_generate_batch(
     BOS + prompt + generated frames). One host read per block. `quantize`
     names how `packed` was prepared: "w8a8" runs its products as W8A8;
     "int8kv" quantizes the prefilled caches (grouped: the prefix) with
-    scales taken over every request of the batch (`kv_int8_scales`)."""
+    scales taken over every request of the batch (`kv_int8_scales`).
+    Profiler spans, inside the caller's: `vallex.ar.prefill` (with
+    `vallex.ar.kv_quant` under int8kv), `vallex.ar.decode` (the blocks and
+    their reads, `_block_loop`), `vallex.ar.finish` (lengths, best samples,
+    the copies to the host); the result's `seconds` holds `SECONDS`."""
     dev = model.pe.device
     R = text_ids.shape[0]
     RB = R * beams
@@ -656,46 +684,60 @@ def ar_generate_batch(
     eos, vocab = cfg.eos_id, cfg.num_audio_tokens + 1
     grouped = beams > 1
     P = s_text + p_audio
-    x_lens_d = torch.as_tensor(np.asarray(x_lens, np.int32), device=dev)
-    plens_d = torch.as_tensor(np.asarray(prompt_lens, np.int32), device=dev)
-    y_init = torch.cat([
-        torch.full((R, 1), cfg.bos_id, dtype=torch.int64, device=dev),
-        torch.as_tensor(np.asarray(prompt_audio), device=dev).long(),
-    ], dim=1)
-    cache_k, cache_v, logits0 = prefill(
-        model, cfg, torch.as_tensor(np.asarray(text_ids), device=dev),
-        torch.as_tensor(np.asarray(lang_ids), device=dev), x_lens_d, y_init, plens_d,
-        s_text=s_text, p_audio=p_audio, C=P if grouped else P + t_gen + K, dtype=dtype)
-    kv_scales = None
-    if quantize == "int8kv":  # the batch's caches, or the grouped prefix
-        cache_k, cache_v, kv_scales = int8_caches(cache_k, cache_v)
-    prefix = None
-    if grouped:
-        prefix = (cache_k, cache_v)
-        NL, _, H, _, hd = cache_k.shape
-        cache_k = torch.zeros((NL, RB, H, t_gen + K, hd), dtype=cache_k.dtype, device=dev)
-        cache_v = torch.zeros_like(cache_k)
-    rep = (lambda t: t.repeat_interleave(beams, dim=0)) if grouped else (lambda t: t)
+    stream = torch.cuda.current_stream(dev) if dev.type == "cuda" else None
+    prefill_time = DeviceSpan("ar_prefill", stream=stream)
+    with record_function("vallex.ar.prefill"):
+        x_lens_d = torch.as_tensor(np.asarray(x_lens, np.int32), device=dev)
+        plens_d = torch.as_tensor(np.asarray(prompt_lens, np.int32), device=dev)
+        y_init = torch.cat([
+            torch.full((R, 1), cfg.bos_id, dtype=torch.int64, device=dev),
+            torch.as_tensor(np.asarray(prompt_audio), device=dev).long(),
+        ], dim=1)
+        cache_k, cache_v, logits0 = prefill(
+            model, cfg, torch.as_tensor(np.asarray(text_ids), device=dev),
+            torch.as_tensor(np.asarray(lang_ids), device=dev), x_lens_d, y_init, plens_d,
+            s_text=s_text, p_audio=p_audio, C=P if grouped else P + t_gen + K, dtype=dtype)
+        kv_scales = None
+        if quantize == "int8kv":  # the batch's caches, or the grouped prefix
+            with record_function("vallex.ar.kv_quant"):
+                cache_k, cache_v, kv_scales = int8_caches(cache_k, cache_v)
+        prefix = None
+        if grouped:
+            prefix = (cache_k, cache_v)
+            NL, _, H, _, hd = cache_k.shape
+            cache_k = torch.zeros((NL, RB, H, t_gen + K, hd), dtype=cache_k.dtype, device=dev)
+            cache_v = torch.zeros_like(cache_k)
+        rep = (lambda t: t.repeat_interleave(beams, dim=0)) if grouped else (lambda t: t)
 
-    max_gen_np = np.minimum(np.minimum(16 * np.asarray(x_lens, np.int64),
-                                       np.asarray(gen_caps, np.int64)), t_gen - 1)
-    max_gen = rep(torch.as_tensor(max_gen_np, device=dev))
-    logits0 = _pad_logits(logits0, packed["wpred"].shape[0])
-    cur_tok, cur_lp = first_token(rep(logits0), generator, vocab=vocab, top_k=top_k,
-                                  top_p=top_p, temperature=temperature)
+        max_gen_np = np.minimum(np.minimum(16 * np.asarray(x_lens, np.int64),
+                                           np.asarray(gen_caps, np.int64)), t_gen - 1)
+        max_gen = rep(torch.as_tensor(max_gen_np, device=dev))
+        x_rows, p_rows = rep(x_lens_d), rep(plens_d)
+        logits0 = _pad_logits(logits0, packed["wpred"].shape[0])
+        cur_tok, cur_lp = first_token(rep(logits0), generator, vocab=vocab, top_k=top_k,
+                                      top_p=top_p, temperature=temperature)
+        prefill_time.close(stream)
+        # the batch's one host read before the blocks: it waits for the
+        # prefill, so the device work inside `vallex.ar.decode` is the blocks'
+        last = int(max_gen.max())
     filt = {} if is_plain(top_k, top_p) else dict(top_k=top_k, top_p=top_p)
-    y_gen, sum_lp, iterations = _block_loop(
-        cur_tok, cur_lp, packed, cache_k, cache_v, model.pe, prefix,
-        x_lens=rep(x_lens_d), plens=rep(plens_d), max_gen=max_gen, beams=beams,
-        s_text=s_text, p_audio=p_audio, t_gen=t_gen, K=K, temperature=temperature,
-        vocab=vocab, eos=eos, greedy=top_k == 1, generator=generator, filt=filt,
-        quant=dict(act_quant=quantize == "w8a8", kv_scales=kv_scales))
-    # frames before each row's first EOS, clipped to its length cap
-    alive = torch.cumprod((y_gen[:, :t_gen] != eos).to(torch.int32), dim=1)
-    gen_len = torch.minimum(alive.sum(dim=1), max_gen)
-    # each request's best sample (lengths: BOS + prompt + generated frames)
-    best, scores = select_best(sum_lp.view(R, beams),
-                               (1 + rep(plens_d) + gen_len).view(R, beams), length_penalty)
-    rows = torch.arange(R, device=dev) * beams + best
-    return BatchARResult(y_gen[rows].cpu().numpy(), gen_len[rows].cpu().numpy(),
-                         iterations, scores.cpu().numpy())
+    with record_function("vallex.ar.decode"):
+        y_gen, sum_lp, iterations, seconds = _block_loop(
+            cur_tok, cur_lp, packed, cache_k, cache_v, model.pe, prefix,
+            x_lens=x_rows, plens=p_rows, max_gen=max_gen, last=last, beams=beams,
+            s_text=s_text, p_audio=p_audio, t_gen=t_gen, K=K, temperature=temperature,
+            vocab=vocab, eos=eos, greedy=top_k == 1, generator=generator, filt=filt,
+            quant=dict(act_quant=quantize == "w8a8", kv_scales=kv_scales))
+    with record_function("vallex.ar.finish"):
+        # frames before each row's first EOS, clipped to its length cap
+        alive = torch.cumprod((y_gen[:, :t_gen] != eos).to(torch.int32), dim=1)
+        gen_len = torch.minimum(alive.sum(dim=1), max_gen)
+        # each request's best sample (lengths: BOS + prompt + generated frames)
+        best, scores = select_best(sum_lp.view(R, beams),
+                                   (1 + p_rows + gen_len).view(R, beams), length_penalty)
+        rows = torch.arange(R, device=dev) * beams + best
+        out = BatchARResult(y_gen[rows].cpu().numpy(), gen_len[rows].cpu().numpy(),
+                            iterations, scores.cpu().numpy(),
+                            # the device is done: reading the events waits for nothing
+                            dict(ar_prefill=prefill_time.seconds(), **seconds))
+    return out

@@ -123,7 +123,7 @@ class SynthesisResult(NamedTuple):
 class BatchSynthesisResult(NamedTuple):
     outputs: List[Tuple[np.ndarray, Optional[np.ndarray]]]  # per request (codes, wave)
     ar: Optional[BatchARResult]  # None when one request took synthesize
-    seconds: Dict[str, float]  # host-clock phase times of the whole batch
+    seconds: Dict[str, float]  # phase times of the whole batch: decode_padded_batch's, "vocos"
 
 
 def _on(stream):
@@ -380,7 +380,9 @@ class SynthesisPipeline:
         """The AR and NAR of a padded batch (`pad_batched_requests`'s dict,
         or a slice of a larger batch's with its buckets; prompt_codes_pad
         [R, t_audio, 8]) → (BatchARResult, generated codes [R, t_audio, 8]
-        on the device, gen lens [R] int64, host-clock phase seconds)."""
+        on the device, gen lens [R] int64, phase seconds: "ar" and "nar" on
+        the host clock, ending in a synchronize, and the AR's own
+        (engine/ar.py::SECONDS))."""
         e, cfg, dev = self.ecfg, self.cfg, self.device
         seconds = {}
         t0 = time.perf_counter()
@@ -397,6 +399,7 @@ class SynthesisPipeline:
                 length_penalty=e.length_penalty, quantize=e.quantize)
             self._sync()
         seconds["ar"] = time.perf_counter() - t0
+        seconds.update(ar.seconds)
 
         t1 = time.perf_counter()
         lens = ar.gen_len.astype(np.int64)

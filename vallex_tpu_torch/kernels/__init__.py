@@ -2,10 +2,11 @@
 
 Each wrapper takes the plain PyTorch version for CPU tensors and launches
 its kernel for CUDA tensors (or raises); `loader.launch_counts` counts the
-launches per (kernel, TPU-kernel site).
+launches per (kernel, TPU-kernel site), and `loader.launch_seconds` sums
+the host time of the wrapper calls that made them.
 """
 
-from .loader import HEAD_DIMS, launch_counts, reset_launch_counts
+from .loader import HEAD_DIMS, launch_counts, launch_seconds, reset_launch_counts
 from .flash_attention import (
     flash_attention, flash_attention_bwd, flash_attention_bwd_plain,
     flash_attention_fwd, flash_attention_plain,
@@ -28,6 +29,7 @@ __all__ = [
     "HEAD_DIMS",
     "check_head_dim",
     "launch_counts",
+    "launch_seconds",
     "reset_launch_counts",
     "flash_attention",
     "flash_attention_bwd",

@@ -48,11 +48,12 @@ from __future__ import annotations
 
 import ctypes
 import math
+import time
 from typing import Tuple
 
 import torch
 
-from .loader import HEAD_DIMS, check, launch_counts, library, stream_ptr
+from .loader import HEAD_DIMS, check, count_launch, library, stream_ptr
 
 KINDS = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -226,6 +227,7 @@ def _check_tma(*ts, name: str = "flash_attention") -> None:
 def flash_attention_fwd(q, k, v, q_seg, kv_seg, prefix: int, *, site: str = ""
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(out, lse): the plain version on the CPU, the kernel on the card."""
+    t0 = time.perf_counter()
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, q_seg, kv_seg, prefix)
     kind = _check(q, k, v, q_seg, kv_seg, prefix, "flash_attention")
@@ -239,7 +241,7 @@ def flash_attention_fwd(q, k, v, q_seg, kv_seg, prefix: int, *, site: str = ""
         lse.data_ptr(), kind, hd, B, H, T, prefix, ctypes.c_float(1.0 / math.sqrt(hd)),
         stream_ptr(q))
     check(rc, "flash_attention")
-    launch_counts[("flash_attention_fwd", site)] += 1
+    count_launch("flash_attention_fwd", site, t0)
     return out, lse
 
 
@@ -262,6 +264,7 @@ def _check_bwd(q, k, v, q_seg, kv_seg, prefix, lse, name, *like_q) -> int:
 def flash_attention_bwd_dq(q, k, v, q_seg, kv_seg, prefix: int, out, lse, dout
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dq, di) from the dQ kernel (CUDA tensors only)."""
+    t0 = time.perf_counter()
     kind = _check_bwd(q, k, v, q_seg, kv_seg, prefix, lse, "flash_attention_bwd_dq", out, dout)
     _check_tma(q, k, v, out, dout, name="flash_attention_bwd_dq")  # read in 16-byte pieces
     B, H, T, hd = q.shape
@@ -273,7 +276,7 @@ def flash_attention_bwd_dq(q, k, v, q_seg, kv_seg, prefix: int, out, lse, dout
         q_seg.data_ptr(), kv_seg.data_ptr(), lse.data_ptr(), di.data_ptr(), dq.data_ptr(),
         kind, hd, B, H, T, prefix, ctypes.c_float(1.0 / math.sqrt(hd)), stream_ptr(q))
     check(rc, "flash_attention_bwd_dq")
-    launch_counts[("flash_attention_bwd_dq", "flash_attention_bwd")] += 1
+    count_launch("flash_attention_bwd_dq", "flash_attention_bwd", t0)
     return dq, di
 
 
@@ -281,6 +284,7 @@ def flash_attention_bwd_dkv(q, k, v, q_seg, kv_seg, prefix: int, dout, lse, di
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dk, dv) from the dK/dV kernel (CUDA tensors only), given the dQ
     kernel's di; both on q's stream, so it runs after that kernel."""
+    t0 = time.perf_counter()
     kind = _check_bwd(q, k, v, q_seg, kv_seg, prefix, lse, "flash_attention_bwd_dkv", dout)
     _check_tma(q, k, v, dout, name="flash_attention_bwd_dkv")
     B, H, T, hd = q.shape
@@ -293,7 +297,7 @@ def flash_attention_bwd_dkv(q, k, v, q_seg, kv_seg, prefix: int, dout, lse, di
         lse.data_ptr(), di.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         kind, hd, B, H, T, prefix, ctypes.c_float(1.0 / math.sqrt(hd)), stream_ptr(q))
     check(rc, "flash_attention_bwd_dkv")
-    launch_counts[("flash_attention_bwd_dkv", "flash_attention_bwd")] += 1
+    count_launch("flash_attention_bwd_dkv", "flash_attention_bwd", t0)
     return dk, dv
 
 

@@ -21,17 +21,19 @@ aligned rows needs none) and then the product, launched back to back with
 programmatic dependent launch (gemm_small_m.cu): bf16, int8 and W8A8 on the
 tensor cores, f32 on the CUDA cores in f32 FMAs. One call counts one launch
 of `gemm_small_m`, whatever it launches, and one of `gemm_small_m_prep`
-when the prep kernel runs.
+when the prep kernel runs; the call's host time goes to `gemm_small_m`
+(`loader.launch_seconds`).
 """
 
 from __future__ import annotations
 
 import ctypes
+import time
 from typing import Optional, Tuple
 
 import torch
 
-from .loader import check, launch_counts, library, stream_ptr
+from .loader import check, count_launch, library, stream_ptr
 
 W_KINDS = {torch.bfloat16: 0, torch.int8: 1, torch.float32: 2}  # the launcher's w_kind
 W_W8A8 = 3  # int8 weights with int8 activations (act_quant)
@@ -168,6 +170,7 @@ def gemm_small_m(
     """x [M, K] f32, w [N, K] → y [M, N] f32 (act_quant: W8A8, int8 w).
     CPU tensors take the plain version; CUDA tensors launch the kernel or
     raise."""
+    t0 = time.perf_counter()
     if x.device.type == "cpu":
         return gemm_small_m_plain(
             x, w, scale=scale, bias=bias, ln=ln, relu=relu,
@@ -210,7 +213,7 @@ def gemm_small_m(
         _ptr(scratch), stream_ptr(x),
     )
     check(rc, "gemm_small_m")
-    launch_counts[("gemm_small_m", site)] += 1
-    if scratch is not None:
-        launch_counts[("gemm_small_m_prep", site)] += 1
+    count_launch("gemm_small_m", site, t0)
+    if scratch is not None:  # launched by the same C call
+        count_launch("gemm_small_m_prep", site)
     return y

@@ -1,4 +1,5 @@
-"""Build and load the hand-written CUDA kernels; count their launches.
+"""Build and load the hand-written CUDA kernels; count their launches and
+the host time their wrappers take.
 
 All kernel sources in this directory compile into ONE shared library with
 a plain C interface, called through ctypes (no PyTorch headers, so a cold
@@ -20,7 +21,9 @@ import shutil
 import subprocess
 import tempfile
 import threading
+import time
 from pathlib import Path
+from typing import Optional
 
 SRC_DIR = Path(__file__).resolve().parent
 BUILD_DIR = SRC_DIR / "_build"
@@ -37,10 +40,23 @@ HEAD_DIMS = (64, 128)  # the head dims the attention kernels are built for
 # (kernel, site) -> launches; each wrapper adds one per kernel launch. The
 # site names the TPU kernel whose work the launch carries.
 launch_counts: "collections.Counter[tuple[str, str]]" = collections.Counter()
+# (kernel, site) -> host seconds inside the wrappers that launched it, from
+# each call's entry to its return (argument checks, allocations, the ctypes
+# call); the CPU path, which launches nothing, adds nothing
+launch_seconds: "collections.Counter[tuple[str, str]]" = collections.Counter()
 
 
 def reset_launch_counts() -> None:
     launch_counts.clear()
+    launch_seconds.clear()
+
+
+def count_launch(kernel: str, site: str, t0: Optional[float] = None) -> None:
+    """One launch of `kernel` at `site` by a wrapper entered at host time
+    `t0` (time.perf_counter()); None for a kernel that the same C call
+    launched, whose time is already the other kernel's."""
+    launch_counts[(kernel, site)] += 1
+    launch_seconds[(kernel, site)] += 0.0 if t0 is None else time.perf_counter() - t0
 
 
 _lib = None

@@ -49,11 +49,12 @@ from __future__ import annotations
 
 import ctypes
 import math
+import time
 from typing import List, NamedTuple, Optional, Tuple, Union
 
 import torch
 
-from .loader import HEAD_DIMS, check, launch_counts, library, stream_ptr
+from .loader import HEAD_DIMS, check, count_launch, library, stream_ptr
 
 MAX_QUERIES = 65535  # the kernel's limit on Tq
 # the kernel's partition (masked_attention.cu: ATT_CLUSTER, ATT_TILE, ATT_QG)
@@ -351,6 +352,7 @@ def masked_attention(
     mode; `new_kv` + `slot` for the own-column mode, which also writes the
     column into k/v. CPU tensors take the plain version; CUDA tensors
     launch or raise."""
+    t0 = time.perf_counter()
     B, H, Tq, hd = q.shape
     if bounds is None:
         bounds = attention_bounds(B, device=q.device, **layout)
@@ -434,7 +436,7 @@ def masked_attention(
         0 if slot is None else slot, stream_ptr(q),
     )
     check(rc, "masked_attention")
-    launch_counts[("masked_attention", site)] += 1
+    count_launch("masked_attention", site, t0)
     return out
 
 

@@ -19,12 +19,13 @@ two plain versions.
 
 from __future__ import annotations
 
+import time
 from typing import Optional
 
 import torch
 
 from ..ops.sampling import filtered_keep_mask
-from .loader import check, launch_counts, library, stream_ptr
+from .loader import check, count_launch, library, stream_ptr
 
 NEG_BIG = -1e30
 VP_MAX = 2048  # the kernel's ceiling on the row width (16 float4 a lane)
@@ -116,6 +117,7 @@ def sample_epilogue(
     """CPU tensors take the plain version; CUDA tensors launch or raise.
     Filtered mode when top_k or top_p is given (top_k <= 0 and top_p >= 1
     each disable their filter)."""
+    t0 = time.perf_counter()
     if logits.device.type == "cpu":
         return sample_epilogue_plain(
             logits, u, vocab=vocab, temperature=temperature, greedy=greedy,
@@ -151,5 +153,5 @@ def sample_epilogue(
         None if keep is None else keep.data_ptr(), VP, stream_ptr(logits),
     )
     check(rc, "sample_epilogue")
-    launch_counts[("sample_epilogue", site)] += 1
+    count_launch("sample_epilogue", site, t0)
     return (tok, logp) if keep is None else (tok, logp, keep.bool())

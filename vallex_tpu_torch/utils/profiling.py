@@ -1,18 +1,21 @@
 """Observability: per-phase synthesis timing and torch.profiler traces (port
 of vallex_tpu/utils/profiling.py).
 
-- `PhaseTimer`: phase accounting. `phase(name)` times a host-clock span;
-  `device_phase(name, stream)` times work enqueued on a CUDA stream by a
-  pair of CUDA events recorded on it, read only when the caller fetches
-  the result (`DeviceSpan.seconds()`), so timing never blocks the host.
-  On the CPU there is no stream to time and the span is the host clock
-  around the (eager) work. The synthesis pipeline records "ar", "nar",
-  "vocos" and "sync" into it.
+- `PhaseTimer`: phase accounting of `synthesize_async`. `phase(name)`
+  times a host-clock span; `device_phase(name, stream)` times work
+  enqueued on a CUDA stream by a pair of CUDA events recorded on it, read
+  only when the caller fetches the result (`DeviceSpan.seconds()`), so
+  timing never blocks the host. On the CPU there is no stream to time and
+  the span is the host clock around the (eager) work. The single-request
+  pipeline records "ar", "nar", "vocos" and "sync" into it; the batched
+  path (`synthesize_batch`) returns its phase seconds in the result's
+  `seconds` instead, and times its AR prefill with a `DeviceSpan` of its
+  own.
 - `trace(log_dir)`: a torch.profiler trace of a code region (CPU ops and,
   on the card, CUDA kernels), written as `trace.json` under log_dir; the
   pipeline's `vallex.ar`, `vallex.nar` and `vallex.vocos` spans mark its
-  phases in it.
-- `synthesis_report`: RTF and latency summary from a PhaseTimer.
+  phases in it, and the batched AR's `vallex.ar.*` spans its prefill,
+  blocks and host reads (engine/ar.py).
 """
 
 from __future__ import annotations
@@ -27,12 +30,13 @@ from typing import Dict, Iterator, Optional
 
 class DeviceSpan:
     """One phase's time: a pair of CUDA events on a stream, or the host
-    clock when there is no stream. `seconds()` reads it once the work is
-    done (it waits for the end event) and adds it to the timer once."""
+    clock when there is no stream. `close(stream)` ends it; `seconds()`
+    reads it once the work is done (it waits for the end event) and adds it
+    to the timer, if there is one, once."""
 
     __slots__ = ("name", "_timer", "_start", "_end", "_host", "_seconds")
 
-    def __init__(self, name: str, timer: "PhaseTimer", stream=None):
+    def __init__(self, name: str, timer: Optional["PhaseTimer"] = None, stream=None):
         self.name, self._timer, self._seconds = name, timer, None
         self._start = self._end = None
         self._host = time.perf_counter()
@@ -43,7 +47,7 @@ class DeviceSpan:
             self._end = torch.cuda.Event(enable_timing=True)
             self._start.record(stream)
 
-    def _close(self, stream) -> None:
+    def close(self, stream=None) -> None:
         if self._end is not None:
             self._end.record(stream)
         else:
@@ -56,7 +60,8 @@ class DeviceSpan:
             else:
                 self._end.synchronize()
                 self._seconds = self._start.elapsed_time(self._end) / 1e3
-            self._timer.add(self.name, self._seconds)
+            if self._timer is not None:
+                self._timer.add(self.name, self._seconds)
         return self._seconds
 
 
@@ -87,7 +92,7 @@ class PhaseTimer:
         try:
             yield span
         finally:
-            span._close(stream)
+            span.close(stream)
 
     def report(self) -> Dict[str, float]:
         with self._lock:
@@ -115,15 +120,3 @@ def trace(log_dir: str = "vallex-trace") -> Iterator[object]:
     os.makedirs(log_dir, exist_ok=True)
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
-
-def synthesis_report(timer: PhaseTimer, audio_seconds: Optional[float] = None) -> str:
-    totals = timer.report()
-    lines = []
-    total = sum(totals.values())
-    for name, t in sorted(totals.items(), key=lambda kv: -kv[1]):
-        lines.append(f"  {name:<12} {t * 1000:8.1f} ms ({t / max(total, 1e-9):5.1%})")
-    head = f"synthesis wall {total * 1000:.1f} ms"
-    if audio_seconds:
-        head += (f", audio {audio_seconds:.2f} s, RTF {total / audio_seconds:.4f}"
-                 f" ({audio_seconds / max(total, 1e-9):.1f}x real-time)")
-    return head + "\n" + "\n".join(lines)
