@@ -58,6 +58,7 @@ ops/decode_block.py (kernels on CUDA, their plain versions on the CPU).
 
 from __future__ import annotations
 
+import collections
 import logging
 import time
 from typing import Dict, NamedTuple, Optional
@@ -591,7 +592,67 @@ SECONDS = (
     "ar_decode",  # host clock from the first block's enqueue to the last block's read
     "ar_wait",  # host clock inside the blocks' reads: the host waiting for the device
     "ar_wrappers",  # host seconds in the kernels' wrappers during the blocks (launch_seconds)
+    "ar_graph_blocks",  # blocks run as replays of a CUDA graph (a count; 0 on the CPU)
+    "ar_graph_capture",  # host seconds capturing and instantiating the block's graph
 )
+
+
+class DeviceBlocks:
+    """The batched loop's state in device memory, so that one enqueued
+    block serves every block: the tokens and logprobs to feed, the done
+    flags, the logprob sums and the step counter (0-d int32), each read and
+    updated in place by `run`. `block(tok, lp, done, sum_lp, step)` is the
+    loop's decode_block_fused call at the device step; `run` enqueues it,
+    writes its fed tokens into y_gen's columns [step, step + K) and advances
+    the counter by K, all on the device."""
+
+    def __init__(self, block, cur_tok, cur_lp, y_gen, K):
+        RB, dev = cur_tok.shape[0], cur_tok.device
+        self.block, self.y_gen, self.K = block, y_gen, K
+        self.tok = cur_tok.to(torch.int32).clone()
+        self.lp = cur_lp.float().clone()
+        self.done = torch.zeros((RB,), dtype=torch.bool, device=dev)
+        self.sum_lp = torch.zeros((RB,), dtype=torch.float32, device=dev)
+        self.step = torch.zeros((), dtype=torch.int32, device=dev)
+        self.cols = torch.arange(K, device=dev)
+
+    def run(self) -> None:
+        r = self.block(self.tok, self.lp, self.done, self.sum_lp, self.step)
+        self.y_gen.index_copy_(1, self.step + self.cols, r.fed.T.long())
+        for buf, new in ((self.tok, r.next_tok), (self.lp, r.next_logp), (self.done, r.done),
+                         (self.sum_lp, r.sum_logprobs)):
+            buf.copy_(new)
+        self.step.add_(self.K)
+
+    def capture(self, generator):
+        """`run` captured as a CUDA graph on a side stream, in a private
+        memory pool, with `generator` registered so that each replay draws
+        new uniforms → (graph, launches): the kernel launches the capture
+        counted, taken back out of `loader.launch_counts` since the capture
+        ran nothing; the caller adds them at each replay."""
+        dev = self.tok.device
+        graph = torch.cuda.CUDAGraph()
+        if generator is not None:
+            graph.register_generator_state(generator)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        before = collections.Counter(loader.launch_counts)
+        with torch.cuda.stream(side):
+            graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                self.run()
+            finally:
+                graph.capture_end()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        launches = loader.launch_counts - before
+        loader.launch_counts.subtract(launches)
+        return graph, launches
+
+
+def _graphed(t: torch.Tensor) -> bool:
+    """The batched loop replays a captured block on CUDA tensors and runs
+    each block eagerly on CPU tensors."""
+    return t.device.type == "cuda"
 
 
 def _block_loop(cur_tok, cur_lp, packed, cache_k, cache_v, pe, prefix, *, x_lens, plens,
@@ -601,28 +662,49 @@ def _block_loop(cur_tok, cur_lp, packed, cache_k, cache_v, pe, prefix, *, x_lens
     request-major) until every row is done or `last` (the longest cap)
     steps have run; one host read per block. `prefix` None: the batched
     layout; else the grouped one (caches hold generated rows only).
-    `quant`: the blocks' act_quant / kv_scales. Each block is a
-    `vallex.ar.block` span (its launches) and a `vallex.ar.read` span (its
-    host read). → (y_gen [RB, t_gen + K], sum_logprobs [RB], blocks run,
-    {"ar_decode", "ar_wait", "ar_wrappers": seconds})."""
+    `quant`: the blocks' act_quant / kv_scales. On CUDA one block is
+    captured as a CUDA graph (`DeviceBlocks`, a `vallex.ar.capture` span)
+    and replayed for every block, its positions read from a device step
+    counter; CPU tensors run each block eagerly at host positions. Each
+    block is a `vallex.ar.block` span (its launches or its replay) and a
+    `vallex.ar.read` span (its host read); the graph and its memory pool
+    are released before the return. → (y_gen [RB, t_gen + K],
+    sum_logprobs [RB], blocks run, {"ar_decode", "ar_wait", "ar_wrappers",
+    "ar_graph_blocks", "ar_graph_capture": seconds, or the count})."""
     RB, dev = cur_tok.shape[0], cur_tok.device
-    done = torch.zeros((RB,), dtype=torch.bool, device=dev)
-    sum_lp = torch.zeros((RB,), dtype=torch.float32, device=dev)
     y_gen = torch.full((RB, t_gen + K), eos, dtype=torch.int64, device=dev)
-    step, iterations, wait = 0, 0, 0.0
+
+    def block(tok, lp, done, sum_lp, step):
+        return decode_block_fused(
+            tok, lp, done, sum_lp, packed, cache_k, cache_v, pe,
+            x_len=x_lens, audio_pos=step, remaining=max_gen - step,
+            temperature=temperature, steps=K, s_text=s_text, vocab=vocab, eos=eos,
+            stochastic=not greedy, generator=generator, prompt_len=plens,
+            batched=True, p_audio=p_audio, prefix=prefix, beams=beams, **filt, **quant)
+
+    graph = None
+    step, iterations, wait, capture = 0, 0, 0.0, 0.0
     wrappers = sum(loader.launch_seconds.values())
     t0 = time.perf_counter()
+    if _graphed(cur_tok):
+        state = DeviceBlocks(block, cur_tok, cur_lp, y_gen, K)
+        with record_function("vallex.ar.capture"):
+            graph, launches = state.capture(generator)
+        capture = time.perf_counter() - t0
+        done = state.done
+    else:
+        done = torch.zeros((RB,), dtype=torch.bool, device=dev)
+        sum_lp = torch.zeros((RB,), dtype=torch.float32, device=dev)
     while step < last:
         iterations += 1
         with record_function("vallex.ar.block"):
-            r = decode_block_fused(
-                cur_tok, cur_lp, done, sum_lp, packed, cache_k, cache_v, pe,
-                x_len=x_lens, audio_pos=step, remaining=max_gen - step,
-                temperature=temperature, steps=K, s_text=s_text, vocab=vocab, eos=eos,
-                stochastic=not greedy, generator=generator, prompt_len=plens,
-                batched=True, p_audio=p_audio, prefix=prefix, beams=beams, **filt, **quant)
-            y_gen[:, step: step + K] = r.fed.T.long()
-        cur_tok, cur_lp, done, sum_lp = r.next_tok, r.next_logp, r.done, r.sum_logprobs
+            if graph is not None:
+                graph.replay()
+                loader.launch_counts.update(launches)
+            else:
+                r = block(cur_tok, cur_lp, done, sum_lp, step)
+                y_gen[:, step: step + K] = r.fed.T.long()
+                cur_tok, cur_lp, done, sum_lp = r.next_tok, r.next_logp, r.done, r.sum_logprobs
         step += K
         with record_function("vallex.ar.read"):
             tr = time.perf_counter()
@@ -630,8 +712,13 @@ def _block_loop(cur_tok, cur_lp, packed, cache_k, cache_v, pe, prefix, *, x_lens
             wait += time.perf_counter() - tr
         if finished:
             break
+    if graph is not None:
+        sum_lp = state.sum_lp
+        graph.reset()
     seconds = dict(ar_decode=time.perf_counter() - t0, ar_wait=wait,
-                   ar_wrappers=sum(loader.launch_seconds.values()) - wrappers)
+                   ar_wrappers=sum(loader.launch_seconds.values()) - wrappers,
+                   ar_graph_blocks=iterations if graph is not None else 0,
+                   ar_graph_capture=capture)
     return y_gen, sum_lp, iterations, seconds
 
 

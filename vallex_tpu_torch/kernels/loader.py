@@ -71,7 +71,7 @@ _SIGNATURES = {
     "vx_gemm_small_m_prep": (_P, _I, _P, _P, _I, _I, _F, _I, _P, _P, _P),
     "vx_masked_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P,
                             _I, _I, _I, _I, _I, _I, _P, _I, _I, _I, _F,
-                            _P, _P, _P, _P, _P, _I, _P),
+                            _P, _P, _P, _P, _P, _I, _P, _P),
     "vx_masked_attention_info": (_I, _I, _I, _P),
     "vx_sample_epilogue": (_P, _I, _P, _I, _I, _I, _I, _F, _I, _I, _I, _F,
                            _P, _P, _P, _I, _P),

@@ -252,8 +252,10 @@ __device__ __forceinline__ void att_load_tile(unsigned char* dst, int vk0, int n
 
 // Strides are in elements; the head dim has stride 1 for q, k, v, the prefix,
 // the new column and o. pk/pv null: no prefix (every key from k/v). ks/vs
-// null: no K/V scales. nk/nv null: no own column (kw/vw, n_sb/n_sh and slot
-// unused). QMAX: the queries a group holds at most (1, 8 or ATT_QG).
+// null: no K/V scales. nk/nv null: no own column (kw/vw, n_sb/n_sh and the
+// slot unused). The own column's row is *slot_d when slot_d is given (read
+// after the dependency wait; a row outside [0, C) writes nothing), else
+// slot_h. QMAX: the queries a group holds at most (1, 8 or ATT_QG).
 template <typename TKV, int HD, int QMAX>
 __global__ void __launch_bounds__(att_warps<TKV, HD>() * 32, 1)
 masked_attention_split_kernel(const float* __restrict__ q, long long q_sb, long long q_sh,
@@ -267,7 +269,7 @@ masked_attention_split_kernel(const float* __restrict__ q, long long q_sb, long 
                               int q_off, float scale, const float* __restrict__ ks,
                               const float* __restrict__ vs, const float* __restrict__ nk,
                               const float* __restrict__ nv, long long n_sb, long long n_sh,
-                              int slot, TKV* kw, TKV* vw) {
+                              int slot_h, const int* __restrict__ slot_d, TKV* kw, TKV* vw) {
   constexpr int NW = att_warps<TKV, HD>(), NT = NW * 32;
   constexpr int ROW = att_row<TKV, HD>(), SLOT = att_slot<TKV, HD>();
   constexpr int EPC = 16 / (int)sizeof(TKV);  // elements in a 16-byte chunk
@@ -300,6 +302,7 @@ masked_attention_split_kernel(const float* __restrict__ q, long long q_sb, long 
   const int h = blockIdx.y, b = blockIdx.z;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const bool own = nk != nullptr;
+  const int slot = slot_d != nullptr ? *slot_d : slot_h;
 
   // the bounds: the text and range-1 keys from the prefix row of this row's
   // request, or from the row's own cache; own column: range 2 stops before
@@ -318,7 +321,7 @@ masked_attention_split_kernel(const float* __restrict__ q, long long q_sb, long 
   const int t_begin = min(rank * per_rank, n_tiles);
   const int t_end = min(t_begin + per_rank, n_tiles);
 
-  if (own && rank == 0) {
+  if (own && rank == 0 && slot >= 0 && slot < C) {
     // this step's column into the cache row `slot`
     const long long n_off = b * n_sb + h * n_sh;
     const float ksh = ks != nullptr ? ks[h] : 1.f, vsh = vs != nullptr ? vs[h] : 1.f;
@@ -596,7 +599,7 @@ static cudaError_t launch(const void* q, const long long* qs, const void* k, con
                           int B, int H, int Tq, int C, const int* lens, int a1_lo, int a2_lo,
                           int q_off, float scale, const float* ks, const float* vs,
                           const float* nk, const float* nv, const long long* ns, int slot,
-                          cudaStream_t stream) {
+                          const int* slot_d, cudaStream_t stream) {
   cudaError_t err = allow_smem<TKV, HD, QMAX>();
   if (err != cudaSuccess) return err;
   AttLaunch<TKV, HD, QMAX> l(dim3(ATT_CLUSTER * ((Tq + ATT_QG - 1) / ATT_QG), H, B), stream);
@@ -607,7 +610,7 @@ static cudaError_t launch(const void* q, const long long* qs, const void* k, con
       pk != nullptr ? ps[0] : 0LL, pk != nullptr ? ps[1] : 0LL, pk != nullptr ? ps[2] : 0LL, P,
       beams, reinterpret_cast<float*>(o), os[0], os[1], os[2], B, Tq, C, lens, a1_lo, a2_lo,
       q_off, scale, ks, vs, nk, nv, nk != nullptr ? ns[0] : 0LL, nk != nullptr ? ns[1] : 0LL,
-      slot, reinterpret_cast<TKV*>(const_cast<void*>(k)),
+      slot, slot_d, reinterpret_cast<TKV*>(const_cast<void*>(k)),
       reinterpret_cast<TKV*>(const_cast<void*>(v)));
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
@@ -635,10 +638,10 @@ static cudaError_t launch_q(int Tq, const void* q, const long long* qs, const vo
                             int B, int H, int C, const int* lens, int a1_lo, int a2_lo,
                             int q_off, float scale, const float* ks, const float* vs,
                             const float* nk, const float* nv, const long long* ns, int slot,
-                            cudaStream_t stream) {
+                            const int* slot_d, cudaStream_t stream) {
 #define VX_ATT_ARGS                                                                          \
   q, qs, k, v, kvs, pk, pv, ps, P, beams, o, os, B, H, Tq, C, lens, a1_lo, a2_lo, q_off, scale, \
-      ks, vs, nk, nv, ns, slot, stream
+      ks, vs, nk, nv, ns, slot, slot_d, stream
   if (Tq == 1) return launch<TKV, HD, 1>(VX_ATT_ARGS);
   if (Tq <= 8) return launch<TKV, HD, 8>(VX_ATT_ARGS);
   return launch<TKV, HD, ATT_QG>(VX_ATT_ARGS);
@@ -652,13 +655,15 @@ static cudaError_t launch_hd(int hd, int Tq, const void* q, const long long* qs,
                              int B, int H, int C, const int* lens, int a1_lo, int a2_lo,
                              int q_off, float scale, const float* ks, const float* vs,
                              const float* nk, const float* nv, const long long* ns, int slot,
-                             cudaStream_t stream) {
+                             const int* slot_d, cudaStream_t stream) {
   if (hd == 64)
     return launch_q<TKV, 64>(Tq, q, qs, k, v, kvs, pk, pv, ps, P, beams, o, os, B, H, C, lens,
-                             a1_lo, a2_lo, q_off, scale, ks, vs, nk, nv, ns, slot, stream);
+                             a1_lo, a2_lo, q_off, scale, ks, vs, nk, nv, ns, slot, slot_d,
+                             stream);
   if (hd == 128)
     return launch_q<TKV, 128>(Tq, q, qs, k, v, kvs, pk, pv, ps, P, beams, o, os, B, H, C, lens,
-                              a1_lo, a2_lo, q_off, scale, ks, vs, nk, nv, ns, slot, stream);
+                              a1_lo, a2_lo, q_off, scale, ks, vs, nk, nv, ns, slot, slot_d,
+                              stream);
   return cudaErrorInvalidValue;
 }
 
@@ -670,8 +675,9 @@ static cudaError_t launch_hd(int hd, int Tq, const void* q, const long long* qs,
 // a1_len, a2_len per row), contiguous. pk/pv: null, or the grouped mode's
 // prefix [B / beams, H, P, hd] of the k/v type with strides ps. nk/nv:
 // null, or the own-column mode's new k/v [B, H, 1, hd] f32 with (b, h, t)
-// strides ns, written into row `slot` of k/v (Tq must be 1). k/v rows (and
-// the prefix's) must start on 16-byte boundaries.
+// strides ns, written into row `slot` of k/v (Tq must be 1), or into row
+// *slot_d when slot_d (a device int32) is not null. k/v rows (and the
+// prefix's) must start on 16-byte boundaries.
 extern "C" int vx_masked_attention(const void* q, const long long* qs, const void* k,
                                    const void* v, const long long* kvs, const void* pk,
                                    const void* pv, const long long* ps, int P, int beams,
@@ -679,12 +685,14 @@ extern "C" int vx_masked_attention(const void* q, const long long* qs, const voi
                                    int Tq, int C, int hd, const void* lens, int a1_lo,
                                    int a2_lo, int q_off, float scale, const void* ks,
                                    const void* vs, const void* nk, const void* nv,
-                                   const long long* ns, int slot, void* stream) {
+                                   const long long* ns, int slot, const void* slot_d,
+                                   void* stream) {
   if (Tq < 1 || Tq > 65535 || B < 1 || B > 65535 || H < 1 || H > 65535 || beams < 1 ||
       B % beams)
     return (int)cudaErrorInvalidValue;
   if ((kinds == 3) != (ks != nullptr && vs != nullptr)) return (int)cudaErrorInvalidValue;
-  if (nk != nullptr && (Tq != 1 || nv == nullptr || slot < 0 || slot >= C))
+  if (nk != nullptr &&
+      (Tq != 1 || nv == nullptr || (slot_d == nullptr && (slot < 0 || slot >= C))))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const int* l = reinterpret_cast<const int*>(lens);
@@ -692,19 +700,20 @@ extern "C" int vx_masked_attention(const void* q, const long long* qs, const voi
   const float* fvs = reinterpret_cast<const float*>(vs);
   const float* fnk = reinterpret_cast<const float*>(nk);
   const float* fnv = reinterpret_cast<const float*>(nv);
+  const int* sd = reinterpret_cast<const int*>(slot_d);
   switch (kinds) {
     case 0:
       return (int)launch_hd<__nv_bfloat16>(hd, Tq, q, qs, k, v, kvs, pk, pv, ps, P, beams, o, os,
                                            B, H, C, l, a1_lo, a2_lo, q_off, scale, fks, fvs, fnk,
-                                           fnv, ns, slot, s);
+                                           fnv, ns, slot, sd, s);
     case 2:
       return (int)launch_hd<float>(hd, Tq, q, qs, k, v, kvs, pk, pv, ps, P, beams, o, os, B, H,
                                    C, l, a1_lo, a2_lo, q_off, scale, fks, fvs, fnk, fnv, ns, slot,
-                                   s);
+                                   sd, s);
     case 3:
       return (int)launch_hd<int8_t>(hd, Tq, q, qs, k, v, kvs, pk, pv, ps, P, beams, o, os, B, H,
                                     C, l, a1_lo, a2_lo, q_off, scale, fks, fvs, fnk, fnv, ns,
-                                    slot, s);
+                                    slot, sd, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -33,9 +33,11 @@ Own-column mode (`new_kv` = this step's (k, v) [B, H, 1, hd] f32, `slot`,
 Tq = 1): the walk stops before cache row `slot` (range 2 ends there), the
 new column is folded in unrounded (int8: k / ks and v / vs, unrounded), and
 the column is written into row `slot` of k/v, rounded to the cache type or
-quantized (`write_column`). The TPU decode kernels fold their own column
-this way (vallex_tpu/ops/decode_step.py, decode_attention.py, and
-decode_block.py with kv_scales).
+quantized (`write_column`). `slot` is a host int, or a one-element int32
+tensor on q's device that the kernel reads (so one captured launch serves
+every row); a device row outside [0, C) writes nothing. The TPU decode
+kernels fold their own column this way (vallex_tpu/ops/decode_step.py,
+decode_attention.py, and decode_block.py with kv_scales).
 
 The kernel walks a row's virtual keys (text, then range 1, then range 2;
 `key_counts`) in tiles of SPLIT_TILE; the cluster's block r takes the r-th
@@ -340,7 +342,7 @@ def masked_attention(
     bounds: Optional[Bounds] = None, *,
     prefix: Optional[Prefix] = None, beams: int = 1,
     kv_scales: Optional[Scales] = None, new_kv: Optional[NewKV] = None,
-    slot: Optional[int] = None,
+    slot: Optional[Union[int, torch.Tensor]] = None,
     out: Optional[torch.Tensor] = None, site: str = "", **layout,
 ) -> torch.Tensor:
     """q [B, H, Tq, hd]; k/v [B, H, C, hd] (any strides with a unit last
@@ -349,9 +351,9 @@ def masked_attention(
     int8 KV cache) → [B, H, Tq, hd] in q's dtype, written into `out` when
     given (e.g. a strided view of a [Tq, H·hd] buffer). Bounds, or the
     keywords of `attention_bounds`; `prefix` + `beams` for the grouped
-    mode; `new_kv` + `slot` for the own-column mode, which also writes the
-    column into k/v. CPU tensors take the plain version; CUDA tensors
-    launch or raise."""
+    mode; `new_kv` + `slot` (an int or a one-element int32 tensor) for the
+    own-column mode, which also writes the column into k/v. CPU tensors
+    take the plain version; CUDA tensors launch or raise."""
     t0 = time.perf_counter()
     B, H, Tq, hd = q.shape
     if bounds is None:
@@ -361,6 +363,8 @@ def masked_attention(
     if (new_kv is None) != (slot is None):
         raise ValueError("masked_attention: the own-column mode needs new_kv and slot")
     if q.device.type == "cpu":
+        if isinstance(slot, torch.Tensor):
+            slot = int(slot)
         o = masked_attention_plain(q, k, v, bounds, prefix=prefix, beams=beams,
                                    kv_scales=kv_scales, new_kv=new_kv, slot=slot)
         if new_kv is not None:
@@ -380,7 +384,7 @@ def masked_attention(
     if kinds is None or v.dtype != k.dtype:
         raise TypeError(f"masked_attention: q/k/v dtypes {q.dtype}/{k.dtype}/{v.dtype} not taken"
                         " (f32/bf16/bf16, f32/f32/f32 or f32/int8/int8)")
-    ks = vs = nk = nv = ns = None
+    ks = vs = nk = nv = ns = slot_d = None
     if kv_scales is not None:
         ks, vs = kv_scales
         for t in kv_scales:
@@ -390,6 +394,10 @@ def masked_attention(
         ks, vs = ks.data_ptr(), vs.data_ptr()
     if new_kv is not None:
         nk, nv = new_kv
+        if isinstance(slot, torch.Tensor):
+            if slot.numel() != 1 or slot.dtype != torch.int32 or slot.device != q.device:
+                raise ValueError("masked_attention: a device slot is one int32 on q's device")
+            slot, slot_d = 0, slot.data_ptr()
         if Tq != 1 or not 0 <= slot < C:
             raise ValueError(f"masked_attention: the own-column mode takes Tq = 1 and"
                              f" 0 <= slot < {C}; got Tq {Tq}, slot {slot}")
@@ -433,7 +441,7 @@ def masked_attention(
         pk, pv, ps, P, beams, out.data_ptr(), _strides3(out), kinds,
         B, H, Tq, C, hd, lens.data_ptr(), bounds.a1_lo, bounds.a2_lo, bounds.q_off,
         ctypes.c_float(1.0 / math.sqrt(hd)), ks, vs, nk, nv, ns,
-        0 if slot is None else slot, stream_ptr(q),
+        0 if slot is None else slot, slot_d, stream_ptr(q),
     )
     check(rc, "masked_attention")
     count_launch("masked_attention", site, t0)

@@ -36,6 +36,12 @@ quantized into the cache by the attention kernel (the TPU kernel's
 steps run as launches of the hand-written kernels (products, attention,
 sampling); the bookkeeping is a few tensor ops per step that stay on the
 device, so the host never waits inside a block.
+
+`audio_pos` is a host int, or a 0-d int32 tensor on the tokens' device
+holding the same number. With the tensor every position-dependent value of
+the block (PE rows, bounds, each step's cache row) is computed on the
+device from it, so one enqueued block serves every position: a CUDA graph
+of a block is replayed at each block of engine/ar.py::_block_loop.
 """
 
 from __future__ import annotations
@@ -78,7 +84,8 @@ def decode_block_fused(
     pe_table: torch.Tensor,
     *,
     x_len: Union[int, torch.Tensor],  # batched: [B]
-    audio_pos: int,  # position of step 0 (batched: generated frames before the block)
+    audio_pos: Union[int, torch.Tensor],  # position of step 0 (batched: generated
+    # frames before the block); or a 0-d int32 tensor on the tokens' device
     remaining: Union[int, torch.Tensor],  # steps left before the length cap (batched: [B])
     temperature: float,
     steps: int,
@@ -105,6 +112,7 @@ def decode_block_fused(
     sum_lp = sum_logprobs.float().clone()
     att_site = None
     filtered = top_k is not None or top_p is not None
+    on_device = isinstance(audio_pos, torch.Tensor)
     if batched:
         site, cache5 = SITE_BATCHED, (cache_k, cache_v)
         s_gen = s_text + p_audio
@@ -118,9 +126,19 @@ def decode_block_fused(
     else:
         site, cache5 = SITE, (cache_k[:, None], cache_v[:, None])
         s_gen = s_text
+        # [K, 1] position at each step, when it lives on the device
+        pos = (audio_pos + torch.arange(steps, device=dev))[:, None] if on_device else None
         bounds = attention_bounds(1, x_len=x_len, s_text=s_text, audio_len=audio_pos + 1,
                                   q_off=1, device=dev)
     bounds = step_bounds(bounds, steps)
+    # each step's cache row: host ints, or a [K] device tensor (int32 where
+    # the attention kernel writes the column, int64 where index_copy_ does)
+    if on_device:
+        slots = audio_pos + torch.arange(
+            s_gen, s_gen + steps, device=dev,
+            dtype=torch.int32 if kv_scales is not None else torch.long)
+    else:
+        slots = range(s_gen + audio_pos, s_gen + audio_pos + steps)
     # launches count per site: the products of W8A8 blocks and the
     # attention over int8 caches under their own
     att_site = SITE_INT8KV if kv_scales is not None else att_site or site
@@ -132,10 +150,10 @@ def decode_block_fused(
         sum_lp = sum_lp + torch.where(d0, 0.0, cur_lp)
         done = d0 | (fed == eos)
         fed_all.append(fed)
-        pe_rows = (pe_table.index_select(0, pos[k]) if batched
+        pe_rows = (pe_table.index_select(0, pos[k]) if pos is not None
                    else pe_table[audio_pos + k: audio_pos + k + 1])
         logits = decoder_forward(
-            fed, lw, *cache5, pe_rows, slot=s_gen + audio_pos + k,
+            fed, lw, *cache5, pe_rows, slot=slots[k],
             bounds=bounds[k], site=prod_site, prefix=prefix, beams=beams,
             attention_site=att_site, act_quant=act_quant, kv_scales=kv_scales,
         )

@@ -28,7 +28,7 @@ pos0 + i; for batched requests and their best_of samples see
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
@@ -59,7 +59,7 @@ def decoder_layers(
     cache_k: torch.Tensor,  # [NL, B, H, C, hd] (int8 with kv_scales), updated in place
     cache_v: torch.Tensor,
     *,
-    slot: int,  # cache row of query 0's column (query qi at slot + qi)
+    slot: Union[int, torch.Tensor],  # cache row of query 0's column (query qi at slot + qi)
     bounds: Bounds,
     site: str,
     prefix: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,  # [NL, R, H, P, hd]
@@ -89,7 +89,10 @@ def decoder_layers(
     the TPU kernels. kv_scales: the int8 KV cache (and prefix) with
     per-(layer, head) scales (engine/ar.py::kv_int8_scales). With an int8
     cache, or own_column, each step's column is folded in unrounded and
-    written by the attention kernel (Tq = 1; the walk stops before `slot`)."""
+    written by the attention kernel (Tq = 1; the walk stops before `slot`).
+    `slot` may be a one-element device tensor (Tq = 1): int32 for the
+    kernel's write, int64 for the others, which index_copy_ the column
+    there, rounded as the host slot's copies round it."""
     M = h.shape[0]
     NL, B, H, _, hd = cache_k.shape
     Tq, D = M // B, H * hd
@@ -106,7 +109,11 @@ def decoder_layers(
         )
         heads = qkv.view(B, Tq, 3, H, hd)
         knew, vnew = heads[:, :, 1].transpose(1, 2), heads[:, :, 2].transpose(1, 2)
-        if not own:
+        if not own and isinstance(slot, torch.Tensor):  # K and V cast once
+            kv = heads[:, :, 1:3].to(cache_k.dtype)
+            cache_k[li].index_copy_(2, slot.reshape(1), kv[:, :, 0].transpose(1, 2))
+            cache_v[li].index_copy_(2, slot.reshape(1), kv[:, :, 1].transpose(1, 2))
+        elif not own:
             cache_k[li, :, :, slot: slot + Tq] = knew
             cache_v[li, :, :, slot: slot + Tq] = vnew
         attn = torch.empty((M, D), dtype=torch.float32, device=h.device)
