@@ -38,7 +38,6 @@ def main(argv=None) -> int:
     from portbench.harness.runner import draw_trees, run_batch, setup
     from portbench.harness.spec import load_cell
     from portbench.harness.traffic import Traffic
-    from portbench.reference.vallex import Model
     from portbench.reference.vocos import Vocos
 
     cell = load_cell(args.workload, args.root)
@@ -61,7 +60,7 @@ def main(argv=None) -> int:
         gc.collect()
         picked = C.sample(items, seed, n_sampled=0)
         tree, vtree = draw_trees(cell, seed, dev)
-        out = C.readings(Model(tree, cell.config["model"]["num_heads"]), Vocos(vtree), picked,
+        out = C.readings(cell.arch.reference(tree, cell.config["model"]), Vocos(vtree), picked,
                          control=cell.config["control"])
         row = {"workload": cell.name, "seed": seed, "greedy": b.greedy, "failed": failed,
                "checked": len(picked), "frames": sum(len(i.codes) for i in picked),

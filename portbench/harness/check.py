@@ -15,6 +15,8 @@ is run through the reference, teacher-forced on the served tokens:
 - `wave_err`: the largest ‖wave − reference wave‖ / ‖reference wave‖.
 The control (`control`) reads the same numbers for the reference in a
 lower precision: the gap of the token that it puts first, and its wave.
+The model's reference is the architecture's (portbench/archs/), Vocos's
+reference/vocos.py.
 """
 
 from __future__ import annotations
@@ -26,7 +28,6 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..reference import vallex as RV
 from ..reference import vocos as RVoc
 from ..reference.quant import Precision
 from .traffic import gen_cap
@@ -120,9 +121,10 @@ def _gap_sum(ref_logits: torch.Tensor, tokens: torch.Tensor) -> float:
 
 
 @torch.inference_mode()
-def readings(model: RV.Model, vocos: RVoc.Vocos, items: List[Item],
+def readings(model, vocos: RVoc.Vocos, items: List[Item],
              control: Optional[Dict] = None) -> Dict[str, Dict[str, float]]:
-    """{"program": {number: reading}} and, with a control, {"control": ...}."""
+    """{"program": {number: reading}} and, with a control, {"control": ...}.
+    `model`: the architecture's `reference(tree, model)`."""
     dev = model.device
     prog = {"ar_gap": 0.0, "nar_mean_gap": 0.0, "wave_err": 0.0}
     ctrl = dict(prog)
@@ -138,8 +140,8 @@ def readings(model: RV.Model, vocos: RVoc.Vocos, items: List[Item],
             text, lang, prompt, codes = t(it.text), t(it.lang), t(it.prompt), t(it.codes)
             G, Tp = len(codes), len(prompt)
             if it.greedy:
-                args = (model, text, lang, prompt[:, 0], codes[:, 0])
-                ref = RV.ar_logits(*args)
+                args = (text, lang, prompt[:, 0], codes[:, 0])
+                ref = model.ar_logits(*args)
                 served = codes[:, 0]
                 rows = ref[:G]
                 if G < it.cap:  # stopped early: the EOS it served counts
@@ -147,12 +149,12 @@ def readings(model: RV.Model, vocos: RVoc.Vocos, items: List[Item],
                     rows = ref[: G + 1]
                 prog["ar_gap"] = max(prog["ar_gap"], _gap(rows, served))
                 if control is not None:
-                    low = RV.ar_logits(*args, prec=low_ar)[: len(rows)]
+                    low = model.ar_logits(*args, prec=low_ar)[: len(rows)]
                     ctrl["ar_gap"] = max(ctrl["ar_gap"], _gap(rows, low.argmax(-1)))
             if G:
                 full = torch.cat([prompt, codes])
-                ref = RV.nar_logits(model, text, lang, full, Tp)
-                low = (RV.nar_logits(model, text, lang, full, Tp, prec=low_nar)
+                ref = model.nar_logits(text, lang, full, Tp)
+                low = (model.nar_logits(text, lang, full, Tp, prec=low_nar)
                        if control is not None else None)
                 for s, rl in enumerate(ref):
                     nar_sum["program"] += _gap_sum(rl, codes[:, s + 1])

@@ -25,7 +25,7 @@ from . import check as C
 from . import trace as T
 from .spec import Cell
 from .traffic import Batch, Traffic
-from .weights import vallex_tree, vocos_tree
+from .weights import vocos_tree
 
 BANNED = ("jax", "jaxlib", "flax", "vallex_tpu")  # whole top-level module names
 TRACED_BATCH = 1
@@ -53,6 +53,11 @@ class Run:
     records: List[Record]
     trace: Optional[T.Trace] = None
     checks: Dict = field(default_factory=dict)
+
+    @property
+    def arch(self):
+        """The cell's architecture module (portbench/archs/)."""
+        return self.cell.arch
 
     @property
     def model(self) -> Dict:
@@ -105,14 +110,15 @@ def run_batch(pipeline, b: Batch, K: int) -> tuple:
 
 
 def draw_trees(cell: Cell, seed: int, dev: torch.device):
-    """The weights from the seed on `dev` → (VALL-E tree in the serve type,
-    Vocos tree in float32). Each call draws them anew, bit for bit the same."""
+    """The weights from the seed on `dev` → (the architecture's tree in the
+    serve type, Vocos tree in float32), in that order from one generator.
+    Each call draws them anew, bit for bit the same."""
     conf = cell.config
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed) % (1 << 63))
     serve = {"bfloat16": torch.bfloat16, "float32": torch.float32}[
         engine_config(conf["engine"]).compute_dtype]
-    return (vallex_tree(conf["model"], conf["weights"], gen, dev, serve),
+    return (cell.arch.draw_tree(conf["model"], conf["weights"], gen, dev, serve),
             vocos_tree(conf["vocos"], gen, dev))
 
 
@@ -121,13 +127,12 @@ def setup(cell: Cell, seed: int, dev: torch.device):
     keep the trees' storage as its parameters, so the reference draws its
     own (`draw_trees`) once the program is freed."""
     from vallex_tpu_torch import api
-    from vallex_tpu_torch.config import ModelConfig
 
     conf = cell.config
     tree, vtree = draw_trees(cell, seed, dev)
     return api.preload_models(checkpoint_dir=os.path.join(cell.root, "portbench", "none"),
                               params=tree, vocos_params=vtree,
-                              cfg=ModelConfig(**conf["model"]),
+                              cfg=cell.arch.program_config(conf["model"]),
                               ecfg=engine_config(conf["engine"]), device=dev)
 
 
@@ -206,11 +211,10 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device: str,
         failed += bad
     outputs = None
     picked = C.sample(items, seed)
-    from ..reference.vallex import Model
     from ..reference.vocos import Vocos
 
     tree, vtree = draw_trees(cell, seed, dev)
-    ref = Model(tree, model["num_heads"])
+    ref = cell.arch.reference(tree, model)
     tree = None
     read = C.readings(ref, Vocos(vtree), picked)["program"]
     limits = cfg_file["limits"]

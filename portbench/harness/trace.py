@@ -1,7 +1,13 @@
 """Reading a torch.profiler trace: device intervals, their union, device time
 by kernel name, and idle gaps by the host span around them (the arithmetic
 of the port's `chip_smoke.py` phase 7, copied here so that the yardstick
-does not move with the program)."""
+does not move with the program).
+
+Device time by name is each event's own time: from the later of its start
+and the end of the events before it on its stream, to its end. A kernel
+started early by programmatic dependent launch spans its wait for its
+predecessor; that stretch is the predecessor's time, counted there. A
+stream's own times sum to the union of its intervals."""
 
 from __future__ import annotations
 
@@ -10,7 +16,7 @@ import os
 import re
 import tempfile
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, Hashable, List, Optional, Tuple
 
 Interval = Tuple[float, float]  # µs
 
@@ -55,6 +61,7 @@ class Trace:
     hi: float
     kernels: List[Tuple[float, float, str]]  # kernels, copies and memsets
     spans: List[Tuple[float, float, str]] = field(default_factory=list)  # host spans
+    streams: List[Hashable] = field(default_factory=list)  # each kernel's; empty: one stream
 
     @property
     def window_s(self) -> float:
@@ -64,18 +71,33 @@ class Trace:
     def busy_s(self) -> float:
         return union_us([(a, b) for a, b, _ in self.kernels], self.lo, self.hi) / 1e6
 
+    def own(self) -> List[Tuple[float, float, str]]:
+        """Each kernel's own interval, in the order of `kernels`: its start
+        moved to the end of the events that started before it on its
+        stream where they end later (never past its own end)."""
+        streams = self.streams or [None] * len(self.kernels)
+        out = list(self.kernels)
+        ends: Dict[Hashable, float] = {}
+        for i in sorted(range(len(out)), key=lambda i: out[i][:2]):
+            a, b, n = out[i]
+            s = streams[i]
+            out[i] = (min(max(a, ends.get(s, a)), b), b, n)
+            ends[s] = max(ends.get(s, b), b)
+        return out
+
     def seconds_matching(self, pattern: str) -> Optional[float]:
-        """Device seconds of the kernels whose name matches `pattern`, None
-        when no kernel does."""
+        """Own device seconds, inside [lo, hi), of the kernels whose name
+        matches `pattern`; None when no kernel does."""
         rx = re.compile(pattern)
-        hits = [(a, b) for a, b, n in self.kernels if rx.search(n)]
+        hits = [(a, b) for a, b, n in self.own() if rx.search(n)]
         if not hits:
             return None
-        return sum(min(b, self.hi) - max(a, self.lo) for a, b in hits) / 1e6
+        return sum(max(0.0, min(b, self.hi) - max(a, self.lo)) for a, b in hits) / 1e6
 
     def device_ops(self, top: int = 10) -> List[List]:
+        """Own device seconds by name, the largest first."""
         by: Dict[str, float] = {}
-        for a, b, n in self.kernels:
+        for a, b, n in self.own():
             by[n] = by.get(n, 0.0) + (b - a) / 1e6
         return [[n[:120], s] for n, s in sorted(by.items(), key=lambda kv: -kv[1])[:top]]
 
@@ -93,22 +115,25 @@ class Trace:
 
 def read(events: List[Dict], window_name: str, span_prefix: str = "vallex.") -> Optional[Trace]:
     """The Trace of the user span `window_name` (the traced batch), with the
-    program's spans named `span_prefix`*; None if the span or the device
-    events are missing."""
+    program's spans named `span_prefix`* and each device event's stream
+    (`args.stream`, else `tid`); None if the span or the device events are
+    missing."""
     win = [e for e in events if e.get("cat") == "user_annotation"
            and e.get("name") == window_name and "dur" in e]
     if not win:
         return None
     lo = float(win[0]["ts"])
     hi = lo + float(win[0]["dur"])
-    kernels = [(float(e["ts"]), float(e["ts"]) + float(e["dur"]), str(e["name"]))
-               for e in events
-               if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e
-               and float(e["ts"]) < hi and float(e["ts"]) + float(e["dur"]) > lo]
-    if not kernels:
+    device = [e for e in events
+              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e
+              and float(e["ts"]) < hi and float(e["ts"]) + float(e["dur"]) > lo]
+    if not device:
         return None
+    kernels = [(float(e["ts"]), float(e["ts"]) + float(e["dur"]), str(e["name"]))
+               for e in device]
+    streams = [(e.get("args") or {}).get("stream", e.get("tid")) for e in device]
     spans = [(float(e["ts"]), float(e["ts"]) + float(e["dur"]), str(e["name"]))
              for e in events if e.get("cat") == "user_annotation" and "dur" in e
              and str(e.get("name", "")).startswith(span_prefix)
              and lo <= float(e["ts"]) < hi]
-    return Trace(lo, hi, kernels, spans)
+    return Trace(lo, hi, kernels, spans, streams)
