@@ -179,6 +179,16 @@ Phases, one flushed line each with its own seconds and wall-clock limit:
      the same call on the CPU under the tie rule); host times of
      _prepare_text a language, encode through the C++ and the lookup, and
      load_wav of 10 s at 44.1 kHz through the C++ and wave + resample_poly
+  5k the hybrid AR (Granite-4.0-H's published widths, random weights drawn
+     on the card): kernels/ssm_step.cu's four kernels against their plain
+     versions at the benchmark cell's widths (48 rows; the 64 x 64 x 128 f32
+     state, conv_dim 4,352, RMSNorm rows of 2,048 and 4,096, a SwiGLU of
+     8,192), twice bitwise, and masked_attention over grouped K/V (8 heads
+     x 4 queries), each timed for one step's launches beside its bound; then
+     one greedy synthesize_batch of 6 requests through the graphed hybrid
+     block: codes bitwise the eager loop's, every row at its cap, and each
+     kernel launched at decode_block_hybrid exactly its count a step times
+     the steps run (also alone: chip_smoke.hybrid_alone())
   7  torch.profiler traces of one request, of one filtered request (top_k
      50, top_p 0.9) and of one batch of 4: the device-busy share of their
      AR, NAR and Vocos spans (the tail's spans read up to the device end of
@@ -197,7 +207,8 @@ prompt's requests), and once more just before phase 5h and read after it
 and read after it (this process's UI requests and the in-process serving
 routes; the workers and ranks count their own and report them), and once
 more just before phase 5j and read after it (none expected: host code and
-EnCodec). The NAR at C >= 1536
+EnCodec), and once more just before phase 5k's graphed batch and read after
+it (the hybrid AR's site). The NAR at C >= 1536
 must launch the flash forward at its sites and masked_attention never
 there. Any failure exits non-zero before the result line. No JAX is
 imported.
@@ -253,6 +264,9 @@ TPU = {  # TPU kernel each main-path site stands for (file:line of the function)
     "flash_attention_prefix": "vallex_tpu/models/layers.py:259",
     "flash_attention_train": "vallex_tpu/models/layers.py:205",
     "flash_attention_bwd": "vallex_tpu/models/layers.py:205",
+    # the hybrid AR's decode block (ops/decode_hybrid.py, phase 5k): the JAX
+    # package has no hybrid AR, so its kernels replace none
+    "decode_block_hybrid": None,
 }
 # the same kernels at head dim 128 (phase 3f; their launches are counted there)
 HD128 = "_hd128"
@@ -272,7 +286,8 @@ SLICE4_SITES = ("decode_block_fused_w8a8", "decode_block_fused_int8kv", "decode_
                 "decode_step_fused", "decode_attention")
 SLICE5_SITES = ("flash_attention_prefix", "flash_attention_train", "flash_attention_bwd")
 KERNEL_FILE = {"flash_attention_fwd": "flash_attention", "flash_attention_bwd_dq": "flash_attention",
-               "flash_attention_bwd_dkv": "flash_attention", "gemm_small_m_prep": "gemm_small_m"}
+               "flash_attention_bwd_dkv": "flash_attention", "gemm_small_m_prep": "gemm_small_m",
+               "conv_step": "ssm_step", "rms_norm_rows": "ssm_step", "swiglu_rows": "ssm_step"}
 
 
 def say(msg: str) -> None:
@@ -2401,6 +2416,276 @@ def native_host_paths(dev, api, bundle, card: str) -> None:
 
 
 # ---------------------------------------------------------------------------
+# The hybrid AR (phase 5k): module-level so it runs alone too, after the
+# build (phases 1-2): python3 -c "import chip_smoke; chip_smoke.hybrid_alone()"
+# ---------------------------------------------------------------------------
+
+HYBRID_SITE = "decode_block_hybrid"
+# kernels/ssm_step.cu's launches a decode step of the published stack (36
+# Mamba-2 and 4 attention layers, a SwiGLU MLP after each): per Mamba layer
+# one conv_step and one ssm_step; RMSNorm rows before each mixer and MLP,
+# after each Mamba layer's gate and before the head; gemm_small_m two
+# products a mixer, two an MLP, and the head
+HYBRID_PER_STEP = {"ssm_step": 36, "conv_step": 36, "rms_norm_rows": 40 + 36 + 40 + 1,
+                   "swiglu_rows": 40, "gemm_small_m": 36 * 2 + 4 * 2 + 40 * 2 + 1,
+                   "masked_attention": 4, "sample_epilogue": 1}
+
+
+def hybrid_kernel_checks(entry, dev) -> None:
+    """kernels/ssm_step.cu's four kernels against their plain versions at
+    the cell's widths (48 rows; 64 heads of 64 × 128 f32 state; conv_dim
+    4,352; RMSNorm rows of 2,048 and 4,096; a SwiGLU of 8,192), each twice
+    bitwise and the states in place (ssm_step's state within 1e-5, its y
+    within 1e-4; conv_step's output within 1e-5 and its state bitwise;
+    RMSNorm and SwiGLU rows within 1e-5), then grouped-K/V masked_attention
+    (8 K/V heads × 4 query heads) as the hybrid block calls it; each timed
+    against its plain version for one decode step's launches, with its
+    bound from its bytes."""
+    import math
+
+    import torch
+    import torch.nn.functional as Fn
+
+    from vallex_tpu_torch.kernels import ssm_step as SK
+    from vallex_tpu_torch.kernels.masked_attention import attention_bounds
+    from vallex_tpu_torch.models.granite_hybrid import dt_bias_from
+
+    g = torch.Generator(device=dev).manual_seed(28)
+    M, H, P, N, D, F = 48, 64, 64, 128, 2048, 8192
+    inner, Cd = H * P, H * P + 2 * N
+    NM = HYBRID_PER_STEP["ssm_step"]
+
+    def close(label, got, want, tol):
+        err = float((got - want).abs().max())
+        if not bool(((got - want).abs() <= tol + tol * want.abs()).all()):
+            fail(f"{label}@{HYBRID_SITE}: max err {err:.3e} beyond {tol:g} (abs and rel)")
+        return err
+
+    zd = torch.randn((M, inner + Cd + H), generator=g, device=dev)
+    xbc = torch.randn((M, Cd), generator=g, device=dev)
+    S0 = torch.randn((M, H, P, N), generator=g, device=dev)
+    lo, hi = math.log(1e-3), math.log(1e-1)
+    dt_bias = dt_bias_from(torch.exp(lo + torch.rand(H, generator=g, device=dev) * (hi - lo)))
+    A_log = torch.log(1 + 15 * torch.rand(H, generator=g, device=dev))
+    Dv = torch.ones(H, device=dev)
+    kw = dict(z_off=0, dt_off=inner + Cd)
+    S = S0.clone()
+    _twice_bitwise("ssm_step", lambda: (SK.ssm_step(xbc, zd, S.copy_(S0), dt_bias, A_log, Dv,
+                                                    site="check", **kw), S.clone()))
+    Sp = S0.clone()
+    y_p = SK.ssm_step_plain(xbc, zd, Sp, dt_bias, A_log, Dv, **kw)
+    y = SK.ssm_step(xbc, zd, S.copy_(S0), dt_bias, A_log, Dv, site="check", **kw)
+    torch.cuda.synchronize()
+    err = max(close("ssm_step (state)", S, Sp, 1e-5), close("ssm_step (y)", y, y_p, 1e-4))
+    # bytes a launch: the f32 state read and written; x, B, C, z, dt read; y written
+    nbytes = 4 * M * (2 * H * P * N + H * P + 2 * N + H * P + H + H * P) + 12 * H
+    entry("ssm_step", HYBRID_SITE, err,
+          device_ms(lambda: [SK.ssm_step(xbc, zd, S, dt_bias, A_log, Dv, site="check", **kw)
+                             for _ in range(NM)]),
+          device_ms(lambda: [SK.ssm_step_plain(xbc, zd, S, dt_bias, A_log, Dv, **kw)
+                             for _ in range(NM)]),
+          NM * nbytes, NM * 5 * M * H * P * N, None,
+          f"{NM} launches: one step's Mamba-2 updates, M={M}, {H} heads of {P} x {N}, f32 state",
+          ops_per_s=F32_OPS_PER_S)
+
+    st0 = torch.randn((M, 3, Cd), generator=g, device=dev)
+    w = torch.randn((Cd, 4), generator=g, device=dev) * 0.5
+    b = torch.randn(Cd, generator=g, device=dev) * 0.5
+    st, st_p = st0.clone(), st0.clone()
+    _twice_bitwise("conv_step", lambda: (SK.conv_step(zd, st.copy_(st0), w, b, x_off=inner,
+                                                      site="check"), st.clone()))
+    out_p = SK.conv_step_plain(zd, st_p, w, b, x_off=inner)
+    out = SK.conv_step(zd, st.copy_(st0), w, b, x_off=inner, site="check")
+    torch.cuda.synchronize()
+    if not torch.equal(st, st_p):
+        fail(f"conv_step@{HYBRID_SITE}: the shifted state differs from the plain version's")
+    err = close("conv_step", out, out_p, 1e-5)
+    # the state read and written, this step's x read, w and b, the output written
+    nbytes = 4 * M * (2 * 3 * Cd + Cd + Cd) + 4 * 5 * Cd
+    entry("conv_step", HYBRID_SITE, err,
+          device_ms(lambda: [SK.conv_step(zd, st, w, b, x_off=inner, site="check")
+                             for _ in range(NM)]),
+          device_ms(lambda: [SK.conv_step_plain(zd, st, w, b, x_off=inner) for _ in range(NM)]),
+          NM * nbytes, NM * 12 * M * Cd, None,
+          f"{NM} launches: one step's width-4 convolutions, M={M}, {Cd} channels, f32 state",
+          ops_per_s=F32_OPS_PER_S)
+
+    # one step's RMSNorm rows: 81 of D (before each mixer and MLP, before
+    # the head) and 36 of the inner width (each Mamba layer's gate)
+    xd, xi = (torch.randn((M, k), generator=g, device=dev) for k in (D, inner))
+    gd, gi = (torch.rand(k, generator=g, device=dev) + 0.5 for k in (D, inner))
+    runs = [(xd, gd)] * (HYBRID_PER_STEP["rms_norm_rows"] - NM) + [(xi, gi)] * NM
+    _twice_bitwise("rms_norm_rows", lambda: [SK.rms_norm_rows(x, gn, 1e-5, site="check")
+                                             for x, gn in ((xd, gd), (xi, gi))])
+    err = max(close("rms_norm_rows", SK.rms_norm_rows(x, gn, 1e-5, site="check"),
+                    SK.rms_norm_rows_plain(x, gn, 1e-5), 1e-5) for x, gn in ((xd, gd), (xi, gi)))
+    lib = getattr(Fn, "rms_norm", None)  # one PyTorch call on the same rows (torch >= 2.4)
+    entry("rms_norm_rows", HYBRID_SITE, err,
+          device_ms(lambda: [SK.rms_norm_rows(x, gn, 1e-5, site="check") for x, gn in runs]),
+          device_ms(lambda: [SK.rms_norm_rows_plain(x, gn, 1e-5) for x, gn in runs]),
+          sum(8 * x.numel() + 4 * gn.numel() for x, gn in runs),
+          sum(4 * x.numel() for x, _ in runs),
+          None if lib is None else device_ms(
+              lambda: [lib(x, (x.shape[1],), gn, 1e-5) for x, gn in runs]),
+          f"{len(runs)} launches: one step's RMSNorm rows, M={M}, f32 in and out",
+          ops_per_s=F32_OPS_PER_S)
+
+    x2 = torch.randn((M, 2 * F), generator=g, device=dev)
+    NS = HYBRID_PER_STEP["swiglu_rows"]
+    _twice_bitwise("swiglu_rows", lambda: [SK.swiglu_rows(x2, site="check")])
+    err = close("swiglu_rows", SK.swiglu_rows(x2, site="check"), SK.swiglu_rows_plain(x2), 1e-5)
+    entry("swiglu_rows", HYBRID_SITE, err,
+          device_ms(lambda: [SK.swiglu_rows(x2, site="check") for _ in range(NS)]),
+          device_ms(lambda: [SK.swiglu_rows_plain(x2) for _ in range(NS)]),
+          NS * 12 * M * F, NS * 5 * M * F, None,
+          f"{NS} launches: one step's SwiGLU rows, M={M}, F={F}, f32 in and out",
+          ops_per_s=F32_OPS_PER_S)
+
+    # grouped K/V as the block reads it: each of the 8 K/V heads once for
+    # its 4 query heads (Tq = 4 at q_off 0), the cell's layout (text 256,
+    # BOS + prompt 1,024, then the generated rows), prompts of 161-758 frames
+    Hq, Hkv, hd, s_text, p_audio, t = 32, 8, 64, 256, 1024, 432
+    C = s_text + p_audio + 1024 + 8
+    qkv = torch.randn((M, (Hq + 2 * Hkv) * hd), generator=g, device=dev)
+    q = qkv[:, : Hq * hd].view(M, Hkv, Hq // Hkv, hd)
+    k = torch.randn((M, Hkv, C, hd), generator=g, device=dev).to(torch.bfloat16)
+    v = torch.randn((M, Hkv, C, hd), generator=g, device=dev).to(torch.bfloat16)
+    x_len = torch.randint(64, 200, (M,), generator=g, device=dev, dtype=torch.int32)
+    plen = torch.randint(161, 759, (M,), generator=g, device=dev, dtype=torch.int32)
+    bounds = attention_bounds(M, x_len=x_len, s_text=s_text, audio_len=plen + 1, q_off=0,
+                              gen_lo=s_text + p_audio, gen_len=t + 1, device=dev)
+    check_masked_attention(entry, HYBRID_SITE, q, k, v, bounds,
+                           HYBRID_PER_STEP["masked_attention"])
+
+
+def hybrid_tree(cfg, dev, seed: int = 0):
+    """A random tree of `cfg` (the hybrid AR at its published widths)
+    drawn on the card, the head's EOS column zeroed: the greedy rows then
+    run to their caps (a zero logit is never the largest of 1,025)."""
+    import torch
+
+    from vallex_tpu_torch.models.vallex import init_vallex
+
+    with torch.device(dev):
+        tree = init_vallex(cfg, torch.Generator(device=dev).manual_seed(seed))
+    tree["ar_predict_layer"]["w"][:, cfg.eos_id] = 0
+    return tree
+
+
+def hybrid_paths(dev, entries: list, card: str) -> dict:
+    """Phase 5k: `hybrid_kernel_checks`, then the hybrid AR at the published
+    widths (models/granite_hybrid.py; random weights on the card) through
+    api.preload_models and SynthesisPipeline.synthesize_batch: 6 greedy
+    requests, the AR block replayed as a CUDA graph, the codes bitwise the
+    eager loop's. Launch counts are zeroed just before the graphed batch:
+    at its site each kernel launched HYBRID_PER_STEP times a step run (K
+    steps a replay), none of the single-request or batched VALL-E X
+    sites. Appends this phase's rows to `entries` with their launches →
+    the counts."""
+    import numpy as np
+    import torch
+
+    from vallex_tpu_torch import api
+    from vallex_tpu_torch.codec.vocos import init_vocos
+    from vallex_tpu_torch.config import EngineConfig, HybridARConfig, ModelConfig
+    from vallex_tpu_torch.engine import ar as AR
+    from vallex_tpu_torch.kernels import loader
+    from vallex_tpu_torch.models.granite_hybrid import state_bytes
+
+    hybrid_kernel_checks(kernel_entry(entries), dev)
+    cfg = ModelConfig(ar_stack=HybridARConfig())
+    ecfg = EngineConfig(text_buckets=(256,), audio_buckets=(1024,), compute_dtype="bfloat16",
+                        decode_steps=8, speculative="off")
+    t0 = time.perf_counter()
+    hb = api.preload_models(checkpoint_dir=os.path.join(REPO, "portbench", "none"),
+                            params=hybrid_tree(cfg, dev), cfg=cfg, ecfg=ecfg, device=dev,
+                            vocos_params=init_vocos(torch.Generator().manual_seed(1)))
+    torch.cuda.synchronize()
+    say(f"  hybrid AR bundle ({cfg.ar_stack.num_layers} layers at {cfg.ar_stack.hidden_size},"
+        f" random weights on the card): "
+        f"{time.perf_counter() - t0:.2f} s")
+    rng = np.random.RandomState(28)
+    reqs = []
+    for S, Tp in ((6, 0), (9, 161), (7, 300), (10, 758), (8, 40), (11, 500)):
+        prompt = rng.randint(0, 1024, size=(Tp, 8)).astype(np.int32) if Tp else None
+        reqs.append((rng.randint(5, 500, size=S).astype(np.int32), np.full(S, 0, np.int32),
+                     prompt))
+    want_len = [16 * len(t) for t, _, _ in reqs]  # each row's cap: 16 frames a phoneme
+    pipe = hb.pipeline
+    real = AR._graphed
+    try:
+        AR._graphed = lambda t: False
+        eager = pipe.synthesize_batch(reqs, top_k=1, seed=3)
+    finally:
+        AR._graphed = real
+    loader.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = pipe.synthesize_batch(reqs, top_k=1, seed=3)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(loader.launch_counts)
+    sec, K, blocks = res.seconds, ecfg.decode_steps, res.ar.iterations
+    if sec["ar_graph_blocks"] != blocks or blocks < 2 or eager.seconds["ar_graph_blocks"]:
+        fail(f"5k: {sec['ar_graph_blocks']} graphed blocks of {blocks}; eager run"
+             f" {eager.seconds['ar_graph_blocks']}")
+    lens = [len(c) for c, _ in res.outputs]
+    same = np.array_equal(res.ar.y_gen, eager.ar.y_gen) and all(
+        np.array_equal(a, b) for (a, _), (b, _) in zip(res.outputs, eager.outputs))
+    if lens != want_len or not same:
+        fail(f"5k: graphed lengths {lens} (caps {want_len}); codes bitwise the eager loop's:"
+             f" {same}")
+    if not all(w is not None and np.isfinite(w).all() for _, w in res.outputs):
+        fail("5k: a request's wave is missing or not finite")
+    for kernel, per in HYBRID_PER_STEP.items():
+        got = counts.get((kernel, HYBRID_SITE), 0)
+        if got != per * K * blocks:
+            fail(f"5k: {kernel}@{HYBRID_SITE} launched {got} times, want {per} x {K} x {blocks}")
+    # the NAR (C = 1,280 < 1,536: no flash forward) and VALL-E X's decode launch nothing here
+    stray = {f"{k}@{s}": n for (k, s), n in counts.items() if s in TPU and s != HYBRID_SITE}
+    if stray:
+        fail(f"5k: launches at VALL-E X's sites: {stray}")
+    say(f"  graphed batch of {len(reqs)} (greedy, lengths {lens}) in {wall:.2f} s: codes"
+        f" bitwise the eager loop's; {blocks} blocks replayed, AR prefill"
+        f" {sec['ar_prefill']:.3f} s (scans {sec['ar_scan']:.3f} s), decode"
+        f" {sec['ar_decode']:.3f} s ({1e3 * sec['ar_decode'] / (K * blocks):.2f} ms a step),"
+        f" state {sec['ar_state_bytes']:.0f} B (= {state_bytes(cfg, len(reqs))}); {card}")
+    say(f"  phase 5k launches by site: "
+        f"{json.dumps({f'{k}@{s}': n for (k, s), n in sorted(counts.items())})}")
+    for e in entries:
+        kernel, site = e["name"].split("@")
+        if site == HYBRID_SITE:
+            e["launches"] = counts.get((kernel, site), 0)
+    api._bundle = None
+    del hb, pipe
+    torch.cuda.empty_cache()
+    return counts
+
+
+def hybrid_alone() -> None:
+    """Phases 1, 2 and 5k on their own, then their `kernels` line."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    from vallex_tpu_torch.kernels import loader
+
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with phase("1 card", 60):
+        card = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=30, check=True).stdout.strip().splitlines()[0]
+        say(card)
+    with phase("2 build", 300):
+        loader.build()
+        loader.library()
+    entries = []
+    loader.reset_launch_counts()
+    with phase("5k hybrid AR", 240):
+        hybrid_paths(dev, entries, card)
+    say(json.dumps({"kernels": [{k: v for k, v in e.items() if k != "unit"} for e in entries]}))
+
+
+# ---------------------------------------------------------------------------
 # The decode products (phases 3-3d): module-level so that
 # tools/torch_flash_bench.py times them for another tree too.
 # ---------------------------------------------------------------------------
@@ -2911,6 +3196,30 @@ def filtered_rows(entry, g, dev, vocab, VP, g_edges=None) -> int:
     return total
 
 
+def kernel_entry(entries: list):
+    """The `entry(...)` every kernel check reports through: one measured
+    row, appended to `entries` (the `kernels` line) unless in_line=False."""
+    def entry(kernel, site, err, ms, plain_ms, bytes_, ops, library_ms, unit, in_line=True,
+              ops_per_s=BF16_OPS_PER_S):
+        """One measured row; rows with in_line=False are variants printed
+        beside their site's row but kept out of the `kernels` line, which
+        has one entry per (kernel, site) launch counter."""
+        bound_b, bound_o = bytes_ / HBM_BYTES_PER_S * 1e3, ops / ops_per_s * 1e3
+        if in_line:
+            entries.append(dict(
+                name=f"{kernel}@{site}", route="cuda",
+                source=f"vallex_tpu_torch/kernels/{KERNEL_FILE.get(kernel, kernel)}.cu",
+                replaces=TPU[site],
+                launches=0, max_abs_err=float(err), ms=ms, plain_ms=plain_ms,
+                bound_ms=max(bound_b, bound_o),
+                bound_by="bytes" if bound_b >= bound_o else "operations",
+                library_ms=library_ms, unit=unit))
+        say(f"  {kernel}@{site}: max_abs_err {err:.3e}  {ms:.4f} ms  plain {plain_ms:.4f} ms"
+            f"  bound {max(bound_b, bound_o):.4f} ms  library "
+            f"{'null' if library_ms is None else f'{library_ms:.4f} ms'}  ({unit})")
+    return entry
+
+
 def main() -> None:
     import torch
 
@@ -2979,25 +3288,7 @@ def main() -> None:
     C_B = S_TEXT + P_AUDIO + T_GEN + 8
 
     entries = []
-
-    def entry(kernel, site, err, ms, plain_ms, bytes_, ops, library_ms, unit, in_line=True,
-              ops_per_s=BF16_OPS_PER_S):
-        """One measured row; rows with in_line=False are variants printed
-        beside their site's row but kept out of the `kernels` line, which
-        has one entry per (kernel, site) launch counter."""
-        bound_b, bound_o = bytes_ / HBM_BYTES_PER_S * 1e3, ops / ops_per_s * 1e3
-        if in_line:
-            entries.append(dict(
-                name=f"{kernel}@{site}", route="cuda",
-                source=f"vallex_tpu_torch/kernels/{KERNEL_FILE.get(kernel, kernel)}.cu",
-                replaces=TPU[site],
-                launches=0, max_abs_err=float(err), ms=ms, plain_ms=plain_ms,
-                bound_ms=max(bound_b, bound_o),
-                bound_by="bytes" if bound_b >= bound_o else "operations",
-                library_ms=library_ms, unit=unit))
-        say(f"  {kernel}@{site}: max_abs_err {err:.3e}  {ms:.4f} ms  plain {plain_ms:.4f} ms"
-            f"  bound {max(bound_b, bound_o):.4f} ms  library "
-            f"{'null' if library_ms is None else f'{library_ms:.4f} ms'}  ({unit})")
+    entry = kernel_entry(entries)
 
     # ---- kernel checks -------------------------------------------------------
     def check_gemm(site, lw, M, unit, in_line=True, act_quant=False):
@@ -4055,6 +4346,11 @@ def main() -> None:
         native_host_paths(dev, api, bundle, smi.splitlines()[0])
     counts_slice9 = dict(loader.launch_counts)
 
+    # ---- phase 5k: the hybrid AR (kernels/ssm_step.cu, ops/decode_hybrid.py) --
+    loader.reset_launch_counts()
+    with phase("5k hybrid AR", 240):
+        counts_slice10 = hybrid_paths(dev, entries, smi.splitlines()[0])
+
     bundle = api._bundle = full
     with phase("7 trace", 300):
         def one_request():
@@ -4080,6 +4376,10 @@ def main() -> None:
                 fail(f"masked_attention launched at the NAR's site {site}")
         for e in entries:
             kernel, site = e["name"].split("@")
+            if site == HYBRID_SITE:  # phase 5k counted its own
+                if e["launches"] == 0:
+                    fail(f"{e['name']}: no launch on the hybrid AR's path")
+                continue
             if site.endswith(HD128):
                 e["launches"] = counts_hd128.get((kernel, site[:-len(HD128)]), 0)
                 if e["launches"] == 0:
@@ -4103,6 +4403,7 @@ def main() -> None:
         say(f"  phase 5h launches by site: {json.dumps({f'{k}@{s}': n for (k, s), n in sorted(counts_slice7.items())})}")
         say(f"  phase 5i launches by site (this process; the workers' and ranks' are above): {json.dumps({f'{k}@{s}': n for (k, s), n in sorted(counts_slice8.items())})}")
         say(f"  phase 5j launches by site: {json.dumps({f'{k}@{s}': n for (k, s), n in sorted(counts_slice9.items())})}")
+        say(f"  phase 5k launches by site: {json.dumps({f'{k}@{s}': n for (k, s), n in sorted(counts_slice10.items())})}")
         say(json.dumps({"kernels": [{k: v for k, v in e.items() if k != "unit"} for e in entries]}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

@@ -157,7 +157,8 @@ def test_batch_synthesize_per_chip2_equals_single_pipeline():
     cfg = ModelConfig(d_model=256, num_heads=4, num_layers=2, ffn_dim=512)
     e = EngineConfig(text_buckets=(128,), audio_buckets=(512,), compute_dtype="float32",
                      top_k=1, decode_steps=4, decode_mode="megakernel", speculative="off")
-    params = jax_init_vallex(jax.random.PRNGKey(0), JModelConfig(**vars(cfg)))
+    jcfg = JModelConfig(**{k: v for k, v in vars(cfg).items() if k != "ar_stack"})
+    params = jax_init_vallex(jax.random.PRNGKey(0), jcfg)
     model = params_from_jax(jax.tree.map(np.asarray, params), cfg=cfg)
     reqs = _requests(4, 6, 7)
     with make_mesh(2, 1, ["cpu", "cpu"]) as mesh:

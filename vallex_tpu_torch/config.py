@@ -8,7 +8,7 @@ with a single frozen dataclass that the whole framework shares.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 # ---------------------------------------------------------------------------
 # Global constants (reference: macros.py:1-6, models/macros.py:1-11)
@@ -75,11 +75,96 @@ model_language_id: Dict[str, int] = {
 
 
 @dataclasses.dataclass(frozen=True)
+class HybridARConfig:
+    """A Granite-4.0-H style hybrid stack (Mamba-2 and grouped-query
+    attention layers, each followed by a SwiGLU MLP, RMSNorm) as the AR
+    decoder behind VALL-E X's token tables and codebook-0 head
+    (models/granite_hybrid.py). Keys as in the Hugging Face
+    `granitemoehybrid` config.json; `from_hf` reads one."""
+
+    hidden_size: int = 2048
+    layer_types: Tuple[str, ...] = (("mamba",) * 5 + ("attention",) + ("mamba",) * 4) * 4
+    intermediate_size: int = 8192  # the shared SwiGLU MLP's width
+    num_attention_heads: int = 32
+    num_key_value_heads: int = 8
+    mamba_n_heads: int = 64
+    mamba_d_head: int = 64
+    mamba_d_state: int = 128
+    mamba_d_conv: int = 4
+    mamba_expand: int = 2
+    mamba_n_groups: int = 1
+    mamba_chunk_size: int = 256
+    rms_norm_eps: float = 1e-5
+    embedding_multiplier: float = 12.0
+    residual_multiplier: float = 0.22
+    attention_multiplier: float = 0.015625
+    logits_scaling: float = 8.0
+
+    @classmethod
+    def from_hf(cls, conf: Dict) -> "HybridARConfig":
+        """From a `granitemoehybrid` config.json (the shared MLP's width is
+        `shared_intermediate_size`); unknown keys are ignored."""
+        names = {f.name for f in dataclasses.fields(cls)}
+        kw = {k: v for k, v in conf.items() if k in names}
+        if "shared_intermediate_size" in conf:
+            kw["intermediate_size"] = conf["shared_intermediate_size"]
+        kw["layer_types"] = tuple(kw.get("layer_types", cls.layer_types))
+        return cls(**kw)
+
+    def __post_init__(self):
+        if set(self.layer_types) - {"mamba", "attention"}:
+            raise ValueError(f"layer_types must be 'mamba' or 'attention', got {self.layer_types}")
+        if self.mamba_n_groups != 1:
+            raise ValueError("the hybrid AR takes one Mamba-2 group (mamba_n_groups = 1)")
+        if self.mamba_n_heads * self.mamba_d_head != self.mamba_expand * self.hidden_size:
+            raise ValueError("mamba_n_heads · mamba_d_head must be mamba_expand · hidden_size")
+        if self.num_attention_heads % self.num_key_value_heads:
+            raise ValueError("num_attention_heads must be a multiple of num_key_value_heads")
+
+    @property
+    def num_layers(self) -> int:
+        return len(self.layer_types)
+
+    @property
+    def mamba_layers(self) -> Tuple[int, ...]:
+        return tuple(i for i, t in enumerate(self.layer_types) if t == "mamba")
+
+    @property
+    def attention_layers(self) -> Tuple[int, ...]:
+        return tuple(i for i, t in enumerate(self.layer_types) if t == "attention")
+
+    @property
+    def mixer_slots(self) -> Tuple[Tuple[str, int], ...]:
+        """Each layer's mixer: (its kind, its index among the layers of that kind)."""
+        return tuple((t, (self.mamba_layers if t == "mamba" else self.attention_layers).index(i))
+                     for i, t in enumerate(self.layer_types))
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_attention_heads
+
+    @property
+    def mamba_inner(self) -> int:
+        return self.mamba_n_heads * self.mamba_d_head
+
+    @property
+    def conv_dim(self) -> int:
+        return self.mamba_inner + 2 * self.mamba_n_groups * self.mamba_d_state
+
+    @property
+    def in_proj_dim(self) -> int:
+        """z, x B C, dt: the Mamba-2 input projection's outputs."""
+        return self.mamba_inner + self.conv_dim + self.mamba_n_heads
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """VALL-E model hyperparameters.
 
     Defaults mirror the shipped checkpoint's configuration
-    (reference: utils/generation.py:67-78).
+    (reference: utils/generation.py:67-78). `ar_stack` None is VALL-E X's
+    AR (the widths above); a HybridARConfig replaces the AR decoder and its
+    token tables by that stack, and the NAR keeps the widths above.
     """
 
     d_model: int = N_DIM
@@ -104,6 +189,12 @@ class ModelConfig:
     # its table on demand (modules/embedding.py:68-91); on TPU we keep it
     # static and sized for the 22 s ceiling with headroom.
     max_position: int = 4096
+    ar_stack: Optional[HybridARConfig] = None
+
+    @property
+    def ar_width(self) -> int:
+        """The AR stack's width (its token tables' and head's)."""
+        return self.d_model if self.ar_stack is None else self.ar_stack.hidden_size
 
     @property
     def head_dim(self) -> int:

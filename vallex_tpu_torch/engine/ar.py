@@ -422,12 +422,14 @@ def ar_generate(
             rows = lambda v: torch.full((beams,), v, dtype=torch.int32, device=dev)  # noqa: E731
             NL, _, H, _, hd = cache_k.shape
             gen = torch.zeros((NL, beams, H, t_audio + K, hd), dtype=cache_k.dtype, device=dev)
+            block = _vallex_block(
+                packed, gen, gen.clone(), model.pe, (cache_k, cache_v), x_lens=rows(x_len),
+                plens=rows(prompt_len), max_gen=rows(max_gen), beams=beams, s_text=s_text,
+                p_audio=p_audio, K=K, temperature=temperature, vocab=vocab, eos=eos,
+                greedy=greedy, generator=generator, filt=filt, quant=quant)
             y_gen, sum_lp, iterations, _ = _block_loop(
-                cur_tok, cur_lp, packed, gen, gen.clone(), model.pe, (cache_k, cache_v),
-                x_lens=rows(x_len), plens=rows(prompt_len), max_gen=rows(max_gen),
-                last=max_gen, beams=beams, s_text=s_text, p_audio=p_audio, t_gen=t_audio, K=K,
-                temperature=temperature, vocab=vocab, eos=eos, greedy=greedy,
-                generator=generator, filt=filt, quant=quant)
+                cur_tok, cur_lp, block, last=max_gen, t_gen=t_audio, K=K, eos=eos,
+                generator=generator)
             n = t_audio + K - (prompt_len + 1)
             y_buf[:, prompt_len + 1:] = y_gen[:, :n]
             accepted = 0
@@ -595,6 +597,11 @@ SECONDS = (
     "ar_graph_blocks",  # blocks run as replays of a CUDA graph (a count; 0 on the CPU)
     "ar_graph_capture",  # host seconds capturing and instantiating the block's graph
 )
+# the hybrid AR's (cfg.ar_stack) adds
+HYBRID_SECONDS = SECONDS + (
+    "ar_scan",  # the Mamba layers' chunked scans in the prefill: CUDA events (CPU: host clock)
+    "ar_state_bytes",  # bytes of the recurrent state the decode reads and writes (a count)
+)
 
 
 class DeviceBlocks:
@@ -655,25 +662,13 @@ def _graphed(t: torch.Tensor) -> bool:
     return t.device.type == "cuda"
 
 
-def _block_loop(cur_tok, cur_lp, packed, cache_k, cache_v, pe, prefix, *, x_lens, plens,
-                max_gen, last, beams, s_text, p_audio, t_gen, K, temperature, vocab, eos,
-                greedy, generator, filt, quant):
-    """K-step batched blocks over RB rows (R requests × beams samples,
-    request-major) until every row is done or `last` (the longest cap)
-    steps have run; one host read per block. `prefix` None: the batched
-    layout; else the grouped one (caches hold generated rows only).
-    `quant`: the blocks' act_quant / kv_scales. On CUDA one block is
-    captured as a CUDA graph (`DeviceBlocks`, a `vallex.ar.capture` span)
-    and replayed for every block, its positions read from a device step
-    counter; CPU tensors run each block eagerly at host positions. Each
-    block is a `vallex.ar.block` span (its launches or its replay) and a
-    `vallex.ar.read` span (its host read); the graph and its memory pool
-    are released before the return. → (y_gen [RB, t_gen + K],
-    sum_logprobs [RB], blocks run, {"ar_decode", "ar_wait", "ar_wrappers",
-    "ar_graph_blocks", "ar_graph_capture": seconds, or the count})."""
-    RB, dev = cur_tok.shape[0], cur_tok.device
-    y_gen = torch.full((RB, t_gen + K), eos, dtype=torch.int64, device=dev)
-
+def _vallex_block(packed, cache_k, cache_v, pe, prefix, *, x_lens, plens, max_gen, beams,
+                  s_text, p_audio, K, temperature, vocab, eos, greedy, generator, filt, quant):
+    """The batched loop's `block(tok, lp, done, sum_lp, step)` for VALL-E
+    X's AR: K steps of decode_block_fused(batched=True) over R requests ×
+    beams samples (request-major). `prefix` None: the batched layout; else
+    the grouped one (caches hold generated rows only). `quant`: the
+    blocks' act_quant / kv_scales."""
     def block(tok, lp, done, sum_lp, step):
         return decode_block_fused(
             tok, lp, done, sum_lp, packed, cache_k, cache_v, pe,
@@ -681,6 +676,24 @@ def _block_loop(cur_tok, cur_lp, packed, cache_k, cache_v, pe, prefix, *, x_lens
             temperature=temperature, steps=K, s_text=s_text, vocab=vocab, eos=eos,
             stochastic=not greedy, generator=generator, prompt_len=plens,
             batched=True, p_audio=p_audio, prefix=prefix, beams=beams, **filt, **quant)
+    return block
+
+
+def _block_loop(cur_tok, cur_lp, block, *, last, t_gen, K, eos, generator):
+    """K-step batched blocks `block(tok, lp, done, sum_lp, step)` over RB
+    rows (`_vallex_block`, or the hybrid AR's ops/decode_hybrid.py block)
+    until every row is done or `last` (the longest cap) steps have run; one
+    host read per block. On CUDA one block is captured as a CUDA graph
+    (`DeviceBlocks`, a `vallex.ar.capture` span) and replayed for every
+    block, its positions read from a device step counter; CPU tensors run
+    each block eagerly at host positions. Each
+    block is a `vallex.ar.block` span (its launches or its replay) and a
+    `vallex.ar.read` span (its host read); the graph and its memory pool
+    are released before the return. → (y_gen [RB, t_gen + K],
+    sum_logprobs [RB], blocks run, {"ar_decode", "ar_wait", "ar_wrappers",
+    "ar_graph_blocks", "ar_graph_capture": seconds, or the count})."""
+    RB, dev = cur_tok.shape[0], cur_tok.device
+    y_gen = torch.full((RB, t_gen + K), eos, dtype=torch.int64, device=dev)
 
     graph = None
     step, iterations, wait, capture = 0, 0, 0.0, 0.0
@@ -762,6 +775,16 @@ def ar_generate_batch(
     `vallex.ar.kv_quant` under int8kv), `vallex.ar.decode` (the blocks and
     their reads, `_block_loop`), `vallex.ar.finish` (lengths, best samples,
     the copies to the host); the result's `seconds` holds `SECONDS`."""
+    if cfg.ar_stack is not None:
+        if beams != 1 or quantize != "none" or not is_plain(top_k, top_p):
+            raise ValueError(f"the hybrid AR (ModelConfig.ar_stack) runs best_of 1, quantize"
+                             f" 'none' and greedy or plain sampling, not best_of {beams},"
+                             f" quantize {quantize!r}, top-k / top-p filtering {top_k} / {top_p}")
+        return _hybrid_generate_batch(
+            model, cfg, text_ids, lang_ids, x_lens, prompt_audio, prompt_lens, gen_caps,
+            generator=generator, top_k=top_k, temperature=temperature, s_text=s_text,
+            p_audio=p_audio, t_gen=t_gen, dtype=dtype, K=decode_steps, packed=packed,
+            length_penalty=length_penalty)
     dev = model.pe.device
     R = text_ids.shape[0]
     RB = R * beams
@@ -774,16 +797,11 @@ def ar_generate_batch(
     stream = torch.cuda.current_stream(dev) if dev.type == "cuda" else None
     prefill_time = DeviceSpan("ar_prefill", stream=stream)
     with record_function("vallex.ar.prefill"):
-        x_lens_d = torch.as_tensor(np.asarray(x_lens, np.int32), device=dev)
-        plens_d = torch.as_tensor(np.asarray(prompt_lens, np.int32), device=dev)
-        y_init = torch.cat([
-            torch.full((R, 1), cfg.bos_id, dtype=torch.int64, device=dev),
-            torch.as_tensor(np.asarray(prompt_audio), device=dev).long(),
-        ], dim=1)
+        text, lang, x_lens_d, plens_d, y_init = _batch_inputs(
+            cfg, dev, text_ids, lang_ids, x_lens, prompt_audio, prompt_lens)
         cache_k, cache_v, logits0 = prefill(
-            model, cfg, torch.as_tensor(np.asarray(text_ids), device=dev),
-            torch.as_tensor(np.asarray(lang_ids), device=dev), x_lens_d, y_init, plens_d,
-            s_text=s_text, p_audio=p_audio, C=P if grouped else P + t_gen + K, dtype=dtype)
+            model, cfg, text, lang, x_lens_d, y_init, plens_d, s_text=s_text, p_audio=p_audio,
+            C=P if grouped else P + t_gen + K, dtype=dtype)
         kv_scales = None
         if quantize == "int8kv":  # the batch's caches, or the grouped prefix
             with record_function("vallex.ar.kv_quant"):
@@ -796,9 +814,7 @@ def ar_generate_batch(
             cache_v = torch.zeros_like(cache_k)
         rep = (lambda t: t.repeat_interleave(beams, dim=0)) if grouped else (lambda t: t)
 
-        max_gen_np = np.minimum(np.minimum(16 * np.asarray(x_lens, np.int64),
-                                           np.asarray(gen_caps, np.int64)), t_gen - 1)
-        max_gen = rep(torch.as_tensor(max_gen_np, device=dev))
+        max_gen = rep(_length_caps(x_lens, gen_caps, t_gen, dev))
         x_rows, p_rows = rep(x_lens_d), rep(plens_d)
         logits0 = _pad_logits(logits0, packed["wpred"].shape[0])
         cur_tok, cur_lp = first_token(rep(logits0), generator, vocab=vocab, top_k=top_k,
@@ -808,23 +824,112 @@ def ar_generate_batch(
         # prefill, so the device work inside `vallex.ar.decode` is the blocks'
         last = int(max_gen.max())
     filt = {} if is_plain(top_k, top_p) else dict(top_k=top_k, top_p=top_p)
+    block = _vallex_block(
+        packed, cache_k, cache_v, model.pe, prefix, x_lens=x_rows, plens=p_rows,
+        max_gen=max_gen, beams=beams, s_text=s_text, p_audio=p_audio, K=K,
+        temperature=temperature, vocab=vocab, eos=eos, greedy=top_k == 1, generator=generator,
+        filt=filt, quant=dict(act_quant=quantize == "w8a8", kv_scales=kv_scales))
     with record_function("vallex.ar.decode"):
         y_gen, sum_lp, iterations, seconds = _block_loop(
-            cur_tok, cur_lp, packed, cache_k, cache_v, model.pe, prefix,
-            x_lens=x_rows, plens=p_rows, max_gen=max_gen, last=last, beams=beams,
-            s_text=s_text, p_audio=p_audio, t_gen=t_gen, K=K, temperature=temperature,
-            vocab=vocab, eos=eos, greedy=top_k == 1, generator=generator, filt=filt,
-            quant=dict(act_quant=quantize == "w8a8", kv_scales=kv_scales))
+            cur_tok, cur_lp, block, last=last, t_gen=t_gen, K=K, eos=eos, generator=generator)
     with record_function("vallex.ar.finish"):
-        # frames before each row's first EOS, clipped to its length cap
-        alive = torch.cumprod((y_gen[:, :t_gen] != eos).to(torch.int32), dim=1)
-        gen_len = torch.minimum(alive.sum(dim=1), max_gen)
-        # each request's best sample (lengths: BOS + prompt + generated frames)
-        best, scores = select_best(sum_lp.view(R, beams),
-                                   (1 + p_rows + gen_len).view(R, beams), length_penalty)
-        rows = torch.arange(R, device=dev) * beams + best
-        out = BatchARResult(y_gen[rows].cpu().numpy(), gen_len[rows].cpu().numpy(),
-                            iterations, scores.cpu().numpy(),
-                            # the device is done: reading the events waits for nothing
+        codes, gen_len, scores = _finish_batch(y_gen, sum_lp, max_gen, p_rows, R=R, beams=beams,
+                                               t_gen=t_gen, eos=eos,
+                                               length_penalty=length_penalty)
+        # the device is done: reading the events waits for nothing
+        out = BatchARResult(codes, gen_len, iterations, scores,
                             dict(ar_prefill=prefill_time.seconds(), **seconds))
+    return out
+
+
+def _batch_inputs(cfg, dev, text_ids, lang_ids, x_lens, prompt_audio, prompt_lens):
+    """The batch on the device → (text, languages, valid text lengths,
+    valid prompt lengths, the AR's audio input y_init [R, p_audio]: BOS,
+    then each prompt's cb0 frames)."""
+    R = text_ids.shape[0]
+    y_init = torch.cat([
+        torch.full((R, 1), cfg.bos_id, dtype=torch.int64, device=dev),
+        torch.as_tensor(np.asarray(prompt_audio), device=dev).long(),
+    ], dim=1)
+    return (torch.as_tensor(np.asarray(text_ids), device=dev),
+            torch.as_tensor(np.asarray(lang_ids), device=dev),
+            torch.as_tensor(np.asarray(x_lens, np.int32), device=dev),
+            torch.as_tensor(np.asarray(prompt_lens, np.int32), device=dev), y_init)
+
+
+def _length_caps(x_lens, gen_caps, t_gen: int, dev) -> torch.Tensor:
+    """Each request's length cap max_gen = min(16·x_len, gen_cap, t_gen − 1)."""
+    return torch.as_tensor(np.minimum(np.minimum(16 * np.asarray(x_lens, np.int64),
+                                                 np.asarray(gen_caps, np.int64)), t_gen - 1),
+                           device=dev)
+
+
+def _finish_batch(y_gen, sum_lp, max_gen, p_rows, *, R, beams, t_gen, eos, length_penalty):
+    """Each row's frames before its first EOS, clipped to its length cap,
+    and each request's best sample (`select_best`; lengths: BOS + prompt +
+    generated frames), copied to the host → (codes [R, t_gen + K],
+    gen_len [R], scores [R])."""
+    alive = torch.cumprod((y_gen[:, :t_gen] != eos).to(torch.int32), dim=1)
+    gen_len = torch.minimum(alive.sum(dim=1), max_gen)
+    best, scores = select_best(sum_lp.view(R, beams), (1 + p_rows + gen_len).view(R, beams),
+                               length_penalty)
+    rows = torch.arange(R, device=y_gen.device) * beams + best
+    return y_gen[rows].cpu().numpy(), gen_len[rows].cpu().numpy(), scores.cpu().numpy()
+
+
+def _hybrid_generate_batch(model, cfg, text_ids, lang_ids, x_lens, prompt_audio, prompt_lens,
+                           gen_caps, *, generator, top_k, temperature, s_text, p_audio, t_gen,
+                           dtype, K, packed, length_penalty) -> BatchARResult:
+    """`ar_generate_batch` for the hybrid AR (cfg.ar_stack,
+    models/granite_hybrid.py): the prefill over each row's own tokens
+    fills the attention layers' K/V in the batched layout and the Mamba
+    layers' states, then `_block_loop` runs ops/decode_hybrid.py's block,
+    the states updated in place (on CUDA one captured block replayed).
+    Spans and `seconds` as there, plus `vallex.ar.scan` spans inside the
+    prefill and `HYBRID_SECONDS`' two."""
+    if K < 2:
+        raise ValueError("the batched decode runs K-step blocks (decode_steps >= 2)")
+    from ..models import granite_hybrid as GH
+    from ..ops.decode_hybrid import decode_block_hybrid
+
+    dev = model.pe.device
+    R = text_ids.shape[0]
+    eos, vocab = cfg.eos_id, cfg.num_audio_tokens + 1
+    P = s_text + p_audio
+    stream = torch.cuda.current_stream(dev) if dev.type == "cuda" else None
+    prefill_time = DeviceSpan("ar_prefill", stream=stream)
+    scans = []
+    with record_function("vallex.ar.prefill"):
+        text, lang, x_lens_d, plens_d, y_init = _batch_inputs(
+            cfg, dev, text_ids, lang_ids, x_lens, prompt_audio, prompt_lens)
+        cache_k, cache_v, state, logits0 = GH.prefill(
+            model, cfg, text, lang, x_lens_d, y_init, plens_d, s_text=s_text, p_audio=p_audio,
+            C=P + t_gen + K, dtype=dtype,
+            L=int(np.max(np.asarray(x_lens) + 1 + np.asarray(prompt_lens))), scan_spans=scans)
+        max_gen = _length_caps(x_lens, gen_caps, t_gen, dev)
+        logits0 = _pad_logits(logits0, packed["wpred"].shape[0])
+        cur_tok, cur_lp = first_token(logits0, generator, vocab=vocab, top_k=top_k, top_p=1.0,
+                                      temperature=temperature)
+        prefill_time.close(stream)
+        last = int(max_gen.max())
+    greedy = top_k == 1
+
+    def block(tok, lp, done, sum_lp, step):
+        return decode_block_hybrid(
+            tok, lp, done, sum_lp, packed, cfg, cache_k, cache_v, state, x_len=x_lens_d,
+            prompt_len=plens_d, audio_pos=step, remaining=max_gen - step,
+            temperature=temperature, steps=K, s_text=s_text, p_audio=p_audio, vocab=vocab,
+            eos=eos, stochastic=not greedy, generator=generator)
+
+    with record_function("vallex.ar.decode"):
+        y_gen, sum_lp, iterations, seconds = _block_loop(
+            cur_tok, cur_lp, block, last=last, t_gen=t_gen, K=K, eos=eos, generator=generator)
+    with record_function("vallex.ar.finish"):
+        codes, gen_len, scores = _finish_batch(y_gen, sum_lp, max_gen, plens_d, R=R, beams=1,
+                                               t_gen=t_gen, eos=eos,
+                                               length_penalty=length_penalty)
+        out = BatchARResult(codes, gen_len, iterations, scores,
+                            dict(ar_prefill=prefill_time.seconds(), **seconds,
+                                 ar_scan=sum(s.seconds() for s in scans),
+                                 ar_state_bytes=float(GH.state_bytes(cfg, R))))
     return out

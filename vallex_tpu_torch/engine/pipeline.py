@@ -30,6 +30,7 @@ from torch.profiler import record_function
 from ..config import EngineConfig, ModelConfig
 from ..kernels import check_head_dim
 from ..models import vallex as V
+from ..ops.decode_hybrid import pack_hybrid_weights
 from ..ops.decode_step import pack_layer_weights, quantize_weights
 from ..utils.profiling import DeviceSpan, PhaseTimer
 from .ar import (
@@ -51,11 +52,24 @@ QUANTIZE = ("none", "int8", "w8a8", "int8kv")  # EngineConfig.quantize
 DECODE_MODES = ("auto", "megakernel", "pallas", "xla")  # EngineConfig.decode_mode
 
 
-def check_config(ecfg: EngineConfig, *, best_of: int) -> None:
+def check_config(ecfg: EngineConfig, *, best_of: int,
+                 cfg: Optional[ModelConfig] = None) -> None:
     """Raise ValueError for values the engine does not know (CPU and GPU
-    alike — there is no quiet fallback)."""
+    alike — there is no quiet fallback), and for the paths the hybrid AR
+    (`cfg.ar_stack`) does not run: it decodes through the batched blocks
+    alone, one sample a request, unquantized, without speculation."""
     if best_of < 1:
         raise ValueError(f"best_of must be >= 1, got {best_of}")
+    if cfg is not None and cfg.ar_stack is not None:
+        if ecfg.quantize != "none":
+            raise ValueError(f"quantize {ecfg.quantize!r} is not run by the hybrid AR"
+                             " (ModelConfig.ar_stack): it serves unquantized weights and K/V")
+        if ecfg.speculative == "on":
+            raise ValueError("speculative decoding is not run by the hybrid AR"
+                             " (ModelConfig.ar_stack); set speculative 'off'")
+        if best_of > 1:
+            raise ValueError(f"best_of {best_of} is not run by the hybrid AR"
+                             " (ModelConfig.ar_stack): one sample a request")
     if ecfg.quantize not in QUANTIZE:
         raise ValueError(f"unknown quantize {ecfg.quantize!r}; one of {QUANTIZE}")
     if ecfg.decode_steps < 1:
@@ -189,6 +203,9 @@ class SynthesisPipeline:
         self.vocos = vocos
         self.device = model.pe.device
         check_head_dim(cfg.head_dim, self.device)
+        if cfg.ar_stack is not None:
+            check_head_dim(cfg.ar_stack.head_dim, self.device)
+            check_config(ecfg, best_of=1, cfg=cfg)
         self.dtype = DTYPES[ecfg.compute_dtype]
         mode = ecfg.decode_mode
         if mode not in DECODE_MODES:
@@ -203,7 +220,9 @@ class SynthesisPipeline:
 
     def packed_weights(self, need_draft: bool):
         """bf16 packed decode weights and the int8 draft, prepared once."""
-        if self._packed is None:
+        if self._packed is None and self.cfg.ar_stack is not None:
+            self._packed = pack_hybrid_weights(self.model, self.cfg, self.dtype)
+        elif self._packed is None:
             self._packed = pack_layer_weights(self.model, self.dtype)
         if need_draft and self._draft is None:
             self._draft = quantize_weights(self._packed)
@@ -283,7 +302,11 @@ class SynthesisPipeline:
         top_k = e.top_k if top_k is None else top_k
         top_p = e.top_p if top_p is None else top_p
         temperature = e.temperature if temperature is None else temperature
-        check_config(e, best_of=best_of)
+        check_config(e, best_of=best_of, cfg=cfg)
+        if cfg.ar_stack is not None:
+            raise ValueError("single-request synthesize is not run by the hybrid AR"
+                             " (ModelConfig.ar_stack): send two or more requests to"
+                             " synthesize_batch")
         seconds = {}
         t0 = time.perf_counter()
 
@@ -445,7 +468,7 @@ class SynthesisPipeline:
         top_k = e.top_k if top_k is None else top_k
         top_p = e.top_p if top_p is None else top_p
         temperature = e.temperature if temperature is None else temperature
-        check_config(e, best_of=best_of)
+        check_config(e, best_of=best_of, cfg=cfg)
         R = len(requests)
         if R == 1:
             t, lg, p = requests[0]

@@ -28,7 +28,8 @@ from typing import Optional
 SRC_DIR = Path(__file__).resolve().parent
 BUILD_DIR = SRC_DIR / "_build"
 SOURCES = ("gemm_small_m.cu", "masked_attention.cu", "sample_epilogue.cu",
-           "flash_attention.cu", "flash_attention_f32.cu", "flash_attention_f32_bwd.cu")
+           "flash_attention.cu", "flash_attention_f32.cu", "flash_attention_f32_bwd.cu",
+           "ssm_step.cu")
 HEADERS = ("common.cuh", "flash_attention.cuh", "flash_attention_f32.cuh")
 NVCC_FLAGS = (
     "-O3", "-std=c++17", "-Xcompiler", "-fPIC",
@@ -86,6 +87,10 @@ _SIGNATURES = {
                                   _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
     "vx_flash_attention_bwd_dkv": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                    _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
+    "vx_ssm_step": (_P, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "vx_conv_step": (_P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P),
+    "vx_rms_norm_rows": (_P, _I, _P, _P, _I, _I, _I, _F, _P),
+    "vx_swiglu_rows": (_P, _I, _P, _I, _I, _I, _P),
 }
 
 

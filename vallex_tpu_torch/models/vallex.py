@@ -6,6 +6,9 @@
 - NAR stack: text embedding, 8 audio embeddings (cb0 has 1025 rows for EOS),
   AdaLN layers conditioned on one of 7 stage embeddings, 7 predict heads.
 - Language embeddings (3×D) added per text position.
+- With `ModelConfig.ar_stack` the AR is models/granite_hybrid.py's stack at
+  its own width (token tables, decoder and head; no positions), and the NAR
+  keeps the widths above.
 
 Parameter names and shapes follow the JAX pytree, so `convert.py` is a
 key-for-key copy and `init_vallex` here draws the same tree from a
@@ -14,6 +17,7 @@ torch.Generator.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Dict, Optional
 
@@ -21,6 +25,7 @@ import torch
 from torch import nn
 
 from ..config import ModelConfig
+from . import granite_hybrid as GH
 from . import layers as L
 
 NEG_INF = -1e9  # additive-mask value (f32-safe; softmax in f32)
@@ -74,25 +79,27 @@ class VALLE(nn.Module):
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        D, q = cfg.d_model, cfg.num_quantizers
+        D, q, Da = cfg.d_model, cfg.num_quantizers, cfg.ar_width
         self.cfg = cfg
-        self.ar_text_embedding = Embedding(cfg.num_text_tokens, D)
+        self.ar_text_embedding = Embedding(cfg.num_text_tokens, Da)
         self.nar_text_embedding = Embedding(cfg.num_text_tokens, D)
-        self.ar_audio_embedding = Embedding(cfg.ar_audio_vocab, D)
-        self.ar_text_position = L.SinePositionalEmbedding()
-        self.ar_audio_position = L.SinePositionalEmbedding()
+        self.ar_audio_embedding = Embedding(cfg.ar_audio_vocab, Da)
+        if cfg.ar_stack is None:
+            self.ar_text_position = L.SinePositionalEmbedding()
+            self.ar_audio_position = L.SinePositionalEmbedding()
         self.nar_text_position = L.SinePositionalEmbedding()
         self.nar_audio_position = L.SinePositionalEmbedding()
-        self.ar_decoder = L.EncoderStack(
-            cfg.num_layers, D, cfg.num_heads, cfg.ffn_dim, adaptive=False)
+        self.ar_decoder = (
+            L.EncoderStack(cfg.num_layers, D, cfg.num_heads, cfg.ffn_dim, adaptive=False)
+            if cfg.ar_stack is None else GH.HybridStack(cfg.ar_stack))
         self.nar_decoder = L.EncoderStack(
             cfg.num_layers, D, cfg.num_heads, cfg.ffn_dim, adaptive=True)
-        self.ar_predict_layer = L.Linear(D, cfg.num_audio_tokens + 1, bias=False)
+        self.ar_predict_layer = L.Linear(Da, cfg.num_audio_tokens + 1, bias=False)
         self.nar_audio_embeddings = _Tensor(
             "weight", q, cfg.num_audio_tokens + 1, D)
         self.nar_predict_layers = _Tensor("w", q - 1, D, cfg.num_audio_tokens)
         self.nar_stage_embeddings = Embedding(q - 1, D)
-        self.ar_language_embedding = Embedding(cfg.num_languages, D)
+        self.ar_language_embedding = Embedding(cfg.num_languages, Da)
         self.nar_language_embedding = Embedding(cfg.num_languages, D)
         self.register_buffer(
             "pe", L.make_sine_pe(cfg.max_position, D), persistent=False)
@@ -163,7 +170,10 @@ def nar_tables(g, cfg: ModelConfig):
 
 
 def init_vallex(cfg: ModelConfig, generator: torch.Generator) -> Dict:
-    """Random parameter tree with the JAX package's names and shapes."""
+    """Random parameter tree with the JAX package's names and shapes (with
+    `cfg.ar_stack`, `init_hybrid`'s)."""
+    if cfg.ar_stack is not None:
+        return init_hybrid(cfg, generator)
     g = generator
     D, F, NL, q = cfg.d_model, cfg.ffn_dim, cfg.num_layers, cfg.num_quantizers
     A = cfg.num_audio_tokens
@@ -190,6 +200,22 @@ def init_vallex(cfg: ModelConfig, generator: torch.Generator) -> Dict:
         "ar_language_embedding": {"weight": torch.randn(cfg.num_languages, D, generator=g)},
         "nar_language_embedding": {"weight": torch.randn(cfg.num_languages, D, generator=g)},
     }
+
+
+def init_hybrid(cfg: ModelConfig, generator: torch.Generator) -> Dict:
+    """`init_vallex`'s tree with the AR replaced by the hybrid stack of
+    `cfg.ar_stack` (models/granite_hybrid.py::init_tree) at its width: AR
+    token tables N(0, 1), the head Xavier-uniform, no AR positions."""
+    g, Da, A = generator, cfg.ar_width, cfg.num_audio_tokens
+    tree = init_vallex(dataclasses.replace(cfg, ar_stack=None), g)
+    for name in ("ar_text_position", "ar_audio_position"):
+        del tree[name]
+    tree["ar_text_embedding"] = {"weight": torch.randn(cfg.num_text_tokens, Da, generator=g)}
+    tree["ar_audio_embedding"] = {"weight": torch.randn(cfg.ar_audio_vocab, Da, generator=g)}
+    tree["ar_language_embedding"] = {"weight": torch.randn(cfg.num_languages, Da, generator=g)}
+    tree["ar_decoder"] = GH.init_tree(cfg.ar_stack, g)
+    tree["ar_predict_layer"] = {"w": _xavier(g, (Da, A + 1))}
+    return tree
 
 
 # ---------------------------------------------------------------------------
