@@ -55,7 +55,17 @@ Phases, one flushed line each with its own seconds and wall-clock limit:
      f32 and one bf16 train_step through the kernels and total_loss
      against the mask route; a greedy generate_audio, and a request and a
      batch of two whose NAR runs the flash forward (C >= 1536; the hd-128
-     rows' launches are counted here)
+     rows' launches are counted here); phase 3g's check at hd 128
+  3g nar_generate at the offline benchmark cells' shape (48 rows, C = 256 +
+     1024, bf16, the shipped width): every layer's attention through the
+     flash forward at flash_attention_batched (exactly 84 launches, no call
+     of the masked core), each launch's output within the flash rows' rule
+     of the masked core's on the same q, k, v, each stage's codes equal to
+     the masked core's stage on the same input but at its top-2 ties or
+     where the same stage in f32 arithmetic picks the flash route's; the
+     kernel timed at this shape beside the masked core and SDPA (PERF.md's
+     row k1280; at hd 128, 8 heads, in phase 3f; also alone, both head dims:
+     chip_smoke.nar_alone())
   4  the ports of decode_block_fused (int8, K-1 = 7) and decode_verify
      (bf16, K = 8 and K = 16) against the same ops on the CPU (the plain
      versions)
@@ -188,13 +198,11 @@ Phases, one flushed line each with its own seconds and wall-clock limit:
      one greedy synthesize_batch of 6 requests through the graphed hybrid
      block: codes bitwise the eager loop's, every row at its cap, and each
      kernel launched at decode_block_hybrid exactly its count a step times
-     the steps run (also alone: chip_smoke.hybrid_alone())
-  7  torch.profiler traces of one request, of one filtered request (top_k
-     50, top_p 0.9) and of one batch of 4: the device-busy share of their
-     AR, NAR and Vocos spans (the tail's spans read up to the device end of
-     the kernels launched inside them), and the AR's device time by kernel
-     and that of gemm_small_m's and sample_epilogue's kernels
+     the steps run, the NAR's flash forward 84 times at
+     flash_attention_batched (also alone: chip_smoke.hybrid_alone())
   8  the `kernels` JSON line, then the result line.
+Device traces are the benchmark's (portbench, `--trace 1`) and
+`tools/torch_flash_bench.py --parts trace` (`trace_run`), not this run's.
 Launch counts are zeroed just before phase 5 and read after phase 6 (the
 single-request path), zeroed again just before phase 5b and read after
 phase 5c (the batched path), and once more just before phase 5d and read
@@ -208,10 +216,9 @@ and read after it (this process's UI requests and the in-process serving
 routes; the workers and ranks count their own and report them), and once
 more just before phase 5j and read after it (none expected: host code and
 EnCodec), and once more just before phase 5k's graphed batch and read after
-it (the hybrid AR's site). The NAR at C >= 1536
-must launch the flash forward at its sites and masked_attention never
-there. Any failure exits non-zero before the result line. No JAX is
-imported.
+it (the hybrid AR's site). The NAR must launch the flash forward at its
+sites (at every C on the card) and masked_attention never there. Any
+failure exits non-zero before the result line. No JAX is imported.
 """
 
 from __future__ import annotations
@@ -406,7 +413,8 @@ def busy_ms(intervals, lo, hi):
 
 
 def filtered_request(api, bundle):
-    """Phase 7's filtered request (one filtered epilogue a frame):
+    """The traced filtered request of tools/torch_flash_bench.py's part
+    "trace" (one filtered epilogue a frame):
     "Hello world." with paimon, top_k=50, top_p=0.9 → (phase seconds,
     frames)."""
     api.generate_audio("Hello world.", prompt="paimon", language="en", top_k=50, top_p=0.9,
@@ -531,6 +539,26 @@ def running_max_rounding(q, k, v, seg, prefix):
     return acc / torch.where(l > 0, l, torch.ones_like(l))
 
 
+def bf16_ulp(x):
+    """One bf16 ulp of each element of x (f32)."""
+    import torch
+
+    return torch.exp2(torch.floor(torch.log2(x.abs().clamp_min(2.0 ** -100))) - 7)
+
+
+def flash_rows_rule(out, ref, spread, seg):
+    """The bf16 NAR forward's rule on the valid rows (seg [B, T] 1): each
+    element of `out` within one bf16 ulp + 1e-5 of max|ref| of the f32
+    reference `ref`, plus 2^-8 of `spread` (sum(p |v|) / l): both round each
+    p to bf16 once (at most 2^-9 of p each way), the kernel at the running
+    row max of its key tiles → (|out - ref|, one ulp + 1e-5 of max, the
+    bound), each over the valid rows' elements."""
+    rows = seg.bool()[:, None, :, None].expand_as(ref)
+    diff = (out.float() - ref).abs()[rows]
+    one_ulp = bf16_ulp(ref)[rows] + 1e-5 * float(ref.abs().max())
+    return diff, one_ulp, one_ulp + 2.0 ** -8 * spread[rows]
+
+
 def check_flash_nar(dev, entry, g, site, x_len, audio_len, s_text, T, H=16, hd=64,
                     dtype=None) -> None:
     """The flash forward at the NAR's shapes against its plain version:
@@ -590,10 +618,7 @@ def check_flash_nar(dev, entry, g, site, x_len, audio_len, s_text, T, H=16, hd=6
     spread = flash_attention_plain(q.float(), k, v.abs(), seg, seg, T)[0]
     torch.cuda.synchronize()
     rows = seg.bool()[:, None, :, None].expand_as(ref)  # the valid query rows
-    diff = (o.float() - ref).abs()[rows]
-    ulp = torch.exp2(torch.floor(torch.log2(ref.abs().clamp_min(2.0 ** -100))) - 7)[rows]
-    one_ulp = ulp + 1e-5 * float(ref.abs().max())
-    tol = one_ulp + 2.0 ** -8 * spread[rows]
+    diff, one_ulp, tol = flash_rows_rule(o, ref, spread, seg)
     err, err_l = float(diff.max()), float((lse - lref).abs()[rows[..., 0]].max())
     if not (bool((diff <= tol).all()) and err_l <= 1e-3):
         i = int((diff - tol).argmax())
@@ -2579,9 +2604,9 @@ def hybrid_paths(dev, entries: list, card: str) -> dict:
     requests, the AR block replayed as a CUDA graph, the codes bitwise the
     eager loop's. Launch counts are zeroed just before the graphed batch:
     at its site each kernel launched HYBRID_PER_STEP times a step run (K
-    steps a replay), none of the single-request or batched VALL-E X
-    sites. Appends this phase's rows to `entries` with their launches →
-    the counts."""
+    steps a replay), and at VALL-E X's sites only the NAR's flash forward,
+    (quantizers - 1) x layers times. Appends this phase's rows to
+    `entries` with their launches → the counts."""
     import numpy as np
     import torch
 
@@ -2640,10 +2665,13 @@ def hybrid_paths(dev, entries: list, card: str) -> dict:
         got = counts.get((kernel, HYBRID_SITE), 0)
         if got != per * K * blocks:
             fail(f"5k: {kernel}@{HYBRID_SITE} launched {got} times, want {per} x {K} x {blocks}")
-    # the NAR (C = 1,280 < 1,536: no flash forward) and VALL-E X's decode launch nothing here
-    stray = {f"{k}@{s}": n for (k, s), n in counts.items() if s in TPU and s != HYBRID_SITE}
-    if stray:
-        fail(f"5k: launches at VALL-E X's sites: {stray}")
+    # the NAR: the flash forward at every layer of its 7 stages (C = 1,280);
+    # VALL-E X's decode launches nothing here
+    nar = {("flash_attention_fwd", "flash_attention_batched"):
+           (cfg.num_quantizers - 1) * cfg.num_layers}
+    at_vallex = {(k, s): n for (k, s), n in counts.items() if s in TPU and s != HYBRID_SITE}
+    if at_vallex != nar:
+        fail(f"5k: launches at VALL-E X's sites: {at_vallex}; want the NAR's {nar}")
     say(f"  graphed batch of {len(reqs)} (greedy, lengths {lens}) in {wall:.2f} s: codes"
         f" bitwise the eager loop's; {blocks} blocks replayed, AR prefill"
         f" {sec['ar_prefill']:.3f} s (scans {sec['ar_scan']:.3f} s), decode"
@@ -2659,6 +2687,211 @@ def hybrid_paths(dev, entries: list, card: str) -> dict:
     del hb, pipe
     torch.cuda.empty_cache()
     return counts
+
+
+# ---------------------------------------------------------------------------
+# The NAR at the offline benchmark cells' shape (phase 3g): module-level so it
+# runs alone too, after the build: python3 -c "import chip_smoke; chip_smoke.nar_alone()"
+# ---------------------------------------------------------------------------
+
+# the cells' batch (portbench/traffic/offline-b48): 48 rows; text bucket 256
+# with 82-256 valid phonemes, audio bucket 1024 with 1022 valid frames (every
+# request runs to its cap), prompts of the presets' 161-758 frames
+NAR_CELL = dict(rows=48, s_text=256, x_len=(82, 256), t_audio=1024, t_len=1022,
+                prompt_len=(161, 758))
+
+
+def nar_cell_check(dev, model, entry=None, seed: int = 29) -> dict:
+    """nar_generate on the card at NAR_CELL's shape, bf16, `model` (VALL-E X
+    at the shipped width, 12 layers: 16 heads of 64, or 8 of 128), random
+    inputs from `seed`. Fails unless
+    - every layer's attention is the flash forward at flash_attention_batched:
+      exactly (quantizers - 1) x layers launches (84), no other launch, and
+      no call of the masked core (`models.layers.attention_core`);
+    - each launch's output on the valid rows lies within `flash_rows_rule`
+      of the masked core's f32 output on the same q, k, v under the NAR's
+      additive mask (the core rounds p to bf16 once, as the kernel does);
+    - in stage order, each stage's codes on the generated rows are as
+      accurate as the masked core's: against the same stage in f32
+      arithmetic (an f32 copy of `model`, the masked core), on the same
+      input (teacher-forced on the flash route's earlier stages), the
+      flash route's codes differ at no more rows than the masked core's
+      codes do, plus 3 sqrt(n), n the rows where the two bf16 routes
+      differ. Each such row moves the difference by at most one, so two
+      routes of equal accuracy pass but for a 3-sigma draw. (The two bf16
+      routes differ at ~0.7% of rows, almost all where the masked core's
+      two best logits lie within one bf16 ulp + 1e-5 of max|logits|, but
+      at 0-2 rows a seed a little beyond: PERF.md §6; printed.)
+    With `entry`, times the kernel at this shape beside the masked core and
+    SDPA (PERF.md's row k1280; a variant row, kept out of the `kernels`
+    line) → the counts and errors."""
+    import collections
+    import copy
+    import math
+
+    import torch
+    import torch.nn.functional as Fn
+
+    from vallex_tpu_torch.engine import nar as NAR
+    from vallex_tpu_torch.kernels import loader
+    from vallex_tpu_torch.models import layers as L
+    from vallex_tpu_torch.models import vallex as V
+
+    cfg = model.cfg
+    R, S, TA = NAR_CELL["rows"], NAR_CELL["s_text"], NAR_CELL["t_audio"]
+    C, H, hd = S + TA, cfg.num_heads, cfg.head_dim
+    g = torch.Generator().manual_seed(seed)
+    x_len = torch.randint(NAR_CELL["x_len"][0], NAR_CELL["x_len"][1] + 1, (R,), generator=g)
+    prompt_len = torch.randint(NAR_CELL["prompt_len"][0], NAR_CELL["prompt_len"][1] + 1, (R,),
+                               generator=g)
+    t_len = torch.full((R,), NAR_CELL["t_len"])
+    text = torch.randint(5, 500, (R, S), generator=g)
+    lang = torch.randint(0, 3, (R, S), generator=g)
+    codes = torch.randint(0, 1024, (R, TA, 8), generator=g)
+    x_len, prompt_len, t_len, text, lang, codes = (
+        t.to(dev) for t in (x_len, prompt_len, t_len, text, lang, codes))
+    ok = NAR.key_padding(S, TA, x_len, t_len, dev)
+    mask = torch.where(ok, 0.0, V.NEG_INF)[:, None, None, :]
+    rows_gen = torch.arange(TA, device=dev)[None, :]
+    gen = (rows_gen >= prompt_len[:, None]) & (rows_gen < t_len[:, None])  # [R, TA]
+
+    core, real_fwd, real_stage = L.attention_core, NAR.flash_attention_fwd, V.nar_forward_stage
+    seen = dict(reference=False, core_calls=0, worst=0.0, err=0.0, beyond_ulp=0, elems=0,
+                compared=0, flips=0, ties=0, off_f32_flash=0, off_f32_core=0, logit_err=0.0)
+    m32 = copy.deepcopy(model).float()  # the same weights, f32 arithmetic
+
+    def counted_core(q, k, v, m):
+        if not seen["reference"]:
+            seen["core_calls"] += 1
+        return core(q, k, v, m)
+
+    def checked_fwd(q, k, v, q_seg, kv_seg, prefix, *, site=""):
+        out, lse = real_fwd(q, k, v, q_seg, kv_seg, prefix, site=site)
+        ref = core(q.float(), k, v, mask)  # f32 out; p rounded to bf16 as the core does
+        spread = core(q.float(), k, v.abs(), mask)
+        diff, one_ulp, tol = flash_rows_rule(out, ref, spread, q_seg)
+        seen["worst"] = max(seen["worst"], float((diff / tol).max()))
+        seen["err"] = max(seen["err"], float(diff.max()))
+        seen["beyond_ulp"] += int((diff > one_ulp).sum())
+        seen["elems"] += diff.numel()
+        del ref, spread, diff, one_ulp, tol
+        return out, lse
+
+    def checked_stage(m, xy, stage, stage_mask=None, attention=None, *a, **k):
+        h = real_stage(m, xy, stage, stage_mask, attention, *a, **k)
+        seen["reference"] = True
+        try:
+            h_ref = real_stage(m, xy, stage, mask, None)
+            h32 = real_stage(m32, xy.float(), stage, mask, None)
+        finally:
+            seen["reference"] = False
+        lf, lr = V.nar_logits(m, h[:, S:], stage), V.nar_logits(m, h_ref[:, S:], stage)
+        af, ar, a32 = lf.argmax(-1), lr.argmax(-1), V.nar_logits(m32, h32[:, S:], stage).argmax(-1)
+        top = lr.topk(2, dim=-1).values
+        tie = (top[..., 0] - top[..., 1]) <= bf16_ulp(top[..., 0]) + 1e-5 * float(lr.abs().max())
+        flip = (af != ar) & gen
+        seen["compared"] += int(gen.sum())
+        seen["flips"] += int(flip.sum())
+        seen["ties"] += int((flip & tie).sum())
+        seen["off_f32_flash"] += int(((af != a32) & gen).sum())
+        seen["off_f32_core"] += int(((ar != a32) & gen).sum())
+        seen["logit_err"] = max(seen["logit_err"], float((lf - lr).abs()[gen].max()))
+        del h_ref, h32, lf, lr
+        return h
+
+    before = collections.Counter(loader.launch_counts)
+    saved = (L.attention_core, NAR.flash_attention_fwd, V.nar_forward_stage)
+    L.attention_core, NAR.flash_attention_fwd, V.nar_forward_stage = (
+        counted_core, checked_fwd, checked_stage)
+    try:
+        with torch.inference_mode():
+            out = NAR.nar_generate(model, cfg, text, lang, x_len, codes, t_len, prompt_len,
+                                   dtype=torch.bfloat16)
+            torch.cuda.synchronize()
+    finally:
+        L.attention_core, NAR.flash_attention_fwd, V.nar_forward_stage = saved
+    counts = collections.Counter(loader.launch_counts)
+    counts.subtract(before)
+    counts = {k: n for k, n in counts.items() if n}
+    want = {("flash_attention_fwd", "flash_attention_batched"):
+            (cfg.num_quantizers - 1) * cfg.num_layers}
+    seen["allowed"] = seen["off_f32_core"] + 3 * math.sqrt(max(seen["flips"], 1))
+    where = f"3g NAR at the cells' shape, hd {hd}"
+    if counts != want or seen["core_calls"]:
+        fail(f"{where}: launches {counts}, want {want}; {seen['core_calls']} calls of the"
+             f" masked core")
+    if seen["worst"] > 1.0:
+        fail(f"{where}: a flash output {seen['worst']:.3f} of the flash rows' bound from the"
+             f" masked core's (max err {seen['err']:.3e})")
+    codes_line = (
+        f"stage codes: the two bf16 routes differ at {seen['flips']} of {seen['compared']} rows"
+        f" ({seen['ties']} at a one-ulp tie; logits max err {seen['logit_err']:.3e}); against f32"
+        f" arithmetic the flash route's differ at {seen['off_f32_flash']}, the masked core's at"
+        f" {seen['off_f32_core']} (allowed {seen['allowed']:.1f})")
+    if seen["off_f32_flash"] > seen["allowed"]:
+        fail(f"{where}: {codes_line}")
+    if out.shape != (R, TA, 8):
+        fail(f"{where}: codes {tuple(out.shape)}")
+    say(f"  3g nar_generate R={R}, C={S}+{TA}, hd {hd}, bf16: {want} flash launches, no masked"
+        f" core; outputs within the flash rows' rule (worst {seen['worst']:.3f} of it; max err"
+        f" {seen['err']:.3e}; {seen['beyond_ulp']} of {seen['elems']} beyond one ulp + 1e-5);"
+        f" {codes_line}")
+    if entry is not None:
+        D = H * hd
+        qkv = torch.randn((R, C, 3 * D), device=dev).to(torch.bfloat16)
+        q, k, v = (qkv[..., i * D:(i + 1) * D].view(R, C, H, hd).transpose(1, 2)
+                   for i in range(3))
+        seg = ok.to(torch.int32).contiguous()
+        lib_mask = (ok[:, :, None] == ok[:, None, :])[:, None]  # the segments' pairs
+        pairs = int(lib_mask.sum()) * H  # as rows g and k count them
+        kernel_ms = device_ms(lambda: real_fwd(q, k, v, seg, seg, C, site="check"))
+        core_ms = device_ms(lambda: core(q, k, v, mask))
+        lib_ms = device_ms(lambda: Fn.scaled_dot_product_attention(q, k, v, attn_mask=lib_mask))
+        n = R * H * C * hd
+        entry("flash_attention_fwd", "flash_attention_batched", seen["err"], kernel_ms, core_ms,
+              4 * n * 2 + R * H * C * 4 + 2 * R * C * 4, 4 * hd * pairs, lib_ms,
+              f"k1280: NAR at the cells' shape, B={R}, H={H}, hd={hd}, T={C}, bf16, segments"
+              f" (ok, ok), prefix T; {int(ok.sum())} valid rows, {pairs} segment pairs; plain ="
+              f" the masked core (attention_core) under the NAR's additive mask", False)
+        seen.update(kernel_ms=kernel_ms, core_ms=core_ms, library_ms=lib_ms)
+        del qkv, q, k, v, lib_mask
+    del out, m32
+    torch.cuda.empty_cache()
+    return dict(seen, launches=counts)
+
+
+def nar_alone() -> None:
+    """Phases 1, 2 and 3g on their own: the shipped model, random weights
+    from seed 0, timed; then its width at 8 heads of 128."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    from vallex_tpu_torch.config import ModelConfig
+    from vallex_tpu_torch.convert import load_tree
+    from vallex_tpu_torch.kernels import loader
+    from vallex_tpu_torch.models.vallex import VALLE, init_vallex
+
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with phase("1 card", 60):
+        card = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=30, check=True).stdout.strip().splitlines()[0]
+        say(card)
+    with phase("2 build", 300):
+        loader.build()
+        loader.library()
+    cfg = ModelConfig()
+    model = load_tree(VALLE(cfg), init_vallex(cfg, torch.Generator().manual_seed(0)),
+                      dtype=torch.bfloat16, device=dev)
+    with phase("3g NAR at the cells' shape", 180):
+        nar_cell_check(dev, model, kernel_entry([]))
+        del model
+        torch.cuda.empty_cache()
+        cfg128 = dataclasses.replace(cfg, num_heads=8)
+        model = load_tree(VALLE(cfg128), init_vallex(cfg128, torch.Generator().manual_seed(0)),
+                          dtype=torch.bfloat16, device=dev)
+        nar_cell_check(dev, model)
 
 
 def hybrid_alone() -> None:
@@ -3640,9 +3873,15 @@ def main() -> None:
             say(f"  hd 128: {label}, NAR >= 1536: {[len(w) // 320 for w in waves]} frames,"
                 f" {nar} NAR flash launches, NAR {b128.last.seconds['nar']:.2f} s")
         counts_hd128 = dict(loader.launch_counts)
+        # the NAR at the offline cells' shape at hd 128, as phase 3g
+        nar_cell_check(dev, b128.model)
         api._bundle = bundle
         del b128, packed8, draft8
         torch.cuda.empty_cache()
+
+    # ---- phase 3g: the NAR at the offline cells' shape (flash at C = 1280) ------
+    with phase("3g NAR at the cells' shape", 180):
+        nar_cell_check(dev, bundle.model, entry)
 
     # ---- phase 4: the decode ops against the plain (CPU) path -----------------
     with phase("4 decode ops vs plain", 240):
@@ -4350,24 +4589,6 @@ def main() -> None:
     loader.reset_launch_counts()
     with phase("5k hybrid AR", 240):
         counts_slice10 = hybrid_paths(dev, entries, smi.splitlines()[0])
-
-    bundle = api._bundle = full
-    with phase("7 trace", 300):
-        def one_request():
-            api.generate_audio("Hello world.", prompt="paimon", language="en", top_k=1,
-                               max_duration=3.0)
-            return bundle.last.seconds, len(bundle.last.codes)
-
-        short = ["Hi.", "Go now.", "Good morning.", "Thank you."]
-
-        def one_batch():
-            api.generate_audio_batch(short, language="en", top_k=1)
-            return bundle.last.seconds, [len(c) for c, _ in bundle.last.outputs]
-
-        trace_run("'Hello world.', paimon, top_k=1, max_duration 3 s", one_request)
-        trace_run("'Hello world.', paimon, top_k=50, top_p=0.9, max_duration 3 s",
-                  lambda: filtered_request(api, bundle))
-        trace_run(f"generate_audio_batch {short}, no prompt, top_k=1", one_batch)
 
     with phase("8 kernels line", 30):
         for site, counts in (("flash_attention", counts_single),

@@ -112,6 +112,23 @@ def test_nar_routes_through_flash_forward(both, monkeypatch, rows):
         assert site == (TNAR.SITE if rows == 1 else TNAR.SITE_BATCHED)
 
 
+@pytest.mark.parametrize("device, head_dim, C, flash", [
+    ("cuda", 64, 128, True), ("cuda", 64, 256, True), ("cuda", 64, 511, True),
+    ("cuda", 64, 512, True), ("cuda", 64, 1280, True), ("cuda", 64, 1536, True),
+    ("cuda", 128, 128, True), ("cuda", 128, 1280, True), ("cuda", 128, 1536, True),
+    ("cuda", 128, 2304, True),
+    ("cpu", 64, 128, False), ("cpu", 64, 1280, False), ("cpu", 64, 1535, False),
+    ("cpu", 64, 1536, True), ("cpu", 128, 1280, False), ("cpu", 16, 1280, False),
+    ("cpu", 16, 2304, True),
+    ("cuda", 16, 1280, False), ("cuda", 96, 1536, False), ("cuda", 32, 128, False),
+])
+def test_nar_flash_route(device, head_dim, C, flash):
+    """The NAR's attention route: on the card the flash forward at every C
+    where the kernels have the head dim, else the masked core; on the CPU
+    the JAX package's rule (flash from C >= 1536) at any head dim."""
+    assert TNAR.flash_route(torch.device(device), C, head_dim) is flash
+
+
 def test_vocos_waveform_close():
     params = JVC.init_vocos(jax.random.PRNGKey(1))
     vocos = params_from_jax(jax.tree.map(np.asarray, params))

@@ -2,7 +2,7 @@
 kernels on one GPU, alone: build, check and time.
 
     python3 tools/torch_flash_bench.py [--root DIR] [--label NAME] [--hd 64,128]
-                                       [--parts flash,gemm,decode,sample,trace]
+                                       [--parts flash,gemm,decode,sample,trace,sweep]
 
 Part "flash" runs the checks and timings of chip_smoke.py's phases 3e / 3f
 (the forward, dQ and dK/dV kernels against their plain versions at B = 4,
@@ -27,8 +27,10 @@ rows, top-p alone (l-p), top-k alone, k = 200, ties at the k-th value,
 temperature 0.7, 8 rows): tokens equal to the plain version's, logprobs at
 1e-4, kept sets equal but at the nucleus boundary, two runs bitwise equal;
 after the empty-launch floor (`empty launch ms {...}`). Part "trace" builds
-the shipped model and traces phase 7's filtered request (`trace {...}`,
-with the epilogue's device ms in the AR span). Each timed row prints as one
+the shipped model and traces one filtered request (`trace {...}`, with the
+epilogue's device ms in the AR span). Part "sweep" times the NAR's
+two attention routes against each other at each `--hd` (`nar_sweep`: the
+crossover that engine/nar.py::flash_route rests on). Each timed row prints as one
 JSON line (`row {...}`: kernel, site, ms, plain_ms, bound_ms, bound_by,
 library_ms, max_abs_err, unit), after the card's name and power limit and
 the flash and product kernels' ptxas lines.
@@ -80,13 +82,75 @@ def breakdown(cs, label, fn) -> None:
         "by_kernel": {k: {"launches": n, "ms": round(t, 4)} for k, (n, t) in by.items()}}))
 
 
+# the sweep's lengths C = s_text + t_audio: the offline cells' bucket is
+# 256 + 1024 = 1280, the CPU's flash threshold 1536
+SWEEP_C = (128, 256, 512, 768, 1024, 1280, 1536)
+
+
+def nar_sweep(cs, dev, label: str, hds=(64,)) -> None:
+    """The NAR's two attention routes on the card, as nar_generate calls
+    each: the flash forward (segments (ok, ok), prefix C) and the masked
+    core (`attention_core` under the additive key-padding mask), on q/k/v
+    views of one fused QKV product, 1024 wide in heads of each of `hds`,
+    at C in SWEEP_C, R in 1 and 48 rows, bf16 and f32. The key-padding
+    layout is the cells': text s_text = C / 5 columns, 32-100% of them
+    valid, and t_audio - 2 valid audio slots. One `sweep {...}` line each: device ms (median of 20, CUDA
+    events), the core's over the forward's, and the device bytes each call
+    allocates beyond its inputs (`max_memory_allocated`)."""
+    import torch
+
+    from vallex_tpu_torch.kernels.flash_attention import flash_attention_fwd
+    from vallex_tpu_torch.models.layers import attention_core
+    from vallex_tpu_torch.models.vallex import NEG_INF
+
+    def extra_bytes(fn) -> int:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        fn()
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated() - base
+
+    g = torch.Generator().manual_seed(5)
+    for hd, dtype in ((hd, dt) for hd in hds for dt in (torch.bfloat16, torch.float32)):
+        H = 1024 // hd
+        D = H * hd
+        for R in (1, 48):
+            for C in SWEEP_C:
+                s_text = C // 5
+                x_len = torch.randint(max(1, int(0.32 * s_text)), s_text + 1, (R, 1), generator=g)
+                cols = torch.arange(C)[None, :]
+                ok = torch.where(cols < s_text, cols < x_len, cols - s_text < C - s_text - 2)
+                ok = ok.to(dev)
+                seg = ok.to(torch.int32).contiguous()
+                mask = torch.where(ok, 0.0, NEG_INF)[:, None, None, :]
+                qkv = torch.randn((R, C, 3 * D), device=dev).to(dtype)
+                q, k, v = (qkv[..., i * D:(i + 1) * D].view(R, C, H, hd).transpose(1, 2)
+                           for i in range(3))
+
+                def flash():
+                    return flash_attention_fwd(q, k, v, seg, seg, C, site="check")[0]
+
+                def core():
+                    return attention_core(q, k, v, mask)
+
+                f_ms, c_ms = cs.device_ms(flash), cs.device_ms(core)
+                cs.say("sweep " + json.dumps(dict(
+                    label=label, hd=hd, dtype=str(dtype)[6:], R=R, C=C, s_text=s_text,
+                    valid=int(ok.sum()), flash_ms=round(f_ms, 4), core_ms=round(c_ms, 4),
+                    core_over_flash=round(c_ms / f_ms, 3), flash_bytes=extra_bytes(flash),
+                    core_bytes=extra_bytes(core))))
+                del qkv, q, k, v
+                torch.cuda.empty_cache()
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=HERE, help="tree whose vallex_tpu_torch is built and timed")
     ap.add_argument("--label", default="", help="name printed on every row")
     ap.add_argument("--hd", default="64,128", help="head dims to run (H = 1024 / hd)")
     ap.add_argument("--parts", default="flash",
-                    help="comma-separated: flash, gemm, decode, sample, trace")
+                    help="comma-separated: flash, gemm, decode, sample, trace, sweep")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -188,6 +252,8 @@ def main() -> None:
                      lambda: cs.filtered_request(api, bundle))
         del bundle
         torch.cuda.empty_cache()
+    if "sweep" in parts:
+        nar_sweep(cs, dev, args.label, [int(x) for x in args.hd.split(",")])
     for hd in (int(x) for x in args.hd.split(",")) if "flash" in parts else ():
         H, suffix = 1024 // hd, "" if hd == 64 else "_hd128"
         cs.check_flash_nar(dev, entry, g, "flash_attention" + suffix, [150], [1058], 256, 2304,

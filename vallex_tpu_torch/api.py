@@ -625,8 +625,9 @@ def continual(
 ) -> np.ndarray:
     """Acoustic continuation: keep codebook 0, re-render codebooks 1..7 of
     the suffix conditioned on a prefix of min(T/2, 225) frames, without
-    language embeddings (reference: models/vallex.py:688-787). At
-    s_text + t_audio >= 1536 the NAR's attention is the flash forward.
+    language embeddings (reference: models/vallex.py:688-787). The NAR's
+    attention takes `engine.nar.flash_route`: the flash forward on the card,
+    on the CPU from s_text + t_audio >= 1536.
     → codes [T − prefix, 8] int64 of the suffix."""
     bundle = _require_bundle()
     text_ids, _ = _prepare_text(bundle, text, np.zeros((0,), np.int32), None, language,

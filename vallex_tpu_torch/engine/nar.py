@@ -6,10 +6,11 @@ The prompt region's embeddings for codebooks 1..7 are summed into the
 running embedding once; stage s runs the AdaLN decoder conditioned on stage
 embedding s, argmax-decodes codebook s+1 and adds its embedding on the
 generated suffix. The mask is pure key padding (valid text columns and
-valid audio slots): from s_text + t_audio >= 1536 attention goes through
-the flash forward (`flash_attention_fwd`, the JAX package's Pallas flash
-attention) with that rule as segment ids (ok, ok) and prefix C, below that
-through the plain masked core, as in the JAX package. With segments, pad
+valid audio slots). `flash_route` picks the attention: on the card, at a
+head dim the kernels are built for, the flash forward (`flash_attention_fwd`,
+the JAX package's Pallas flash attention) at every C = s_text + t_audio,
+with that rule as segment ids (ok, ok) and prefix C; on the CPU the JAX package's rule, the flash forward's plain
+version from C >= 1536 and the plain masked core below. With segments, pad
 queries see the pad keys, as in JAX; their rows are discarded.
 """
 
@@ -19,9 +20,12 @@ import torch
 
 from ..config import ModelConfig
 from ..kernels.flash_attention import flash_attention_fwd
+from ..kernels.loader import HEAD_DIMS
 from ..kernels.masked_attention import IntOrRows
 from ..models import vallex as V
 
+# the CPU's threshold, the JAX package's: there flash tied plain XLA at
+# C = 1280 on a TPU v5e (vallex_tpu/engine/nar.py:58-65)
 FLASH_MIN_LEN = 1536
 SITE = "flash_attention"
 SITE_BATCHED = "flash_attention_batched"
@@ -40,8 +44,21 @@ def key_padding(s_text: int, t_audio: int, x_len: IntOrRows, t_len: IntOrRows,
     return torch.where(cols < s_text, cols < _col(x_len), (cols - s_text) < _col(t_len))
 
 
+def flash_route(device: torch.device, C: int, head_dim: int) -> bool:
+    """Whether the NAR's attention over C = s_text + t_audio columns takes
+    the flash forward (else the plain masked core). On the card: at every C
+    where the kernels have the head dim (PERF.md's crossover sweep, C =
+    128-1536: the masked core is faster only for one f32 row at short C,
+    by at most 0.06 ms a call on an H100, while 48 f32 rows run 1.6-2.3x
+    faster through flash, so neither dtype nor length gates the route).
+    Elsewhere the JAX package's rule, C >= FLASH_MIN_LEN."""
+    if device.type != "cuda":
+        return C >= FLASH_MIN_LEN
+    return head_dim in HEAD_DIMS
+
+
 def flash_attention_fn(ok: torch.Tensor, R: int):
-    """The NAR's attention at C >= FLASH_MIN_LEN: the flash forward with the
+    """The NAR's attention on the flash route: the flash forward with the
     key-padding rule `ok` as segment ids (ok, ok) and prefix C, as the JAX
     package's NAR (valid rows see exactly the valid keys)."""
     C = ok.shape[-1]
@@ -83,7 +100,7 @@ def nar_generate(
 
     ok = key_padding(s_text, t_audio, x_len, t_len, dev)
     mask, attention = None, None
-    if s_text + t_audio >= FLASH_MIN_LEN:
+    if flash_route(dev, s_text + t_audio, cfg.head_dim):
         attention = flash_attention_fn(ok, R)
     else:
         mask = torch.where(ok, 0.0, V.NEG_INF)[:, None, None, :]
