@@ -228,8 +228,8 @@ class ModelConfig:
 class EngineConfig:
     """Inference-engine settings: bucketing, beams, sampling, dtype."""
 
-    # Static sequence-length buckets to avoid XLA recompiles.
-    # Text (phoneme) buckets cover prompt-text + synthesis-text lengths.
+    # Padded text lengths (prompt text + synthesis text phonemes): a request
+    # takes the smallest bucket that holds it, which sizes the AR caches.
     text_buckets: Tuple[int, ...] = (128, 256)
     # Total audio-frame buckets (prompt frames + generated frames + BOS).
     audio_buckets: Tuple[int, ...] = (512, 1024, 2048)
@@ -238,44 +238,40 @@ class EngineConfig:
     top_k: int = -100
     top_p: float = 1.0
     temperature: float = 1.0
-    # Compute dtype for the transformer stacks. fp32 keeps parity with the
-    # torch reference; bf16 roughly doubles MXU/HBM throughput.
+    # Compute dtype for the transformer stacks: bf16 runs the tensor-core
+    # kernels; float32 their CUDA-core versions, at parity with the reference.
     compute_dtype: str = "bfloat16"
     # Hard cap mirroring the reference's `y_len > 16 * x_len` stop
     # (models/vallex.py:575-577).
     max_len_ratio: int = 16
-    # AR decode implementation: "megakernel" (one fused pallas_call for all
-    # layers — fastest), "pallas" (per-layer fused attention kernel), "xla"
-    # (pure XLA scan — the only mode that runs on CPU), or "auto"
-    # (megakernel on TPU, xla elsewhere). Pallas modes need text buckets to
-    # be multiples of 128.
+    # One request's AR decode: "megakernel" (the hand-written CUDA kernels:
+    # K-step blocks, speculation or single steps; on the CPU their plain
+    # versions), "pallas" (the per-token loop, the decode-attention kernel a
+    # layer), "xla" (the per-token loop in plain PyTorch) or "auto"
+    # (megakernel on CUDA, xla on the CPU). Batches always run K-step blocks.
     decode_mode: str = "auto"
-    # Quantization for the megakernel decode path: "none" (bf16), "int8"
-    # (W8A16 — per-output-channel scales, ~half the HBM weight traffic per
-    # step) or "w8a8" (int8 activations too: the matmuls run natively on
-    # the MXU in int8, skipping the W8A16 path's int8→bf16 weight cast —
-    # fastest; dynamic per-row activation scales) or "int8kv" (int8
-    # weights + int8 KV cache with static per-(layer, head) scales —
-    # halves the cache DMA on top of int8; the big win for beams/batched
-    # serving, block-kernel path only, elsewhere behaves like "int8").
-    # Opt-in: A/B audio fidelity with trained weights before enabling in
-    # production (tools/quant_fidelity.py).
+    # Serving quantization of the kernel path: "none" (compute-dtype
+    # weights), "int8" (W8A16 products, per-output-channel scales: about half
+    # the weight bytes a step), "w8a8" (int8 activations too, per-row codes
+    # and scales into s8 tensor-core products; the head stays W8A16) or
+    # "int8kv" (int8 weights and an int8 K/V cache with static per-(layer,
+    # head) scales: half the cache bytes; K-step blocks only, as "int8" with
+    # decode_steps=1). Opt-in: check fidelity with trained weights first.
     quantize: str = "none"
-    # AR frames generated per fused-megakernel invocation. K > 1 runs K
-    # decode steps inside ONE pallas_call (ops/decode_block.py), amortizing
-    # the while_loop glue — EOS/logprob bookkeeping, y-buffer write, cache
-    # column writes, dispatch — by K×. Only the fused plain-sampling path
-    # uses it; other configs fall back to single-step.
+    # AR frames a K-step block decodes (ops/decode_block.py): K steps of
+    # launches, the EOS / logprob bookkeeping on the device, one host read a
+    # block, in every sampling mode (filtered: the filtered epilogue);
+    # speculation drafts K - 1 frames; 1 runs the single-step ops
+    # (ops/decode_step.py). The batched decode runs K = max(2, decode_steps).
     decode_steps: int = 8
-    # Speculative decoding for the bf16 strict modes ("auto"/"on"/"off"):
-    # draft decode_steps-1 frames with int8 weights, confirm with ONE bf16
-    # pass over all positions (ops/decode_verify.py). Greedy (top_k==1):
-    # output is exactly per-token bf16 greedy. Sampled (top_k<=0,
-    # top_p>=1): the Leviathan rejection scheme
-    # (ops/sampling.py::speculative_accept) — output is distributed
-    # exactly as per-token bf16 sampling. Either way the 302 MB weight
-    # stream is paid once per ~K accepted frames instead of per frame.
-    # Applies when quantize=="none" and best_of==1; otherwise ignored.
+    # Speculative decoding ("auto"/"on"/"off"): draft decode_steps-1 frames
+    # with int8 weights, confirm them with ONE pass of the serving weights
+    # over all positions (ops/decode_verify.py). Greedy (top_k==1): exactly
+    # per-token greedy. Sampled (top_k<=0, top_p>=1): the Leviathan scheme
+    # (ops/sampling.py::speculative_accept), distributed exactly as per-token
+    # sampling. The weights stream once per ~K accepted frames, not per
+    # frame. Applies to one request's kernel path when quantize=="none",
+    # best_of==1 and decode_steps > 1; otherwise ignored.
     speculative: str = "auto"
 
 

@@ -52,8 +52,10 @@ holding only each sample's generated rows.
 Batched layout (ar_generate_batch, as in the JAX package): text [0, s_text)
 | BOS + prompt bucket [s_text, s_text + p_audio) | generated frame t at
 the fixed row s_text + p_audio + t for every request; request r's frame t
-has audio position prompt_len[r] + 1 + t. The batched decode always runs
-ops/decode_block.py (kernels on CUDA, their plain versions on the CPU).
+has audio position prompt_len[r] + 1 + t. The batched decode runs its AR
+architecture's block (`ar_arch`: ops/decode_block.py for VALL-E X,
+ops/decode_hybrid.py for the hybrid AR; kernels on CUDA, their plain
+versions on the CPU).
 """
 
 from __future__ import annotations
@@ -67,12 +69,14 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from ..config import ModelConfig
+from ..config import EngineConfig, ModelConfig
 from ..kernels import loader, sample_epilogue, sample_epilogue_plain
+from ..models import granite_hybrid as GH
 from ..models import vallex as V
 from ..ops.decode_attention import decode_attention
 from ..ops.decode_block import decode_block_fused
-from ..ops.decode_step import decode_step, decode_step_fused
+from ..ops.decode_hybrid import decode_block_hybrid, pack_hybrid_weights
+from ..ops.decode_step import decode_step, decode_step_fused, pack_layer_weights, quantize_weights
 from ..ops.decode_verify import decode_verify, embed
 from ..ops.sampling import speculative_accept, topk_sampling
 from ..utils.profiling import DeviceSpan
@@ -597,7 +601,7 @@ SECONDS = (
     "ar_graph_blocks",  # blocks run as replays of a CUDA graph (a count; 0 on the CPU)
     "ar_graph_capture",  # host seconds capturing and instantiating the block's graph
 )
-# the hybrid AR's (cfg.ar_stack) adds
+# HybridAR's prefill adds
 HYBRID_SECONDS = SECONDS + (
     "ar_scan",  # the Mamba layers' chunked scans in the prefill: CUDA events (CPU: host clock)
     "ar_state_bytes",  # bytes of the recurrent state the decode reads and writes (a count)
@@ -681,15 +685,14 @@ def _vallex_block(packed, cache_k, cache_v, pe, prefix, *, x_lens, plens, max_ge
 
 def _block_loop(cur_tok, cur_lp, block, *, last, t_gen, K, eos, generator):
     """K-step batched blocks `block(tok, lp, done, sum_lp, step)` over RB
-    rows (`_vallex_block`, or the hybrid AR's ops/decode_hybrid.py block)
-    until every row is done or `last` (the longest cap) steps have run; one
-    host read per block. On CUDA one block is captured as a CUDA graph
-    (`DeviceBlocks`, a `vallex.ar.capture` span) and replayed for every
-    block, its positions read from a device step counter; CPU tensors run
-    each block eagerly at host positions. Each
-    block is a `vallex.ar.block` span (its launches or its replay) and a
-    `vallex.ar.read` span (its host read); the graph and its memory pool
-    are released before the return. → (y_gen [RB, t_gen + K],
+    rows (an architecture's `prefill` makes it) until every row is done or
+    `last` (the longest cap) steps have run; one host read per block. On
+    CUDA one block is captured as a CUDA graph (`DeviceBlocks`, a
+    `vallex.ar.capture` span) and replayed for every block, its positions
+    read from a device step counter; CPU tensors run each block eagerly at
+    host positions. Each block is a `vallex.ar.block` span (its launches or
+    its replay) and a `vallex.ar.read` span (its host read); the graph and
+    its memory pool are released before the return. → (y_gen [RB, t_gen + K],
     sum_logprobs [RB], blocks run, {"ar_decode", "ar_wait", "ar_wrappers",
     "ar_graph_blocks", "ar_graph_capture": seconds, or the count})."""
     RB, dev = cur_tok.shape[0], cur_tok.device
@@ -735,6 +738,128 @@ def _block_loop(cur_tok, cur_lp, block, *, last, t_gen, K, eos, generator):
     return y_gen, sum_lp, iterations, seconds
 
 
+class VallexAR:
+    """VALL-E X's AR (models/vallex.py), which runs every route: the decode
+    weights of ops/decode_step.py and their int8 draft; the batched prefill
+    (int8kv: the caches quantized under `vallex.ar.kv_quant`; best_of: the
+    grouped prefix) and `_vallex_block`."""
+
+    def __init__(self, cfg: ModelConfig):
+        self.cfg, self.head_dims = cfg, (cfg.head_dim,)
+
+    def refuse(self, ecfg: EngineConfig, *, best_of: int) -> None:
+        """Every engine setting runs."""
+
+    def refuse_single(self) -> None:
+        """Single requests run."""
+
+    def pack(self, model, dtype) -> Dict:
+        return pack_layer_weights(model, dtype)
+
+    def draft(self, packed: Dict) -> Dict:
+        return quantize_weights(packed)
+
+    def prefill(self, model, text, lang, x_lens, prompt_lens, y_init, caps, *, longest, s_text,
+                p_audio, t_gen, K, beams, dtype, packed, quantize, top_k, top_p, temperature,
+                generator):
+        cfg, dev, grouped = self.cfg, text.device, beams > 1
+        P = s_text + p_audio
+        cache_k, cache_v, logits0 = prefill(
+            model, cfg, text, lang, x_lens, y_init, prompt_lens, s_text=s_text, p_audio=p_audio,
+            C=P if grouped else P + t_gen + K, dtype=dtype)
+        kv_scales = None
+        if quantize == "int8kv":  # the batch's caches, or the grouped prefix
+            with record_function("vallex.ar.kv_quant"):
+                cache_k, cache_v, kv_scales = int8_caches(cache_k, cache_v)
+        prefix = None
+        if grouped:
+            prefix = (cache_k, cache_v)
+            NL, R, H, _, hd = cache_k.shape
+            cache_k = torch.zeros((NL, R * beams, H, t_gen + K, hd), dtype=cache_k.dtype,
+                                  device=dev)
+            cache_v = torch.zeros_like(cache_k)
+        rep = (lambda t: t.repeat_interleave(beams, dim=0)) if grouped else (lambda t: t)
+        max_gen = rep(torch.as_tensor(caps, device=dev))
+        block = _vallex_block(
+            packed, cache_k, cache_v, model.pe, prefix, x_lens=rep(x_lens),
+            plens=rep(prompt_lens), max_gen=max_gen, beams=beams, s_text=s_text,
+            p_audio=p_audio, K=K, temperature=temperature, vocab=cfg.num_audio_tokens + 1,
+            eos=cfg.eos_id, greedy=top_k == 1, generator=generator,
+            filt={} if is_plain(top_k, top_p) else dict(top_k=top_k, top_p=top_p),
+            quant=dict(act_quant=quantize == "w8a8", kv_scales=kv_scales))
+        return rep(logits0), max_gen, block, lambda: {}
+
+
+class HybridAR:
+    """The hybrid AR (models/granite_hybrid.py): batches alone, one sample
+    a request, unquantized, greedy or plain sampling, no speculation. Its
+    prefill fills the attention layers' K/V and the Mamba layers' states (a
+    `vallex.ar.scan` span a layer); its block (ops/decode_hybrid.py)
+    updates the states in place; its `seconds` add `HYBRID_SECONDS`' two."""
+
+    NAME = "the hybrid AR (ModelConfig.ar_stack)"  # as its refusals name it
+
+    def __init__(self, cfg: ModelConfig, stack):
+        self.cfg, self.head_dims = cfg, (cfg.head_dim, stack.head_dim)
+
+    def refuse(self, ecfg: EngineConfig, *, best_of: int) -> None:
+        if ecfg.quantize != "none":
+            raise ValueError(f"quantize {ecfg.quantize!r} is not run by {self.NAME}: it serves"
+                             " unquantized weights and K/V")
+        if ecfg.speculative == "on":
+            raise ValueError(f"speculative decoding is not run by {self.NAME}; set speculative"
+                             " 'off'")
+        if best_of > 1:
+            raise ValueError(f"best_of {best_of} is not run by {self.NAME}: one sample a request")
+
+    def refuse_single(self) -> None:
+        raise ValueError(f"single-request synthesize is not run by {self.NAME}: send two or more"
+                         " requests to synthesize_batch")
+
+    def pack(self, model, dtype) -> Dict:
+        return pack_hybrid_weights(model, self.cfg, dtype)
+
+    def prefill(self, model, text, lang, x_lens, prompt_lens, y_init, caps, *, longest, s_text,
+                p_audio, t_gen, K, beams, dtype, packed, quantize, top_k, top_p, temperature,
+                generator):
+        if beams != 1 or quantize != "none" or not is_plain(top_k, top_p):
+            raise ValueError(f"{self.NAME} runs best_of 1, quantize 'none' and greedy or plain"
+                             f" sampling, not best_of {beams}, quantize {quantize!r}, top-k /"
+                             f" top-p filtering {top_k} / {top_p}")
+        cfg, scans = self.cfg, []
+        cache_k, cache_v, state, logits0 = GH.prefill(
+            model, cfg, text, lang, x_lens, y_init, prompt_lens, s_text=s_text, p_audio=p_audio,
+            C=s_text + p_audio + t_gen + K, dtype=dtype, L=longest, scan_spans=scans)
+        max_gen = torch.as_tensor(caps, device=text.device)
+
+        def block(tok, lp, done, sum_lp, step):
+            return decode_block_hybrid(
+                tok, lp, done, sum_lp, packed, cfg, cache_k, cache_v, state, x_len=x_lens,
+                prompt_len=prompt_lens, audio_pos=step, remaining=max_gen - step,
+                temperature=temperature, steps=K, s_text=s_text, p_audio=p_audio,
+                vocab=cfg.num_audio_tokens + 1, eos=cfg.eos_id, stochastic=top_k != 1,
+                generator=generator)
+
+        def seconds():
+            return dict(ar_scan=sum(s.seconds() for s in scans),
+                        ar_state_bytes=float(GH.state_bytes(cfg, text.shape[0])))
+        return logits0, max_gen, block, seconds
+
+
+def ar_arch(cfg: ModelConfig):
+    """The AR architecture `cfg` names, VALL-E X's or the hybrid stack it
+    holds: the one place the engine reads which AR the model has. One has
+    `head_dims` (for check_head_dim), `refuse(ecfg, best_of=)` and
+    `refuse_single()` (ValueError for what it does not run), `pack(model,
+    dtype)` (its decode weights) and `prefill`, the batched prefill of
+    `ar_generate_batch` (R requests on the device, their caps on the host,
+    the keywords that call names) → (first-token logits and length caps of
+    the R·beams request-major rows, the `block(tok, lp, done, sum_lp,
+    step)` of `_block_loop`, a callable giving its `seconds` once the
+    device is done)."""
+    return VallexAR(cfg) if cfg.ar_stack is None else HybridAR(cfg, cfg.ar_stack)
+
+
 def ar_generate_batch(
     model: V.VALLE,
     cfg: ModelConfig,
@@ -753,183 +878,73 @@ def ar_generate_batch(
     t_gen: int,  # generated-frames capacity
     dtype: torch.dtype,
     decode_steps: int,
-    packed: Dict,  # bf16, int8 (W8A16) or f32 decode weights
+    packed: Dict,  # the architecture's decode weights: bf16, int8 (W8A16) or f32
     beams: int = 1,
     top_p: float = 1.0,
     length_penalty: float = 1.0,
     quantize: str = "none",
 ) -> BatchARResult:
-    """R independent requests decoded together: every K-step block runs the
-    batched decode_block_fused, so each step streams the weights once for
-    all rows. Prefill runs once per request with per-request masks; each
-    row's first token comes from its request's prefill logits; each row
-    keeps its own EOS forcing, length cap max_gen = min(16·x_len, gen_cap,
-    t_gen - 1) and logprob sum. beams > 1: R × beams request-major rows
-    (row r·beams + b is request r's sample b) in the grouped layout, and
-    each request keeps its best sample (`select_best`, lengths counting
-    BOS + prompt + generated frames). One host read per block. `quantize`
-    names how `packed` was prepared: "w8a8" runs its products as W8A8;
-    "int8kv" quantizes the prefilled caches (grouped: the prefix) with
-    scales taken over every request of the batch (`kv_int8_scales`).
-    Profiler spans, inside the caller's: `vallex.ar.prefill` (with
-    `vallex.ar.kv_quant` under int8kv), `vallex.ar.decode` (the blocks and
-    their reads, `_block_loop`), `vallex.ar.finish` (lengths, best samples,
-    the copies to the host); the result's `seconds` holds `SECONDS`."""
-    if cfg.ar_stack is not None:
-        if beams != 1 or quantize != "none" or not is_plain(top_k, top_p):
-            raise ValueError(f"the hybrid AR (ModelConfig.ar_stack) runs best_of 1, quantize"
-                             f" 'none' and greedy or plain sampling, not best_of {beams},"
-                             f" quantize {quantize!r}, top-k / top-p filtering {top_k} / {top_p}")
-        return _hybrid_generate_batch(
-            model, cfg, text_ids, lang_ids, x_lens, prompt_audio, prompt_lens, gen_caps,
-            generator=generator, top_k=top_k, temperature=temperature, s_text=s_text,
-            p_audio=p_audio, t_gen=t_gen, dtype=dtype, K=decode_steps, packed=packed,
-            length_penalty=length_penalty)
-    dev = model.pe.device
-    R = text_ids.shape[0]
-    RB = R * beams
-    K = decode_steps
+    """R independent requests decoded together, whatever the AR
+    (`ar_arch`): its prefill, then K-step blocks of its batched decode,
+    each streaming the weights once for all rows. Prefill runs once per
+    request with per-request masks; each row's first token comes from its
+    request's prefill logits; each row keeps its own EOS forcing, length
+    cap max_gen = min(16·x_len, gen_cap, t_gen - 1) and logprob sum.
+    beams > 1: R × beams request-major rows (row r·beams + b is request
+    r's sample b), and each request keeps its best sample (`select_best`,
+    lengths counting BOS + prompt + generated frames). One host read per
+    block. `quantize` names how `packed` was prepared: "w8a8" runs its
+    products as W8A8; "int8kv" quantizes the prefilled caches (grouped:
+    the prefix) with scales taken over every request of the batch
+    (`kv_int8_scales`). Profiler spans, inside the caller's:
+    `vallex.ar.prefill` (with the architecture's own inside),
+    `vallex.ar.decode` (the blocks and their reads, `_block_loop`),
+    `vallex.ar.finish` (lengths, best samples, the copies to the host);
+    the result's `seconds` holds `SECONDS` and the architecture's own."""
+    arch, dev, R, K = ar_arch(cfg), model.pe.device, text_ids.shape[0], decode_steps
     if K < 2:
         raise ValueError("the batched decode runs K-step blocks (decode_steps >= 2)")
-    eos, vocab = cfg.eos_id, cfg.num_audio_tokens + 1
-    grouped = beams > 1
-    P = s_text + p_audio
     stream = torch.cuda.current_stream(dev) if dev.type == "cuda" else None
     prefill_time = DeviceSpan("ar_prefill", stream=stream)
     with record_function("vallex.ar.prefill"):
-        text, lang, x_lens_d, plens_d, y_init = _batch_inputs(
-            cfg, dev, text_ids, lang_ids, x_lens, prompt_audio, prompt_lens)
-        cache_k, cache_v, logits0 = prefill(
-            model, cfg, text, lang, x_lens_d, y_init, plens_d, s_text=s_text, p_audio=p_audio,
-            C=P if grouped else P + t_gen + K, dtype=dtype)
-        kv_scales = None
-        if quantize == "int8kv":  # the batch's caches, or the grouped prefix
-            with record_function("vallex.ar.kv_quant"):
-                cache_k, cache_v, kv_scales = int8_caches(cache_k, cache_v)
-        prefix = None
-        if grouped:
-            prefix = (cache_k, cache_v)
-            NL, _, H, _, hd = cache_k.shape
-            cache_k = torch.zeros((NL, RB, H, t_gen + K, hd), dtype=cache_k.dtype, device=dev)
-            cache_v = torch.zeros_like(cache_k)
-        rep = (lambda t: t.repeat_interleave(beams, dim=0)) if grouped else (lambda t: t)
-
-        max_gen = rep(_length_caps(x_lens, gen_caps, t_gen, dev))
-        x_rows, p_rows = rep(x_lens_d), rep(plens_d)
-        logits0 = _pad_logits(logits0, packed["wpred"].shape[0])
-        cur_tok, cur_lp = first_token(rep(logits0), generator, vocab=vocab, top_k=top_k,
-                                      top_p=top_p, temperature=temperature)
+        # BOS, then each prompt's cb0 frames
+        y_init = torch.cat([
+            torch.full((R, 1), cfg.bos_id, dtype=torch.int64, device=dev),
+            torch.as_tensor(np.asarray(prompt_audio), device=dev).long(),
+        ], dim=1)
+        plens = torch.as_tensor(np.asarray(prompt_lens, np.int32), device=dev)
+        logits0, max_gen, block, arch_seconds = arch.prefill(
+            model, torch.as_tensor(np.asarray(text_ids), device=dev),
+            torch.as_tensor(np.asarray(lang_ids), device=dev),
+            torch.as_tensor(np.asarray(x_lens, np.int32), device=dev),
+            plens, y_init,
+            np.minimum(np.minimum(16 * np.asarray(x_lens, np.int64),
+                                  np.asarray(gen_caps, np.int64)), t_gen - 1),
+            longest=int(np.max(np.asarray(x_lens) + 1 + np.asarray(prompt_lens))),
+            s_text=s_text, p_audio=p_audio, t_gen=t_gen, K=K, beams=beams, dtype=dtype,
+            packed=packed, quantize=quantize, top_k=top_k, top_p=top_p, temperature=temperature,
+            generator=generator)
+        cur_tok, cur_lp = first_token(_pad_logits(logits0, packed["wpred"].shape[0]), generator,
+                                      vocab=cfg.num_audio_tokens + 1, top_k=top_k, top_p=top_p,
+                                      temperature=temperature)
         prefill_time.close(stream)
         # the batch's one host read before the blocks: it waits for the
         # prefill, so the device work inside `vallex.ar.decode` is the blocks'
         last = int(max_gen.max())
-    filt = {} if is_plain(top_k, top_p) else dict(top_k=top_k, top_p=top_p)
-    block = _vallex_block(
-        packed, cache_k, cache_v, model.pe, prefix, x_lens=x_rows, plens=p_rows,
-        max_gen=max_gen, beams=beams, s_text=s_text, p_audio=p_audio, K=K,
-        temperature=temperature, vocab=vocab, eos=eos, greedy=top_k == 1, generator=generator,
-        filt=filt, quant=dict(act_quant=quantize == "w8a8", kv_scales=kv_scales))
     with record_function("vallex.ar.decode"):
         y_gen, sum_lp, iterations, seconds = _block_loop(
-            cur_tok, cur_lp, block, last=last, t_gen=t_gen, K=K, eos=eos, generator=generator)
+            cur_tok, cur_lp, block, last=last, t_gen=t_gen, K=K, eos=cfg.eos_id,
+            generator=generator)
     with record_function("vallex.ar.finish"):
-        codes, gen_len, scores = _finish_batch(y_gen, sum_lp, max_gen, p_rows, R=R, beams=beams,
-                                               t_gen=t_gen, eos=eos,
-                                               length_penalty=length_penalty)
+        # frames before each row's first EOS, clipped to its length cap
+        alive = torch.cumprod((y_gen[:, :t_gen] != cfg.eos_id).to(torch.int32), dim=1)
+        gen_len = torch.minimum(alive.sum(dim=1), max_gen)
+        # each request's best sample (lengths: BOS + prompt + generated frames)
+        best, scores = select_best(sum_lp.view(R, beams),
+                                   1 + plens[:, None] + gen_len.view(R, beams), length_penalty)
+        rows = torch.arange(R, device=dev) * beams + best
         # the device is done: reading the events waits for nothing
-        out = BatchARResult(codes, gen_len, iterations, scores,
-                            dict(ar_prefill=prefill_time.seconds(), **seconds))
-    return out
-
-
-def _batch_inputs(cfg, dev, text_ids, lang_ids, x_lens, prompt_audio, prompt_lens):
-    """The batch on the device → (text, languages, valid text lengths,
-    valid prompt lengths, the AR's audio input y_init [R, p_audio]: BOS,
-    then each prompt's cb0 frames)."""
-    R = text_ids.shape[0]
-    y_init = torch.cat([
-        torch.full((R, 1), cfg.bos_id, dtype=torch.int64, device=dev),
-        torch.as_tensor(np.asarray(prompt_audio), device=dev).long(),
-    ], dim=1)
-    return (torch.as_tensor(np.asarray(text_ids), device=dev),
-            torch.as_tensor(np.asarray(lang_ids), device=dev),
-            torch.as_tensor(np.asarray(x_lens, np.int32), device=dev),
-            torch.as_tensor(np.asarray(prompt_lens, np.int32), device=dev), y_init)
-
-
-def _length_caps(x_lens, gen_caps, t_gen: int, dev) -> torch.Tensor:
-    """Each request's length cap max_gen = min(16·x_len, gen_cap, t_gen − 1)."""
-    return torch.as_tensor(np.minimum(np.minimum(16 * np.asarray(x_lens, np.int64),
-                                                 np.asarray(gen_caps, np.int64)), t_gen - 1),
-                           device=dev)
-
-
-def _finish_batch(y_gen, sum_lp, max_gen, p_rows, *, R, beams, t_gen, eos, length_penalty):
-    """Each row's frames before its first EOS, clipped to its length cap,
-    and each request's best sample (`select_best`; lengths: BOS + prompt +
-    generated frames), copied to the host → (codes [R, t_gen + K],
-    gen_len [R], scores [R])."""
-    alive = torch.cumprod((y_gen[:, :t_gen] != eos).to(torch.int32), dim=1)
-    gen_len = torch.minimum(alive.sum(dim=1), max_gen)
-    best, scores = select_best(sum_lp.view(R, beams), (1 + p_rows + gen_len).view(R, beams),
-                               length_penalty)
-    rows = torch.arange(R, device=y_gen.device) * beams + best
-    return y_gen[rows].cpu().numpy(), gen_len[rows].cpu().numpy(), scores.cpu().numpy()
-
-
-def _hybrid_generate_batch(model, cfg, text_ids, lang_ids, x_lens, prompt_audio, prompt_lens,
-                           gen_caps, *, generator, top_k, temperature, s_text, p_audio, t_gen,
-                           dtype, K, packed, length_penalty) -> BatchARResult:
-    """`ar_generate_batch` for the hybrid AR (cfg.ar_stack,
-    models/granite_hybrid.py): the prefill over each row's own tokens
-    fills the attention layers' K/V in the batched layout and the Mamba
-    layers' states, then `_block_loop` runs ops/decode_hybrid.py's block,
-    the states updated in place (on CUDA one captured block replayed).
-    Spans and `seconds` as there, plus `vallex.ar.scan` spans inside the
-    prefill and `HYBRID_SECONDS`' two."""
-    if K < 2:
-        raise ValueError("the batched decode runs K-step blocks (decode_steps >= 2)")
-    from ..models import granite_hybrid as GH
-    from ..ops.decode_hybrid import decode_block_hybrid
-
-    dev = model.pe.device
-    R = text_ids.shape[0]
-    eos, vocab = cfg.eos_id, cfg.num_audio_tokens + 1
-    P = s_text + p_audio
-    stream = torch.cuda.current_stream(dev) if dev.type == "cuda" else None
-    prefill_time = DeviceSpan("ar_prefill", stream=stream)
-    scans = []
-    with record_function("vallex.ar.prefill"):
-        text, lang, x_lens_d, plens_d, y_init = _batch_inputs(
-            cfg, dev, text_ids, lang_ids, x_lens, prompt_audio, prompt_lens)
-        cache_k, cache_v, state, logits0 = GH.prefill(
-            model, cfg, text, lang, x_lens_d, y_init, plens_d, s_text=s_text, p_audio=p_audio,
-            C=P + t_gen + K, dtype=dtype,
-            L=int(np.max(np.asarray(x_lens) + 1 + np.asarray(prompt_lens))), scan_spans=scans)
-        max_gen = _length_caps(x_lens, gen_caps, t_gen, dev)
-        logits0 = _pad_logits(logits0, packed["wpred"].shape[0])
-        cur_tok, cur_lp = first_token(logits0, generator, vocab=vocab, top_k=top_k, top_p=1.0,
-                                      temperature=temperature)
-        prefill_time.close(stream)
-        last = int(max_gen.max())
-    greedy = top_k == 1
-
-    def block(tok, lp, done, sum_lp, step):
-        return decode_block_hybrid(
-            tok, lp, done, sum_lp, packed, cfg, cache_k, cache_v, state, x_len=x_lens_d,
-            prompt_len=plens_d, audio_pos=step, remaining=max_gen - step,
-            temperature=temperature, steps=K, s_text=s_text, p_audio=p_audio, vocab=vocab,
-            eos=eos, stochastic=not greedy, generator=generator)
-
-    with record_function("vallex.ar.decode"):
-        y_gen, sum_lp, iterations, seconds = _block_loop(
-            cur_tok, cur_lp, block, last=last, t_gen=t_gen, K=K, eos=eos, generator=generator)
-    with record_function("vallex.ar.finish"):
-        codes, gen_len, scores = _finish_batch(y_gen, sum_lp, max_gen, plens_d, R=R, beams=1,
-                                               t_gen=t_gen, eos=eos,
-                                               length_penalty=length_penalty)
-        out = BatchARResult(codes, gen_len, iterations, scores,
-                            dict(ar_prefill=prefill_time.seconds(), **seconds,
-                                 ar_scan=sum(s.seconds() for s in scans),
-                                 ar_state_bytes=float(GH.state_bytes(cfg, R))))
-    return out
+        return BatchARResult(y_gen[rows].cpu().numpy(), gen_len[rows].cpu().numpy(),
+                             iterations, scores.cpu().numpy(),
+                             dict(ar_prefill=prefill_time.seconds(), **seconds,
+                                  **arch_seconds()))

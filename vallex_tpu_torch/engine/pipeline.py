@@ -13,7 +13,8 @@ Every sampling knob of the reference runs: best_of > 1 (samples of one
 request, or of each batched request, and the best picked), filtered
 top-k / top-p, greedy and plain sampling, in bf16 or f32, with every
 serving quantization (bf16, int8, w8a8, int8kv), every decode_steps and
-every decode_mode.
+every decode_mode, on VALL-E X's AR; the pipeline asks its AR architecture
+(engine/ar.py::ar_arch) for its weights and what it refuses.
 """
 
 from __future__ import annotations
@@ -30,12 +31,11 @@ from torch.profiler import record_function
 from ..config import EngineConfig, ModelConfig
 from ..kernels import check_head_dim
 from ..models import vallex as V
-from ..ops.decode_hybrid import pack_hybrid_weights
-from ..ops.decode_step import pack_layer_weights, quantize_weights
 from ..utils.profiling import DeviceSpan, PhaseTimer
 from .ar import (
     ARResult,
     BatchARResult,
+    ar_arch,
     ar_generate,
     ar_generate_batch,
     bucket,
@@ -55,21 +55,12 @@ DECODE_MODES = ("auto", "megakernel", "pallas", "xla")  # EngineConfig.decode_mo
 def check_config(ecfg: EngineConfig, *, best_of: int,
                  cfg: Optional[ModelConfig] = None) -> None:
     """Raise ValueError for values the engine does not know (CPU and GPU
-    alike — there is no quiet fallback), and for the paths the hybrid AR
-    (`cfg.ar_stack`) does not run: it decodes through the batched blocks
-    alone, one sample a request, unquantized, without speculation."""
+    alike — there is no quiet fallback), and for the paths cfg's AR does
+    not run (the `refuse` of its `ar_arch`)."""
     if best_of < 1:
         raise ValueError(f"best_of must be >= 1, got {best_of}")
-    if cfg is not None and cfg.ar_stack is not None:
-        if ecfg.quantize != "none":
-            raise ValueError(f"quantize {ecfg.quantize!r} is not run by the hybrid AR"
-                             " (ModelConfig.ar_stack): it serves unquantized weights and K/V")
-        if ecfg.speculative == "on":
-            raise ValueError("speculative decoding is not run by the hybrid AR"
-                             " (ModelConfig.ar_stack); set speculative 'off'")
-        if best_of > 1:
-            raise ValueError(f"best_of {best_of} is not run by the hybrid AR"
-                             " (ModelConfig.ar_stack): one sample a request")
+    if cfg is not None:
+        ar_arch(cfg).refuse(ecfg, best_of=best_of)
     if ecfg.quantize not in QUANTIZE:
         raise ValueError(f"unknown quantize {ecfg.quantize!r}; one of {QUANTIZE}")
     if ecfg.decode_steps < 1:
@@ -202,10 +193,10 @@ class SynthesisPipeline:
         self.ecfg = ecfg
         self.vocos = vocos
         self.device = model.pe.device
-        check_head_dim(cfg.head_dim, self.device)
-        if cfg.ar_stack is not None:
-            check_head_dim(cfg.ar_stack.head_dim, self.device)
-            check_config(ecfg, best_of=1, cfg=cfg)
+        self.arch = ar_arch(cfg)
+        for hd in self.arch.head_dims:
+            check_head_dim(hd, self.device)
+        self.arch.refuse(ecfg, best_of=1)
         self.dtype = DTYPES[ecfg.compute_dtype]
         mode = ecfg.decode_mode
         if mode not in DECODE_MODES:
@@ -220,12 +211,10 @@ class SynthesisPipeline:
 
     def packed_weights(self, need_draft: bool):
         """bf16 packed decode weights and the int8 draft, prepared once."""
-        if self._packed is None and self.cfg.ar_stack is not None:
-            self._packed = pack_hybrid_weights(self.model, self.cfg, self.dtype)
-        elif self._packed is None:
-            self._packed = pack_layer_weights(self.model, self.dtype)
+        if self._packed is None:
+            self._packed = self.arch.pack(self.model, self.dtype)
         if need_draft and self._draft is None:
-            self._draft = quantize_weights(self._packed)
+            self._draft = self.arch.draft(self._packed)
         return self._packed, self._draft
 
     def serving_weights(self) -> Dict:
@@ -303,10 +292,7 @@ class SynthesisPipeline:
         top_p = e.top_p if top_p is None else top_p
         temperature = e.temperature if temperature is None else temperature
         check_config(e, best_of=best_of, cfg=cfg)
-        if cfg.ar_stack is not None:
-            raise ValueError("single-request synthesize is not run by the hybrid AR"
-                             " (ModelConfig.ar_stack): send two or more requests to"
-                             " synthesize_batch")
+        self.arch.refuse_single()
         seconds = {}
         t0 = time.perf_counter()
 
@@ -460,7 +446,7 @@ class SynthesisPipeline:
         once for the batch; the NAR and Vocos run on each request's best
         sample at batch R with per-row lengths. One request takes
         `synthesize`.
-        The batched decode runs ops/decode_block.py whatever decode_mode
+        The batched decode runs its AR's K-step blocks whatever decode_mode
         and decode_steps say (the JAX package's batched decode has only its
         kernel path, at K = max(2, decode_steps)): the kernels on CUDA,
         their plain versions on the CPU."""

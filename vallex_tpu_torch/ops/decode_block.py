@@ -3,8 +3,8 @@ vallex_tpu/ops/decode_block.py::decode_block_fused: one request,
 `batched=True` for B requests, grouped best_of samples, and the filtered
 epilogue).
 
-Each step k, as in the TPU kernel's header and its `_attention` prologue,
-for every row:
+Each step k (`run_block`, every block's loop), as in the TPU kernel's
+header and its `_attention` prologue, for every row:
   capped = k >= remaining; d0 = done | capped
   fed = EOS if d0 else cur_tok; sum_logprobs += cur_logp unless d0
   done = d0 | (fed == EOS); fed tokens are returned per step
@@ -106,12 +106,7 @@ def decode_block_fused(
 ) -> BlockResult:
     dev = tokens.device
     B = tokens.shape[0]
-    cur_tok = tokens.to(torch.int32)
-    cur_lp = logprobs.float()
-    done = done.clone()
-    sum_lp = sum_logprobs.float().clone()
     att_site = None
-    filtered = top_k is not None or top_p is not None
     on_device = isinstance(audio_pos, torch.Tensor)
     if batched:
         site, cache5 = SITE_BATCHED, (cache_k, cache_v)
@@ -143,6 +138,33 @@ def decode_block_fused(
     # attention over int8 caches under their own
     att_site = SITE_INT8KV if kv_scales is not None else att_site or site
     prod_site = SITE_W8A8 if act_quant else site
+
+    def forward(fed, k):
+        pe_rows = (pe_table.index_select(0, pos[k]) if pos is not None
+                   else pe_table[audio_pos + k: audio_pos + k + 1])
+        return decoder_forward(
+            fed, lw, *cache5, pe_rows, slot=slots[k],
+            bounds=bounds[k], site=prod_site, prefix=prefix, beams=beams,
+            attention_site=att_site, act_quant=act_quant, kv_scales=kv_scales,
+        )
+
+    filtered = top_k is not None or top_p is not None
+    return run_block(forward, tokens, logprobs, done, sum_logprobs, remaining=remaining,
+                     steps=steps, eos=eos, stochastic=stochastic, generator=generator,
+                     join=torch.stack if batched else torch.cat, vocab=vocab,
+                     temperature=temperature, top_k=top_k, top_p=top_p,
+                     site=SITE_FILTERED if filtered else site)
+
+
+def run_block(forward, tokens, logprobs, done, sum_logprobs, *, remaining, steps: int, eos: int,
+              stochastic: bool, generator, join=torch.stack, **epilogue) -> BlockResult:
+    """Every decode block's K-step loop around `forward(fed [B], k)` →
+    logits [B, VP] f32: each step's bookkeeping (above; `remaining` an int
+    or [B]), the forward, uniforms from `generator` when stochastic, then
+    sample_epilogue(**epilogue). `join` stacks the steps' fed tokens and
+    logits ([K, B]) or, for one request, concatenates them ([K])."""
+    cur_tok, cur_lp = tokens.to(torch.int32), logprobs.float()
+    done, sum_lp = done.clone(), sum_logprobs.float().clone()
     fed_all, logits_all = [], []
     for k in range(steps):
         d0 = done | (k >= remaining)
@@ -150,21 +172,9 @@ def decode_block_fused(
         sum_lp = sum_lp + torch.where(d0, 0.0, cur_lp)
         done = d0 | (fed == eos)
         fed_all.append(fed)
-        pe_rows = (pe_table.index_select(0, pos[k]) if pos is not None
-                   else pe_table[audio_pos + k: audio_pos + k + 1])
-        logits = decoder_forward(
-            fed, lw, *cache5, pe_rows, slot=slots[k],
-            bounds=bounds[k], site=prod_site, prefix=prefix, beams=beams,
-            attention_site=att_site, act_quant=act_quant, kv_scales=kv_scales,
-        )
+        logits = forward(fed, k)
         logits_all.append(logits)
-        u = None
-        if stochastic:
-            u = torch.rand(logits.shape, generator=generator, device=dev)
-        cur_tok, cur_lp = sample_epilogue(
-            logits, u, vocab=vocab, temperature=temperature,
-            greedy=not stochastic, top_k=top_k, top_p=top_p,
-            site=SITE_FILTERED if filtered else site,
-        )
-    join = torch.stack if batched else torch.cat
+        u = (torch.rand(logits.shape, generator=generator, device=tokens.device)
+             if stochastic else None)
+        cur_tok, cur_lp = sample_epilogue(logits, u, greedy=not stochastic, **epilogue)
     return BlockResult(join(fed_all), cur_tok, cur_lp, done, sum_lp, join(logits_all))

@@ -1,9 +1,10 @@
 """K decode steps of the hybrid AR (models/granite_hybrid.py) for B batched
 requests, under decode_block_fused's batched contract (ops/decode_block.py):
 (tokens, logprobs, done, sum_logprobs) in, a BlockResult out, the same
-bookkeeping and sampling a step, positions from `audio_pos` (a host int or
-a 0-d int32 device tensor, so that engine/ar.py::DeviceBlocks captures the
-block once and replays it at every position).
+bookkeeping and sampling a step (its `run_block`), positions from
+`audio_pos` (a host int or a 0-d int32 device tensor, so that
+engine/ar.py::DeviceBlocks captures the block once and replays it at every
+position).
 
 A step, for every row:
   h = m_e · E_audio[fed]
@@ -33,11 +34,11 @@ from typing import Dict, Union
 import torch
 
 from ..config import ModelConfig
-from ..kernels import gemm_small_m, masked_attention, sample_epilogue
+from ..kernels import gemm_small_m, masked_attention
 from ..kernels.masked_attention import attention_bounds, step_bounds
 from ..kernels.ssm_step import conv_step, rms_norm_rows, ssm_step, swiglu_rows
 from ..models.granite_hybrid import HybridState
-from .decode_block import BlockResult
+from .decode_block import BlockResult, run_block
 from .decode_step import _pad_vocab
 
 SITE = "decode_block_hybrid"
@@ -152,13 +153,11 @@ def decode_block_hybrid(
     stochastic: bool,
     generator=None,
 ) -> BlockResult:
-    """K steps (decode_block_fused's batched bookkeeping and sampling) of
-    `hybrid_forward`; generated frame t of every row at cache row s_text +
-    p_audio + t, the attention seeing the row's text, BOS + prompt and
-    generated rows up to its own."""
+    """K steps of `hybrid_forward` through ops/decode_block.py::run_block;
+    generated frame t of every row at cache row s_text + p_audio + t, the
+    attention seeing the row's text, BOS + prompt and generated rows up to
+    its own."""
     dev = tokens.device
-    cur_tok, cur_lp = tokens.to(torch.int32), logprobs.float()
-    done, sum_lp = done.clone(), sum_logprobs.float().clone()
     s_gen = s_text + p_audio
     bounds = step_bounds(attention_bounds(
         tokens.shape[0], x_len=x_len, s_text=s_text, audio_len=prompt_len + 1, q_off=0,
@@ -167,18 +166,10 @@ def decode_block_hybrid(
         slots = audio_pos + torch.arange(s_gen, s_gen + steps, device=dev, dtype=torch.long)
     else:
         slots = range(s_gen + audio_pos, s_gen + audio_pos + steps)
-    fed_all, logits_all = [], []
-    for k in range(steps):
-        d0 = done | (k >= remaining)
-        fed = torch.where(d0, eos, cur_tok)
-        sum_lp = sum_lp + torch.where(d0, 0.0, cur_lp)
-        done = d0 | (fed == eos)
-        fed_all.append(fed)
-        logits = hybrid_forward(fed, lw, cfg, cache_k, cache_v, state, slot=slots[k],
-                                bounds=bounds[k])
-        logits_all.append(logits)
-        u = torch.rand(logits.shape, generator=generator, device=dev) if stochastic else None
-        cur_tok, cur_lp = sample_epilogue(logits, u, vocab=vocab, temperature=temperature,
-                                          greedy=not stochastic, site=SITE)
-    return BlockResult(torch.stack(fed_all), cur_tok, cur_lp, done, sum_lp,
-                       torch.stack(logits_all))
+
+    def forward(fed, k):
+        return hybrid_forward(fed, lw, cfg, cache_k, cache_v, state, slot=slots[k],
+                              bounds=bounds[k])
+    return run_block(forward, tokens, logprobs, done, sum_logprobs, remaining=remaining,
+                     steps=steps, eos=eos, stochastic=stochastic, generator=generator,
+                     vocab=vocab, temperature=temperature, site=SITE)
